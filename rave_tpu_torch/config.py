@@ -1,0 +1,183 @@
+"""Model configuration of the port's serving path.
+
+The model-facing part of rave_tpu/config.py, owned by the port so that
+nothing here depends on the JAX package: the fields `factory.build_rave`
+reads, with the same names, defaults and resolved accessors, and the two
+presets the port builds, `v2` and `causal`. `compose(names, overrides)`
+stacks presets and applies dotted overrides as the reference does
+(`compose(["v2", "causal"], ["capacity=2", "ratios=[4,4,2]"])`).
+tests/test_torch_config.py holds every field and accessor equal to the JAX
+package's for these presets.
+"""
+from __future__ import annotations
+
+import json
+import math
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+
+@dataclass
+class EncoderConfig:
+    kind: str = "v2"
+    capacity: Optional[int] = None  # None -> cfg.capacity
+    ratios: Optional[Tuple[int, ...]] = None  # None -> cfg.ratios
+    data_size: Optional[int] = None  # None -> n_band (pqmf) / 1
+    dilations: Optional[Tuple] = None  # None -> cfg.dilations
+    kernel_size: Optional[int] = None  # None -> cfg.kernel_size
+    keep_dim: bool = False
+    recurrent_layers: int = 0
+    use_adain: bool = False
+
+
+@dataclass
+class LatentConfig:
+    family: str = "variational"
+    noise_augmentation: int = 0
+
+
+@dataclass
+class DecoderConfig:
+    kind: str = "v2"
+    capacity: Optional[int] = None
+    ratios: Optional[Tuple[int, ...]] = None
+    keep_dim: bool = False
+    amplitude_modulation: bool = True
+    use_noise: bool = False
+    recurrent_layers: int = 0
+    use_adain: bool = False
+
+
+@dataclass
+class RaveConfig:
+    name: str = "v2"
+    sampling_rate: int = 44100
+    capacity: int = 96
+    n_band: int = 16
+    pqmf_attenuation: int = 100
+    latent_size: int = 128
+    ratios: Tuple[int, ...] = (4, 4, 4, 2)
+    kernel_size: int = 3
+    dilations: Tuple = ((1, 3, 9), (1, 3, 9), (1, 3, 9), (1, 3))
+    mode: str = "centered"  # causal preset flips to 'causal'
+    activation: str = "leaky_relu"
+    weight_norm: bool = True
+    input_mode: str = "pqmf"
+    output_mode: str = "pqmf"
+    encoder: EncoderConfig = field(default_factory=EncoderConfig)
+    latent: LatentConfig = field(default_factory=LatentConfig)
+    decoder: DecoderConfig = field(default_factory=DecoderConfig)
+
+    def enc_capacity(self) -> int:
+        return self.encoder.capacity or self.capacity
+
+    def dec_capacity(self) -> int:
+        return self.decoder.capacity or self.capacity
+
+    def enc_ratios(self) -> Tuple[int, ...]:
+        return tuple(self.encoder.ratios or self.ratios)
+
+    def dec_ratios(self) -> Tuple[int, ...]:
+        return tuple(self.decoder.ratios or self.ratios)
+
+    def enc_data_size(self) -> int:
+        if self.encoder.data_size is not None:
+            return self.encoder.data_size
+        return self.n_band if self.input_mode == "pqmf" else 1
+
+    def dec_data_size(self) -> int:
+        return self.n_band if self.output_mode == "pqmf" else 1
+
+    def num_latent_out(self) -> int:
+        return 2 if self.latent.family == "variational" else 1
+
+    def augmented_latent_size(self) -> int:
+        if self.latent.family in ("wasserstein", "discrete"):
+            return self.latent_size + self.latent.noise_augmentation
+        return self.latent_size
+
+    def decimation(self) -> int:
+        """Total waveform -> latent decimation."""
+        return math.prod(self.enc_ratios()) * (self.n_band if self.input_mode == "pqmf" else 1)
+
+    def block_size(self) -> int:
+        """Minimum streaming block in waveform samples: lcm of the encoder
+        decimation, the decoder upsampling and the PQMF 2-frame parity."""
+        band = self.n_band if self.output_mode == "pqmf" else 1
+        b = math.lcm(self.decimation(), math.prod(self.dec_ratios()) * band)
+        if self.input_mode == "pqmf" or self.output_mode == "pqmf":
+            b = math.lcm(b, 2 * self.n_band)
+        return b
+
+
+PRESETS: Dict[str, Callable[[RaveConfig], None]] = {}
+
+
+def preset(name: str):
+    def deco(fn):
+        PRESETS[name] = fn
+        return fn
+
+    return deco
+
+
+@preset("v2")
+def _v2(c: RaveConfig):
+    """rave/configs/v2.gin, its model part."""
+    c.name = "v2"
+    c.capacity = 96
+    c.n_band = 16
+    c.latent_size = 128
+    c.ratios = (4, 4, 4, 2)
+    c.kernel_size = 3
+    c.dilations = ((1, 3, 9), (1, 3, 9), (1, 3, 9), (1, 3))
+    c.encoder.kind = "v2"
+    c.decoder.kind = "v2"
+    c.latent.family = "variational"
+    c.decoder.amplitude_modulation = True
+
+
+@preset("causal")
+def _causal(c: RaveConfig):
+    """rave/configs/causal.gin: zero-lookahead convs everywhere."""
+    c.mode = "causal"
+    c.name = c.name + "_causal"
+
+
+def compose(names: List[str], overrides: Optional[List[str]] = None) -> RaveConfig:
+    """Stack presets in order, then apply dotted overrides."""
+    cfg = RaveConfig()
+    for n in names:
+        if n not in PRESETS:
+            raise KeyError(f"preset {n!r} is not ported (have {sorted(PRESETS)}; "
+                           "ROADMAP A9-A11 list the other model families)")
+        PRESETS[n](cfg)
+    for ov in overrides or []:
+        apply_override(cfg, ov)
+    up = math.prod(cfg.dec_ratios()) * (cfg.n_band if cfg.output_mode == "pqmf" else 1)
+    if up != cfg.decimation():
+        raise ValueError(f"config is not rate-preserving: encoder decimation "
+                         f"{cfg.decimation()} != decoder upsampling {up}")
+    return cfg
+
+
+def _parse_value(s: str) -> Any:
+    try:
+        return json.loads(s)
+    except json.JSONDecodeError:
+        return s
+
+
+def apply_override(cfg: RaveConfig, assignment: str) -> None:
+    """'capacity=2' / 'ratios=[4,4,2]' / 'decoder.use_noise=true' style."""
+    path, _, raw = assignment.partition("=")
+    obj = cfg
+    parts = path.strip().split(".")
+    for p in parts[:-1]:
+        obj = getattr(obj, p)
+    if not hasattr(obj, parts[-1]):
+        raise AttributeError(f"the port's config has no field {path.strip()!r}")
+    val = _parse_value(raw.strip())
+    if isinstance(val, list):
+        val = tuple(tuple(v) if isinstance(v, list) else v for v in val)
+    setattr(obj, parts[-1], val)

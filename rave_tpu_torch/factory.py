@@ -1,0 +1,111 @@
+"""Model factory: RaveConfig -> the port's modules, for the v2 serving path.
+
+PyTorch port of `build_rave` (rave_tpu/factory.py:151-175) for the v2
+encoder and decoder kinds and the variational latent family. Configs come
+from the port's own `rave_tpu_torch.config.compose`. Weights are drawn here
+from a seeded `torch.Generator` (lecun-normal `v`, `g = ||v||` per output
+channel, zero bias), never from jax.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import torch
+
+from rave_tpu_torch.config import RaveConfig
+from rave_tpu_torch.models import blocks
+from rave_tpu_torch.models.rave import RAVE
+from rave_tpu_torch.nn.conv import _WeightNormConv
+from rave_tpu_torch.ops.pqmf import PQMFBank
+
+
+@lru_cache(maxsize=8)
+def get_pqmf_bank(attenuation: int, n_band: int) -> PQMFBank:
+    return PQMFBank.build(attenuation, n_band)
+
+
+def pqmf_analysis_delay(cfg: RaveConfig) -> int:
+    """Streaming delay (band frames) of the encoder's PQMF front-end."""
+    if cfg.input_mode != "pqmf" or cfg.n_band == 1:
+        return 0
+    Q = get_pqmf_bank(cfg.pqmf_attenuation, cfg.n_band).taps
+    return (Q - 1) - Q // 2 if cfg.mode == "centered" else 0
+
+
+def build_encoder(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1):
+    if cfg.encoder.kind != "v2":
+        raise NotImplementedError(f"encoder kind {cfg.encoder.kind!r} is not ported yet "
+                                  "(ROADMAP A11, v1)")
+    if cfg.latent.family != "variational":
+        raise NotImplementedError(f"latent family {cfg.latent.family!r} is not ported yet "
+                                  "(ROADMAP A9 discrete, A11 wasserstein/spherical)")
+    inner = blocks.EncoderV2(
+        data_size=cfg.enc_data_size(),
+        capacity=cfg.enc_capacity(),
+        ratios=cfg.enc_ratios(),
+        latent_size=cfg.latent_size,
+        n_out=cfg.num_latent_out(),
+        kernel_size=cfg.encoder.kernel_size or cfg.kernel_size,
+        dilations=tuple(cfg.encoder.dilations or cfg.dilations),
+        keep_dim=cfg.encoder.keep_dim,
+        n_channels=n_channels,
+        mode=cfg.mode,
+        weight_norm=cfg.weight_norm,
+        activation=cfg.activation,
+        use_adain=cfg.encoder.use_adain,
+        recurrent_layers=cfg.encoder.recurrent_layers,
+        in_delay=pqmf_analysis_delay(cfg),
+        stream_batch=stream_batch,
+    )
+    return blocks.VariationalEncoder(inner)
+
+
+def build_decoder(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1):
+    if cfg.decoder.kind != "v2":
+        raise NotImplementedError(f"decoder kind {cfg.decoder.kind!r} is not ported yet "
+                                  "(ROADMAP A11, v1)")
+    return blocks.GeneratorV2(
+        latent_size=cfg.augmented_latent_size(),
+        capacity=cfg.dec_capacity(),
+        ratios=cfg.dec_ratios(),
+        kernel_size=cfg.kernel_size,
+        dilations=tuple(cfg.dilations),
+        data_size=cfg.dec_data_size(),
+        keep_dim=cfg.decoder.keep_dim,
+        n_channels=n_channels,
+        amplitude_modulation=cfg.decoder.amplitude_modulation,
+        use_noise=cfg.decoder.use_noise,
+        mode=cfg.mode,
+        weight_norm=cfg.weight_norm,
+        activation=cfg.activation,
+        use_adain=cfg.decoder.use_adain,
+        recurrent_layers=cfg.decoder.recurrent_layers,
+        stream_batch=stream_batch,
+    )
+
+
+def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """Redraw every convolution's weights from `generator`, in module order."""
+    for m in model.modules():
+        if isinstance(m, _WeightNormConv):
+            m.reset_parameters(generator)
+
+
+def build_rave(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1,
+               seed: int = 0) -> RAVE:
+    """The v2 RAVE on the CPU, weights drawn from `torch.Generator().manual_seed(seed)`.
+    Move it with `.to()`."""
+    model = RAVE(
+        encoder=build_encoder(cfg, n_channels, stream_batch),
+        decoder=build_decoder(cfg, n_channels, stream_batch),
+        pqmf=get_pqmf_bank(cfg.pqmf_attenuation, cfg.n_band),
+        latent_size=cfg.latent_size,
+        sampling_rate=cfg.sampling_rate,
+        n_channels=n_channels,
+        input_mode=cfg.input_mode,
+        output_mode=cfg.output_mode,
+        mode=cfg.mode,
+        stream_batch=stream_batch,
+    )
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model

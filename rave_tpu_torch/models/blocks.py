@@ -1,0 +1,289 @@
+"""v2 encoder/generator building blocks (dual-mode, delay-tracked).
+
+PyTorch port of the v2 subset of rave_tpu/models/blocks.py, channels-first
+`[B, C, T]`: the pure delay algebra, the DilatedUnit residual stacks
+(whose offline path is the fused CUDA kernel on a GPU), EncoderV2,
+GeneratorV2 with amplitude modulation, and the variational latent.
+Attribute names (`net.layers.N`, `inner`, `waveform`, `encoder`) mirror the
+flax module paths, so utils/convert.py maps weights by rename.
+
+The v2 options this slice does not cover raise NotImplementedError naming
+the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rave_tpu_torch.nn.combinators import Lambda, Residual, Sequential
+from rave_tpu_torch.nn.conv import Conv1d, ConvTranspose1d, conv_delay, get_padding, tconv_delay
+from rave_tpu_torch.ops.kernels.dilated_unit import fused_dilated_unit
+
+# --------------------------------------------------------------------------
+# pure delay algebra (rave_tpu/models/blocks.py:44-106, v2 part)
+# --------------------------------------------------------------------------
+
+
+def dilated_unit_delay(kernel_size: int, dilation: int, mode: str) -> int:
+    return get_padding(kernel_size, 1, dilation, mode)[1]
+
+
+def encoder_v2_delay(in_delay: int, kernel_size: int, ratios, dilations, mode: str) -> int:
+    d = conv_delay(in_delay, 2 * kernel_size + 1, 1, 1, mode)
+    for r, dils in zip(ratios, normalize_dilations(dilations, ratios)):
+        for dil in dils:
+            d += dilated_unit_delay(kernel_size, dil, mode)
+        d = conv_delay(d, 2 * r, r, 1, mode)
+    return conv_delay(d, kernel_size, 1, 1, mode)
+
+
+def generator_v2_hidden_delay(kernel_size: int, ratios, dilations, mode: str) -> int:
+    dilations_list = normalize_dilations(dilations, ratios)[::-1]
+    d = conv_delay(0, kernel_size, 1, 1, mode)
+    for r, dils in zip(ratios[::-1], dilations_list):
+        d = tconv_delay(d, r, mode)
+        for dil in dils:
+            d += dilated_unit_delay(kernel_size, dil, mode)
+    return d
+
+
+def generator_v2_delay(kernel_size: int, ratios, dilations, mode: str) -> int:
+    """Output delay without the noise branch (not ported, ROADMAP A11)."""
+    d = generator_v2_hidden_delay(kernel_size, ratios, dilations, mode)
+    return conv_delay(d, kernel_size * 2 + 1, 1, 1, mode)
+
+
+# --------------------------------------------------------------------------
+# activations, unported options
+# --------------------------------------------------------------------------
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, 0.2)
+
+
+def make_activation(name: str) -> nn.Module:
+    """Activation factory; 'leaky_relu' only in this slice."""
+    if name == "leaky_relu":
+        return Lambda(leaky_relu)
+    if name == "snake":
+        raise NotImplementedError("activation='snake' is not ported yet (ROADMAP A10, v3)")
+    raise ValueError(f"unknown activation {name}")
+
+
+def _refuse_unported(use_adain: bool = False, recurrent_layers: int = 0,
+                     use_noise: bool = False) -> None:
+    if use_adain:
+        raise NotImplementedError("use_adain (AdaIN) is not ported yet (ROADMAP A10, v3)")
+    if recurrent_layers:
+        raise NotImplementedError("recurrent_layers (GRU) is not ported yet (ROADMAP A11, hybrid)")
+    if use_noise:
+        raise NotImplementedError(
+            "use_noise (NoiseGeneratorV2, AlignBranches) is not ported yet (ROADMAP A11)"
+        )
+
+
+def normalize_dilations(dilations, ratios) -> list:
+    """[[1,3,9],...] per ratio (reference rave/blocks.py:506-511)."""
+    if isinstance(dilations[0], int):
+        dilations = [dilations for _ in ratios]
+    return [tuple(d) for d in dilations]
+
+
+# --------------------------------------------------------------------------
+# v2 family
+# --------------------------------------------------------------------------
+
+
+class DilatedUnit(nn.Module):
+    """act -> dilated conv(k) -> act -> conv(1). Reference rave/blocks.py:83-112."""
+
+    def __init__(self, dim: int, kernel_size: int, dilation: int, mode: str = "centered",
+                 weight_norm: bool = True, activation: str = "leaky_relu",
+                 stream_batch: int = 1):
+        super().__init__()
+        self.kernel_size, self.dilation, self.mode = kernel_size, dilation, mode
+        conv1 = Conv1d(dim, dim, kernel_size, dilation=dilation, mode=mode,
+                       weight_norm=weight_norm, use_bias=False, stream_batch=stream_batch)
+        conv2 = Conv1d(dim, dim, 1, mode=mode, weight_norm=weight_norm, use_bias=False,
+                       in_delay=conv1.delay, stream_batch=stream_batch)
+        self.net = Sequential([
+            make_activation(activation), conv1, make_activation(activation), conv2,
+        ])
+
+    @property
+    def inner_delay(self) -> int:
+        return dilated_unit_delay(self.kernel_size, self.dilation, self.mode)
+
+    def forward(self, x):
+        return self.net(x)
+
+    def step(self, x):
+        return self.net.step(x)
+
+
+class FusedDilatedResidual(Residual):
+    """Residual(DilatedUnit) whose offline path is one fused call,
+    `fused_dilated_unit`: the CUDA kernel for a tensor on the GPU, the plain
+    `F.conv1d` version for one on the CPU. Parameters and the streaming path
+    (plain convolutions) are those of the plain Residual."""
+
+    def forward(self, x):
+        conv1, conv2 = self.inner.net.layers[1], self.inner.net.layers[3]
+        w1 = conv1.weight().to(x.dtype)
+        w2 = conv2.weight()[:, :, 0].to(x.dtype)
+        left, right = conv1.pad
+        return fused_dilated_unit(x.contiguous(), w1, w2, conv1.dilation, left, right)
+
+
+def residual_unit(dim: int, kernel_size: int, dilation: int, mode: str, weight_norm: bool,
+                  activation: str, stream_batch: int) -> FusedDilatedResidual:
+    unit = DilatedUnit(dim, kernel_size, dilation, mode, weight_norm, activation, stream_batch)
+    return FusedDilatedResidual(unit, unit.inner_delay, dim, stream_batch)
+
+
+class EncoderV2(nn.Module):
+    """Dilated residual encoder with strided downsampling.
+
+    Reference rave/blocks.py:514-596. Input [B, data_size*n_channels, T]
+    (multiband frames), output [B, latent_size*n_out, T/prod(ratios)].
+    """
+
+    def __init__(self, data_size: int, capacity: int, ratios: Sequence[int], latent_size: int,
+                 n_out: int, kernel_size: int, dilations, keep_dim: bool = False,
+                 n_channels: int = 1, mode: str = "centered", weight_norm: bool = True,
+                 activation: str = "leaky_relu", use_adain: bool = False,
+                 recurrent_layers: int = 0, in_delay: int = 0, stream_batch: int = 1):
+        super().__init__()
+        _refuse_unported(use_adain=use_adain, recurrent_layers=recurrent_layers)
+        self.kernel_size, self.mode, self.in_delay = kernel_size, mode, in_delay
+        self.ratios, self.dilations = tuple(ratios), dilations
+        conv = dict(mode=mode, weight_norm=weight_norm, use_bias=False, stream_batch=stream_batch)
+        conv0 = Conv1d(data_size * n_channels, capacity, 2 * kernel_size + 1,
+                       in_delay=in_delay, **conv)
+        layers = [conv0]
+        delay, ch = conv0.delay, capacity
+        for r, dils in zip(self.ratios, normalize_dilations(dilations, self.ratios)):
+            for d in dils:
+                res = residual_unit(ch, kernel_size, d, mode, weight_norm, activation,
+                                    stream_batch)
+                layers.append(res)
+                delay += res.inner_delay
+            layers.append(make_activation(activation))
+            out_ch = ch * r if keep_dim else ch * 2
+            down = Conv1d(ch, out_ch, 2 * r, stride=r, in_delay=delay, **conv)
+            layers.append(down)
+            delay, ch = down.delay, out_ch
+        layers.append(make_activation(activation))
+        layers.append(Conv1d(ch, latent_size * n_out, kernel_size, in_delay=delay, **conv))
+        self.net = Sequential(layers)
+
+    @property
+    def delay(self) -> int:
+        return encoder_v2_delay(self.in_delay, self.kernel_size, self.ratios, self.dilations,
+                                self.mode)
+
+    def forward(self, x):
+        return self.net(x)
+
+    def step(self, x):
+        return self.net.step(x)
+
+
+class GeneratorV2(nn.Module):
+    """Mirror decoder: transposed-conv upsampling + dilated residual units,
+    with optional amplitude modulation.
+
+    Reference rave/blocks.py:599-714. Input [B, latent_size, T_latent];
+    output [B, data_size*n_channels, T_frames] (multiband frames when
+    output_mode == 'pqmf').
+    """
+
+    def __init__(self, latent_size: int, capacity: int, ratios: Sequence[int],
+                 kernel_size: int, dilations, data_size: int = 0, keep_dim: bool = False,
+                 n_channels: int = 1, amplitude_modulation: bool = False,
+                 use_noise: bool = False, mode: str = "centered", weight_norm: bool = True,
+                 activation: str = "leaky_relu", use_adain: bool = False,
+                 recurrent_layers: int = 0, stream_batch: int = 1):
+        super().__init__()
+        _refuse_unported(use_adain=use_adain, recurrent_layers=recurrent_layers,
+                         use_noise=use_noise)
+        self.kernel_size, self.mode = kernel_size, mode
+        self.ratios, self.dilations = tuple(ratios), dilations
+        self.amplitude_modulation = amplitude_modulation
+        conv = dict(mode=mode, weight_norm=weight_norm, use_bias=False, stream_batch=stream_batch)
+        ch = (math.prod(self.ratios) if keep_dim else 2 ** len(self.ratios)) * capacity
+        conv0 = Conv1d(latent_size, ch, kernel_size, **conv)
+        layers = [conv0]
+        delay = conv0.delay
+        dilations_list = normalize_dilations(dilations, self.ratios)[::-1]
+        for r, dils in zip(self.ratios[::-1], dilations_list):
+            out_ch = ch // r if keep_dim else ch // 2
+            layers.append(make_activation(activation))
+            up = ConvTranspose1d(ch, out_ch, r, in_delay=delay, **conv)
+            layers.append(up)
+            delay, ch = up.delay, out_ch
+            for d in dils:
+                res = residual_unit(ch, kernel_size, d, mode, weight_norm, activation,
+                                    stream_batch)
+                layers.append(res)
+                delay += res.inner_delay
+        layers.append(make_activation(activation))
+        self.net = Sequential(layers)
+        out = (data_size or 1) * n_channels
+        self.waveform = Conv1d(ch, 2 * out if amplitude_modulation else out,
+                               kernel_size * 2 + 1, in_delay=delay, **conv)
+
+    @property
+    def delay(self) -> int:
+        return generator_v2_delay(self.kernel_size, self.ratios, self.dilations, self.mode)
+
+    def _mix(self, wave: torch.Tensor) -> torch.Tensor:
+        if self.amplitude_modulation:
+            wave, amp = wave.chunk(2, dim=1)
+            wave = wave * torch.sigmoid(amp)
+        return torch.tanh(wave)
+
+    def forward(self, z):
+        return self._mix(self.waveform(self.net(z)))
+
+    def step(self, z):
+        return self._mix(self.waveform.step(self.net.step(z)))
+
+
+class VariationalEncoder(nn.Module):
+    """Gaussian reparameterization + closed-form KL (reference rave/blocks.py:717-745).
+
+    `encoder` outputs 2*latent channels (mean ++ scale); std = softplus(scale) + 1e-4.
+    """
+
+    def __init__(self, encoder: nn.Module):
+        super().__init__()
+        self.encoder = encoder
+
+    @property
+    def delay(self) -> int:
+        return self.encoder.delay
+
+    def forward(self, x):
+        return self.encoder(x)
+
+    def step(self, x):
+        return self.encoder.step(x)
+
+    def reparametrize(self, z: torch.Tensor, generator: Optional[torch.Generator] = None,
+                      eps: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean + std * eps, KL). `eps` defaults to standard normal noise
+        drawn from `generator` (on the device of `z`)."""
+        mean, scale = z.chunk(2, dim=1)
+        std = F.softplus(scale) + 1e-4
+        var = std * std
+        if eps is None:
+            eps = torch.randn(mean.shape, generator=generator, device=mean.device,
+                              dtype=mean.dtype)
+        kl = torch.mean(torch.sum(mean * mean + var - torch.log(var) - 1, dim=1))
+        return mean + std * eps.to(mean.dtype), kl

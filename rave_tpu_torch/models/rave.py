@@ -1,0 +1,82 @@
+"""The RAVE autoencoder: PQMF analysis -> encoder -> decoder -> PQMF
+synthesis, with the analysis buffers that export reads.
+
+PyTorch port of rave_tpu/models/rave.py for `input_mode` / `output_mode`
+'pqmf'. Layout: waveforms [B, n_channels, T], latents [B, D, T_lat], as in
+the reference RAVE.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from rave_tpu_torch.models.pqmf_module import PQMFAnalysis, PQMFSynthesis
+from rave_tpu_torch.ops.pqmf import PQMFBank
+
+
+class RAVE(nn.Module):
+    """Autoencoder over a variational latent (reference rave/model.py:136-270)."""
+
+    def __init__(self, encoder: nn.Module, decoder: nn.Module, pqmf: PQMFBank,
+                 latent_size: int, sampling_rate: int, n_channels: int = 1,
+                 input_mode: str = "pqmf", output_mode: str = "pqmf", mode: str = "centered",
+                 stream_batch: int = 1):
+        super().__init__()
+        if input_mode != "pqmf" or output_mode != "pqmf":
+            raise NotImplementedError(
+                f"input_mode={input_mode!r}, output_mode={output_mode!r}: only 'pqmf' is "
+                "ported (mel input: ROADMAP A11; raw output: ROADMAP A11)"
+            )
+        self.encoder, self.decoder, self.pqmf = encoder, decoder, pqmf
+        self.latent_size, self.sampling_rate = latent_size, sampling_rate
+        self.n_channels, self.mode = n_channels, mode
+        self.pqmf_analysis = PQMFAnalysis(pqmf, n_channels, mode, stream_batch)
+        # the decoder's output delay is in band frames under 'pqmf' output
+        self.pqmf_synthesis = PQMFSynthesis(pqmf, n_channels, mode, decoder.delay, stream_batch)
+        # analysis buffers read by export and the prior (reference rave/model.py:196-198)
+        D = latent_size
+        self.register_buffer("latent_pca", torch.eye(D))
+        self.register_buffer("latent_mean", torch.zeros(D))
+        self.register_buffer("fidelity", torch.zeros(D))
+        self.register_buffer("receptive_field", torch.zeros(2))
+
+    # ---- streaming delays -------------------------------------------------
+    @property
+    def encode_delay(self) -> int:
+        """Latent-rate delay of streaming encode vs offline (the encoder is
+        built with in_delay = PQMF analysis delay, so it is cumulative)."""
+        return self.encoder.delay
+
+    @property
+    def decode_delay(self) -> int:
+        """Waveform-rate delay of streaming decode vs offline."""
+        Q = self.pqmf.taps
+        pad_r = 0 if self.mode == "causal" or Q == 0 else Q // 2
+        return (self.decoder.delay + pad_r) * max(self.pqmf.n_band, 1)
+
+    # ---- offline ---------------------------------------------------------
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, n_channels, T] -> [B, 2*latent_size, T / decimation]."""
+        return self.encoder(self.pqmf_analysis(x))
+
+    def reparametrize(self, z: torch.Tensor, generator: Optional[torch.Generator] = None,
+                      eps: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.encoder.reparametrize(z, generator=generator, eps=eps)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """[B, latent_size, T_lat] -> [B, n_channels, T_lat * decimation]."""
+        return self.pqmf_synthesis(self.decoder(z))
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        zs, _ = self.reparametrize(self.encode(x), generator=generator, eps=eps)
+        return self.decode(zs)
+
+    # ---- streaming (see nn/streaming.py for the state) ---------------------
+    def step_encode(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encoder.step(self.pqmf_analysis.step(x))
+
+    def step_decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.pqmf_synthesis.step(self.decoder.step(z))

@@ -1,0 +1,88 @@
+"""Delay-aware combinators: Lambda, StreamDelay, Sequential, Residual.
+
+PyTorch port of rave_tpu/nn/combinators.py. Builders thread `in_delay`
+through child constructors; these combinators apply the children and, in
+streaming mode, delay the identity branch of a residual so both branches
+stay aligned. Attribute names (`layers.N`, `inner`) mirror the flax
+module paths (`layers_N`, `inner`) so weights map by rename.
+"""
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+from torch import nn
+
+from rave_tpu_torch.nn.streaming import StreamingModule
+
+
+class Lambda(nn.Module):
+    """Stateless pointwise op usable in both modes (delay-transparent)."""
+
+    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor]):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(x)
+
+    def step(self, x):
+        return self.fn(x)
+
+
+class StreamDelay(StreamingModule):
+    """Pure delay line of `d` frames, active only on the streaming path."""
+
+    def __init__(self, d: int, features: int, stream_batch: int = 1):
+        super().__init__()
+        self.d = d
+        if d > 0:
+            self.add_stream_state("buf", features, d, stream_batch)
+
+    def forward(self, x):
+        return x
+
+    def step(self, x):
+        if self.d == 0:
+            return x
+        ext = torch.cat([self.buf.to(x.dtype), x], dim=-1)
+        self.buf = ext[..., ext.shape[-1] - self.d :]
+        return ext[..., : x.shape[-1]]
+
+
+class Sequential(nn.Module):
+    """Applies children in order in both modes."""
+
+    def __init__(self, layers: Sequence[nn.Module]):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+    def step(self, x):
+        for layer in self.layers:
+            x = layer.step(x)
+        return x
+
+
+class Residual(nn.Module):
+    """x + inner(x), with the identity branch delay-matched when streaming.
+
+    `inner_delay` is inner's *own* delay (built with in_delay=0).
+    """
+
+    def __init__(self, inner: nn.Module, inner_delay: int, features: int,
+                 stream_batch: int = 1):
+        super().__init__()
+        self.inner = inner
+        self.inner_delay = inner_delay
+        self.skip_delay = StreamDelay(inner_delay, features, stream_batch)
+
+    def forward(self, x):
+        return x + self.inner(x)
+
+    def step(self, x):
+        return self.skip_delay.step(x) + self.inner.step(x)

@@ -1,0 +1,55 @@
+"""Streaming state for dual-mode modules, and helpers to run them in chunks.
+
+Every module that carries left context between streaming steps derives
+from `StreamingModule` and declares each piece of state with
+`add_stream_state`. The state is a non-persistent buffer: it follows the
+module's device and dtype under `.to()`, stays out of `state_dict`, and
+`init_stream_state(module, batch)` zeroes it for a given batch size.
+
+The contract (the port of rave_tpu/nn/streaming.py, tested against the
+JAX package): for a module with cumulative delay D (output-rate samples),
+
+    stream(x chunked)[..., D:]  ==  offline(x)[..., :-D]
+
+exactly in 'causal' mode (D == 0), within float tolerance in 'centered'.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+
+class StreamingModule(nn.Module):
+    """A module with `[batch, channels, length]` streaming state buffers."""
+
+    def __init__(self):
+        super().__init__()
+        self._stream_shapes: Dict[str, Tuple[int, int]] = {}
+
+    def add_stream_state(self, name: str, channels: int, length: int, batch: int) -> None:
+        self._stream_shapes[name] = (channels, length)
+        self.register_buffer(name, torch.zeros(batch, channels, length), persistent=False)
+
+    def reset_stream(self, batch: int) -> None:
+        for name, (channels, length) in self._stream_shapes.items():
+            old = getattr(self, name)
+            setattr(
+                self, name,
+                torch.zeros(batch, channels, length, dtype=old.dtype, device=old.device),
+            )
+
+
+def init_stream_state(module: nn.Module, batch: int) -> None:
+    """Zero every streaming state under `module` for `batch` streams."""
+    for m in module.modules():
+        if isinstance(m, StreamingModule):
+            m.reset_stream(batch)
+
+
+def stream_chunks(module: nn.Module, x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Feed `x [B, C, T]` through `module.step` in chunks of `chunk` frames,
+    carrying the module's stream state; returns the concatenation."""
+    outs = [module.step(x[..., i : i + chunk]) for i in range(0, x.shape[-1], chunk)]
+    return torch.cat(outs, dim=-1)

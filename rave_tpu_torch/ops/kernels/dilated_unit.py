@@ -1,0 +1,127 @@
+"""Fused dilated residual unit: the CUDA kernel's wrapper and its plain twin.
+
+    y = leaky(leaky(x) (*)_d w1) . w2 + x        (LeakyReLU slope 0.2)
+
+the v2 DilatedUnit plus its residual (rave_tpu/ops/kernels/dilated_unit.py,
+which runs it as a Pallas TPU kernel). Layouts are the port's: x, y
+[B, C, T]; w1 [C_out, C_in, K] and w2 [C_out, C_in], as `F.conv1d` takes
+them, weight norm already applied.
+
+`fused_dilated_unit` picks the implementation by the device of `x`: a CPU
+tensor goes through `fused_dilated_unit_reference` (plain `F.conv1d`); a
+CUDA tensor launches the hand-written kernel of csrc/dilated_unit.cu
+(built by nvcc at first use, see build.py) or raises. `launches` counts the
+kernel launches, so a run can show that its main path went through it.
+The backward pass is not ported: the wrapper refuses CUDA inputs that
+require grad.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from rave_tpu_torch.ops.kernels import build
+
+NEG_SLOPE = 0.2
+
+launches = 0  # kernel launches since import (or since the caller reset it)
+
+
+def _leaky(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, NEG_SLOPE)
+
+
+def fused_dilated_unit_reference(
+    x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+    dilation: int, pad_left: int, pad_right: int,
+) -> torch.Tensor:
+    """Plain PyTorch formulation (the counterpart of `_reference_impl`)."""
+    h = F.conv1d(F.pad(_leaky(x), (pad_left, pad_right)), w1, dilation=dilation)
+    return F.conv1d(_leaky(h), w2[:, :, None]) + x
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load_library("dilated_unit")
+    lib.dilated_unit_tile.argtypes = [ctypes.c_int] * 3
+    lib.dilated_unit_tile.restype = ctypes.c_int
+    lib.dilated_unit_forward.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    )
+    lib.dilated_unit_forward.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def kernel_tile(C: int, K: int, dilation: int, device_index: int = 0) -> int:
+    """Frames per block the kernel uses for this shape on this card (0:
+    refused). It depends only on the shape and the card, so it is asked of
+    the library once."""
+    with torch.cuda.device(device_index):
+        return _lib().dilated_unit_tile(C, K, dilation)
+
+
+def _check(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+           dilation: int, pad_left: int, pad_right: int) -> None:
+    if x.dim() != 3 or w1.dim() != 3 or w2.dim() != 2:
+        raise ValueError(f"expected x [B,C,T], w1 [C,C,K], w2 [C,C]; got "
+                         f"{tuple(x.shape)}, {tuple(w1.shape)}, {tuple(w2.shape)}")
+    C, K = x.shape[1], w1.shape[2]
+    if tuple(w1.shape[:2]) != (C, C) or tuple(w2.shape) != (C, C):
+        raise ValueError(f"weights {tuple(w1.shape)}, {tuple(w2.shape)} do not match C={C}")
+    if dilation < 1 or pad_left < 0 or pad_right < 0 or pad_left + pad_right != dilation * (K - 1):
+        raise ValueError(f"'same' output needs pad_left + pad_right == dilation*(K-1); got "
+                         f"d={dilation}, pads=({pad_left}, {pad_right}), K={K}")
+    for name, t in (("x", x), ("w1", w1), ("w2", w2)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernel takes float32; {name} is {t.dtype}")
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise RuntimeError(
+                "the fused dilated unit's backward is not ported to CUDA yet; "
+                "run under torch.no_grad() / torch.inference_mode()"
+            )
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if C % 8:
+        raise ValueError(f"the CUDA kernel takes C % 8 == 0 (whole k8 tensor-core steps); C={C}")
+
+
+def fused_dilated_unit(
+    x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+    dilation: int, pad_left: int, pad_right: int,
+) -> torch.Tensor:
+    """x [B, C, T]; w1 [C, C, K]; w2 [C, C] -> y [B, C, T].
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if x.device.type == "cpu":
+        return fused_dilated_unit_reference(x, w1, w2, dilation, pad_left, pad_right)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_dilated_unit runs on cpu or cuda, not {x.device}")
+    _check(x, w1, w2, dilation, pad_left, pad_right)
+    B, C, T = x.shape
+    K = w1.shape[2]
+    tile = kernel_tile(C, K, dilation, x.device.index)
+    if tile == 0:
+        raise ValueError(f"C={C}, K={K}, d={dilation} needs more shared memory than a "
+                         f"block can have")
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        w1t = w1.permute(2, 1, 0).contiguous()  # [K, C_in, C_out]
+        w2t = w2.t().contiguous()               # [C_in, C_out]
+        y = torch.empty_like(x)
+        err = lib.dilated_unit_forward(
+            x.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), y.data_ptr(),
+            B, C, T, K, dilation, pad_left, tile,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dilated_unit kernel launch failed: cudaError {err}")
+    global launches
+    launches += 1
+    return y

@@ -8,7 +8,10 @@ setuptools.setup(
     description="TPU-native realtime neural audio codec framework",
     long_description=pathlib.Path("README.md").read_text(),
     long_description_content_type="text/markdown",
-    packages=setuptools.find_packages(include=["rave_tpu", "rave_tpu.*"]),
+    packages=setuptools.find_packages(
+        include=["rave_tpu", "rave_tpu.*", "rave_tpu_torch", "rave_tpu_torch.*"]
+    ),
+    package_data={"rave_tpu_torch": ["csrc/*.cu"]},
     install_requires=[
         "jax",
         "flax",

@@ -1,0 +1,50 @@
+"""rave_tpu_torch runs without jax: the machine with the GPU has none.
+
+A fresh interpreter imports the port, builds the tiny v2 through its own
+config and factory, runs a forward and the streaming pair, and then
+reports whether jax, flax or any module of the JAX package was ever
+imported.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SCRIPT = """
+import json, sys
+import torch
+import rave_tpu_torch
+from rave_tpu_torch.config import compose
+from rave_tpu_torch.factory import build_rave
+from rave_tpu_torch.nn.streaming import init_stream_state
+cfg = compose(["v2", "causal"], ["capacity=2", "latent_size=4", "ratios=[4,4,2]",
+                                 "dilations=[[1,3],[1,3],[1]]"])
+model = build_rave(cfg, seed=0)
+x = torch.randn(1, 1, 4 * cfg.block_size(), generator=torch.Generator().manual_seed(0))
+with torch.inference_mode():
+    y = model(x, generator=torch.Generator().manual_seed(1))
+    init_stream_state(model, 1)
+    z = model.step_encode(x[..., : cfg.block_size()])
+    s = model.step_decode(z[:, : cfg.latent_size])
+print(json.dumps({
+    "shape": list(y.shape), "finite": bool(torch.isfinite(y).all()),
+    "stream_shape": list(s.shape),
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "rave_tpu")),
+}))
+"""
+
+
+def test_port_never_imports_jax():
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH", "")) if p)}
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == [], out["loaded"]
+    assert out["shape"] == [1, 1, 2048] and out["finite"]
+    assert out["stream_shape"] == [1, 1, 512]

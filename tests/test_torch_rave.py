@@ -1,0 +1,182 @@
+"""The whole v2 slice: rave_tpu_torch's RAVE against rave_tpu's, and its
+streaming path against both packages' offline output.
+
+A tiny v2 (the model overrides of TINY in tests/test_model_streaming.py),
+mono centered and causal and stereo causal, is built by both factories,
+each from its own package's config; the JAX variables go into the port
+through `from_jax_variables`, which must be strict. The same numpy waveform, latent
+and reparametrization noise go through both. Tolerances: 1e-4 relative to
+the output's max between the packages (float32 through ~30 layers summed in
+different orders), and the JAX package's own streaming oracle within the
+port (exact up to 1e-5 in causal mode, delay-cropped 1e-3 in centered).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rave_tpu.config import compose as jax_compose
+from rave_tpu.factory import build_rave as jax_build_rave
+from rave_tpu_torch.config import compose
+from rave_tpu_torch.factory import build_rave
+from rave_tpu_torch.nn.streaming import init_stream_state
+from rave_tpu_torch.ops.kernels import dilated_unit
+from rave_tpu_torch.utils.convert import from_jax_variables
+
+TINY = [
+    "capacity=2",
+    "latent_size=4",
+    "ratios=[4,4,2]",
+    "dilations=[[1,3],[1,3],[1]]",
+]
+TOL = 1e-4
+
+
+def rel_err(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.abs(a - b).max() / (np.abs(b).max() + 1e-12)
+
+
+def to_port(x):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x).transpose(0, 2, 1)))
+
+
+def from_port(y):
+    return y.detach().numpy().transpose(0, 2, 1)
+
+
+class Pair:
+    def __init__(self, mode, n_channels):
+        names = ["v2"] + (["causal"] if mode == "causal" else [])
+        self.cfg = cfg = compose(names, TINY)
+        self.n_channels = n_channels
+        self.jax_model = jax_build_rave(jax_compose(names, TINY), n_channels=n_channels,
+                                        train=False, stream_batch=1)
+        self.block = cfg.block_size()
+        x0 = jnp.zeros((1, self.block * 2, n_channels), jnp.float32)
+        variables = jax.jit(self.jax_model.init)(
+            {"params": jax.random.key(0), "noise": jax.random.key(1)}, x0)
+        self.cache = variables["cache"]
+        self.variables = {k: variables[k] for k in ("params", "buffers")}
+        self.model = build_rave(cfg, n_channels=n_channels, stream_batch=1, seed=3)
+        from_jax_variables(self.model, self.variables)
+        self.model.eval()
+
+    def jax(self, method, x):
+        return np.asarray(self.jax_model.apply(self.variables, jnp.asarray(x), method=method))
+
+    def jax_stream(self, method, x, chunk):
+        v, outs = {**self.variables, "cache": self.cache}, []
+        for i in range(0, x.shape[1], chunk):
+            y, upd = self.jax_model.apply(v, jnp.asarray(x[:, i:i + chunk]), method=method,
+                                          mutable=["cache"])
+            v = {**self.variables, "cache": upd["cache"]}
+            outs.append(np.asarray(y))
+        return np.concatenate(outs, axis=1)
+
+    def port_stream(self, method, x, chunk):
+        init_stream_state(self.model, x.shape[0])
+        step = getattr(self.model, method)
+        with torch.no_grad():
+            return np.concatenate([from_port(step(to_port(x[:, i:i + chunk])))
+                                   for i in range(0, x.shape[1], chunk)], axis=1)
+
+
+@pytest.fixture(scope="module", params=[("centered", 1), ("causal", 1), ("causal", 2)],
+                ids=["centered", "causal", "causal-stereo"])
+def pair(request):
+    return Pair(*request.param)
+
+
+def test_delays_match(pair):
+    assert pair.model.encode_delay == pair.jax_model.encode_delay
+    assert pair.model.decoder.delay == pair.jax_model.decoder.delay
+    assert pair.model.decode_delay == pair.jax_model.decode_delay
+    if pair.cfg.mode == "causal":
+        assert pair.model.encode_delay == pair.model.decode_delay == 0
+
+
+def test_convert_is_strict(pair):
+    params = jax.tree_util.tree_map(np.asarray, pair.variables["params"])
+    missing = {**params, "decoder": {k: v for k, v in params["decoder"].items()
+                                     if k != "waveform"}}
+    with pytest.raises(KeyError, match="not set"):
+        from_jax_variables(pair.model, {"params": missing, "buffers": pair.variables["buffers"]})
+    extra = {**params, "stray": {"v": np.zeros((1, 1, 1), np.float32)}}
+    with pytest.raises(KeyError, match="no tensor"):
+        from_jax_variables(pair.model, {"params": extra, "buffers": pair.variables["buffers"]})
+    from_jax_variables(pair.model, pair.variables)  # restore
+
+
+def test_encode_decode_forward_match(pair):
+    cfg, rng = pair.cfg, np.random.default_rng(0)
+    x = (rng.standard_normal((2, pair.block * 4, pair.n_channels)) * 0.3).astype(np.float32)
+    with torch.no_grad():
+        z_p = from_port(pair.model.encode(to_port(x)))
+    z_j = pair.jax("encode", x)
+    assert z_p.shape == z_j.shape == (2, x.shape[1] // cfg.decimation(), 2 * cfg.latent_size)
+    assert rel_err(z_p, z_j) < TOL
+
+    latent = rng.standard_normal((2, 16, cfg.latent_size)).astype(np.float32)
+    with torch.no_grad():
+        y_p = from_port(pair.model.decode(to_port(latent)))
+    y_j = pair.jax("decode", latent)
+    assert y_p.shape == y_j.shape == (2, 16 * cfg.decimation(), pair.n_channels)
+    assert rel_err(y_p, y_j) < TOL
+
+    # forward with the same reparametrization noise on both sides
+    eps = rng.standard_normal((2, z_j.shape[1], cfg.latent_size)).astype(np.float32)
+    mean, scale = np.split(z_j, 2, axis=-1)
+    zs = jnp.asarray(mean) + (jax.nn.softplus(jnp.asarray(scale)) + 1e-4) * jnp.asarray(eps)
+    y_j = pair.jax("decode", np.asarray(zs))
+    with torch.no_grad():
+        y_p = from_port(pair.model(to_port(x), eps=to_port(eps)))
+    assert rel_err(y_p, y_j) < TOL
+
+    _, kl_j = pair.jax_model.apply(pair.variables, jnp.asarray(z_j), jax.random.key(5),
+                                   method="reparametrize")
+    with torch.no_grad():
+        _, kl_p = pair.model.reparametrize(to_port(z_j), eps=to_port(eps))
+    assert abs(float(kl_p) - float(kl_j)) <= TOL * abs(float(kl_j))
+    assert dilated_unit.launches == 0  # CPU: the plain path only
+
+
+def test_streaming_matches(pair):
+    cfg, rng = pair.cfg, np.random.default_rng(1)
+    x = (rng.standard_normal((1, pair.block * 24, pair.n_channels)) * 0.3).astype(np.float32)
+    zs_p = pair.port_stream("step_encode", x, pair.block)
+    zs_j = pair.jax_stream("step_encode", x, pair.block)
+    assert rel_err(zs_p, zs_j) < TOL
+    with torch.no_grad():
+        z_off = from_port(pair.model.encode(to_port(x)))
+    D = pair.model.encode_delay
+    if cfg.mode == "causal":
+        np.testing.assert_allclose(zs_p, z_off, rtol=1e-4, atol=1e-5)
+    else:
+        assert rel_err(zs_p[:, 2 * D:], z_off[:, D:z_off.shape[1] - D]) < 1e-3
+
+    block_lat = max(pair.block // cfg.decimation(), 2)
+    latent = rng.standard_normal((1, block_lat * 8, cfg.latent_size)).astype(np.float32)
+    ys_p = pair.port_stream("step_decode", latent, block_lat)
+    ys_j = pair.jax_stream("step_decode", latent, block_lat)
+    assert rel_err(ys_p, ys_j) < TOL
+    with torch.no_grad():
+        y_off = from_port(pair.model.decode(to_port(latent)))
+    D = pair.model.decode_delay
+    if cfg.mode == "causal":
+        np.testing.assert_allclose(ys_p, y_off, rtol=1e-4, atol=1e-5)
+    else:
+        assert rel_err(ys_p[:, 2 * D:], y_off[:, D:y_off.shape[1] - D]) < 1e-3
+
+
+@pytest.mark.parametrize("override,item", [
+    ("activation=\"snake\"", "A10"),
+    ("decoder.use_noise=true", "A11"),
+    ("encoder.use_adain=true", "A10"),
+    ("decoder.recurrent_layers=1", "A11"),
+])
+def test_unported_options_raise(override, item):
+    cfg = compose(["v2"], TINY + [override])
+    with pytest.raises(NotImplementedError, match=item):
+        build_rave(cfg)

@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Where the device time goes in rave_tpu_torch's v2 serving path.
+
+    python3 tools/torch_profile.py [--out profile.txt] [--top 18]
+
+from the root of a checkout, on a machine with a CUDA card and nvcc. Two
+cells, both `compose` presets at full width with seeded random weights, fp32
+with TF32 off, under `torch.inference_mode()`:
+
+  offline : compose(["v2"]), B=16 x 131072 samples, 3 forwards profiled;
+  stream  : compose(["v2", "causal"]), batch 1, blocks of block_size()
+            through step_encode -> step_decode: 4 warm, 8 timed, 12 profiled.
+
+Each cell is timed unprofiled first (host clock around work that ends in
+`synchronize`), then traced by `torch.profiler` with CPU and CUDA activity.
+From the trace's device events (kernels and copies on the card, each counted
+once) it prints the device-busy time per call (the union of their
+intervals), the busy share of the unprofiled wall, the device ops per call,
+and the kernels that take the most device time, by name.
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def device_summary(prof, calls: int, wall_ms: float, top: int) -> list[str]:
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise SystemExit("torch_profile: the profiler saw no device events")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy_us, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_us += cur_e - cur_s
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        by_name[e.name][0] += e.time_range.end - e.time_range.start
+        by_name[e.name][1] += 1
+    busy_ms = busy_us / 1e3 / calls
+    lines = [f"device busy {busy_ms:.3f} ms per call = {100 * busy_ms / wall_ms:.1f}% of the "
+             f"unprofiled wall {wall_ms:.3f} ms; {len(events) / calls:.0f} device ops per call"]
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        ms = us / 1e3 / calls
+        lines.append(f"  {ms:8.3f} ms {100 * ms / busy_ms:5.1f}%  x{n / calls:6.1f}  {name[:110]}")
+    return lines
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="build/profile.txt")
+    ap.add_argument("--top", type=int, default=18)
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rave_tpu_torch.config import compose
+    from rave_tpu_torch.factory import build_rave
+    from rave_tpu_torch.nn.streaming import init_stream_state
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile: no CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    report = [card]
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    with torch.inference_mode():
+        cfg = compose(["v2"])
+        model = build_rave(cfg, seed=0).eval().cuda()
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn(16, 1, 131072, device="cuda", generator=gen) * 0.1
+        for _ in range(2):
+            model(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            model(x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 5 * 1e3
+        with profile(activities=activities) as prof:
+            for _ in range(3):
+                model(x)
+            torch.cuda.synchronize()
+        report += ["== offline v2 B=16 x 131072"] + device_summary(prof, 3, wall, args.top)
+
+        cfg = compose(["v2", "causal"])
+        model = build_rave(cfg, stream_batch=1, seed=4).eval().cuda()
+        block = cfg.block_size()
+        x = torch.randn(1, 1, block * 24, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(5)) * 0.1
+        init_stream_state(model, 1)
+
+        def step(i):
+            z = model.step_encode(x[..., i * block:(i + 1) * block])
+            return model.step_decode(z[:, :cfg.latent_size])
+
+        for i in range(4):  # warm: cuDNN picks its algorithms, the allocator fills
+            step(i)
+        times = []
+        for i in range(4, 12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        p50 = statistics.median(times)
+        with profile(activities=activities) as prof:
+            for i in range(12, 24):
+                step(i)
+            torch.cuda.synchronize()
+        report += [f"== stream v2 causal, block {block}, unprofiled p50 {p50:.3f} ms "
+                   f"(blocks {', '.join(f'{t:.3f}' for t in times)})"]
+        report += device_summary(prof, 12, p50, args.top)
+
+    text = "\n".join(report)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(text + "\n")
+    print(text, flush=True)
+
+
+if __name__ == "__main__":
+    main()
