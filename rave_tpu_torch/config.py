@@ -1,8 +1,9 @@
-"""Model configuration of the port's serving path.
+"""Configuration of the port's serving path and v2 training step.
 
-The model-facing part of rave_tpu/config.py, owned by the port so that
-nothing here depends on the JAX package: the fields `factory.build_rave`
-reads, with the same names, defaults and resolved accessors, and the two
+The part of rave_tpu/config.py the port reads, owned by the port so that
+nothing here depends on the JAX package: the fields `factory.build_rave`,
+`factory.build_discriminator` / `build_audio_distance` and the train step
+read, with the same names, defaults and resolved accessors, and the two
 presets the port builds, `v2` and `causal`. `compose(names, overrides)`
 stacks presets and applies dotted overrides as the reference does
 (`compose(["v2", "causal"], ["capacity=2", "ratios=[4,4,2]"])`).
@@ -49,6 +50,65 @@ class DecoderConfig:
 
 
 @dataclass
+class DiscriminatorConfig:
+    kind: str = "multiscale"  # multiscale | combined (ported); spectral | descript
+    capacity: Optional[int] = None  # None -> cfg.capacity
+    n_layers: int = 4
+    kernel_size: int = 15
+    stride: int = 4
+    n_scales: int = 3
+    periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
+    period_kernel: Tuple[int, int] = (5, 1)
+
+
+@dataclass
+class DistanceConfig:
+    kind: str = "v1"  # v1 (ported) | encodec | instantaneous
+    scales: Tuple[int, ...] = (2048, 1024, 512, 256, 128)
+    log_epsilon: float = 1e-7
+    num_mels: Optional[int] = None
+
+
+@dataclass
+class TrainConfig:
+    phase_1_duration: int = 1_000_000
+    warmup_quantize: Optional[int] = None
+    update_discriminator_every: int = 2
+    gan_loss: str = "hinge"  # hinge | ls | nonsaturating
+    valid_signal_crop: bool = False
+    num_skipped_features: int = 0
+    feature_matching_relative: bool = False
+    weights: Dict[str, float] = field(
+        default_factory=lambda: {
+            "audio_distance": 1.0,
+            "multiband_audio_distance": 1.0,
+            "adversarial": 1.0,
+            "feature_matching": 10.0,
+        }
+    )
+    beta_initial: float = 0.1
+    beta_target: float = 0.1
+    beta_warmup_len: int = 1
+    beta_log_warmup: bool = True
+    gen_lr: float = 1e-3
+    dis_lr: float = 1e-4
+    adam_b1: float = 0.5
+    adam_b2: float = 0.9
+    lr_end_factor: float = 0.1  # LinearLR 1.0 -> 0.1 over phase 1
+    ema: Optional[float] = None
+    remat: bool = False  # refused by compose: ROADMAP A2
+    bf16: bool = False  # refused by compose: ROADMAP A2
+    bf16_dis: bool = False  # refused by compose: ROADMAP A2
+    dis_full_metrics: bool = False  # distances on critic steps too (logging only)
+
+
+@dataclass
+class DataConfig:
+    n_signal: int = 131072
+    batch: int = 8
+
+
+@dataclass
 class RaveConfig:
     name: str = "v2"
     sampling_rate: int = 44100
@@ -67,6 +127,10 @@ class RaveConfig:
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     latent: LatentConfig = field(default_factory=LatentConfig)
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
+    discriminator: DiscriminatorConfig = field(default_factory=DiscriminatorConfig)
+    distance: DistanceConfig = field(default_factory=DistanceConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
 
     def enc_capacity(self) -> int:
         return self.encoder.capacity or self.capacity
@@ -123,7 +187,8 @@ def preset(name: str):
 
 @preset("v2")
 def _v2(c: RaveConfig):
-    """rave/configs/v2.gin, its model part."""
+    """rave/configs/v2.gin (which includes v1.gin): what rave_tpu.config's
+    `_v1` and `_v2` set of the fields the port has."""
     c.name = "v2"
     c.capacity = 96
     c.n_band = 16
@@ -135,6 +200,17 @@ def _v2(c: RaveConfig):
     c.decoder.kind = "v2"
     c.latent.family = "variational"
     c.decoder.amplitude_modulation = True
+    c.discriminator = DiscriminatorConfig(kind="combined", capacity=96)
+    t = c.train
+    t.phase_1_duration = 1_000_000
+    t.update_discriminator_every = 4
+    t.valid_signal_crop = True
+    t.num_skipped_features = 1
+    t.feature_matching_relative = True
+    t.weights["feature_matching"] = 20.0
+    t.beta_initial = 1e-6
+    t.beta_target = 5e-2
+    t.beta_warmup_len = 20000
 
 
 @preset("causal")
@@ -154,6 +230,9 @@ def compose(names: List[str], overrides: Optional[List[str]] = None) -> RaveConf
         PRESETS[n](cfg)
     for ov in overrides or []:
         apply_override(cfg, ov)
+    for flag in ("bf16", "bf16_dis", "remat"):
+        if getattr(cfg.train, flag):
+            raise NotImplementedError(f"train.{flag} is not ported yet (ROADMAP A2)")
     up = math.prod(cfg.dec_ratios()) * (cfg.n_band if cfg.output_mode == "pqmf" else 1)
     if up != cfg.decimation():
         raise ValueError(f"config is not rate-preserving: encoder decimation "
@@ -180,4 +259,8 @@ def apply_override(cfg: RaveConfig, assignment: str) -> None:
     val = _parse_value(raw.strip())
     if isinstance(val, list):
         val = tuple(tuple(v) if isinstance(v, list) else v for v in val)
-    setattr(obj, parts[-1], val)
+    cur = getattr(obj, parts[-1])
+    if isinstance(cur, dict) and isinstance(val, dict):
+        cur.update(val)  # 'train.weights={"adversarial": 2.0}' updates one weight
+    else:
+        setattr(obj, parts[-1], val)

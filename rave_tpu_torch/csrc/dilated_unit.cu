@@ -37,6 +37,11 @@
 // bytes per tile of TT frames, which bounds the small tiles (TT = 16 at
 // C = 768) at 2 TT FLOP per weight float read. wgmma, TMA and bf16 are later
 // work.
+//
+// This file is the forward only. The gradient, as in the TPU kernel's
+// `custom_vjp` (`_fwd` / `_bwd`), recomputes the unit in plain PyTorch and
+// differentiates that (`FusedDilatedUnit` in ops/kernels/dilated_unit.py):
+// the TPU kernel had no backward kernel either.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

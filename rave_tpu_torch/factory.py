@@ -1,10 +1,12 @@
-"""Model factory: RaveConfig -> the port's modules, for the v2 serving path.
+"""Factory: RaveConfig -> the port's model, critic and losses.
 
-PyTorch port of `build_rave` (rave_tpu/factory.py:151-175) for the v2
-encoder and decoder kinds and the variational latent family. Configs come
-from the port's own `rave_tpu_torch.config.compose`. Weights are drawn here
-from a seeded `torch.Generator` (lecun-normal `v`, `g = ||v||` per output
-channel, zero bias), never from jax.
+PyTorch port of rave_tpu/factory.py: `build_rave` (:151-175) for the v2
+encoder and decoder kinds and the variational latent family;
+`build_discriminator` (:178-232) for the `multiscale` and `combined`
+critics; `build_audio_distance` (:235-265) for `v1`; `build_gan_loss`
+(:268-269). Configs come from the port's own `rave_tpu_torch.config.compose`.
+Weights are drawn here from a seeded `torch.Generator` (lecun-normal `v`,
+`g = ||v||` per output channel, zero bias), never from jax.
 """
 from __future__ import annotations
 
@@ -14,9 +16,15 @@ import torch
 
 from rave_tpu_torch.config import RaveConfig
 from rave_tpu_torch.models import blocks
+from rave_tpu_torch.models.discriminators import (
+    CombineDiscriminators, MultiPeriodDiscriminator, MultiScaleDiscriminator,
+)
 from rave_tpu_torch.models.rave import RAVE
 from rave_tpu_torch.nn.conv import _WeightNormConv
+from rave_tpu_torch.ops.distances import AudioDistanceV1
+from rave_tpu_torch.ops.dsp import GAN_LOSSES
 from rave_tpu_torch.ops.pqmf import PQMFBank
+from rave_tpu_torch.ops.stft import MultiScaleSTFT
 
 
 @lru_cache(maxsize=8)
@@ -109,3 +117,39 @@ def build_rave(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1,
     )
     init_weights(model, torch.Generator().manual_seed(seed))
     return model
+
+
+def build_discriminator(cfg: RaveConfig, n_channels: int = 1, seed: int = 0) -> torch.nn.Module:
+    """The critic on the CPU, weights drawn from `torch.Generator().manual_seed(seed)`;
+    its period critics folded (models/discriminators.py)."""
+    d = cfg.discriminator
+    cap = d.capacity or cfg.capacity
+    scales = dict(n_discriminators=d.n_scales, capacity=cap, n_layers=d.n_layers,
+                  kernel_size=d.kernel_size, stride=d.stride)
+    if d.kind == "multiscale":
+        critic = MultiScaleDiscriminator(n_channels, **scales)
+    elif d.kind == "combined":
+        critic = CombineDiscriminators([
+            MultiPeriodDiscriminator(n_channels, d.periods, cap, d.n_layers,
+                                     tuple(d.period_kernel), d.stride),
+            MultiScaleDiscriminator(n_channels, **scales),
+        ])
+    else:
+        raise NotImplementedError(f"discriminator kind {d.kind!r} is not ported yet "
+                                  "(ROADMAP A10 descript, A11 spectral)")
+    init_weights(critic, torch.Generator().manual_seed(seed))
+    return critic
+
+
+def build_audio_distance(cfg: RaveConfig) -> AudioDistanceV1:
+    dist = cfg.distance
+    if dist.kind != "v1":
+        raise NotImplementedError(f"distance kind {dist.kind!r} is not ported yet (ROADMAP A11)")
+    if dist.num_mels is not None:
+        raise NotImplementedError("distance.num_mels (mel spectrograms) is not ported yet "
+                                  "(ROADMAP A11)")
+    return AudioDistanceV1(MultiScaleSTFT(tuple(dist.scales)), log_epsilon=dist.log_epsilon)
+
+
+def build_gan_loss(cfg: RaveConfig):
+    return GAN_LOSSES[cfg.train.gan_loss]

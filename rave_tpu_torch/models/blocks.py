@@ -269,7 +269,13 @@ class VariationalEncoder(nn.Module):
     def delay(self) -> int:
         return self.encoder.delay
 
-    def forward(self, x):
+    def forward(self, x, warmed_up: bool = False):
+        """After the warmup the encoder is frozen: the JAX package stops its
+        gradient; here it runs without a graph, which gives the same
+        gradients (none) and keeps no activations."""
+        if warmed_up:
+            with torch.no_grad():
+                return self.encoder(x)
         return self.encoder(x)
 
     def step(self, x):

@@ -56,10 +56,26 @@ class RAVE(nn.Module):
         pad_r = 0 if self.mode == "causal" or Q == 0 else Q // 2
         return (self.decoder.delay + pad_r) * max(self.pqmf.n_band, 1)
 
+    # ---- input / output transforms (what the train step composes) ----------
+    def transform_input(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, n_channels, T] -> band frames [B, n_channels*n_band, T / n_band]."""
+        return self.pqmf_analysis(x)
+
+    def multiband(self, x: torch.Tensor) -> torch.Tensor:
+        """PQMF analysis whatever the input mode (the multiband loss's target)."""
+        return self.pqmf_analysis(x)
+
+    def decode_multiband(self, z: torch.Tensor) -> torch.Tensor:
+        """Decoder output in band frames, before synthesis."""
+        return self.decoder(z)
+
+    def synthesize(self, y_mb: torch.Tensor) -> torch.Tensor:
+        return self.pqmf_synthesis(y_mb)
+
     # ---- offline ---------------------------------------------------------
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """[B, n_channels, T] -> [B, 2*latent_size, T / decimation]."""
-        return self.encoder(self.pqmf_analysis(x))
+        return self.encoder(self.transform_input(x))
 
     def reparametrize(self, z: torch.Tensor, generator: Optional[torch.Generator] = None,
                       eps: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -67,7 +83,7 @@ class RAVE(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """[B, latent_size, T_lat] -> [B, n_channels, T_lat * decimation]."""
-        return self.pqmf_synthesis(self.decoder(z))
+        return self.synthesize(self.decode_multiband(z))
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 eps: Optional[torch.Tensor] = None) -> torch.Tensor:

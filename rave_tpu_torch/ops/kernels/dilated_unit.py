@@ -11,9 +11,16 @@ them, weight norm already applied.
 tensor goes through `fused_dilated_unit_reference` (plain `F.conv1d`); a
 CUDA tensor launches the hand-written kernel of csrc/dilated_unit.cu
 (built by nvcc at first use, see build.py) or raises. `launches` counts the
-kernel launches, so a run can show that its main path went through it.
-The backward pass is not ported: the wrapper refuses CUDA inputs that
-require grad.
+kernel's (forward) launches, so a run can show that its main path went
+through it.
+
+The gradient mirrors the JAX package's `custom_vjp` (`_fwd` / `_bwd`):
+when autograd needs it, the forward runs inside `FusedDilatedUnit`, an
+`autograd.Function` that saves only `x, w1, w2`; its backward recomputes
+the plain formulation and differentiates it with `torch.autograd.grad`,
+as `_bwd` differentiates `_reference_impl` with XLA. The TPU kernel has no
+backward kernel, so neither has this one (ROADMAP A16 keeps a fused CUDA
+backward as a later item).
 """
 from __future__ import annotations
 
@@ -80,25 +87,17 @@ def _check(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"the CUDA kernel takes float32; {name} is {t.dtype}")
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise RuntimeError(
-                "the fused dilated unit's backward is not ported to CUDA yet; "
-                "run under torch.no_grad() / torch.inference_mode()"
-            )
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     if C % 8:
         raise ValueError(f"the CUDA kernel takes C % 8 == 0 (whole k8 tensor-core steps); C={C}")
 
 
-def fused_dilated_unit(
+def _forward(
     x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     dilation: int, pad_left: int, pad_right: int,
 ) -> torch.Tensor:
-    """x [B, C, T]; w1 [C, C, K]; w2 [C, C] -> y [B, C, T].
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    """
+    """The forward alone: plain on the CPU, the kernel on a CUDA tensor."""
     if x.device.type == "cpu":
         return fused_dilated_unit_reference(x, w1, w2, dilation, pad_left, pad_right)
     if x.device.type != "cuda":
@@ -125,3 +124,43 @@ def fused_dilated_unit(
     global launches
     launches += 1
     return y
+
+
+class FusedDilatedUnit(torch.autograd.Function):
+    """The unit under autograd: `_fwd` / `_bwd` of the JAX package's
+    `custom_vjp`. Forward: `_forward` (the kernel on a CUDA tensor), saving
+    only the inputs. Backward: the plain formulation recomputed and
+    differentiated, for the inputs that need a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w2, dilation: int, pad_left: int, pad_right: int):
+        ctx.save_for_backward(x, w1, w2)
+        ctx.conv = (dilation, pad_left, pad_right)
+        return _forward(x, w1, w2, dilation, pad_left, pad_right)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+            y = fused_dilated_unit_reference(*inputs, *ctx.conv)
+            wanted = [t for t, n in zip(inputs, needs) if n]
+            grads = iter(torch.autograd.grad(y, wanted, grad_y))
+        return (*(next(grads) if n else None for n in needs), None, None, None)
+
+
+def fused_dilated_unit(
+    x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+    dilation: int, pad_left: int, pad_right: int,
+) -> torch.Tensor:
+    """x [B, C, T]; w1 [C, C, K]; w2 [C, C] -> y [B, C, T].
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Where autograd records (grad enabled and an input requires grad), the
+    call goes through `FusedDilatedUnit`; otherwise straight to `_forward`.
+    """
+    args = (x, w1, w2, dilation, pad_left, pad_right)
+    if torch.is_grad_enabled() and (x.requires_grad or w1.requires_grad or w2.requires_grad):
+        return FusedDilatedUnit.apply(*args)
+    return _forward(*args)

@@ -1,0 +1,59 @@
+"""Train state: the model, the critic, their two Adams, the step and the EMA.
+
+PyTorch port of rave_tpu/train/state.py and the EMA of
+rave_tpu/train/steps.py:231-236. The JAX package's generator transform is
+optax's `scale_by_adam(b1, b2)` with the learning rate applied by the step
+from the *global* step counter (discriminator steps included); its critic
+transform is `optax.adam(dis_lr)`. `torch.optim.Adam` computes the same
+update, lr * m_hat / (sqrt(v_hat) + 1e-8), so the generator's Adam has its
+`lr` set before every step. Both start from zero moments.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from rave_tpu_torch.config import RaveConfig
+from rave_tpu_torch.factory import build_discriminator, build_rave
+
+
+@dataclass
+class TrainState:
+    step: int
+    model: nn.Module
+    discriminator: nn.Module
+    gen_opt: torch.optim.Adam
+    dis_opt: torch.optim.Adam
+    ema: Optional[Dict[str, torch.Tensor]] = None  # generator params, by name
+
+
+def make_optimizers(cfg: RaveConfig, model: nn.Module, discriminator: nn.Module):
+    """(generator Adam, critic Adam); the generator's lr is set per step."""
+    t = cfg.train
+    betas = (t.adam_b1, t.adam_b2)
+    gen = torch.optim.Adam(model.parameters(), lr=t.gen_lr, betas=betas, eps=1e-8)
+    dis = torch.optim.Adam(discriminator.parameters(), lr=t.dis_lr, betas=betas, eps=1e-8)
+    return gen, dis
+
+
+@torch.no_grad()
+def update_ema(ema: Dict[str, torch.Tensor], model: nn.Module, decay: float) -> None:
+    """ema <- ema * decay + params * (1 - decay), in that order of terms."""
+    for name, p in model.named_parameters():
+        ema[name].mul_(decay).add_(p, alpha=1 - decay)
+
+
+def create_train_state(cfg: RaveConfig, n_channels: int = 1, seed: int = 0,
+                       device: str | torch.device = "cpu") -> TrainState:
+    """Seeded model (`seed`) and critic (`seed + 1`) on `device`, fresh
+    optimizers, step 0, and an EMA copy when `train.ema` is set."""
+    model = build_rave(cfg, n_channels=n_channels, seed=seed).to(device)
+    critic = build_discriminator(cfg, n_channels=n_channels, seed=seed + 1).to(device)
+    gen_opt, dis_opt = make_optimizers(cfg, model, critic)
+    ema = None
+    if cfg.train.ema is not None:
+        ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+    return TrainState(0, model, critic, gen_opt, dis_opt, ema)

@@ -1,0 +1,165 @@
+"""The v2 training step, in its three programs.
+
+PyTorch port of rave_tpu/train/steps.py (reference rave/model.py:288-424):
+
+  * gen, pre-warmup  : reconstruction and regularization only;
+  * gen, adversarial : plus feature matching and the adversarial term, the
+                       encoder frozen (run without a graph);
+  * dis              : the critic's loss, the generator run without a graph.
+
+`pick_phase` chooses the program per global step, as in the JAX package.
+Layouts are the port's: waveforms [B, C, T], band frames [B, C*M, T/M].
+What the JAX package draws from its "noise" rng, the reparametrization
+noise, comes from `eps` (a tensor shaped like the latent mean) or else from
+`generator`, so a test can hand both packages the same numbers.
+
+Kept exactly as in the JAX package: the feature-matching weight is applied
+twice (once into the term, once in the weighted sum: the reference does);
+the first `num_skipped_features` feature maps of each critic are left out
+of feature matching; with `valid_signal_crop` only the band frames are
+cropped; real and fake go through the critic in one batch and are split
+back in halves; critic steps skip the reconstruction distances unless
+`train.dis_full_metrics`.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from rave_tpu_torch.config import RaveConfig
+from rave_tpu_torch.factory import build_audio_distance, build_gan_loss
+from rave_tpu_torch.ops.dsp import mean_difference
+from rave_tpu_torch.train.schedules import (
+    beta_factor, gen_lr_schedule, quantize_enabled, warmed_up,
+)
+from rave_tpu_torch.train.state import TrainState, update_ema
+
+
+def autoencode(model, x: torch.Tensor, warmed: bool, eps: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """The full pass of a step (rave_tpu/train/steps.py:36-87, pqmf in and out)."""
+    x_bands = model.transform_input(x)
+    z = model.encoder(x_bands, warmed_up=warmed)
+    zs, reg = model.reparametrize(z, generator=generator, eps=eps)
+    y_mb = model.decode_multiband(zs)
+    y_raw = model.synthesize(y_mb)[..., : x.shape[-1]]
+    return {"x_bands": x_bands, "y_bands": y_mb[..., : x_bands.shape[-1]], "y_raw": y_raw,
+            "reg": reg}
+
+
+def crop(arr: torch.Tensor, frames: Tuple[int, int]) -> torch.Tensor:
+    """Drop `frames` = (left, right) frames of the time axis."""
+    left, right = frames
+    return arr[..., left : arr.shape[-1] - right]
+
+
+def split_features(features: List[List[torch.Tensor]]):
+    """Real/fake halves of the critic's features over the batch axis."""
+    real = [[f.chunk(2, dim=0)[0] for f in scale] for scale in features]
+    fake = [[f.chunk(2, dim=0)[1] for f in scale] for scale in features]
+    return real, fake
+
+
+def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
+    """{'gen': gen_step, 'dis': dis_step}; each updates a `TrainState` in
+    place, advances its global step and returns the step's metrics."""
+    distance = build_audio_distance(cfg)
+    gan_loss = build_gan_loss(cfg)
+    t = cfg.train
+    weights = dict(t.weights)
+    gen_lr = gen_lr_schedule(t.gen_lr, t.lr_end_factor, t.phase_1_duration)
+    band_crop = crop_frames if t.valid_signal_crop else (0, 0)
+
+    def losses_and_metrics(out, critic, x, warmed: bool, step: int, gen_metrics: bool = True):
+        metrics: Dict[str, object] = {}
+        loss_gen: Dict[str, torch.Tensor] = {}
+        if gen_metrics:
+            mb = distance(crop(out["x_bands"], band_crop), crop(out["y_bands"], band_crop))
+            for k, v in mb.items():
+                loss_gen[f"multiband_{k}"] = weights.get("multiband_audio_distance", 1.0) * v
+            for k, v in distance(x, out["y_raw"]).items():
+                loss_gen[f"fullband_{k}"] = weights.get("audio_distance", 1.0) * v
+            beta = beta_factor(step, t.beta_initial, t.beta_target, t.beta_warmup_len,
+                               t.beta_log_warmup)
+            loss_gen["regularization"] = out["reg"] * beta
+            metrics["beta_factor"] = beta
+            metrics["regularization_raw"] = out["reg"]
+
+        loss_dis = x.new_zeros(())
+        if warmed:
+            real, fake = split_features(critic(torch.cat([x, out["y_raw"]], dim=0)))
+            fm_total = adv_total = dis_total = pred_real = pred_fake = 0.0
+            for sr, sf in zip(real, fake):
+                pairs = list(zip(sr[t.num_skipped_features:], sf[t.num_skipped_features:]))
+                fm = sum(mean_difference(a, b, norm="L1", relative=t.feature_matching_relative)
+                         for a, b in pairs) / max(len(pairs), 1)
+                fm_total = fm_total + fm
+                d, a = gan_loss(sr[-1], sf[-1])
+                dis_total = dis_total + d
+                adv_total = adv_total + a
+                pred_real = pred_real + sr[-1].mean()
+                pred_fake = pred_fake + sf[-1].mean()
+            fm_total = fm_total / len(real)
+            loss_gen["feature_matching"] = weights.get("feature_matching", 20.0) * fm_total
+            loss_gen["adversarial"] = weights.get("adversarial", 1.0) * adv_total
+            loss_dis = dis_total
+            metrics["pred_real"] = pred_real
+            metrics["pred_fake"] = pred_fake
+
+        total_gen = 0.0
+        for k, v in loss_gen.items():
+            total_gen = total_gen + v * weights.get(k, 1.0)
+            metrics[k] = v
+        if gen_metrics:
+            metrics["loss_gen"] = total_gen
+        metrics["loss_dis"] = loss_dis
+        return total_gen, loss_dis, metrics
+
+    def detached(metrics):
+        return {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
+
+    def gen_step(state: TrainState, x: torch.Tensor, warmed: bool,
+                 eps: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None) -> dict:
+        params = list(state.model.parameters())
+        state.gen_opt.zero_grad(set_to_none=True)
+        out = autoencode(state.model, x, warmed, eps, generator)
+        total, _, metrics = losses_and_metrics(out, state.discriminator, x, warmed, state.step)
+        total.backward(inputs=params)  # the generator's gradients only, not the critic's
+        for p in params:
+            if p.grad is None:  # the frozen encoder: a zero gradient, as JAX's is
+                p.grad = torch.zeros_like(p)
+        lr = gen_lr(state.step)
+        for group in state.gen_opt.param_groups:
+            group["lr"] = lr
+        state.gen_opt.step()
+        metrics["gen_lr"] = lr
+        if state.ema is not None:
+            update_ema(state.ema, state.model, t.ema)
+        state.step += 1
+        return detached(metrics)
+
+    def dis_step(state: TrainState, x: torch.Tensor, eps: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None) -> dict:
+        with torch.no_grad():
+            out = autoencode(state.model, x, True, eps, generator)
+        state.dis_opt.zero_grad(set_to_none=True)
+        _, loss_dis, metrics = losses_and_metrics(out, state.discriminator, x, True, state.step,
+                                                  gen_metrics=t.dis_full_metrics)
+        loss_dis.backward()
+        state.dis_opt.step()
+        state.step += 1
+        return detached(metrics)
+
+    return {"gen": gen_step, "dis": dis_step}
+
+
+def pick_phase(cfg: RaveConfig, step: int) -> Tuple[str, bool, bool]:
+    """(which, warmed, quantize) for this global step: after the warmup every
+    `update_discriminator_every`-th step trains the critic."""
+    w = warmed_up(step, cfg.train.phase_1_duration)
+    q = quantize_enabled(step, cfg.train.warmup_quantize)
+    if w and step % cfg.train.update_discriminator_every == 0:
+        return "dis", w, q
+    return "gen", w, q

@@ -1,8 +1,9 @@
-"""Load a rave_tpu (JAX) model's variables into the port.
+"""Load a rave_tpu (JAX) model's or critic's variables into the port.
 
 `from_jax_variables(model, variables)` takes the JAX `params` and `buffers`
 trees (nested dicts of numpy arrays; jax arrays pass through `np.asarray`)
-and copies them into a port model built from the same config. The port's
+and copies them into a port model (a RAVE, or a critic of
+models/discriminators.py) built from the same config. The port's
 attribute names mirror flax's module paths, so a path maps by rename:
 
     encoder/encoder/net/layers_9/inner/net/layers_1/v
@@ -13,8 +14,15 @@ and each leaf changes layout:
   * Conv1d `v`/`w` [K, I, O] -> [O, I, K];
   * ConvTranspose1d `v`/`w` [K, I, O] -> [I, O, K] (no flip: the JAX
     `_full` is a true transposed convolution, rave_tpu/nn/conv.py:254-267);
-  * `g` [1, 1, O] -> [O], one value per output channel, for both kinds;
+  * the critics' `WNConv` `v`/`w` [K, I, O] -> [O, I, K], and the period
+    critics' 2D (K, 1) kernels [K, 1, I, O] -> [O, I, K] (the port keeps
+    them as 1D kernels, models/discriminators.py);
+  * `g` [1, 1, O] (or [1, 1, 1, O]) -> [O], one value per output channel;
   * biases and the RAVE buffers are copied as they are.
+
+`convert_tree(model, tree)` gives the converted arrays by port name without
+loading them (the tests compare gradients with it). Optimizer state is not
+converted: a port train state starts its Adam moments from zero.
 
 The load is strict: every JAX leaf lands on exactly one port tensor of the
 same shape, and every port parameter and persistent buffer is set. The
@@ -28,6 +36,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from rave_tpu_torch.models.discriminators import WNConv
 from rave_tpu_torch.nn.conv import Conv1d, ConvTranspose1d
 
 
@@ -49,13 +58,32 @@ def port_name(jax_path: str) -> str:
 
 def _convert(owner: torch.nn.Module, leaf: str, value: np.ndarray) -> np.ndarray:
     if leaf in ("v", "w"):
-        if isinstance(owner, Conv1d):
+        if isinstance(owner, WNConv) and value.ndim == 4:
+            if value.shape[1] != 1:
+                raise ValueError(f"2D kernel {value.shape}: only (K, 1) kernels are ported")
+            value = value[:, 0]
+        if isinstance(owner, (Conv1d, WNConv)):
             return value.transpose(2, 1, 0)
         if isinstance(owner, ConvTranspose1d):
             return value.transpose(1, 2, 0)
-    if leaf == "g" and isinstance(owner, (Conv1d, ConvTranspose1d)):
+    if leaf == "g" and isinstance(owner, (Conv1d, ConvTranspose1d, WNConv)):
         return value.reshape(-1)
     return value
+
+
+def convert_tree(model: torch.nn.Module, tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX tree of `model`'s leaves (params, or gradients of them) as
+    arrays in the port's layouts, keyed by the port's names."""
+    out = {}
+    for path, value in _flatten(tree).items():
+        name = port_name(path)
+        owner_name, _, leaf = name.rpartition(".")
+        try:
+            owner = model.get_submodule(owner_name)
+        except AttributeError:
+            raise KeyError(f"{path}: the port has no tensor {name}") from None
+        out[name] = _convert(owner, leaf, value)
+    return out
 
 
 def from_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> None:
@@ -68,17 +96,14 @@ def from_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> 
     targets.update({n: b for n, b in model.named_buffers() if n in persistent})
     loaded = set()
     for collection in ("params", "buffers"):
-        for path, value in _flatten(variables.get(collection, {})).items():
-            name = port_name(path)
+        for name, value in convert_tree(model, variables.get(collection, {})).items():
             if name not in targets:
-                raise KeyError(f"{collection}/{path}: the port has no tensor {name}")
+                raise KeyError(f"{collection}: the port has no tensor {name}")
             if name in loaded:
-                raise KeyError(f"{collection}/{path}: {name} is loaded twice")
-            owner_name, _, leaf = name.rpartition(".")
-            value = _convert(model.get_submodule(owner_name), leaf, value)
+                raise KeyError(f"{collection}: {name} is loaded twice")
             target = targets[name]
             if tuple(value.shape) != tuple(target.shape):
-                raise ValueError(f"{collection}/{path}: shape {value.shape} does not fit "
+                raise ValueError(f"{collection}: shape {value.shape} does not fit "
                                  f"{name} {tuple(target.shape)}")
             with torch.no_grad():
                 target.copy_(torch.tensor(value))

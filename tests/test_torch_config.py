@@ -1,10 +1,11 @@
 """The port's own model configuration against the JAX package's.
 
 rave_tpu_torch.config carries the fields of rave_tpu.config that the v2
-serving path reads, so that the port needs nothing of the JAX package.
-Every field it has, and every resolved accessor, must equal the JAX
-package's for the same presets and overrides (exact: these are ints,
-tuples and strings).
+serving path and training step read (model, critic, distance, train and
+data fields), so that the port needs nothing of the JAX package. Every
+field it has, and every resolved accessor, must equal the JAX package's
+for the same presets and overrides (exact: these are ints, floats, tuples,
+dicts and strings).
 """
 import dataclasses
 
@@ -17,6 +18,10 @@ ACCESSORS = ["enc_capacity", "dec_capacity", "enc_ratios", "dec_ratios", "enc_da
              "dec_data_size", "num_latent_out", "augmented_latent_size", "decimation",
              "block_size"]
 TINY = ["capacity=2", "latent_size=4", "ratios=[4,4,2]", "dilations=[[1,3],[1,3],[1]]"]
+TRAIN = ["discriminator.capacity=2", "distance.scales=[512,256]", "train.phase_1_duration=4",
+         "train.update_discriminator_every=2", "train.beta_warmup_len=8", "train.ema=0.99",
+         'train.weights={"adversarial": 2.0}', 'train.gan_loss="ls"', "data.n_signal=8192",
+         'discriminator.kind="multiscale"', "discriminator.periods=[2,3]"]
 
 
 def assert_fields_equal(port, ref, path="cfg"):
@@ -31,7 +36,8 @@ def assert_fields_equal(port, ref, path="cfg"):
 @pytest.mark.parametrize("overrides", [
     [], TINY, ["encoder.capacity=8", "decoder.capacity=16", "encoder.dilations=[[1],[1],[1],[1]]"],
     ["encoder.ratios=[4,4,2,2]", "decoder.ratios=[4,4,2,2]", "n_band=8", "mode=\"causal\""],
-], ids=["default", "tiny", "per-side", "ratios"])
+    TINY + TRAIN,
+], ids=["default", "tiny", "per-side", "ratios", "train"])
 @pytest.mark.parametrize("names", [["v2"], ["v2", "causal"]], ids=["v2", "v2-causal"])
 def test_presets_match_jax(names, overrides):
     port, ref = config.compose(names, overrides), jax_config.compose(names, overrides)
@@ -42,6 +48,26 @@ def test_presets_match_jax(names, overrides):
 
 def test_defaults_match_jax():
     assert_fields_equal(config.RaveConfig(), jax_config.RaveConfig())
+
+
+def test_v2_training_fields():
+    """What rave_tpu.config's `_v1` and `_v2` set for training (rave/configs/v2.gin)."""
+    cfg = config.compose(["v2"])
+    assert (cfg.discriminator.kind, cfg.discriminator.capacity) == ("combined", 96)
+    t = cfg.train
+    assert t.valid_signal_crop and t.feature_matching_relative
+    assert (t.num_skipped_features, t.update_discriminator_every) == (1, 4)
+    assert t.weights["feature_matching"] == 20.0
+    assert (t.beta_initial, t.beta_target, t.beta_warmup_len) == (1e-6, 5e-2, 20000)
+    assert (cfg.data.n_signal, cfg.data.batch) == (131072, 8)
+    assert cfg.distance.kind == "v1" and cfg.distance.num_mels is None
+
+
+@pytest.mark.parametrize("flag", ["bf16", "bf16_dis", "remat"])
+def test_unported_train_options_raise(flag):
+    jax_config.compose(["v2"], [f"train.{flag}=true"])  # the JAX package takes it
+    with pytest.raises(NotImplementedError, match="A2"):
+        config.compose(["v2"], [f"train.{flag}=true"])
 
 
 def test_refusals():

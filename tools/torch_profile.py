@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
-"""Where the device time goes in rave_tpu_torch's v2 serving path.
+"""Where the device time goes in rave_tpu_torch's v2 serving path and training step.
 
     python3 tools/torch_profile.py [--out profile.txt] [--top 18]
 
-from the root of a checkout, on a machine with a CUDA card and nvcc. Two
-cells, both `compose` presets at full width with seeded random weights, fp32
-with TF32 off, under `torch.inference_mode()`:
+from the root of a checkout, on a machine with a CUDA card and nvcc. Three
+cells, all `compose` presets at full width with seeded random weights, fp32
+with TF32 off:
 
-  offline : compose(["v2"]), B=16 x 131072 samples, 3 forwards profiled;
+  offline : compose(["v2"]), B=16 x 131072 samples, 3 forwards profiled
+            (under `torch.inference_mode()`, as the next cell);
   stream  : compose(["v2", "causal"]), batch 1, blocks of block_size()
-            through step_encode -> step_decode: 4 warm, 8 timed, 12 profiled.
+            through step_encode -> step_decode: 4 warm, 8 timed, 12 profiled;
+  train   : compose(["v2"]), B=8 x 131072, one step of each phase (pre-warmup
+            generator, adversarial generator, critic): 1 warm, 3 timed and
+            1 profiled each. The fused unit's share of a step is its kernel's
+            device time plus that of its recompute backward, which this tool
+            wraps in a `record_function` range.
 
 Each cell is timed unprofiled first (host clock around work that ends in
 `synchronize`), then traced by `torch.profiler` with CPU and CUDA activity.
@@ -34,7 +40,10 @@ ROOT = Path(__file__).resolve().parents[1]
 def device_summary(prof, calls: int, wall_ms: float, top: int) -> list[str]:
     from torch.autograd import DeviceType
 
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # kernels and copies only: `record_function` ranges (Adam's step, the unit's
+    # backward) also appear as device events, spanning the kernels they launch
+    events = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     if not events:
         raise SystemExit("torch_profile: the profiler saw no device events")
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -56,6 +65,71 @@ def device_summary(prof, calls: int, wall_ms: float, top: int) -> list[str]:
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         ms = us / 1e3 / calls
         lines.append(f"  {ms:8.3f} ms {100 * ms / busy_ms:5.1f}%  x{n / calls:6.1f}  {name[:110]}")
+    return lines
+
+
+def unit_share(prof, calls: int, busy_ms: float) -> str:
+    """Device time of the fused unit per call: its forward kernel and the
+    kernels under the backward's `record_function` range."""
+    from torch.autograd import DeviceType
+
+    fwd = sum(e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+              and "dilated_unit_kernel" in e.name) / 1e3 / calls
+    bwd = sum(e.device_time_total for e in prof.events()
+              if e.device_type == DeviceType.CPU and e.name == BACKWARD_RANGE) / 1e3 / calls
+    return (f"fused unit: forward kernel {fwd:.3f} ms + recompute backward {bwd:.3f} ms = "
+            f"{fwd + bwd:.3f} ms per call, {100 * (fwd + bwd) / busy_ms:.1f}% of device busy")
+
+
+BACKWARD_RANGE = "fused_dilated_unit.backward"
+
+
+def train_cell(activities, top: int) -> list[str]:
+    import torch
+    from torch.profiler import profile, record_function
+
+    from rave_tpu_torch.config import compose
+    from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.train.analysis import crop_frames, receptive_field
+    from rave_tpu_torch.train.state import create_train_state
+    from rave_tpu_torch.train.steps import build_train_steps
+
+    backward = dilated_unit.FusedDilatedUnit.backward
+
+    def traced_backward(ctx, grad_y):
+        with record_function(BACKWARD_RANGE):
+            return backward(ctx, grad_y)
+
+    dilated_unit.FusedDilatedUnit.backward = staticmethod(traced_backward)
+    cfg = compose(["v2"])
+    steps = build_train_steps(cfg, crop_frames(cfg, receptive_field(cfg, device="cuda")))
+    state = create_train_state(cfg, seed=0, device="cuda")
+    x = torch.randn(cfg.data.batch, 1, cfg.data.n_signal, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(6)) * 0.1
+    noise = torch.Generator(device="cuda").manual_seed(7)
+    phases = {
+        "gen pre-warmup": lambda: steps["gen"](state, x, False, generator=noise),
+        "gen adversarial": lambda: steps["gen"](state, x, True, generator=noise),
+        "dis": lambda: steps["dis"](state, x, generator=noise),
+    }
+    lines = []
+    for name, step in phases.items():
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 3 * 1e3
+        with profile(activities=activities) as prof:
+            step()
+            torch.cuda.synchronize()
+        summary = device_summary(prof, 1, wall, top)
+        busy_ms = float(summary[0].split()[2])
+        lines += [f"== train v2 B={cfg.data.batch} x {cfg.data.n_signal}, {name} step"]
+        lines += summary[:1] + [unit_share(prof, 1, busy_ms)] + summary[1:]
+    dilated_unit.FusedDilatedUnit.backward = staticmethod(backward)
     return lines
 
 
@@ -129,6 +203,7 @@ def main() -> None:
                    f"(blocks {', '.join(f'{t:.3f}' for t in times)})"]
         report += device_summary(prof, 12, p50, args.top)
 
+    report += train_cell(activities, args.top)
     text = "\n".join(report)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
