@@ -96,9 +96,9 @@ class TrainConfig:
     adam_b2: float = 0.9
     lr_end_factor: float = 0.1  # LinearLR 1.0 -> 0.1 over phase 1
     ema: Optional[float] = None
-    remat: bool = False  # refused by compose: ROADMAP A2
-    bf16: bool = False  # refused by compose: ROADMAP A2
-    bf16_dis: bool = False  # refused by compose: ROADMAP A2
+    remat: bool = False  # recompute the autoencode pass in the backward
+    bf16: bool = False  # the model computes in bfloat16 (train/steps.py)
+    bf16_dis: bool = False  # the critic computes in bfloat16
     dis_full_metrics: bool = False  # distances on critic steps too (logging only)
 
 
@@ -230,9 +230,6 @@ def compose(names: List[str], overrides: Optional[List[str]] = None) -> RaveConf
         PRESETS[n](cfg)
     for ov in overrides or []:
         apply_override(cfg, ov)
-    for flag in ("bf16", "bf16_dis", "remat"):
-        if getattr(cfg.train, flag):
-            raise NotImplementedError(f"train.{flag} is not ported yet (ROADMAP A2)")
     up = math.prod(cfg.dec_ratios()) * (cfg.n_band if cfg.output_mode == "pqmf" else 1)
     if up != cfg.decimation():
         raise ValueError(f"config is not rate-preserving: encoder decimation "

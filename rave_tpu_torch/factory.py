@@ -5,8 +5,10 @@ encoder and decoder kinds and the variational latent family;
 `build_discriminator` (:178-232) for the `multiscale` and `combined`
 critics; `build_audio_distance` (:235-265) for `v1`; `build_gan_loss`
 (:268-269). Configs come from the port's own `rave_tpu_torch.config.compose`.
-Weights are drawn here from a seeded `torch.Generator` (lecun-normal `v`,
-`g = ||v||` per output channel, zero bias), never from jax.
+Weights are drawn here from a seeded CPU `torch.Generator` (lecun-normal
+`v`, `g = ||v||` per output channel, zero bias), never from jax, and then
+moved to `device`: the card unless the caller asks for the CPU, so the
+same seed gives the same numbers on either.
 """
 from __future__ import annotations
 
@@ -92,6 +94,16 @@ def build_decoder(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1):
     )
 
 
+def resolve_device(device: str | torch.device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a card raises, so
+    nothing is quietly built on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port builds on the card unless the "
+                           "caller passes device='cpu'")
+    return device
+
+
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Redraw every convolution's weights from `generator`, in module order."""
     for m in model.modules():
@@ -100,9 +112,9 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
 
 
 def build_rave(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1,
-               seed: int = 0) -> RAVE:
-    """The v2 RAVE on the CPU, weights drawn from `torch.Generator().manual_seed(seed)`.
-    Move it with `.to()`."""
+               seed: int = 0, device: str | torch.device = "cuda") -> RAVE:
+    """The v2 RAVE on `device`, weights drawn from `torch.Generator().manual_seed(seed)`."""
+    device = resolve_device(device)
     model = RAVE(
         encoder=build_encoder(cfg, n_channels, stream_batch),
         decoder=build_decoder(cfg, n_channels, stream_batch),
@@ -116,12 +128,14 @@ def build_rave(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1,
         stream_batch=stream_batch,
     )
     init_weights(model, torch.Generator().manual_seed(seed))
-    return model
+    return model.to(device)
 
 
-def build_discriminator(cfg: RaveConfig, n_channels: int = 1, seed: int = 0) -> torch.nn.Module:
-    """The critic on the CPU, weights drawn from `torch.Generator().manual_seed(seed)`;
+def build_discriminator(cfg: RaveConfig, n_channels: int = 1, seed: int = 0,
+                        device: str | torch.device = "cuda") -> torch.nn.Module:
+    """The critic on `device`, weights drawn from `torch.Generator().manual_seed(seed)`;
     its period critics folded (models/discriminators.py)."""
+    device = resolve_device(device)
     d = cfg.discriminator
     cap = d.capacity or cfg.capacity
     scales = dict(n_discriminators=d.n_scales, capacity=cap, n_layers=d.n_layers,
@@ -138,7 +152,7 @@ def build_discriminator(cfg: RaveConfig, n_channels: int = 1, seed: int = 0) -> 
         raise NotImplementedError(f"discriminator kind {d.kind!r} is not ported yet "
                                   "(ROADMAP A10 descript, A11 spectral)")
     init_weights(critic, torch.Generator().manual_seed(seed))
-    return critic
+    return critic.to(device)
 
 
 def build_audio_distance(cfg: RaveConfig) -> AudioDistanceV1:

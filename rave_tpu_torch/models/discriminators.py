@@ -42,14 +42,20 @@ class WNConv(_WeightNormConv):
         self.stride, self.padding = stride, padding
         self._make_params((features, in_features, kernel_size), features, weight_norm, True)
 
+    def _params(self, x: torch.Tensor):
+        """Weight and bias in the input's dtype (a bf16 critic under
+        `train.bf16_dis` keeps fp32 masters; rave_tpu/models/discriminators.py:66,73)."""
+        return self.weight().to(x.dtype), self.b.to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[N, I, T] -> [N, O, T']."""
-        return F.conv1d(x, self.weight(), self.b, self.stride, self.padding)
+        w, b = self._params(x)
+        return F.conv1d(x, w, b, self.stride, self.padding)
 
     def forward_2d(self, x: torch.Tensor) -> torch.Tensor:
         """The kernel as (K, 1) over [B, I, H, W] -> [B, O, H', W]."""
-        return F.conv2d(x, self.weight()[..., None], self.b, (self.stride, 1),
-                        (self.padding, 0))
+        w, b = self._params(x)
+        return F.conv2d(x, w[..., None], b, (self.stride, 1), (self.padding, 0))
 
 
 class ConvNet(nn.Module):

@@ -10,9 +10,12 @@ them, weight norm already applied.
 `fused_dilated_unit` picks the implementation by the device of `x`: a CPU
 tensor goes through `fused_dilated_unit_reference` (plain `F.conv1d`); a
 CUDA tensor launches the hand-written kernel of csrc/dilated_unit.cu
-(built by nvcc at first use, see build.py) or raises. `launches` counts the
-kernel's (forward) launches, so a run can show that its main path went
-through it.
+(built by nvcc at first use, see build.py) or raises. The kernel has two
+variants, chosen by dtype: float32 (3xTF32 tensor-core products, fp32
+accuracy) and bfloat16 (`train.bf16`: bf16 tensor-core products with fp32
+accumulation). x, w1 and w2 must share the dtype. `launches` counts the
+kernel's (forward) launches of either variant and `launches_bf16` those of
+the bf16 one, so a run can show that its main path went through them.
 
 The gradient mirrors the JAX package's `custom_vjp` (`_fwd` / `_bwd`):
 when autograd needs it, the forward runs inside `FusedDilatedUnit`, an
@@ -34,7 +37,9 @@ from rave_tpu_torch.ops.kernels import build
 
 NEG_SLOPE = 0.2
 
-launches = 0  # kernel launches since import (or since the caller reset it)
+launches = 0  # kernel launches, both variants, since import (or since the caller reset it)
+launches_bf16 = 0  # of which bf16
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:
@@ -59,16 +64,32 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
     lib.dilated_unit_forward.restype = ctypes.c_int
+    lib.dilated_unit_bf16_tile.argtypes = [ctypes.c_int] * 5
+    lib.dilated_unit_bf16_tile.restype = ctypes.c_int
+    lib.dilated_unit_forward_bf16.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    )
+    lib.dilated_unit_forward_bf16.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
 def kernel_tile(C: int, K: int, dilation: int, device_index: int = 0) -> int:
-    """Frames per block the kernel uses for this shape on this card (0:
+    """Frames per block the fp32 kernel uses for this shape on this card (0:
     refused). It depends only on the shape and the card, so it is asked of
     the library once."""
     with torch.cuda.device(device_index):
         return _lib().dilated_unit_tile(C, K, dilation)
+
+
+@functools.cache
+def kernel_tile_bf16(B: int, C: int, T: int, K: int, dilation: int,
+                     device_index: int = 0) -> int:
+    """Frames per block the bf16 kernel uses (0: refused). Its tile also
+    depends on how many blocks the grid has (B and T), so it is asked of the
+    library once per shape."""
+    with torch.cuda.device(device_index):
+        return _lib().dilated_unit_bf16_tile(B, C, T, K, dilation)
 
 
 def _check(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -82,15 +103,19 @@ def _check(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     if dilation < 1 or pad_left < 0 or pad_right < 0 or pad_left + pad_right != dilation * (K - 1):
         raise ValueError(f"'same' output needs pad_left + pad_right == dilation*(K-1); got "
                          f"d={dilation}, pads=({pad_left}, {pad_right}), K={K}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16; x is {x.dtype}")
     for name, t in (("x", x), ("w1", w1), ("w2", w2)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA kernel takes float32; {name} is {t.dtype}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"x, w1 and w2 must share a dtype; x is {x.dtype}, {name} {t.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if C % 8:
-        raise ValueError(f"the CUDA kernel takes C % 8 == 0 (whole k8 tensor-core steps); C={C}")
+    step = 16 if x.dtype == torch.bfloat16 else 8  # the depth of one tensor-core product
+    if C % step:
+        raise ValueError(f"the {x.dtype} kernel takes C % {step} == 0 (whole k{step} "
+                         f"tensor-core steps); C={C}")
 
 
 def _forward(
@@ -105,32 +130,40 @@ def _forward(
     _check(x, w1, w2, dilation, pad_left, pad_right)
     B, C, T = x.shape
     K = w1.shape[2]
-    tile = kernel_tile(C, K, dilation, x.device.index)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        tile = kernel_tile_bf16(B, C, T, K, dilation, x.device.index)
+    else:
+        tile = kernel_tile(C, K, dilation, x.device.index)
     if tile == 0:
         raise ValueError(f"C={C}, K={K}, d={dilation} needs more shared memory than a "
                          f"block can have")
     lib = _lib()
     with torch.cuda.device(x.device):
-        w1t = w1.permute(2, 1, 0).contiguous()  # [K, C_in, C_out]
-        w2t = w2.t().contiguous()               # [C_in, C_out]
+        if bf16:  # the B operands channel-in fastest: [K, C_out, C_in], [C_out, C_in]
+            launch, w1k, w2k = lib.dilated_unit_forward_bf16, w1.permute(2, 0, 1), w2
+        else:     # [K, C_in, C_out], [C_in, C_out]
+            launch, w1k, w2k = lib.dilated_unit_forward, w1.permute(2, 1, 0), w2.t()
+        w1k, w2k = w1k.contiguous(), w2k.contiguous()
         y = torch.empty_like(x)
-        err = lib.dilated_unit_forward(
-            x.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), y.data_ptr(),
+        err = launch(
+            x.data_ptr(), w1k.data_ptr(), w2k.data_ptr(), y.data_ptr(),
             B, C, T, K, dilation, pad_left, tile,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"dilated_unit kernel launch failed: cudaError {err}")
-    global launches
+    global launches, launches_bf16
     launches += 1
+    launches_bf16 += bf16
     return y
 
 
 class FusedDilatedUnit(torch.autograd.Function):
     """The unit under autograd: `_fwd` / `_bwd` of the JAX package's
     `custom_vjp`. Forward: `_forward` (the kernel on a CUDA tensor), saving
-    only the inputs. Backward: the plain formulation recomputed and
-    differentiated, for the inputs that need a gradient."""
+    only the inputs. Backward: the plain formulation recomputed in the
+    inputs' dtype and differentiated, for the inputs that need a gradient."""
 
     @staticmethod
     def forward(ctx, x, w1, w2, dilation: int, pad_left: int, pad_right: int):

@@ -26,7 +26,12 @@ def hann_window(n: int) -> np.ndarray:
 def stft(x: torch.Tensor, n_fft: int, hop: int, *, center: bool = True,
          normalized: bool = False) -> torch.Tensor:
     """Complex STFT of [B, T] -> [B, frames, n_fft // 2 + 1]. Centering
-    reflect-pads, which needs T > n_fft // 2."""
+    reflect-pads, which needs T > n_fft // 2. Inputs other than float32
+    and float64 (bf16 critic inputs under `train.bf16_dis`) are upcast to
+    float32 first, as rave_tpu/ops/stft.py:100-103 does: the FFT takes
+    neither bf16 nor fp16."""
+    if x.dtype not in (torch.float32, torch.float64):
+        x = x.float()
     if center:
         x = F.pad(x[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
     win = torch.from_numpy(hann_window(n_fft)).to(device=x.device, dtype=x.dtype)

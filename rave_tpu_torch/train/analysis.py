@@ -19,12 +19,12 @@ from rave_tpu_torch.config import RaveConfig
 from rave_tpu_torch.factory import build_rave
 
 
-def receptive_field(cfg: RaveConfig, n_channels: int = 1, device: str | torch.device = "cpu",
+def receptive_field(cfg: RaveConfig, n_channels: int = 1, device: str | torch.device = "cuda",
                     seed: int = 0) -> Tuple[int, int]:
     """(left, right) receptive field of encode + decode, in samples, from a
     freshly seeded model; the probe length doubles from 2**15 until the
     gradient's footprint fits."""
-    model = build_rave(cfg, n_channels=n_channels, seed=seed).to(device)
+    model = build_rave(cfg, n_channels=n_channels, seed=seed, device=device)
     model.requires_grad_(False)  # the input's gradient is all the probe reads
     N = 2 ** 15
     while True:

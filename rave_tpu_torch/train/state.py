@@ -47,11 +47,11 @@ def update_ema(ema: Dict[str, torch.Tensor], model: nn.Module, decay: float) -> 
 
 
 def create_train_state(cfg: RaveConfig, n_channels: int = 1, seed: int = 0,
-                       device: str | torch.device = "cpu") -> TrainState:
+                       device: str | torch.device = "cuda") -> TrainState:
     """Seeded model (`seed`) and critic (`seed + 1`) on `device`, fresh
     optimizers, step 0, and an EMA copy when `train.ema` is set."""
-    model = build_rave(cfg, n_channels=n_channels, seed=seed).to(device)
-    critic = build_discriminator(cfg, n_channels=n_channels, seed=seed + 1).to(device)
+    model = build_rave(cfg, n_channels=n_channels, seed=seed, device=device)
+    critic = build_discriminator(cfg, n_channels=n_channels, seed=seed + 1, device=device)
     gen_opt, dis_opt = make_optimizers(cfg, model, critic)
     ema = None
     if cfg.train.ema is not None:

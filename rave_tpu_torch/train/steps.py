@@ -11,7 +11,19 @@ PyTorch port of rave_tpu/train/steps.py (reference rave/model.py:288-424):
 Layouts are the port's: waveforms [B, C, T], band frames [B, C*M, T/M].
 What the JAX package draws from its "noise" rng, the reparametrization
 noise, comes from `eps` (a tensor shaped like the latent mean) or else from
-`generator`, so a test can hand both packages the same numbers.
+`generator`, so a test can hand both packages the same numbers. It is drawn
+before the autoencode pass, so that `train.remat`'s recompute sees the same
+noise: `torch.utils.checkpoint` restores the global generators, not an
+explicit one.
+
+The precision options are the JAX package's casts, written out (not
+`torch.autocast`, whose op lists would compute something else):
+`train.bf16` runs the model in bfloat16 with fp32 latents, outputs and loss
+targets (`autoencode`); `train.bf16_dis` runs the critic on a bfloat16
+input and upcasts its features at the loss. The weights stay fp32 masters,
+cast per op by the modules, so their gradients and the Adams are fp32.
+`train.remat` recomputes the generator step's autoencode pass in the
+backward, as `jax.checkpoint` does (rave_tpu/train/steps.py:212-213).
 
 Kept exactly as in the JAX package: the feature-matching weight is applied
 twice (once into the term, once in the weighted sum: the reference does);
@@ -26,6 +38,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from rave_tpu_torch.config import RaveConfig
 from rave_tpu_torch.factory import build_audio_distance, build_gan_loss
@@ -36,16 +49,31 @@ from rave_tpu_torch.train.schedules import (
 from rave_tpu_torch.train.state import TrainState, update_ema
 
 
-def autoencode(model, x: torch.Tensor, warmed: bool, eps: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-    """The full pass of a step (rave_tpu/train/steps.py:36-87, pqmf in and out)."""
-    x_bands = model.transform_input(x)
-    z = model.encoder(x_bands, warmed_up=warmed)
-    zs, reg = model.reparametrize(z, generator=generator, eps=eps)
-    y_mb = model.decode_multiband(zs)
+def autoencode(model, x: torch.Tensor, eps: torch.Tensor, warmed: bool,
+               bf16: bool = False) -> Dict[str, torch.Tensor]:
+    """The full pass of a step (rave_tpu/train/steps.py:36-87, pqmf in and
+    out). With `bf16`, the casts of the JAX package's `_autoencode` (:48-77):
+    the encoder and decoder in bfloat16, the latent and the reparametrization
+    in fp32, the decoder's output back to fp32 before synthesis, and the
+    multiband loss target analysed from the fp32 waveform."""
+    x_enc = model.transform_input(x.to(torch.bfloat16) if bf16 else x)
+    z = model.encoder(x_enc, warmed_up=warmed)
+    zs, reg = model.reparametrize(z.float() if bf16 else z, eps=eps)
+    y_mb = model.decode_multiband(zs.to(torch.bfloat16) if bf16 else zs)
+    if bf16:
+        y_mb = y_mb.float()
     y_raw = model.synthesize(y_mb)[..., : x.shape[-1]]
+    x_bands = model.multiband(x) if bf16 else x_enc
     return {"x_bands": x_bands, "y_bands": y_mb[..., : x_bands.shape[-1]], "y_raw": y_raw,
             "reg": reg}
+
+
+def draw_noise(cfg: RaveConfig, x: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Standard normal noise shaped like the latent mean of waveform `x`
+    [B, C, T]: [B, latent_size, T / decimation], in x's dtype."""
+    shape = (x.shape[0], cfg.latent_size, x.shape[-1] // cfg.decimation())
+    return torch.randn(shape, generator=generator, device=x.device, dtype=x.dtype)
 
 
 def crop(arr: torch.Tensor, frames: Tuple[int, int]) -> torch.Tensor:
@@ -88,7 +116,12 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
 
         loss_dis = x.new_zeros(())
         if warmed:
-            real, fake = split_features(critic(torch.cat([x, out["y_raw"]], dim=0)))
+            xy = torch.cat([x, out["y_raw"]], dim=0)
+            if t.bf16_dis:  # the critic in bf16, its features back to fp32 at the loss
+                features = [[f.float() for f in scale] for scale in critic(xy.to(torch.bfloat16))]
+            else:
+                features = critic(xy)
+            real, fake = split_features(features)
             fm_total = adv_total = dis_total = pred_real = pred_fake = 0.0
             for sr, sf in zip(real, fake):
                 pairs = list(zip(sr[t.num_skipped_features:], sf[t.num_skipped_features:]))
@@ -124,7 +157,13 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
                  generator: Optional[torch.Generator] = None) -> dict:
         params = list(state.model.parameters())
         state.gen_opt.zero_grad(set_to_none=True)
-        out = autoencode(state.model, x, warmed, eps, generator)
+        if eps is None:
+            eps = draw_noise(cfg, x, generator)
+        if t.remat:
+            out = checkpoint(autoencode, state.model, x, eps, warmed, t.bf16,
+                             use_reentrant=False)
+        else:
+            out = autoencode(state.model, x, eps, warmed, t.bf16)
         total, _, metrics = losses_and_metrics(out, state.discriminator, x, warmed, state.step)
         total.backward(inputs=params)  # the generator's gradients only, not the critic's
         for p in params:
@@ -142,8 +181,10 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
 
     def dis_step(state: TrainState, x: torch.Tensor, eps: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None) -> dict:
+        if eps is None:
+            eps = draw_noise(cfg, x, generator)
         with torch.no_grad():
-            out = autoencode(state.model, x, True, eps, generator)
+            out = autoencode(state.model, x, eps, True, t.bf16)
         state.dis_opt.zero_grad(set_to_none=True)
         _, loss_dis, metrics = losses_and_metrics(out, state.discriminator, x, True, state.step,
                                                   gen_metrics=t.dis_full_metrics)

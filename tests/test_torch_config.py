@@ -65,9 +65,11 @@ def test_v2_training_fields():
 
 @pytest.mark.parametrize("flag", ["bf16", "bf16_dis", "remat"])
 def test_unported_train_options_raise(flag):
-    jax_config.compose(["v2"], [f"train.{flag}=true"])  # the JAX package takes it
-    with pytest.raises(NotImplementedError, match="A2"):
-        config.compose(["v2"], [f"train.{flag}=true"])
+    """The step's precision and memory options, once refused, now compose
+    as the JAX package's do (the name is kept from when they raised)."""
+    port = config.compose(["v2"], [f"train.{flag}=true"])
+    assert getattr(port.train, flag) is True
+    assert_fields_equal(port, jax_config.compose(["v2"], [f"train.{flag}=true"]))
 
 
 def test_refusals():

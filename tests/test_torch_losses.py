@@ -107,7 +107,7 @@ def test_unported_losses_raise():
     with pytest.raises(NotImplementedError, match="A11"):
         build_audio_distance(compose(["v2"], ["distance.num_mels=64"]))
     with pytest.raises(NotImplementedError, match="A10"):
-        build_discriminator(compose(["v2"], ['discriminator.kind="descript"']))
+        build_discriminator(compose(["v2"], ['discriminator.kind="descript"']), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +177,7 @@ def test_combined_critic_matches_jax():
     x = signal((4, 4096, 1), seed=9)
     jax_d = jax_build_discriminator(cfg_j)
     variables = jax_params(jax_d, x)
-    port = build_discriminator(cfg_p)
+    port = build_discriminator(cfg_p, device="cpu")
     from_jax_variables(port, variables)
     got = port(t(x.transpose(0, 2, 1)))
     assert len(got) == 5 + 3
@@ -194,8 +194,8 @@ def test_critic_convert_is_strict():
     params = jax.tree_util.tree_map(np.asarray, variables["params"])
     missing = {"discriminators_0": params["discriminators_0"]}
     with pytest.raises(KeyError, match="not set"):
-        from_jax_variables(build_discriminator(cfg), {"params": missing})
+        from_jax_variables(build_discriminator(cfg, device="cpu"), {"params": missing})
     wide = jax.tree_util.tree_map(np.asarray, params)
     wide["discriminators_0"]["period_2_0"]["WNConv_0"]["v"] = np.zeros((5, 2, 1, 2), np.float32)
     with pytest.raises(ValueError, match=r"\(K, 1\)"):
-        from_jax_variables(build_discriminator(cfg), {"params": wide})
+        from_jax_variables(build_discriminator(cfg, device="cpu"), {"params": wide})

@@ -59,7 +59,8 @@ class Pair:
             {"params": jax.random.key(0), "noise": jax.random.key(1)}, x0)
         self.cache = variables["cache"]
         self.variables = {k: variables[k] for k in ("params", "buffers")}
-        self.model = build_rave(cfg, n_channels=n_channels, stream_batch=1, seed=3)
+        self.model = build_rave(cfg, n_channels=n_channels, stream_batch=1, seed=3,
+                                device="cpu")
         from_jax_variables(self.model, self.variables)
         self.model.eval()
 
@@ -179,4 +180,4 @@ def test_streaming_matches(pair):
 def test_unported_options_raise(override, item):
     cfg = compose(["v2"], TINY + [override])
     with pytest.raises(NotImplementedError, match=item):
-        build_rave(cfg)
+        build_rave(cfg, device="cpu")

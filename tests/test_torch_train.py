@@ -125,7 +125,7 @@ def jax_run():
 
 def port_state(jax_run, step):
     cfg = compose(["v2"], TINY)
-    st = create_train_state(cfg, seed=0)
+    st = create_train_state(cfg, seed=0, device="cpu")
     from_jax_variables(st.model, {"params": jax_run["gen_params"], "buffers": jax_run["buffers"]})
     from_jax_variables(st.discriminator, {"params": jax_run["dis_params"]})
     st.ema = {n: p.detach().clone() for n, p in st.model.named_parameters()}
@@ -225,7 +225,7 @@ def test_optimizers_and_ema_match_optax():
     from the global step, the critic's at dis_lr, and the EMA."""
     cfg = compose(["v2"], TINY)
     t = cfg.train
-    st = create_train_state(cfg, seed=0)
+    st = create_train_state(cfg, seed=0, device="cpu")
     gen_tx, dis_tx = jax_state.make_optimizers(jax_compose(["v2"], TINY))
     gen_lr = schedules.gen_lr_schedule(t.gen_lr, t.lr_end_factor, t.phase_1_duration)
     modules = {"gen": st.model, "dis": st.discriminator}
@@ -266,7 +266,7 @@ def test_optimizers_and_ema_match_optax():
 def test_receptive_field_matches_jax(names):
     overrides = ["capacity=2", "latent_size=4", "ratios=[4,4,2]", "dilations=[[1,3],[1],[1]]"]
     cfg = compose(names, overrides)
-    rf = receptive_field(cfg)
+    rf = receptive_field(cfg, device="cpu")
     assert rf == jax_analysis.receptive_field(jax_compose(names, overrides))
     assert crop_frames(cfg, rf) == (rf[0] // 16, rf[1] // 16)
     if "causal" in names:  # the causal output lags: nothing right of the probed sample

@@ -3,9 +3,9 @@
 
     python3 tools/torch_profile.py [--out profile.txt] [--top 18]
 
-from the root of a checkout, on a machine with a CUDA card and nvcc. Three
+from the root of a checkout, on a machine with a CUDA card and nvcc. Four
 cells, all `compose` presets at full width with seeded random weights, fp32
-with TF32 off:
+with TF32 off where they run fp32:
 
   offline : compose(["v2"]), B=16 x 131072 samples, 3 forwards profiled
             (under `torch.inference_mode()`, as the next cell);
@@ -15,7 +15,11 @@ with TF32 off:
             generator, adversarial generator, critic): 1 warm, 3 timed and
             1 profiled each. The fused unit's share of a step is its kernel's
             device time plus that of its recompute backward, which this tool
-            wraps in a `record_function` range.
+            wraps in a `record_function` range; the convolutions' share is
+            that of every cuDNN kernel (the convolutions of critic and
+            generator and their layout transforms);
+  train_bf16 : the same with train.bf16 and train.bf16_dis (the CLI's
+            `--bf16`), the fused unit's bf16 kernel.
 
 Each cell is timed unprofiled first (host clock around work that ends in
 `synchronize`), then traced by `torch.profiler` with CPU and CUDA activity.
@@ -27,6 +31,7 @@ and the kernels that take the most device time, by name.
 from __future__ import annotations
 
 import argparse
+import re
 import statistics
 import subprocess
 import sys
@@ -68,24 +73,40 @@ def device_summary(prof, calls: int, wall_ms: float, top: int) -> list[str]:
     return lines
 
 
-def unit_share(prof, calls: int, busy_ms: float) -> str:
-    """Device time of the fused unit per call: its forward kernel and the
-    kernels under the backward's `record_function` range."""
+UNIT_KERNEL = re.compile(r"dilated_unit(_bf16)?_kernel")
+# cuDNN's kernels by name: convolutions (forward, data and weight gradients)
+# and the layout transforms around them
+CONV_KERNEL = re.compile(r"xmma|fprop|dgrad|wgrad|implicit_gemm|cudnn|convolve|conv[12]d", re.I)
+
+
+def kernel_ms(prof, calls: int, pattern) -> float:
     from torch.autograd import DeviceType
 
-    fwd = sum(e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-              and "dilated_unit_kernel" in e.name) / 1e3 / calls
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+               and pattern.search(e.name)) / 1e3 / calls
+
+
+def unit_share(prof, calls: int, busy_ms: float) -> str:
+    """Device time of the fused unit per call (its forward kernel, either
+    variant, and the kernels under the backward's `record_function` range),
+    and that of cuDNN's kernels (convolutions and their layout transforms)."""
+    from torch.autograd import DeviceType
+
+    fwd = kernel_ms(prof, calls, UNIT_KERNEL)
     bwd = sum(e.device_time_total for e in prof.events()
               if e.device_type == DeviceType.CPU and e.name == BACKWARD_RANGE) / 1e3 / calls
+    conv = kernel_ms(prof, calls, CONV_KERNEL)
     return (f"fused unit: forward kernel {fwd:.3f} ms + recompute backward {bwd:.3f} ms = "
-            f"{fwd + bwd:.3f} ms per call, {100 * (fwd + bwd) / busy_ms:.1f}% of device busy")
+            f"{fwd + bwd:.3f} ms per call, {100 * (fwd + bwd) / busy_ms:.1f}% of device busy; "
+            f"cuDNN convolutions and layout transforms (the recompute's included) {conv:.3f} ms, "
+            f"{100 * conv / busy_ms:.1f}%")
 
 
 BACKWARD_RANGE = "fused_dilated_unit.backward"
 
 
-def train_cell(activities, top: int) -> list[str]:
+def train_cell(activities, top: int, overrides=()) -> list[str]:
     import torch
     from torch.profiler import profile, record_function
 
@@ -102,7 +123,7 @@ def train_cell(activities, top: int) -> list[str]:
             return backward(ctx, grad_y)
 
     dilated_unit.FusedDilatedUnit.backward = staticmethod(traced_backward)
-    cfg = compose(["v2"])
+    cfg = compose(["v2"], list(overrides))
     steps = build_train_steps(cfg, crop_frames(cfg, receptive_field(cfg, device="cuda")))
     state = create_train_state(cfg, seed=0, device="cuda")
     x = torch.randn(cfg.data.batch, 1, cfg.data.n_signal, device="cuda",
@@ -127,7 +148,8 @@ def train_cell(activities, top: int) -> list[str]:
             torch.cuda.synchronize()
         summary = device_summary(prof, 1, wall, top)
         busy_ms = float(summary[0].split()[2])
-        lines += [f"== train v2 B={cfg.data.batch} x {cfg.data.n_signal}, {name} step"]
+        lines += [f"== train v2 {' '.join(overrides)} B={cfg.data.batch} x "
+                  f"{cfg.data.n_signal}, {name} step"]
         lines += summary[:1] + [unit_share(prof, 1, busy_ms)] + summary[1:]
     dilated_unit.FusedDilatedUnit.backward = staticmethod(backward)
     return lines
@@ -157,7 +179,7 @@ def main() -> None:
 
     with torch.inference_mode():
         cfg = compose(["v2"])
-        model = build_rave(cfg, seed=0).eval().cuda()
+        model = build_rave(cfg, seed=0, device="cuda").eval()
         gen = torch.Generator(device="cuda").manual_seed(1)
         x = torch.randn(16, 1, 131072, device="cuda", generator=gen) * 0.1
         for _ in range(2):
@@ -175,7 +197,7 @@ def main() -> None:
         report += ["== offline v2 B=16 x 131072"] + device_summary(prof, 3, wall, args.top)
 
         cfg = compose(["v2", "causal"])
-        model = build_rave(cfg, stream_batch=1, seed=4).eval().cuda()
+        model = build_rave(cfg, stream_batch=1, seed=4, device="cuda").eval()
         block = cfg.block_size()
         x = torch.randn(1, 1, block * 24, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(5)) * 0.1
@@ -204,6 +226,7 @@ def main() -> None:
         report += device_summary(prof, 12, p50, args.top)
 
     report += train_cell(activities, args.top)
+    report += train_cell(activities, args.top, ["train.bf16=true", "train.bf16_dis=true"])
     text = "\n".join(report)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
