@@ -10,13 +10,17 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
   2. build   : csrc/dilated_unit.cu compiled by nvcc for sm_90a;
   3. kernel  : the fused dilated unit against its plain PyTorch version at
                every (C, T, d, pad) of the v2 forward at B=16 x 131072
-               samples, fp32 with TF32 off; max relative error <= 1e-4;
-               both times by CUDA events;
+               samples, fp32 with TF32 off, and at each C a ragged length
+               (T - 21: no whole 128-frame tile, padded for TMA's 16-byte
+               rows) and B=1 (a grid that fills few SMs); max relative error
+               <= 1e-4; both times by CUDA events;
   4. kernel_bf16 : the bf16 variant at the 22 unit shapes of a B=8 step
-               (centered and causal) and the 11 centered ones at B=16; the
-               referee is the plain version in fp32 on the same bf16 inputs
-               and weights: the kernel may be no further from it than 1.1x
-               the plain bf16 version, and within 1e-2 of the plain bf16;
+               (centered and causal), the 11 centered ones at B=16, and the
+               ragged and B=1 shapes of phase 3; the referee is the plain
+               version in fp32 on the same bf16 inputs and weights: the
+               kernel may be no further from it than 1.1x the plain bf16
+               version, and within 1e-2 of the plain bf16;
+               (kernel and plain times are device times: `cuda_ms`);
   5. offline : compose(["v2"]) at full width with seeded random weights:
                (a) B=16 x 131072 samples, finite, the right shape, exactly
                22 kernel launches per forward, and the realtime factor;
@@ -26,7 +30,8 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                encode/decode of the same signal (delay 0) <= 1e-3, and the
                p50 time per block;
   7. grad    : the wrapper raises on float64, on mixed fp32/bf16, on C % 8
-               in fp32 and C % 16 in bf16, with autograd recording or not;
+               in fp32 and C % 16 in bf16, and on a halo wider than a TMA
+               box, with autograd recording or not;
                the fused unit under autograd (kernel forward, plain
                recompute backward) against plain autograd through the plain
                version at the 11 centered v2 shapes at B=8: in fp32 y, dx,
@@ -95,6 +100,7 @@ TRAIN_BATCH = 8  # data.batch of the v2 preset: the unit shapes above at half th
 # the tensor cores is 3xTF32, a third of TF32's 495 TFLOP/s
 PEAK_FLOPS = {"fp32": 495e12 / 3, "bf16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
+SLEEP_CYCLES_PER_CALL = 1_000_000  # ~0.6 ms of the card's clock per timed call (cuda_ms)
 
 
 def rel_err(a, b, floor: float = 1e-12) -> float:
@@ -117,12 +123,16 @@ def refuses(call, error) -> bool:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call, by CUDA events, after two warm calls."""
+    """Mean device milliseconds per call, by CUDA events, after two warm
+    calls. The card first sleeps while the host queues all the calls, so a
+    call whose host work outlasts its device work is timed by the latter:
+    this is the device's time per call, not the host's."""
     import torch
 
     for _ in range(2):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -179,7 +189,7 @@ def phase_build() -> dict:
 
     t0 = time.perf_counter()
     lib = build.build("dilated_unit")
-    dilated_unit.kernel_tile(96, 3, 1)  # loads the library and binds it
+    dilated_unit.smem_limit()  # loads the library and binds it
     seconds = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
              if "registers" in ln or "spill" in ln]
@@ -190,44 +200,59 @@ def phase_build() -> dict:
     return info
 
 
+def kernel_cases(batch: int, modes) -> list:
+    """(case, B, C, T, d, mode) of the kernel phases: every v2 unit shape at
+    `batch` in each mode; then, at each C and its widest dilation, centered,
+    a ragged length (T - 21) at `batch` and the main length at B=1."""
+    cases = [("main", batch, C, T, d, mode) for C, T, dils in UNIT_SHAPES for d in dils
+             for mode in modes]
+    for C, T, dils in UNIT_SHAPES:
+        cases += [("ragged", batch, C, T - 21, dils[-1], "centered"),
+                  ("b1", 1, C, T, dils[-1], "centered")]
+    return cases
+
+
 def phase_kernel() -> list:
     import torch
 
     from rave_tpu_torch.nn.conv import get_padding
     from rave_tpu_torch.ops.kernels.dilated_unit import (
-        fused_dilated_unit, fused_dilated_unit_reference, kernel_tile,
+        fused_dilated_unit, fused_dilated_unit_reference, kernel_plan,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for C, T, dilations in UNIT_SHAPES:
-        x = torch.randn(BATCH, C, T, device="cuda", generator=gen)
+    for case, B, C, T, d, mode in kernel_cases(BATCH, ("centered", "causal")):
+        x = torch.randn(B, C, T, device="cuda", generator=gen)
         w1, w2 = unit_weights(C, gen, torch.float32)
-        for d in dilations:
-            for mode in ("centered", "causal"):
-                left, right = get_padding(3, 1, d, mode)
-                args = (x, w1, w2, d, left, right)
-                with torch.inference_mode():
-                    y_k = fused_dilated_unit(*args)
-                    y_p = fused_dilated_unit_reference(*args)
-                    torch.cuda.synchronize()
-                    err, abs_err = rel_err(y_k, y_p), float((y_k - y_p).abs().max())
-                    check(bool(torch.isfinite(y_k).all()), f"kernel output not finite at {C, T, d, mode}")
-                    check(err <= KERNEL_TOL, f"kernel vs plain at C={C} T={T} d={d} {mode}: "
-                                             f"rel err {err:.3e} > {KERNEL_TOL}")
-                    ms = cuda_ms(lambda: fused_dilated_unit(*args), 20)
-                    plain_ms = cuda_ms(lambda: fused_dilated_unit_reference(*args), 20)
-                flop = 2 * 4 * C * C * T * BATCH
-                rows.append({"C": C, "T": T, "d": d, "mode": mode, "tile": kernel_tile(C, 3, d),
-                             "rel_err": err, "max_abs_err": abs_err, "ms": ms,
-                             "plain_ms": plain_ms, "tflops": flop / ms / 1e9,
-                             "plain_tflops": flop / plain_ms / 1e9})
+        left, right = get_padding(3, 1, d, mode)
+        args = (x, w1, w2, d, left, right)
+        with torch.inference_mode():
+            y_k = fused_dilated_unit(*args)
+            y_p = fused_dilated_unit_reference(*args)
+            torch.cuda.synchronize()
+            err, abs_err = rel_err(y_k, y_p), float((y_k - y_p).abs().max())
+            check(bool(torch.isfinite(y_k).all()) and y_k.shape == x.shape,
+                  f"kernel output not finite or of shape {tuple(y_k.shape)} at {B, C, T, d, mode}")
+            check(err <= KERNEL_TOL, f"kernel vs plain at B={B} C={C} T={T} d={d} {mode}: "
+                                     f"rel err {err:.3e} > {KERNEL_TOL}")
+            ms = cuda_ms(lambda: fused_dilated_unit(*args), 20)
+            plain_ms = cuda_ms(lambda: fused_dilated_unit_reference(*args), 20)
+        flop = 2 * 4 * C * C * T * B
+        rows.append({"case": case, "B": B, "C": C, "T": T, "d": d, "mode": mode,
+                     "plan": kernel_plan(B, C, T, 3, d, left, False)._asdict(),
+                     "rel_err": err, "max_abs_err": abs_err, "ms": ms,
+                     "plain_ms": plain_ms, "tflops": flop / ms / 1e9,
+                     "plain_tflops": flop / plain_ms / 1e9})
     worst = max(r["rel_err"] for r in rows)
-    summary = "; ".join(f"{r['C']}x{r['T']} d{r['d']} {r['mode'][:4]} {r['ms']:.3f}/{r['plain_ms']:.3f}"
-                        for r in rows)
-    print(f"kernel: {len(rows)} shapes, B={BATCH}, max rel err {worst:.2e} <= {KERNEL_TOL}; "
-          f"kernel/plain ms: {summary}", flush=True)
+    print(f"kernel: {len(rows)} shapes, max rel err {worst:.2e} <= {KERNEL_TOL}; "
+          f"kernel/plain ms: {shape_summary(rows)}", flush=True)
     return rows
+
+
+def shape_summary(rows) -> str:
+    return "; ".join(f"{'' if r['case'] == 'main' else r['case'] + ' '}B{r['B']} {r['C']}x{r['T']} "
+                     f"d{r['d']} {r['mode'][:4]} {r['ms']:.3f}/{r['plain_ms']:.3f}" for r in rows)
 
 
 def phase_kernel_bf16() -> list:
@@ -235,45 +260,42 @@ def phase_kernel_bf16() -> list:
 
     from rave_tpu_torch.nn.conv import get_padding
     from rave_tpu_torch.ops.kernels.dilated_unit import (
-        fused_dilated_unit, fused_dilated_unit_reference, kernel_tile_bf16,
+        fused_dilated_unit, fused_dilated_unit_reference, kernel_plan,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(20)
     rows = []
-    for batch, modes in ((TRAIN_BATCH, ("centered", "causal")), (BATCH, ("centered",))):
-        for C, T, dilations in UNIT_SHAPES:
-            x = torch.randn(batch, C, T, device="cuda", generator=gen).bfloat16()
-            w1, w2 = unit_weights(C, gen, torch.bfloat16)
-            for d in dilations:
-                for mode in modes:
-                    left, right = get_padding(3, 1, d, mode)
-                    args = (x, w1, w2, d, left, right)
-                    with torch.inference_mode():
-                        y_k = fused_dilated_unit(*args)
-                        y_p = fused_dilated_unit_reference(*args)
-                        y_32 = fused_dilated_unit_reference(x.float(), w1.float(), w2.float(),
-                                                            d, left, right)
-                        torch.cuda.synchronize()
-                        check(y_k.dtype == torch.bfloat16 and bool(torch.isfinite(y_k).all()),
-                              f"bf16 kernel output {y_k.dtype} or not finite at {C, T, d, mode}")
-                        err_k, err_p = rel_err(y_k, y_32), rel_err(y_p, y_32)
-                        err_kp = rel_err(y_k, y_p)
-                        check(err_k <= BF16_MARGIN * err_p and err_kp <= BF16_TOL,
-                              f"bf16 kernel at B={batch} C={C} T={T} d={d} {mode}: {err_k:.3e} "
-                              f"from the fp32 referee (plain bf16 {err_p:.3e}), {err_kp:.3e} "
-                              f"from plain bf16")
-                        ms = cuda_ms(lambda: fused_dilated_unit(*args), 20)
-                        plain_ms = cuda_ms(lambda: fused_dilated_unit_reference(*args), 20)
-                    rows.append({"B": batch, "C": C, "T": T, "d": d, "mode": mode,
-                                 "tile": kernel_tile_bf16(batch, C, T, 3, d),
-                                 "rel_err_fp32": err_k, "plain_rel_err_fp32": err_p,
-                                 "rel_err_plain": err_kp,
-                                 "max_abs_err": float((y_k.float() - y_p.float()).abs().max()),
-                                 "ms": ms, "plain_ms": plain_ms})
+    cases = (kernel_cases(TRAIN_BATCH, ("centered", "causal"))
+             + [c for c in kernel_cases(BATCH, ("centered",)) if c[0] == "main"])
+    for case, B, C, T, d, mode in cases:
+        x = torch.randn(B, C, T, device="cuda", generator=gen).bfloat16()
+        w1, w2 = unit_weights(C, gen, torch.bfloat16)
+        left, right = get_padding(3, 1, d, mode)
+        args = (x, w1, w2, d, left, right)
+        with torch.inference_mode():
+            y_k = fused_dilated_unit(*args)
+            y_p = fused_dilated_unit_reference(*args)
+            y_32 = fused_dilated_unit_reference(x.float(), w1.float(), w2.float(), d, left, right)
+            torch.cuda.synchronize()
+            check(y_k.dtype == torch.bfloat16 and bool(torch.isfinite(y_k).all())
+                  and y_k.shape == x.shape,
+                  f"bf16 kernel output {y_k.dtype}, {tuple(y_k.shape)} or not finite at "
+                  f"{B, C, T, d, mode}")
+            err_k, err_p = rel_err(y_k, y_32), rel_err(y_p, y_32)
+            err_kp = rel_err(y_k, y_p)
+            check(err_k <= BF16_MARGIN * err_p and err_kp <= BF16_TOL,
+                  f"bf16 kernel at B={B} C={C} T={T} d={d} {mode}: {err_k:.3e} from the fp32 "
+                  f"referee (plain bf16 {err_p:.3e}), {err_kp:.3e} from plain bf16")
+            ms = cuda_ms(lambda: fused_dilated_unit(*args), 20)
+            plain_ms = cuda_ms(lambda: fused_dilated_unit_reference(*args), 20)
+        rows.append({"case": case, "B": B, "C": C, "T": T, "d": d, "mode": mode,
+                     "plan": kernel_plan(B, C, T, 3, d, left, True)._asdict(),
+                     "rel_err_fp32": err_k, "plain_rel_err_fp32": err_p, "rel_err_plain": err_kp,
+                     "max_abs_err": float((y_k.float() - y_p.float()).abs().max()),
+                     "ms": ms, "plain_ms": plain_ms})
     worst = max(r["rel_err_plain"] for r in rows)
     ratio = max(r["rel_err_fp32"] / r["plain_rel_err_fp32"] for r in rows)
-    summary = "; ".join(f"B{r['B']} {r['C']}x{r['T']} d{r['d']} {r['mode'][:4]} "
-                        f"{r['ms']:.3f}/{r['plain_ms']:.3f}" for r in rows)
+    summary = shape_summary(rows)
     print(f"kernel_bf16: {len(rows)} shapes; from the fp32 referee at most {ratio:.2f}x the plain "
           f"bf16's error (<= {BF16_MARGIN}); from plain bf16 <= {worst:.2e} (<= {BF16_TOL}); "
           f"kernel/plain bf16 ms: {summary}", flush=True)
@@ -384,16 +406,17 @@ def phase_grad() -> dict:
     # what the kernel does not take must raise on the card, with autograd
     # recording or not: no call quietly runs the plain version
     f32, f64, b16 = torch.float32, torch.float64, torch.bfloat16
-    refusals = [(8, f64, f64, TypeError), (16, b16, f32, TypeError), (12, f32, f32, ValueError),
-                (24, b16, b16, ValueError)]  # (C, dtype of x, of the weights, error)
-    for C, x_dtype, w_dtype, error in refusals:
+    refusals = [(8, f64, f64, 1, TypeError), (16, b16, f32, 1, TypeError),
+                (12, f32, f32, 1, ValueError), (24, b16, b16, 1, ValueError),
+                (8, f32, f32, 60, ValueError)]  # (C, dtype of x, of the weights, dilation, error)
+    for C, x_dtype, w_dtype, d, error in refusals:
         w1 = torch.zeros(C, C, 3, device="cuda", dtype=w_dtype)
         w2 = torch.zeros(C, C, device="cuda", dtype=w_dtype)
         for grad in (False, True):
             x = torch.zeros(1, C, 16, device="cuda", dtype=x_dtype, requires_grad=grad)
-            check(refuses(lambda: fused_dilated_unit(x, w1, w2, 1, 1, 1), error),
-                  f"the wrapper took C={C} x {x_dtype}, w {w_dtype} (grad {grad}) instead of "
-                  f"raising {error}")
+            check(refuses(lambda: fused_dilated_unit(x, w1, w2, d, d, d), error),
+                  f"the wrapper took C={C} x {x_dtype}, w {w_dtype}, d={d} (grad {grad}) "
+                  f"instead of raising {error}")
 
     gen = torch.Generator(device="cuda").manual_seed(10)
     rows = {"fp32": [], "bf16": []}
@@ -739,8 +762,9 @@ def main() -> None:
     check(not foreign, f"the port loaded the JAX package or jax: {foreign[:5]}")
 
     # one main-path call's 22 units: each centered shape in encoder and decoder
-    main_rows = [r for r in rows if r["mode"] == "centered"] * 2
-    main_bf16 = [r for r in rows_bf16 if r["mode"] == "centered" and r["B"] == TRAIN_BATCH] * 2
+    main_rows = [r for r in rows if r["case"] == "main" and r["mode"] == "centered"] * 2
+    main_bf16 = [r for r in rows_bf16 if r["case"] == "main" and r["mode"] == "centered"
+                 and r["B"] == TRAIN_BATCH] * 2
     bound32, bound16 = unit_bound(main_rows, BATCH, "fp32"), unit_bound(main_bf16, TRAIN_BATCH, "bf16")
     bounds = {"fp32_b16_forward": bound32, "bf16_b8_forward": bound16,
               **{f"{k}_b8_fwd_bwd": unit_bound(grad[k] * 2, TRAIN_BATCH, k, backward=True)

@@ -2,80 +2,138 @@
 //
 //   y = leaky(leaky(x) (*)_d w1) . w2 + x        (LeakyReLU slope 0.2)
 //
-// fp32: x, y [B, C, T] (channels-first, contiguous); w1t [K, C_in, C_out];
-// w2t [C_in, C_out]; the convolution is zero-padded by `pad_left` frames on
-// the left and (K-1)*d - pad_left on the right, so T_out == T. C % 8 == 0.
-// The bf16 variant (`dilated_unit_forward_bf16`, described below the fp32
-// kernel) takes its weights channel-in fastest and C % 16 == 0.
+// x, y [B, C, T] (channels-first, contiguous; T * sizeof(element) a multiple
+// of 16 bytes, which the wrapper arranges); w1 [C_out, C_in, K] and
+// w2 [C_out, C_in] as F.conv1d takes them. The convolution is zero-padded by
+// `pad_left` frames on the left and (K-1)*d - pad_left on the right, so
+// T_out == T.
 //
 // Replaces the Pallas TPU kernel rave_tpu/ops/kernels/dilated_unit.py
-// (`_kernel`, launched by `_pallas_forward`). That kernel kept both weight
-// matrices resident in VMEM next to a 1024-frame tile; at C = 384 the weights
-// alone are 2.4 MB, ten times the 227 KB of shared memory a Hopper block can
-// have, so the design here is different:
+// (`_kernel`, launched by `_pallas_forward`), which kept both weight matrices
+// resident in VMEM beside a 1024-frame tile. On Hopper a block has 227 KB of
+// shared memory, less than the weights at C >= 192 in fp32, so here:
 //
-//   * one block (8 warps) per (batch, tile of TT frames); TT in {64, 32, 16}
-//     is picked per shape by `dilated_unit_tile` so that the block's shared
-//     memory fits (see there for the order);
-//   * the block stages leaky(x) for its tile plus the (K-1)*d halo once, and
-//     keeps the whole [C, TT] intermediate leaky(h) in shared memory, so h
-//     never reaches device memory: one read of x (plus the halo and the
-//     residual re-read from L2) and one write of y;
-//   * both convolutions are GEMMs over the tile, [TT x C_in] . [C_in x CO]
-//     per pass of CO output channels (conv1 as K shifted GEMMs), on the
-//     tensor cores with mma.sync m16n8k8 TF32. To keep fp32 accuracy each
-//     operand is split into a TF32 high part and a TF32 remainder and three
-//     products are summed (hi.hi + hi.lo + lo.hi, "3xTF32"): the error is
-//     that of fp32 FMA, not TF32's ~1e-3;
-//   * w1 and w2 stream through shared memory in chunks of KC (32 or 16)
-//     input channels x CO output channels, double-buffered with cp.async,
-//     and are reused by every frame of the tile. Shared-memory row strides
-//     are padded so that fragment loads are free of bank conflicts.
+//   * One design, two arithmetics. fp32 runs "3xTF32": each product is
+//     a_hi.b_hi + a_hi.b_lo + a_lo.b_hi of TF32 parts, fp32 accuracy on the
+//     TF32 tensor cores; the tensor cores' sums (their accumulation
+//     truncates) are flushed into fp32 registers every three groups (96
+//     products per output). bf16 runs bf16 products with fp32 accumulation;
+//     leaky(h) is rounded to bf16 once and the residual is added in fp32.
+//   * Both convolutions are GEMMs with M = frames, N = output channels and
+//     K = input channels (times the taps), on `wgmma` (m64nNk8 tf32,
+//     m64nNk16 bf16). A block has two consumer warpgroups of 64 frames each
+//     (a 128-frame tile) and one producer warpgroup whose one thread keeps
+//     TMA loads in flight through two rings of mbarrier-tracked stages:
+//     activation windows (128 bytes of channels x the tile plus the
+//     (K-1)*d halo; TMA's out-of-bounds zero fill is the convolution's
+//     padding) and weight tiles ([N, 128 bytes of input channels], 128-byte
+//     swizzle, the B operand of wgmma straight from shared memory). Both
+//     warpgroups read each weight tile, so the weights cross L2 once per
+//     128 frames. `setmaxnreg` gives the consumers the producer's registers.
+//     The grid is persistent (one block per SM), so one tile's epilogue
+//     overlaps the next tile's first loads.
+//   * A comes from registers: the shift of tap k by k*d frames is not a
+//     multiple of the 8-row swizzle atom, so the consumers load their A
+//     fragments from the window with ld.shared at any row, apply leaky and
+//     (fp32) split them into TF32 parts there, once per k-step for all N
+//     output channels, one group (a tap's 128-byte step) ahead of the
+//     products in flight. The weights are split once per call by a small
+//     kernel (`prepare_weights`), which also lays them out [K, C_out, C_in].
+//   * Fused (small C): leaky(h) for the block's 128 frames and all C
+//     channels stays in shared memory, conv1 writes it pass by pass (N
+//     channels each) and conv2 reads it as A, so h never reaches device
+//     memory. Split (large C, where h does not fit, or few tiles): the
+//     same kernel runs twice, conv1 writing leaky(h) [B, C, T] to device
+//     memory and conv2 streaming it back as A, each block one (128-frame,
+//     N-channel) tile, which gives C / N times the blocks (at C = 768,
+//     B = 16, h is 6.3 MB each way: ~4 us at 3.35 TB/s against the unit's
+//     58.6 us bound). The wrapper's `plan` picks the mode, N and the stages.
 //
-// What bounds it on the H100: each unit does 2 (K+1) C^2 T B FLOP (9.7 GFLOP
-// per unit at B = 16, 131072 samples, the same at every level). 3xTF32 costs
-// three tensor-core products per FMA, so the compute roof is 495 / 3 = 165
-// TFLOP/s; every block also re-reads all of w1 and w2 from L2, (K+1) C^2 * 4
-// bytes per tile of TT frames, which bounds the small tiles (TT = 16 at
-// C = 768) at 2 TT FLOP per weight float read. wgmma and TMA are later work.
+// What bounds it on the H100: each unit does 2 (K+1) C^2 T B FLOP (9.7
+// GFLOP at B = 16, 131072 samples, at every level); 3xTF32 makes the fp32
+// roof 495 / 3 = 165 TFLOP/s (58.6 us per unit), bf16's is 989 TFLOP/s. The
+// weights re-read from L2 per 128-frame tile (4 (K+1) C^2 bytes, twice that
+// as fp32 hi/lo parts: 0.30 GB per fp32 unit at B = 16) and the fixed costs
+// of each tile (fill, epilogue) are the next limits; TMA multicast of the
+// weights across a cluster is the next step (PERF.md).
 //
 // This file is the forward only. The gradient, as in the TPU kernel's
 // `custom_vjp` (`_fwd` / `_bwd`), recomputes the unit in plain PyTorch and
-// differentiates that (`FusedDilatedUnit` in ops/kernels/dilated_unit.py):
-// the TPU kernel had no backward kernel either.
+// differentiates that (`FusedDilatedUnit` in ops/kernels/dilated_unit.py).
 
+#include <cuda.h>  // CUtensorMap and its enums: types only, the driver is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dilated_unit_sm90.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
+using bf16 = __nv_bfloat16;
+
 constexpr float kSlope = 0.2f;
+constexpr int kTile = 128;       // frames per block: two consumer warpgroups of 64
+constexpr int kConsumers = 256;  // threads of the consumer warpgroups
+constexpr int kThreads = 384;    // plus the producer warpgroup
+constexpr int kMaxStages = 4;  // of either ring
+// FLUSH: groups whose products gather in the tensor cores before each fp32
+// flush, one 32-channel chunk of conv1's three taps (96 products per output)
+constexpr int kFlushGroups = 3;
+constexpr int kMaxBox = 256;  // TMA's limit on a box's extent
 
-// Warp layout of a pass: WM x WN warps over (frames, output channels); each
-// warp owns MI m16 tiles of frames and NI n8 tiles of channels. KC input
-// channels of weights are staged per pipeline step.
-template <int TT_>
-struct Cfg;
+// Per element type: input channels per pipeline step (one 128-byte row) and
+// the parts of a weight (fp32: TF32 hi and lo).
+template <class E>
+struct Arith;
 template <>
-struct Cfg<64> { static constexpr int TT = 64, WM = 2, MI = 2, WN = 4, NI = 3, KC = 32; };
+struct Arith<float> {
+  static constexpr int KC = 32, PARTS = 2;
+};
 template <>
-struct Cfg<32> { static constexpr int TT = 32, WM = 1, MI = 2, WN = 8, NI = 3, KC = 32; };
-template <>
-struct Cfg<16> { static constexpr int TT = 16, WM = 1, MI = 1, WN = 8, NI = 6, KC = 16; };
+struct Arith<bf16> {
+  static constexpr int KC = 64, PARTS = 1;
+};
 
-template <class P>
-__host__ __device__ constexpr int co_per_pass() { return P::WN * P::NI * 8; }
+__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
-// Row stride (floats) >= n, a multiple of 8, and 8 or 24 mod 32: fragment
-// loads (4 rows x 8 consecutive columns per warp) then hit 32 distinct banks.
-__host__ __device__ constexpr int padded(int n) {
-  int m = (n + 7) / 8 * 8;
-  while (m % 32 != 8 && m % 32 != 24) m += 8;
-  return m;
+// Frames before a tile that its activation window starts at: the left
+// padding rounded up to 16 bytes (a TMA box must start 16-byte aligned in
+// its innermost dimension; coordinates below 0 read as zeros).
+__host__ __device__ constexpr int lead(int pad_left, int elem) { return round_up(pad_left, 16 / elem); }
+
+// Frames of an activation window: the lead, the tile and the rest of the
+// halo, a multiple of 8 and 8 mod 32, so that A fragment loads (4 channel
+// rows x 8 frames per instruction) hit 32 distinct banks.
+__host__ __device__ constexpr int window(int halo, int pad_left, int elem) {
+  int w = round_up(kTile + halo + lead(pad_left, elem) - pad_left, 8);
+  while (w % 32 != 8) w += 8;
+  return w;
 }
+
+// Row pitch of the resident leaky(h) tile in 32-bit words: the channels
+// rounded up to whole steps, plus 4 (rows 4 mod 32 words apart: conflict-free).
+template <class E>
+__host__ __device__ constexpr int h_pitch_words(int C) {
+  return round_up(C, Arith<E>::KC) * (int)sizeof(E) / 4 + 4;
+}
+
+// Shared-memory plan of a block; the same on the host (launch size) and the
+// device (offsets). Offsets are from a 1024-byte aligned base.
+template <class E>
+struct Layout {
+  int win, w_stage, x_stage, w_stages, x_stages, h_off, bar_off, bytes;
+  __host__ __device__ Layout(int C, int win_, int np, int w_stages_, int x_stages_, bool fused) {
+    win = win_;
+    w_stage = np * 128 * Arith<E>::PARTS;
+    x_stage = 128 * win;  // KC channels x win frames
+    w_stages = w_stages_;
+    x_stages = x_stages_;
+    h_off = w_stages * w_stage + x_stages * x_stage;
+    bar_off = h_off + (fused ? kTile * h_pitch_words<E>(C) * 4 : 0);
+    bytes = 1024 + bar_off + 16 * (w_stages + x_stages);
+  }
+};
 
 __device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : kSlope * v; }
 
@@ -85,193 +143,427 @@ __device__ __forceinline__ uint32_t tf32(float v) {
   return r;
 }
 
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(v);
-  lo = tf32(v - __uint_as_float(hi));
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? 16 : 0;  // 0: zero-fill the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+template <class E, int NP>
+struct Mma;
+template <>
+struct Mma<float, 96> {
+  static __device__ __forceinline__ void run(float (&d)[48], const uint32_t (&a)[4], uint64_t b, int s) {
+    sm90::wgmma_tf32_n96(d, a, b, s);
+  }
+};
+template <>
+struct Mma<bf16, 96> {
+  static __device__ __forceinline__ void run(float (&d)[48], const uint32_t (&a)[4], uint64_t b, int s) {
+    sm90::wgmma_bf16_n96(d, a, b, s);
+  }
+};
+template <>
+struct Mma<bf16, 192> {
+  static __device__ __forceinline__ void run(float (&d)[96], const uint32_t (&a)[4], uint64_t b, int s) {
+    sm90::wgmma_bf16_n192(d, a, b, s);
+  }
+};
 
-// ws[c][o] = w[(ci0 + c) * C + co0 + o] for c < KC, o < CO, zero outside C.
-template <int CO, int KC>
-__device__ __forceinline__ void stage_weights(float* ws, const float* __restrict__ w, int C,
-                                              int ci0, int co0) {
-  constexpr int LDW = padded(CO);
-  for (int i = threadIdx.x; i < KC * CO / 4; i += kThreads) {
-    const int c = i / (CO / 4), o = (i - c * (CO / 4)) * 4;
-    const int ci = ci0 + c, co = co0 + o;
-    const bool valid = ci < C && co < C;
-    cp_async16(ws + c * LDW + o, valid ? w + (size_t)ci * C + co : w, valid);
+struct Params {
+  const void* x;  // the residual
+  void* out;      // y, or leaky(h) in the split mode's first launch
+  int C, T, taps, dilation, pad_left;
+  int conv2;  // split mode: 0 the conv1 launch (leaky A, leaky(h) out), 1 conv2 (h in, y out)
+  int w_stages, x_stages, batch;
+};
+
+// A fragments of one 128-byte step of input channels, for the frames
+// row .. row + 8 of this thread (the m16n8k8 / m16n8k16 layout of its warp's
+// 16 rows). From an activation window [KC][win] (frames fastest):
+template <class E>
+struct FragA;
+template <>
+struct FragA<float> {
+  // four k8 steps, hi and lo parts: a[s][0..3] hi, a[s][4..7] lo
+  static __device__ __forceinline__ void window(uint32_t (&a)[4][8], const float* w, int win, int row,
+                                                bool apply_leaky, int tig) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const float* p = w + (8 * s + tig) * win + row;
+      float v[4] = {p[0], p[8], p[4 * win], p[4 * win + 8]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float u = apply_leaky ? leaky(v[i]) : v[i];
+        a[s][i] = tf32(u);
+        a[s][4 + i] = tf32(u - __uint_as_float(a[s][i]));
+      }
+    }
+  }
+  // from the resident leaky(h) tile [kTile][pitch words], channels c0..c0+31
+  static __device__ __forceinline__ void resident(uint32_t (&a)[4][8], const uint32_t* h, int pitch,
+                                                  int row, int c0, int tig) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const float* p = reinterpret_cast<const float*>(h) + row * pitch + c0 + 8 * s + tig;
+      float v[4] = {p[0], p[8 * pitch], p[4], p[8 * pitch + 4]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[s][i] = tf32(v[i]);
+        a[s][4 + i] = tf32(v[i] - __uint_as_float(a[s][i]));
+      }
+    }
+  }
+};
+template <>
+struct FragA<bf16> {
+  // four k16 steps of two channels per register
+  static __device__ __forceinline__ void window(uint32_t (&a)[4][8], const bf16* w, int win, int row,
+                                                bool apply_leaky, int tig) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const bf16* p = w + (16 * s + 2 * tig) * win + row;
+      const bf16 v[8] = {p[0], p[win], p[8], p[win + 8],
+                         p[8 * win], p[9 * win], p[8 * win + 8], p[9 * win + 8]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[s][i] = apply_leaky ? pack_bf16(leaky(__bfloat162float(v[2 * i])),
+                                          leaky(__bfloat162float(v[2 * i + 1])))
+                              : pack_raw(v[2 * i], v[2 * i + 1]);
+    }
+  }
+  static __device__ __forceinline__ void resident(uint32_t (&a)[4][8], const uint32_t* h, int pitch,
+                                                  int row, int c0, int tig) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint32_t* p = h + row * pitch + (c0 + 16 * s) / 2 + tig;
+      a[s][0] = p[0];
+      a[s][1] = p[8 * pitch];
+      a[s][2] = p[4];
+      a[s][3] = p[8 * pitch + 4];
+    }
+  }
+};
+
+// Keeps a group's A fragments (the registers its products read) alive up to
+// this point, so that the next group's fragments load into other registers.
+template <class E>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][8]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int i = 0; i < 4 * Arith<E>::PARTS; ++i) asm volatile("" : "+r"(a[s][i])::"memory");
+}
+
+// The products of one 128-byte step: four k-steps against the weight stage
+// at `wb` (shared-memory address; fp32: hi part, then lo part NP rows on).
+// `first` overwrites the sums instead of adding to them.
+template <class E, int NP>
+__device__ __forceinline__ void mma_step(float (&d)[NP / 2], const uint32_t (&a)[4][8], uint32_t wb,
+                                         bool first) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const uint64_t b_hi = sm90::desc_sw128(wb + 32 * s);
+    const uint32_t(&hi)[4] = *reinterpret_cast<const uint32_t(*)[4]>(&a[s][0]);
+    if constexpr (Arith<E>::PARTS == 2) {
+      const uint64_t b_lo = sm90::desc_sw128(wb + NP * 128 + 32 * s);
+      const uint32_t(&lo)[4] = *reinterpret_cast<const uint32_t(*)[4]>(&a[s][4]);
+      Mma<E, NP>::run(d, lo, b_hi, !(first && s == 0));
+      Mma<E, NP>::run(d, hi, b_lo, 1);
+      Mma<E, NP>::run(d, hi, b_hi, 1);
+    } else {
+      Mma<E, NP>::run(d, hi, b_hi, !(first && s == 0));
+    }
   }
 }
 
-// One pass of CO output channels starting at co0:
-//   acc[t][co] += sum_{k < K} sum_{ci < C} xs[ci][t + k d] * w[k][ci][co0 + co]
-// with xs in shared memory (row stride lda) and w (K x [C, C], [ci][co]) in
-// global memory, streamed through the two ws buffers. Each step's products
-// go to a fresh tensor-core accumulator that is then added to `acc` in fp32:
-// the tensor cores' internal accumulation truncates, and flushing every KC
-// channels keeps the error at the level of fp32 FMA instead of ten times it.
-template <class P>
-__device__ __forceinline__ void gemm_pass(float (&acc)[P::MI][P::NI][4], const float* xs, int lda,
-                                          const float* __restrict__ w, int K, int dilation, int C,
-                                          int co0, float* ws) {
-  constexpr int CO = co_per_pass<P>();
-  constexpr int LDW = padded(CO);
-  constexpr int KC = P::KC;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int tb = (warp % P::WM) * P::MI * 16;  // first frame of this warp
-  const int cb = (warp / P::WM) * P::NI * 8;   // first channel of this warp (in the pass)
+template <class E, int NP, bool FUSED, bool FLUSH>
+__global__ void __launch_bounds__(kThreads, 1)
+unit_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+            const __grid_constant__ CUtensorMap map_w2, const Params p) {
+  using A = Arith<E>;
+  constexpr int KC = A::KC;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int C = p.C, T = p.T;
+  const int halo = p.dilation * (p.taps - 1);
+  const int shift = lead(p.pad_left, sizeof(E)) - p.pad_left;  // window frame of tile frame 0, tap 0
+  const Layout<E> L(C, window(halo, p.pad_left, sizeof(E)), NP, p.w_stages, p.x_stages, FUSED);
+  const uint32_t base = sm90::smem_addr(smem);
+  const uint32_t w_ring = base, x_ring = base + p.w_stages * L.w_stage;
+  const uint32_t bars = base + L.bar_off;  // w_full, w_empty, x_full, x_empty
+  const uint32_t w_full = bars, w_empty = bars + 8 * p.w_stages;
+  const uint32_t x_full = bars + 16 * p.w_stages, x_empty = x_full + 8 * p.x_stages;
+
   const int chunks = (C + KC - 1) / KC;
-  const int n = K * chunks;
+  // Work items, walked by a persistent grid: (frame tile, batch) in the fused
+  // mode, (N-channel slice, frame tile, batch) in the split one, the slice
+  // fastest. The producer and the consumers walk the same items, so one
+  // item's epilogue overlaps the next one's first loads.
+  const int frame_tiles = (T + kTile - 1) / kTile;
+  const int slices = FUSED ? 1 : (C + NP - 1) / NP;
+  const int items = frame_tiles * slices * p.batch;
+  struct Item {
+    int t0, b, n_first, n_end;  // output channels: every pass of N (fused), the slice (split)
+  };
+  auto item = [&](int i) {
+    const int s = i % slices, rest = i / slices;
+    Item it;
+    it.t0 = (rest % frame_tiles) * kTile;
+    it.b = rest / frame_tiles;
+    it.n_first = FUSED ? 0 : s * NP;
+    it.n_end = FUSED ? C : it.n_first + NP;
+    return it;
+  };
 
-  stage_weights<CO, KC>(ws, w, C, 0, co0);
-  cp_async_commit();
-  for (int it = 0; it < n; ++it) {
-    if (it + 1 < n) {
-      const int k1 = (it + 1) / chunks, c1 = (it + 1 - k1 * chunks) * KC;
-      stage_weights<CO, KC>(ws + ((it + 1) & 1) * KC * LDW, w + (size_t)k1 * C * C, C, c1, co0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.w_stages; ++i) {
+      sm90::mbar_init(w_full + 8 * i, 1);
+      sm90::mbar_init(w_empty + 8 * i, kConsumers / 32);  // one arrival per consumer warp
     }
-    cp_async_commit();
-    cp_async_wait_one();  // chunk `it` has landed (this thread's copies)
-    __syncthreads();      // ... and everyone's; `xs` staged before the first pass
-    const int k = it / chunks, ci0 = (it - k * chunks) * KC;
-    const float* wb = ws + (it & 1) * KC * LDW;
-    const float* xk = xs + k * dilation;
-    float part[P::MI][P::NI][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 8) {
-      if (ci0 + kk >= C) break;  // C % 8 == 0: k8 steps are whole
-      uint32_t ahi[P::MI][4], alo[P::MI][4], bhi[P::NI][2], blo[P::NI][2];
-      const float* xr = xk + (size_t)(ci0 + kk + tig) * lda;
-#pragma unroll
-      for (int mi = 0; mi < P::MI; ++mi) {
-        const int t = tb + mi * 16 + g;
-        split(xr[t], ahi[mi][0], alo[mi][0]);
-        split(xr[t + 8], ahi[mi][1], alo[mi][1]);
-        split(xr[4 * lda + t], ahi[mi][2], alo[mi][2]);
-        split(xr[4 * lda + t + 8], ahi[mi][3], alo[mi][3]);
-      }
-      const float* wr = wb + (kk + tig) * LDW + cb + g;
-#pragma unroll
-      for (int ni = 0; ni < P::NI; ++ni) {
-        split(wr[ni * 8], bhi[ni][0], blo[ni][0]);
-        split(wr[4 * LDW + ni * 8], bhi[ni][1], blo[ni][1]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < P::MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < P::NI; ++ni) {
-          mma(part[mi][ni], ahi[mi], blo[ni]);
-          mma(part[mi][ni], alo[mi], bhi[ni]);
-          mma(part[mi][ni], ahi[mi], bhi[ni]);
-        }
+    for (int i = 0; i < p.x_stages; ++i) {
+      sm90::mbar_init(x_full + 8 * i, 1);
+      sm90::mbar_init(x_empty + 8 * i, kConsumers / 32);
     }
-#pragma unroll
-    for (int mi = 0; mi < P::MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < P::NI; ++ni)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[mi][ni][r] += part[mi][ni][r];
-    __syncthreads();  // chunk `it` consumed before its buffer is refilled
+    sm90::mbar_fence_init();
   }
-}
+  __syncthreads();
 
-template <int TT>
-__global__ void __launch_bounds__(kThreads)
-dilated_unit_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
-                    const float* __restrict__ w2t, float* __restrict__ y,
-                    int C, int T, int K, int dilation, int pad_left) {
-  using P = Cfg<TT>;
-  constexpr int CO = co_per_pass<P>();
-  constexpr int LDG = padded(TT);
-  extern __shared__ __align__(16) float smem[];
-  const int TW = TT + (K - 1) * dilation;
-  const int LDA = padded(TW);
-  float* ws = smem;                         // 2 x [KC][padded(CO)] weight chunks
-  float* as = ws + 2 * P::KC * padded(CO);  // [C][LDA] leaky(x), tile plus halo
-  float* gs = as + C * LDA;                 // [C][LDG] leaky(h)
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const float* xb = x + (size_t)b * C * T;
-  float* yb = y + (size_t)b * C * T;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int tb = (warp % P::WM) * P::MI * 16;
-  const int cb = (warp / P::WM) * P::NI * 8;
-
-  for (int i = threadIdx.x; i < C * TW; i += kThreads) {
-    const int c = i / TW, j = i - c * TW;
-    const int t = t0 - pad_left + j;
-    as[c * LDA + j] = (t >= 0 && t < T) ? leaky(xb[(size_t)c * T + t]) : 0.f;
-  }
-
-  // conv1 (K dilated taps) -> leaky -> gs
-  for (int co0 = 0; co0 < C; co0 += CO) {
-    float acc[P::MI][P::NI][4] = {};
-    gemm_pass<P>(acc, as, LDA, w1t, K, dilation, C, co0, ws);
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warpgroup: one thread issues every load -----------------
+    sm90::reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      sm90::prefetch_map(&map_a);
+      sm90::prefetch_map(&map_w);
+      if (FUSED) sm90::prefetch_map(&map_w2);
+      int ws = 0, wph = 0, xs = 0, xph = 0;
+      auto load_w = [&](const CUtensorMap* map, int z, int ci0, int n0) {
+        sm90::mbar_wait(w_empty + 8 * ws, wph ^ 1);
+        sm90::mbar_expect_tx(w_full + 8 * ws, L.w_stage);
 #pragma unroll
-    for (int mi = 0; mi < P::MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < P::NI; ++ni)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int t = tb + mi * 16 + g + (r >> 1) * 8;
-          const int co = co0 + cb + ni * 8 + 2 * tig + (r & 1);
-          if (co < C) gs[co * LDG + t] = leaky(acc[mi][ni][r]);
-        }
-  }
-  // (the next pass's first __syncthreads publishes gs)
-
-  // conv2 (1x1) + residual -> y
-  for (int co0 = 0; co0 < C; co0 += CO) {
-    float acc[P::MI][P::NI][4] = {};
-    gemm_pass<P>(acc, gs, LDG, w2t, 1, 0, C, co0, ws);
-#pragma unroll
-    for (int mi = 0; mi < P::MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < P::NI; ++ni)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int t = t0 + tb + mi * 16 + g + (r >> 1) * 8;
-          const int co = co0 + cb + ni * 8 + 2 * tig + (r & 1);
-          if (co < C && t < T) {
-            const size_t at = (size_t)co * T + t;
-            yb[at] = acc[mi][ni][r] + xb[at];
+        for (int part = 0; part < A::PARTS; ++part)
+          sm90::tma_load_3d(w_ring + ws * L.w_stage + part * NP * 128, map, w_full + 8 * ws, ci0,
+                            n0, A::PARTS * z + part);
+        if (++ws == p.w_stages) ws = 0, wph ^= 1;
+      };
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        const Item it = item(i);
+        for (int n0 = it.n_first; n0 < it.n_end; n0 += NP)
+          for (int c = 0; c < chunks; ++c) {
+            sm90::mbar_wait(x_empty + 8 * xs, xph ^ 1);
+            sm90::mbar_expect_tx(x_full + 8 * xs, L.x_stage);
+            sm90::tma_load_3d(x_ring + xs * L.x_stage, &map_a, x_full + 8 * xs,
+                              it.t0 - lead(p.pad_left, sizeof(E)), c * KC, it.b);
+            if (++xs == p.x_stages) xs = 0, xph ^= 1;
+            for (int k = 0; k < p.taps; ++k) load_w(&map_w, k, c * KC, n0);
           }
+        if (FUSED)
+          for (int n0 = 0; n0 < C; n0 += NP)
+            for (int c = 0; c < chunks; ++c) load_w(&map_w2, 0, c * KC, n0);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 frames each -----------------------------
+    sm90::reg_alloc<232>();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, tig = lane & 3;
+    const int row = warp * 16 + g;  // this thread's first row of the tile (and row + 8)
+    const uint8_t* x_ring_ptr = smem + p.w_stages * L.w_stage;
+    uint32_t* hs = reinterpret_cast<uint32_t*>(smem + L.h_off);
+    const int hp = h_pitch_words<E>(C);
+    int ws = 0, wph = 0, xs = 0, xph = 0;
+
+    if (FUSED) {  // the channels past C of the resident tile are read as zeros
+      for (int i = lane; i < 16 * hp; i += 32) {
+        const int r = warp * 16 + i / hp, word = i % hp;
+        if (word * 4 >= C * (int)sizeof(E)) hs[r * hp + word] = 0u;
+      }
+      __syncwarp();
+    }
+
+    float acc[NP / 2];
+    float part[FLUSH ? NP / 2 : 1] = {};
+    uint32_t a0[4][8], a1[4][8];  // A fragments of two groups: one in flight, one loading
+
+    // One pass: acc = the products of output channels n0 .. n0+NP-1, A from
+    // the activation ring (conv1, split conv2) or the resident tile (fused
+    // conv2). A group is one 128-byte step of input channels for one tap;
+    // one group's products run while the next group's fragments load. With
+    // FLUSH the sums of kFlushGroups groups gather in `part`, and the pipeline
+    // drains there to add them to acc in fp32.
+    auto gemm = [&](int n0, bool from_ring, bool leaky_a) {
+#pragma unroll
+      for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
+      if constexpr (!FLUSH) sm90::fence_acc(acc);
+      const int taps = from_ring ? p.taps : 1;
+      const int groups = chunks * taps;
+      int held = -1;  // the weight stage of the group in flight
+      auto step = [&](uint32_t(&ab)[4][8], uint32_t(&other)[4][8], int g) {
+        const int c = g / taps, k = g - c * taps;
+        if (from_ring) {
+          if (k == 0) sm90::mbar_wait(x_full + 8 * xs, xph);
+          const E* win = reinterpret_cast<const E*>(x_ring_ptr + xs * L.x_stage);
+          FragA<E>::window(ab, win, L.win, row + shift + k * p.dilation, leaky_a, tig);
+          if (k == taps - 1) {  // the window is in registers now: its stage may refill
+            __syncwarp();
+            if (lane == 0) sm90::mbar_arrive(x_empty + 8 * xs);
+            if (++xs == p.x_stages) xs = 0, xph ^= 1;
+          }
+        } else {
+          FragA<E>::resident(ab, hs, hp, row, c * KC, tig);
         }
+        sm90::mbar_wait(w_full + 8 * ws, wph);
+        const uint32_t wb = w_ring + ws * L.w_stage;
+        if constexpr (FLUSH) {
+          const bool first = g % kFlushGroups == 0;
+          if (first) sm90::fence_acc(part);
+          sm90::wgmma_fence();
+          mma_step<E, NP>(part, ab, wb, first);  // a flush's first product overwrites
+        } else {
+          sm90::wgmma_fence();
+          mma_step<E, NP>(acc, ab, wb, false);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();  // the previous group is done
+        // `other` fed that group: keep its registers apart from `ab`'s until here
+        fence_frag<E>(other);
+        __syncwarp();
+        if (lane == 0 && held >= 0) sm90::mbar_arrive(w_empty + 8 * held);
+        held = ws;
+        if (++ws == p.w_stages) ws = 0, wph ^= 1;
+      };
+      // Drains the products in flight and frees the last group's stage.
+      auto drain = [&]() {
+        sm90::wgmma_wait<0>();
+        __syncwarp();
+        if (lane == 0 && held >= 0) sm90::mbar_arrive(w_empty + 8 * held);
+        held = -1;
+      };
+      if constexpr (FLUSH) {
+        // a flush after every kFlushGroups groups, outside the steps, so that
+        // the sums are read only where no product is in flight
+        static_assert(kFlushGroups == 3, "the flush block below is written for three groups");
+        for (int g = 0; g < groups; g += kFlushGroups) {
+          step(a0, a1, g);
+          if (g + 1 < groups) step(a1, a0, g + 1);
+          if (g + 2 < groups) step(a0, a1, g + 2);
+          drain();
+          sm90::fence_acc(part);
+#pragma unroll
+          for (int i = 0; i < NP / 2; ++i) acc[i] += part[i];
+        }
+      } else {
+        for (int g = 0; g < groups; g += 2) {
+          step(a0, a1, g);
+          if (g + 1 < groups) step(a1, a0, g + 1);
+        }
+        drain();
+        sm90::fence_acc(acc);
+      }
+    };
+
+    // acc[4 j + r] holds row (row + 8 (r >> 1)), channel n0 + 8 j + 2 tig + (r & 1).
+    // The residual is read in batches of JB n8 blocks, all loads of a batch
+    // before its stores: one latency per batch, not one per value.
+    auto store_global = [&](const Item& it, int n0, bool residual) {
+      const E* __restrict__ xb = static_cast<const E*>(p.x) + (size_t)it.b * C * T;
+      E* __restrict__ ob = static_cast<E*>(p.out) + (size_t)it.b * C * T;
+      constexpr int JB = NP / 8 % 6 == 0 ? 6 : 4;
+#pragma unroll
+      for (int j0 = 0; j0 < NP / 8; j0 += JB) {
+        float xv[JB][4];
+#pragma unroll
+        for (int j = 0; j < JB; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int t = it.t0 + row + 8 * (r >> 1);
+            const int co = n0 + 8 * (j0 + j) + 2 * tig + (r & 1);
+            xv[j][r] = residual && co < C && t < T ? (float)xb[(size_t)co * T + t] : 0.f;
+          }
+#pragma unroll
+        for (int j = 0; j < JB; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int t = it.t0 + row + 8 * (r >> 1);
+            const int co = n0 + 8 * (j0 + j) + 2 * tig + (r & 1);
+            const float v = acc[4 * (j0 + j) + r];
+            if (co < C && t < T) ob[(size_t)co * T + t] = (E)(residual ? v + xv[j][r] : leaky(v));
+          }
+      }
+    };
+
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      const Item it = item(i);
+      if (!FUSED) {
+        gemm(it.n_first, true, !p.conv2);
+        store_global(it, it.n_first, p.conv2);
+        continue;
+      }
+      for (int n0 = 0; n0 < C; n0 += NP) {
+        gemm(n0, true, true);
+#pragma unroll
+        for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // rows row and row + 8
+            const int co = n0 + 8 * j + 2 * tig;
+            if (co < C) {
+              const float v0 = leaky(acc[4 * j + 2 * h]), v1 = leaky(acc[4 * j + 2 * h + 1]);
+              uint32_t* dst = hs + (row + 8 * h) * hp;
+              if constexpr (sizeof(E) == 4) {
+                dst[co] = __float_as_uint(v0);
+                dst[co + 1] = __float_as_uint(v1);
+              } else {
+                dst[co / 2] = pack_bf16(v0, v1);
+              }
+            }
+          }
+      }
+      __syncwarp();  // each warp reads back only the rows it wrote
+      for (int n0 = 0; n0 < C; n0 += NP) {
+        gemm(n0, false, false);
+        store_global(it, n0, true);
+      }
+    }
   }
 }
 
-template <int TT>
-size_t smem_bytes(int C, int K, int dilation) {
-  const int lda = padded(TT + (K - 1) * dilation);
-  return sizeof(float) * ((size_t)2 * Cfg<TT>::KC * padded(co_per_pass<Cfg<TT>>()) +
-                          (size_t)C * lda + (size_t)C * padded(TT));
+// w1 [C_out, C_in, K] -> [K * PARTS, C_out, C_in], w2 [C_out, C_in] ->
+// [PARTS, C_out, C_in] (fp32: TF32 hi and lo parts; bf16: w1 permuted, w2
+// used as it is).
+__global__ void prepare_weights_f32(const float* __restrict__ w1, const float* __restrict__ w2,
+                                    float* __restrict__ s1, float* __restrict__ s2, int C, int K) {
+  const size_t cc = (size_t)C * C, n1 = K * cc;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n1 + cc;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float v;
+    float* hi;
+    if (i < n1) {
+      const int k = (int)(i / cc);
+      const size_t r = i - k * cc;  // co * C + ci
+      v = w1[r * K + k];
+      hi = s1 + 2 * k * cc + r;
+    } else {
+      v = w2[i - n1];
+      hi = s2 + (i - n1);
+    }
+    const float h = __uint_as_float(tf32(v));
+    hi[0] = h;
+    hi[cc] = __uint_as_float(tf32(v - h));
+  }
 }
 
-size_t smem_bytes(int C, int K, int dilation, int tile) {
-  switch (tile) {
-    case 64: return smem_bytes<64>(C, K, dilation);
-    case 32: return smem_bytes<32>(C, K, dilation);
-    case 16: return smem_bytes<16>(C, K, dilation);
-    default: return 0;
+__global__ void prepare_weights_bf16(const bf16* __restrict__ w1, bf16* __restrict__ s1, int C,
+                                     int K) {
+  const size_t cc = (size_t)C * C, n1 = K * cc;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n1;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int k = (int)(i / cc);
+    const size_t r = i - k * cc;
+    s1[i] = w1[r * K + k];
   }
 }
 
@@ -283,12 +575,17 @@ int max_smem_optin() {
   return bytes;
 }
 
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 1;
+  return n;
+}
+
 constexpr int kMaxDevices = 64;
 
 // Raises the dynamic shared-memory cap of `kernel` to the current device's
-// opt-in maximum, once per device (`raised` is the kernel's own record). The
-// cap is a limit, not a reservation: each launch still asks for what its
-// shape needs.
+// opt-in maximum, once per device (`raised` is the kernel's own record).
 template <class Kernel>
 cudaError_t raise_smem_cap(Kernel kernel, bool (&raised)[kMaxDevices]) {
   int dev = 0;
@@ -300,336 +597,156 @@ cudaError_t raise_smem_cap(Kernel kernel, bool (&raised)[kMaxDevices]) {
   return err;
 }
 
-template <int TT>
-int launch(const float* x, const float* w1t, const float* w2t, float* y, int B, int C, int T,
-           int K, int dilation, int pad_left, cudaStream_t stream) {
+// cuTensorMapEncodeTiled lives in the driver API. It is reached through the
+// runtime's cudaGetDriverEntryPoint, so the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D map (dims innermost first, contiguous) read in boxes of `box`.
+bool make_map(CUtensorMap* map, bool is_bf16, const void* ptr, const uint64_t (&dims)[3],
+              const uint32_t (&box)[3], bool swizzle) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const uint64_t elem = is_bf16 ? 2 : 4;
+  const cuuint64_t d[3] = {dims[0], dims[1], dims[2]};
+  const cuuint64_t strides[2] = {dims[0] * elem, dims[0] * dims[1] * elem};
+  const cuuint32_t b[3] = {box[0], box[1], box[2]}, ones[3] = {1, 1, 1};
+  return enc(map, is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+             const_cast<void*>(ptr), d, strides, b, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <class E, int NP, bool FUSED, bool FLUSH>
+int launch(const CUtensorMap& ma, const CUtensorMap& mw, const CUtensorMap& mw2, const Params& p,
+           int B, cudaStream_t stream) {
   static bool raised[kMaxDevices] = {};
-  const cudaError_t err = raise_smem_cap(dilated_unit_kernel<TT>, raised);
+  const cudaError_t err = raise_smem_cap(unit_kernel<E, NP, FUSED, FLUSH>, raised);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes<TT>(C, K, dilation);
-  const dim3 grid((T + TT - 1) / TT, B);
-  dilated_unit_kernel<TT><<<grid, kThreads, smem, stream>>>(x, w1t, w2t, y, C, T, K, dilation,
-                                                            pad_left);
+  const Layout<E> L(p.C, window(p.dilation * (p.taps - 1), p.pad_left, sizeof(E)), NP, p.w_stages,
+                    p.x_stages, FUSED);
+  // one block per SM (each takes most of the SM's shared memory), or one per item
+  const long items = (long)(p.T + kTile - 1) / kTile * (FUSED ? 1 : (p.C + NP - 1) / NP) * B;
+  const int grid = (int)(items < sm_count() ? items : sm_count());
+  unit_kernel<E, NP, FUSED, FLUSH><<<grid, kThreads, L.bytes, stream>>>(ma, mw, mw2, p);
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// bf16 variant (train.bf16): x, w1, w2 and y in bf16.
-//
-// Replaces the same TPU kernel (`_kernel` / `_pallas_forward` of
-// rave_tpu/ops/kernels/dilated_unit.py) on the bf16 inputs that the JAX
-// package's `train.bf16` step gives it. It computes
-//   a = bf16(leaky(x));  h = sum_k a[t + k d] . w1[k]  (fp32 accumulation);
-//   g = bf16(leaky(h));  y = bf16(g . w2 + x)          (residual in fp32),
-// which is the Pallas body with its inputs in bf16: `y_ref[0] = (y +
-// x.astype(f32)).astype(y.dtype)`. One difference: the Pallas kernel fed
-// leaky(h) to its second product in fp32, this one rounds g to bf16 once,
-// as the operand of a bf16 tensor-core product (the plain bf16 path rounds
-// h and leaky(h) both).
-//
-// Design: the fp32 kernel's, with the arithmetic of a bf16 product. Both
-// convolutions are GEMMs over a tile of TT frames on the tensor cores,
-// mma.sync m16n8k16 bf16 with fp32 accumulators, conv1 as K shifted GEMMs;
-// bf16 is exact in bf16, so there is no 3x split and no per-chunk flush.
-// Activations sit in shared memory frame-major, [frames][C / 2] words of
-// two bf16 channels each, so an A fragment (two consecutive input channels
-// per register) is one 32-bit load; weights are staged the same way,
-// [C_out][C_in], for the B fragments (hence the [K, C_out, C_in] and
-// [C_out, C_in] layouts this entry point takes). Row strides are 4 mod 8
-// words: fragment loads are free of bank conflicts. Half the element size
-// halves the tiles' shared memory, so the tiles are twice the fp32 ones'
-// (TT in {128, 64, 32, 16}; `dilated_unit_bf16_tile` picks the largest that
-// fits and still gives every SM a block). Weights stream through shared
-// memory in chunks of 64 input channels, double-buffered with cp.async.
-//
-// What bounds it on the H100: 2 (K+1) C^2 T B FLOP per unit (4.8 GFLOP at
-// B = 8, 131072 samples), 4.9 us at the 989 TFLOP/s dense bf16 peak, and
-// the bf16 x read and y written once (25.2 MB at C = 96, 7.5 us at 3.35
-// TB/s, which binds there; the operations bind at C >= 192). About 0.12 ms
-// for the 22 units of a B = 8 forward. mma.sync reaches a fraction of the
-// peak that only wgmma gives; wgmma, TMA and wider tiles are later work.
-
-template <int TT_>
-struct Cfg16;
-template <>
-struct Cfg16<128> { static constexpr int TT = 128, WM = 4, MI = 2, WN = 2, NI = 6, KC = 64; };
-template <>
-struct Cfg16<64> { static constexpr int TT = 64, WM = 2, MI = 2, WN = 4, NI = 3, KC = 64; };
-template <>
-struct Cfg16<32> { static constexpr int TT = 32, WM = 2, MI = 1, WN = 4, NI = 3, KC = 64; };
-template <>
-struct Cfg16<16> { static constexpr int TT = 16, WM = 1, MI = 1, WN = 8, NI = 3, KC = 64; };
-
-// Row stride in 32-bit words (bf16 pairs): the least m >= n with m % 8 == 4.
-// A fragment load (8 rows x 4 consecutive words per warp) then hits 32
-// distinct banks, and every row starts 16-byte aligned.
-__host__ __device__ constexpr int padded_words(int n) { return (n + 3) / 8 * 8 + 4; }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
+template <class E, int NP, bool FLUSH>
+int launch_mode(bool fused, const CUtensorMap& ma, const CUtensorMap& mw, const CUtensorMap& mw2,
+                const Params& p, int B, cudaStream_t stream) {
+  return fused ? launch<E, NP, true, FLUSH>(ma, mw, mw2, p, B, stream)
+               : launch<E, NP, false, FLUSH>(ma, mw, mw2, p, B, stream);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// ws[o][c] = w[(co0 + o) * C + ci0 + c] for o < CO, c < KC (row stride
-// padded_words(KC / 2) words), zero outside C.
-template <int CO, int KC>
-__device__ __forceinline__ void stage_weights_bf16(uint32_t* ws, const __nv_bfloat16* __restrict__ w,
-                                                   int C, int ci0, int co0) {
-  constexpr int LDW = padded_words(KC / 2);
-  constexpr int SEGS = KC / 8;  // 16-byte copies per row
-  for (int i = threadIdx.x; i < CO * SEGS; i += kThreads) {
-    const int o = i / SEGS, c = (i - o * SEGS) * 8;
-    const int co = co0 + o, ci = ci0 + c;
-    const bool valid = co < C && ci < C;  // C % 16 == 0: a copy is all in or all out
-    cp_async16(ws + o * LDW + c / 2, valid ? w + (size_t)co * C + ci : w, valid);
+// Dispatches the instantiated (type, N, flush) combinations.
+template <class E>
+int launch_any(int np, bool fused, bool flush, const CUtensorMap& ma, const CUtensorMap& mw,
+               const CUtensorMap& mw2, const Params& p, int B, cudaStream_t stream) {
+  if constexpr (sizeof(E) == 4) {
+    if (np == 96)
+      return flush ? launch_mode<E, 96, true>(fused, ma, mw, mw2, p, B, stream)
+                   : launch_mode<E, 96, false>(fused, ma, mw, mw2, p, B, stream);
+  } else if (!flush) {
+    if (np == 96) return launch_mode<E, 96, false>(fused, ma, mw, mw2, p, B, stream);
+    if (np == 192) return launch_mode<E, 192, false>(fused, ma, mw, mw2, p, B, stream);
   }
+  return (int)cudaErrorInvalidValue;
 }
 
-// One pass of CO output channels starting at co0:
-//   acc[t][co] += sum_{k < K} sum_{ci < C} xs[t + k d][ci] * w[k][co0 + co][ci]
-// with xs frame-major in shared memory (row stride lda words) and w (K x
-// [C_out, C_in]) in global memory, streamed through the two ws buffers.
-template <class P>
-__device__ __forceinline__ void gemm_pass_bf16(float (&acc)[P::MI][P::NI][4], const uint32_t* xs,
-                                               int lda, const __nv_bfloat16* __restrict__ w, int K,
-                                               int dilation, int C, int co0, uint32_t* ws) {
-  constexpr int CO = co_per_pass<P>();
-  constexpr int KC = P::KC;
-  constexpr int LDW = padded_words(KC / 2);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int tb = (warp % P::WM) * P::MI * 16;  // first frame of this warp
-  const int cb = (warp / P::WM) * P::NI * 8;   // first channel of this warp (in the pass)
-  const int chunks = (C + KC - 1) / KC;
-  const int n = K * chunks;
+template <class E>
+int forward(const void* x, const void* w1, const void* w2, void* y, void* wbuf, void* hbuf, int B,
+            int C, int T, int K, int dilation, int pad_left, int fused, int np, int w_stages,
+            int x_stages, int flush, cudaStream_t stream) {
+  using A = Arith<E>;
+  const bool is_bf16 = sizeof(E) == 2;
+  const int halo = dilation * (K - 1);
+  if (B < 1 || C < 1 || T < 1 || K < 1 || dilation < 1 || pad_left < 0 || pad_left > halo ||
+      C * (int)sizeof(E) % 16 != 0 || T * (int)sizeof(E) % 16 != 0 ||
+      window(halo, pad_left, sizeof(E)) > kMaxBox || w_stages < 2 || w_stages > kMaxStages ||
+      x_stages < 2 || x_stages > kMaxStages ||
+      Layout<E>(C, window(halo, pad_left, sizeof(E)), np, w_stages, x_stages, fused).bytes >
+          max_smem_optin() ||
+      Layout<E>(C, window(0, 0, sizeof(E)), np, w_stages, x_stages, false).bytes >
+          max_smem_optin())
+    return (int)cudaErrorInvalidValue;
 
-  stage_weights_bf16<CO, KC>(ws, w, C, 0, co0);
-  cp_async_commit();
-  for (int it = 0; it < n; ++it) {
-    if (it + 1 < n) {
-      const int k1 = (it + 1) / chunks, c1 = (it + 1 - k1 * chunks) * KC;
-      stage_weights_bf16<CO, KC>(ws + ((it + 1) & 1) * CO * LDW, w + (size_t)k1 * C * C, C, c1,
-                                 co0);
-    }
-    cp_async_commit();
-    cp_async_wait_one();  // chunk `it` has landed (this thread's copies)
-    __syncthreads();      // ... and everyone's; `xs` staged before the first pass
-    const int k = it / chunks, ci0 = (it - k * chunks) * KC;
-    const uint32_t* wb = ws + (it & 1) * CO * LDW;
-    const uint32_t* xk = xs + (size_t)k * dilation * lda;  // tap k: frames shifted by k d
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      if (ci0 + kk >= C) break;  // C % 16 == 0: k16 steps are whole
-      uint32_t a[P::MI][4], b[P::NI][2];
-#pragma unroll
-      for (int mi = 0; mi < P::MI; ++mi) {
-        const uint32_t* xr = xk + (tb + mi * 16 + g) * lda + (ci0 + kk) / 2 + tig;
-        a[mi][0] = xr[0];
-        a[mi][1] = xr[8 * lda];
-        a[mi][2] = xr[4];
-        a[mi][3] = xr[8 * lda + 4];
-      }
-#pragma unroll
-      for (int ni = 0; ni < P::NI; ++ni) {
-        const uint32_t* wr = wb + (cb + ni * 8 + g) * LDW + kk / 2 + tig;
-        b[ni][0] = wr[0];
-        b[ni][1] = wr[4];
-      }
-#pragma unroll
-      for (int mi = 0; mi < P::MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < P::NI; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-    }
-    __syncthreads();  // chunk `it` consumed before its buffer is refilled
+  // weights: fp32 split into TF32 parts, laid out [K * PARTS, C_out, C_in]
+  const size_t cc = (size_t)C * C;
+  E* s1 = static_cast<E*>(wbuf);
+  const E* s2 = static_cast<const E*>(w2);
+  if constexpr (sizeof(E) == 4) {
+    prepare_weights_f32<<<264, 256, 0, stream>>>(static_cast<const float*>(w1),
+                                                  static_cast<const float*>(w2), s1,
+                                                  s1 + A::PARTS * K * cc, C, K);
+    s2 = s1 + A::PARTS * K * cc;
+  } else {
+    prepare_weights_bf16<<<264, 256, 0, stream>>>(static_cast<const bf16*>(w1), s1, C, K);
   }
-}
-
-template <int TT>
-__global__ void __launch_bounds__(kThreads)
-dilated_unit_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w1k,
-                         const __nv_bfloat16* __restrict__ w2, __nv_bfloat16* __restrict__ y,
-                         int C, int T, int K, int dilation, int pad_left) {
-  using P = Cfg16<TT>;
-  constexpr int CO = co_per_pass<P>();
-  extern __shared__ __align__(16) uint32_t smem_words[];
-  const int TW = TT + (K - 1) * dilation;
-  const int LD = padded_words(C / 2);
-  uint32_t* ws = smem_words;                                // 2 x [CO][padded_words(KC/2)]
-  uint32_t* as = ws + 2 * CO * padded_words(P::KC / 2);     // [TW][LD] leaky(x), tile plus halo
-  uint32_t* gs = as + (size_t)TW * LD;                      // [TT][LD] leaky(h)
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const __nv_bfloat16* xb = x + (size_t)b * C * T;
-  __nv_bfloat16* yb = y + (size_t)b * C * T;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int tb = (warp % P::WM) * P::MI * 16;
-  const int cb = (warp / P::WM) * P::NI * 8;
-
-  for (int i = threadIdx.x; i < (C / 2) * TW; i += kThreads) {
-    const int c = i / TW, j = i - c * TW;  // channel pair c, frame j of the window
-    const int t = t0 - pad_left + j;
-    float lo = 0.f, hi = 0.f;
-    if (t >= 0 && t < T) {
-      lo = leaky(__bfloat162float(xb[(size_t)(2 * c) * T + t]));
-      hi = leaky(__bfloat162float(xb[(size_t)(2 * c + 1) * T + t]));
-    }
-    as[j * LD + c] = pack_bf16(lo, hi);
-  }
-
-  // conv1 (K dilated taps) -> leaky -> bf16 -> gs
-  for (int co0 = 0; co0 < C; co0 += CO) {
-    float acc[P::MI][P::NI][4] = {};
-    gemm_pass_bf16<P>(acc, as, LD, w1k, K, dilation, C, co0, ws);
-#pragma unroll
-    for (int mi = 0; mi < P::MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < P::NI; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {  // rows g and g + 8 of the fragment
-          const int t = tb + mi * 16 + g + h * 8;
-          const int co = co0 + cb + ni * 8 + 2 * tig;
-          if (co < C)
-            gs[t * LD + co / 2] = pack_bf16(leaky(acc[mi][ni][2 * h]), leaky(acc[mi][ni][2 * h + 1]));
-        }
-  }
-  // (the next pass's first __syncthreads publishes gs)
-
-  // conv2 (1x1) + residual in fp32 -> bf16 y
-  for (int co0 = 0; co0 < C; co0 += CO) {
-    float acc[P::MI][P::NI][4] = {};
-    gemm_pass_bf16<P>(acc, gs, LD, w2, 1, 0, C, co0, ws);
-#pragma unroll
-    for (int mi = 0; mi < P::MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < P::NI; ++ni)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int t = t0 + tb + mi * 16 + g + (r >> 1) * 8;
-          const int co = co0 + cb + ni * 8 + 2 * tig + (r & 1);
-          if (co < C && t < T) {
-            const size_t at = (size_t)co * T + t;
-            yb[at] = __float2bfloat16_rn(acc[mi][ni][r] + __bfloat162float(xb[at]));
-          }
-        }
-  }
-}
-
-template <int TT>
-size_t smem_bytes_bf16(int C, int K, int dilation) {
-  using P = Cfg16<TT>;
-  const size_t ld = padded_words(C / 2);
-  return sizeof(uint32_t) * ((size_t)2 * co_per_pass<P>() * padded_words(P::KC / 2) +
-                             (TT + (K - 1) * dilation) * ld + TT * ld);
-}
-
-size_t smem_bytes_bf16(int C, int K, int dilation, int tile) {
-  switch (tile) {
-    case 128: return smem_bytes_bf16<128>(C, K, dilation);
-    case 64: return smem_bytes_bf16<64>(C, K, dilation);
-    case 32: return smem_bytes_bf16<32>(C, K, dilation);
-    case 16: return smem_bytes_bf16<16>(C, K, dilation);
-    default: return 0;
-  }
-}
-
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-  return n;
-}
-
-template <int TT>
-int launch_bf16(const void* x, const void* w1k, const void* w2, void* y, int B, int C, int T,
-                int K, int dilation, int pad_left, cudaStream_t stream) {
-  static bool raised[kMaxDevices] = {};
-  const cudaError_t err = raise_smem_cap(dilated_unit_bf16_kernel<TT>, raised);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes_bf16<TT>(C, K, dilation);
-  const dim3 grid((T + TT - 1) / TT, B);
-  dilated_unit_bf16_kernel<TT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w1k),
-      static_cast<const __nv_bfloat16*>(w2), static_cast<__nv_bfloat16*>(y), C, T, K, dilation,
-      pad_left);
-  return (int)cudaGetLastError();
+
+  const uint32_t box_w[3] = {(uint32_t)A::KC, (uint32_t)np, 1};
+  CUtensorMap map_x, map_w1, map_w2;
+  if (!make_map(&map_x, is_bf16, x, {(uint64_t)T, (uint64_t)C, (uint64_t)B},
+                {(uint32_t)window(halo, pad_left, sizeof(E)), (uint32_t)A::KC, 1}, false) ||
+      !make_map(&map_w1, is_bf16, s1, {(uint64_t)C, (uint64_t)C, (uint64_t)(A::PARTS * K)}, box_w,
+                true) ||
+      !make_map(&map_w2, is_bf16, s2, {(uint64_t)C, (uint64_t)C, (uint64_t)A::PARTS}, box_w, true))
+    return (int)cudaErrorInvalidValue;
+
+  Params p{x, y, C, T, K, dilation, pad_left, 0, w_stages, x_stages, B};
+  if (fused) return launch_any<E>(np, true, flush, map_x, map_w1, map_w2, p, B, stream);
+
+  // split: conv1 -> leaky(h) in hbuf [B, C, T]; conv2 streams it back
+  p.out = hbuf;
+  int e = launch_any<E>(np, false, flush, map_x, map_w1, map_w2, p, B, stream);
+  if (e != 0) return e;
+  CUtensorMap map_h;
+  if (!make_map(&map_h, is_bf16, hbuf, {(uint64_t)T, (uint64_t)C, (uint64_t)B},
+                {(uint32_t)window(0, 0, sizeof(E)), (uint32_t)A::KC, 1}, false))
+    return (int)cudaErrorInvalidValue;
+  p = Params{x, y, C, T, 1, 1, 0, 1, w_stages, x_stages, B};
+  return launch_any<E>(np, false, flush, map_h, map_w2, map_w2, p, B, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Frames per block for this shape, or 0 if no tile fits (the shape is
-// refused). Tiles whose pass of output channels is wider than C waste that
-// part of their tensor-core work, so they come last; among the others the
-// largest tile that leaves room for two blocks per SM wins, else the largest
-// that fits one block (the order measured fastest at the v2 shapes).
-int dilated_unit_tile(int C, int K, int dilation) {
-  const size_t limit = (size_t)max_smem_optin();
-  const int tiles[3] = {64, 32, 16};
-  const int co[3] = {co_per_pass<Cfg<64>>(), co_per_pass<Cfg<32>>(), co_per_pass<Cfg<16>>()};
-  const int narrow = C > co[0] ? C : co[0];
-  for (int blocks = 2; blocks >= 1; --blocks)
-    for (int i = 0; i < 3; ++i)
-      if (co[i] <= narrow && blocks * smem_bytes(C, K, dilation, tiles[i]) <= limit) return tiles[i];
-  for (int i = 0; i < 3; ++i)
-    if (smem_bytes(C, K, dilation, tiles[i]) <= limit) return tiles[i];
-  return 0;
-}
+// The opt-in shared memory of a block on the current device (the wrapper's
+// plan sizes the stages by it).
+int dilated_unit_smem_limit() { return max_smem_optin(); }
 
-// Launches on `stream`; returns cudaGetLastError() after the launch (0 when
-// it was accepted), or cudaErrorInvalidValue for a refused shape.
-int dilated_unit_forward(const float* x, const float* w1t, const float* w2t, float* y, int B,
-                         int C, int T, int K, int dilation, int pad_left, int tile,
+// Launches on `stream`: the weight preparation into `wbuf` (fp32: 2 (K+1)
+// C^2 floats; bf16: K C^2), then the unit, fused or split (split: leaky(h)
+// through `hbuf`, B C T elements). Returns cudaGetLastError() after the last
+// launch (0 when every launch was accepted), or cudaErrorInvalidValue for a
+// refused shape or plan. `plan` in ops/kernels/dilated_unit.py picks
+// fused, np, w_stages, x_stages and flush.
+int dilated_unit_forward(const void* x, const void* w1, const void* w2, void* y, void* wbuf,
+                         void* hbuf, int B, int C, int T, int K, int dilation, int pad_left,
+                         int is_bf16, int fused, int np, int w_stages, int x_stages, int flush,
                          cudaStream_t stream) {
-  if (C % 8 != 0) return (int)cudaErrorInvalidValue;
-  switch (tile) {
-    case 64: return launch<64>(x, w1t, w2t, y, B, C, T, K, dilation, pad_left, stream);
-    case 32: return launch<32>(x, w1t, w2t, y, B, C, T, K, dilation, pad_left, stream);
-    case 16: return launch<16>(x, w1t, w2t, y, B, C, T, K, dilation, pad_left, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Frames per block of the bf16 kernel for B x [C, T] (0: refused): the
-// largest tile that fits in shared memory and still gives every SM at least
-// one block, else the smallest that fits (the most blocks).
-int dilated_unit_bf16_tile(int B, int C, int T, int K, int dilation) {
-  const size_t limit = (size_t)max_smem_optin();
-  const long sms = sm_count();
-  const int tiles[4] = {128, 64, 32, 16};
-  for (int i = 0; i < 4; ++i)
-    if (smem_bytes_bf16(C, K, dilation, tiles[i]) <= limit &&
-        (long)B * ((T + tiles[i] - 1) / tiles[i]) >= sms)
-      return tiles[i];
-  for (int i = 3; i >= 0; --i)
-    if (smem_bytes_bf16(C, K, dilation, tiles[i]) <= limit) return tiles[i];
-  return 0;
-}
-
-// The bf16 variant: x, y [B, C, T]; w1k [K, C_out, C_in]; w2 [C_out, C_in];
-// all bf16, C % 16 == 0. Returns as dilated_unit_forward does.
-int dilated_unit_forward_bf16(const void* x, const void* w1k, const void* w2, void* y, int B,
-                              int C, int T, int K, int dilation, int pad_left, int tile,
-                              cudaStream_t stream) {
-  if (C % 16 != 0) return (int)cudaErrorInvalidValue;
-  switch (tile) {
-    case 128: return launch_bf16<128>(x, w1k, w2, y, B, C, T, K, dilation, pad_left, stream);
-    case 64: return launch_bf16<64>(x, w1k, w2, y, B, C, T, K, dilation, pad_left, stream);
-    case 32: return launch_bf16<32>(x, w1k, w2, y, B, C, T, K, dilation, pad_left, stream);
-    case 16: return launch_bf16<16>(x, w1k, w2, y, B, C, T, K, dilation, pad_left, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return is_bf16 ? forward<bf16>(x, w1, w2, y, wbuf, hbuf, B, C, T, K, dilation, pad_left, fused,
+                                 np, w_stages, x_stages, flush, stream)
+                 : forward<float>(x, w1, w2, y, wbuf, hbuf, B, C, T, K, dilation, pad_left, fused,
+                                  np, w_stages, x_stages, flush, stream);
 }
 
 }  // extern "C"

@@ -3,8 +3,16 @@
 Each `rave_tpu_torch/csrc/<name>.cu` has a plain C interface. At first use
 it is compiled by `nvcc` for `sm_90a` into `build/kernels/` at the root of
 the checkout (listed in .gitignore) and loaded with `ctypes`. The library
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale one is never loaded. Nothing here runs at import time.
+name carries a hash of the flags, the source and every header of `csrc/`
+it includes (`#include "..."`, followed recursively), so an edited source
+or header is rebuilt and a stale library is never loaded. Nothing here
+runs at import time.
+
+The libraries link only the CUDA runtime. The kernels' TMA descriptors are
+made by `cuTensorMapEncodeTiled`, a function of the driver API: the source
+reaches it at run time through the runtime's `cudaGetDriverEntryPoint`, so
+no `-lcuda` is needed. No CUTLASS or CuTe header is used, so no CUTLASS
+include path is passed.
 """
 from __future__ import annotations
 
@@ -12,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -36,10 +45,30 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """`csrc/<name>.cu` and the files of `csrc/` it includes, recursively,
+    in the order first reached."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_file() and CSRC in dep.parents:
+                todo.append(dep)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

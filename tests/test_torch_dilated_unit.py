@@ -117,3 +117,89 @@ def test_wrapper_refuses_other_devices():
     w1, w2 = torch.empty(4, 4, 3, device="meta"), torch.empty(4, 4, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         dilated_unit.fused_dilated_unit(x, w1, w2, 1, 1, 1)
+
+
+# ---- host side of the Hopper kernel: the plan, the TMA geometry, the build ----
+
+H100_SMEM = 232448  # opt-in shared memory of an H100 block (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B,C,T", [(16, 96, 8192), (16, 192, 2048), (16, 384, 512), (16, 768, 128),
+                                   (8, 96, 8192), (8, 384, 512), (1, 768, 128), (2, 48, 1003)])
+def test_plan_fits_and_picks_the_mode(B, C, T, bf16):
+    """Every v2 unit shape gets a plan whose shared memory fits an H100
+    block, with 2-4 weight stages; leaky(h) stays resident (fused) where it
+    fits and the grid has enough tiles, and fp32 above C=192 never fuses
+    (its 128-frame leaky(h) tile alone would take C * 512 bytes); bf16's
+    split blocks take the wider N where that still fills the card; fp32
+    always flushes its sums."""
+    for d in (1, 3, 9):
+        left, _ = get_padding(3, 1, d, "centered")
+        p = dilated_unit.plan(B, C, T, 3, d, left, bf16, H100_SMEM)
+        assert p.smem <= H100_SMEM and 2 <= p.w_stages <= dilated_unit.MAX_STAGES
+        assert 2 <= p.x_stages <= dilated_unit.MAX_STAGES
+        assert p.np in (96, 192) and p.flush == (not bf16)
+        tiles = B * -(-T // dilated_unit.TILE)
+        if not bf16 and C > 192:
+            assert not p.fused
+        if p.fused:
+            assert tiles >= dilated_unit.FUSED_MIN_TILES
+        elif p.np == 192:  # bf16's wider N only where it still gives enough blocks
+            assert bf16 and tiles * -(-C // 192) >= dilated_unit.FUSED_MIN_TILES
+    assert dilated_unit.plan(16, 96, 8192, 3, 1, 1, False, H100_SMEM).fused
+    assert not dilated_unit.plan(16, 768, 128, 3, 1, 1, True, H100_SMEM).fused
+    assert dilated_unit.plan(16, 384, 512, 3, 1, 1, True, H100_SMEM).np == 192  # 128 blocks
+    assert dilated_unit.plan(16, 768, 128, 3, 1, 1, True, H100_SMEM).np == 96   # 128, not 64
+    assert dilated_unit.plan(16, 384, 512, 3, 1, 1, False, H100_SMEM).np == 96  # fp32 flushes
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("K,d,mode", [(3, 1, "centered"), (3, 9, "centered"), (3, 9, "causal"),
+                                      (1, 1, "centered"), (5, 20, "causal")])
+def test_window_covers_the_tile_and_is_aligned(K, d, mode, elem):
+    """The activation window starts `lead` frames before the tile, 16 bytes
+    aligned (TMA's rule), holds every frame the tile's taps read, and its
+    row is 8 mod 32 frames (conflict-free fragment loads)."""
+    left, _ = get_padding(K, 1, d, mode)
+    lead = dilated_unit.lead(left, elem)
+    win = dilated_unit.window(d * (K - 1), left, elem)
+    assert lead >= left and (lead * elem) % 16 == 0 and lead - left < 16 // elem
+    assert lead - left + dilated_unit.TILE - 1 + d * (K - 1) < win  # last frame of the last tap
+    assert win % 32 == 8
+
+
+def test_tma_length_pads_rows_to_16_bytes():
+    for T in (1, 3, 4, 7, 8, 53, 8171):
+        f32, b16 = (dilated_unit.tma_length(T, t) for t in (torch.float32, torch.bfloat16))
+        assert f32 >= T and f32 * 4 % 16 == 0 and f32 - T < 4
+        assert b16 >= T and b16 * 2 % 16 == 0 and b16 - T < 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_checks_refuse_a_halo_wider_than_a_box(dtype):
+    """The window of 128 frames plus the halo must fit one 256-frame TMA box:
+    d=60 at K=3 (120 frames of halo) is refused before any launch, d=40 is
+    taken (the wrapper's checks, run here on CPU tensors)."""
+    C = 16
+    x = torch.zeros(1, C, 64, dtype=dtype)
+    w1, w2 = torch.zeros(C, C, 3, dtype=dtype), torch.zeros(C, C, dtype=dtype)
+    with pytest.raises(ValueError, match="TMA box"):
+        dilated_unit._check(x, w1, w2, 60, 60, 60)
+    dilated_unit._check(x, w1, w2, 40, 40, 40)
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """An edit to a header of csrc/ that the source includes renames the
+    library, so a stale build is never loaded."""
+    from rave_tpu_torch.ops.kernels import build
+
+    (tmp_path / "unit.cu").write_text('#include "unit_parts.cuh"\n#include <stdint.h>\n')
+    (tmp_path / "unit_parts.cuh").write_text('#include "unit_more.cuh"\n')
+    (tmp_path / "unit_more.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [p.name for p in build.sources("unit")] == ["unit.cu", "unit_parts.cuh", "unit_more.cuh"]
+    before = build.library_path("unit")
+    (tmp_path / "unit_more.cuh").write_text("// two\n")
+    assert build.library_path("unit") != before
+    assert build.library_path("unit").parent == build.BUILD_DIR

@@ -1,27 +1,32 @@
 #!/usr/bin/env python3
-"""Time the CUDA fused dilated unit's design choices side by side on one card.
+"""Time the CUDA fused dilated unit's design choices, and the parent design, on one card.
 
-    python3 tools/torch_dilated_unit_sweep.py [--out sweep.jsonl] [--batch 16]
+    python3 tools/torch_dilated_unit_sweep.py [--out sweep.jsonl] [--parent DIR] [--quick]
 
-from the root of a checkout, on a machine with a CUDA card and nvcc. It
-builds rave_tpu_torch/csrc/dilated_unit.cu as committed and two variants
-made from it by text edits (each edit must match the source exactly, or the
-script stops):
+from the root of a checkout, on a machine with a CUDA card and nvcc. At each
+centered residual-unit shape of the v2 forward (fp32 at B=16, bf16 at B=8,
+x 131072 samples) it times, by CUDA events (2 warm calls, then 20 queued
+while the card sleeps, so that each is timed by its device work, not by
+the host's; `chip_smoke.cuda_ms`):
 
-  committed : the source as it is;
-  no_flush  : the tensor-core products accumulate straight into the
-              register sums, with no fp32 flush after every weight chunk;
-  kc16      : 16 input channels of weights per pipeline step at the
-              64- and 32-frame tiles (committed: 32).
+  plain     : `fused_dilated_unit_reference` (cuDNN, TF32 off);
+  committed : the wrapper, with the plan `plan` picks;
+  parent    : with --parent, another checkout's kernel through that
+              checkout's own wrapper (its ops/kernels/dilated_unit.py, bound
+              to its csrc/dilated_unit.cu built by nvcc here), timed parent,
+              committed, committed, parent and reported as the mean of each
+              pair;
+  variants  : the kernel's C entry point with every other plan that fits:
+              fused or split, N per pass, 2-4 weight and 2 or 4 window
+              stages and, in fp32, with or without the per-chunk flush.
 
-At each centered residual-unit shape of the v2 forward at B x 131072
-samples, every variant runs at every tile (64, 32, 16 frames) whose shared
-memory fits; a tile that does not fit is recorded as refused. Each run
-gives its time by CUDA events (2 warm launches, then 20), its max relative
-error against the plain fp32 version (`fused_dilated_unit_reference`, TF32
-off) and against the same formula in float64. The last lines name, per
-shape, the tile the committed rule (`dilated_unit_tile`) picks and the
-fastest committed tile.
+Each run gives its max relative error against plain and, in fp32, against
+the same formula in float64; and the bytes of weights the blocks read from
+L2 per call (each 128-frame tile reads every weight once: (K+1) C^2 times
+the element size, twice in fp32 for the TF32 hi/lo parts; the parent's
+tiles of TT frames read (K+1) C^2 fp32 or bf16 values each). The last line
+is a JSON summary per shape: plain, parent and committed ms, the bound of
+`chip_smoke.unit_bound`, the L2 weight bytes, and the fastest variant.
 """
 from __future__ import annotations
 
@@ -36,50 +41,48 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 SHAPES = [(96, 8192, (1, 3, 9)), (192, 2048, (1, 3, 9)), (384, 512, (1, 3, 9)),
           (768, 128, (1, 3))]
-TILES = (64, 32, 16)
-VARIANTS = {
-    "committed": [],
-    "no_flush": [("float part[P::MI][P::NI][4] = {};", "auto& part = acc;", 1),
-                 ("acc[mi][ni][r] += part[mi][ni][r];", ";", 1)],
-    "kc16": [("KC = 32; };", "KC = 16; };", 2)],
-}
+N_PER_PASS = {"fp32": (96,), "bf16": (96, 192)}
 
 
-def build_variant(name: str, edits, out_dir: Path) -> ctypes.CDLL:
+def load_parent(parent: Path, out_dir: Path):
+    """The parent checkout's wrapper module, bound to its own kernel."""
+    import importlib.util
+
     from rave_tpu_torch.ops.kernels import build
 
-    src = (build.CSRC / "dilated_unit.cu").read_text()
-    for old, new, count in edits:
-        if src.count(old) != count:
-            raise SystemExit(f"{name}: {old!r} occurs {src.count(old)} times, expected {count}")
-        src = src.replace(old, new)
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu, so = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
-    cu.write_text(src)
-    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+    so = out_dir / "libparent.so"
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so),
+                           str(parent / "rave_tpu_torch" / "csrc" / "dilated_unit.cu")],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise SystemExit(f"nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
-    regs = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines() if "registers" in ln]
-    print(f"built {name}: {' | '.join(regs)}", flush=True)
+        raise SystemExit(f"nvcc failed on the parent:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(so))
     lib.dilated_unit_tile.argtypes = [ctypes.c_int] * 3
-    lib.dilated_unit_tile.restype = ctypes.c_int
-    lib.dilated_unit_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.dilated_unit_forward.restype = ctypes.c_int
-    return lib
+    lib.dilated_unit_bf16_tile.argtypes = [ctypes.c_int] * 5
+    for fn in (lib.dilated_unit_forward, lib.dilated_unit_forward_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    spec = importlib.util.spec_from_file_location(
+        "parent_dilated_unit", parent / "rave_tpu_torch" / "ops" / "kernels" / "dilated_unit.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module._lib = lambda: lib  # its wrapper, its library
+    return module
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/dilated_unit_sweep.jsonl")
-    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--parent", type=Path, default=None)
+    ap.add_argument("--quick", action="store_true", help="the committed plan and the parent only")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
 
+    from chip_smoke import SLEEP_CYCLES_PER_CALL, unit_bound
     from rave_tpu_torch.nn.conv import get_padding
-    from rave_tpu_torch.ops.kernels.dilated_unit import fused_dilated_unit_reference
+    from rave_tpu_torch.ops.kernels import dilated_unit as du
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_dilated_unit_sweep: no CUDA device")
@@ -88,14 +91,15 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    libs = {name: build_variant(name, edits, ROOT / "build" / "sweep")
-            for name, edits in VARIANTS.items()}
+    lib = du._lib()
+    parent = load_parent(args.parent, ROOT / "build" / "sweep") if args.parent else None
     stream = torch.cuda.current_stream().cuda_stream
 
-    def timed(fn, iters=20):
+    def timed(fn, iters=20):  # device time per call, as chip_smoke.cuda_ms
         for _ in range(2):
             fn()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
         start.record()
         for _ in range(iters):
             fn()
@@ -104,53 +108,92 @@ def main() -> None:
         return start.elapsed_time(end) / iters
 
     def rel(a, b):
-        return float((a.double() - b).abs().max() / b.abs().max())
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, picks = [], []
+    summary = []
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     with out.open("w") as fh, torch.inference_mode():
-        for C, T, dilations in SHAPES:
-            x = torch.randn(args.batch, C, T, device="cuda", generator=gen)
-            w1 = torch.randn(C, C, 3, device="cuda", generator=gen) / math.sqrt(3 * C)
-            w2 = torch.randn(C, C, device="cuda", generator=gen) / math.sqrt(C)
-            w1t, w2t = w1.permute(2, 1, 0).contiguous(), w2.t().contiguous()
-            for d in dilations:
-                left, right = get_padding(3, 1, d, "centered")
-                y_plain = fused_dilated_unit_reference(x, w1, w2, d, left, right)
-                y64 = fused_dilated_unit_reference(x.double(), w1.double(), w2.double(),
-                                                   d, left, right)
-                plain_ms = timed(lambda: fused_dilated_unit_reference(x, w1, w2, d, left, right))
-                base = {"C": C, "T": T, "d": d, "B": args.batch, "plain_ms": plain_ms,
-                        "plain_err64": rel(y_plain, y64)}
-                for name, lib in libs.items():
-                    for tile in TILES:
-                        y = torch.empty_like(x)
+        def emit(row):
+            fh.write(json.dumps(row) + "\n")
+            print(json.dumps(row), flush=True)
 
-                        def launch():
-                            return lib.dilated_unit_forward(
-                                x.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), y.data_ptr(),
-                                args.batch, C, T, 3, d, left, tile, stream)
+        for kind, B in (("fp32", 16), ("bf16", 8)):
+            bf16, dtype = kind == "bf16", (torch.bfloat16 if kind == "bf16" else torch.float32)
+            elem, parts = (2, 1) if bf16 else (4, 2)
+            for C, T, dilations in SHAPES:
+                x = torch.randn(B, C, T, device="cuda", generator=gen).to(dtype)
+                w1 = (torch.randn(C, C, 3, device="cuda", generator=gen) / math.sqrt(3 * C)).to(dtype)
+                w2 = (torch.randn(C, C, device="cuda", generator=gen) / math.sqrt(C)).to(dtype)
+                for d in dilations:
+                    left, right = get_padding(3, 1, d, "centered")
+                    args_ = (x, w1, w2, d, left, right)
+                    y_plain = du.fused_dilated_unit_reference(*args_)
+                    y64 = du.fused_dilated_unit_reference(x.double(), w1.double(), w2.double(),
+                                                          d, left, right)
+                    plan = du.kernel_plan(B, C, T, 3, d, left, bf16)
+                    tiles = B * -(-T // du.TILE)
+                    base = {"kind": kind, "B": B, "C": C, "T": T, "d": d,
+                            "plain_ms": timed(lambda: du.fused_dilated_unit_reference(*args_)),
+                            "bound_ms": unit_bound([{"C": C, "T": T}], B, kind)["bound_ms"],
+                            "l2_weight_bytes": tiles * 4 * C * C * elem * parts}
+                    committed = lambda: du.fused_dilated_unit(*args_)  # noqa: E731
+                    y = committed()
+                    row = {**base, "variant": "committed", **plan._asdict(),
+                           "err": rel(y, y_plain), "err64": rel(y, y64)}
+                    if parent is not None:
+                        def run_parent():
+                            return parent.fused_dilated_unit(*args_)
 
-                        row = {**base, "variant": name, "tile": tile}
-                        err = launch()
-                        torch.cuda.synchronize()
-                        if err != 0:  # the tile's shared memory does not fit this shape
-                            row["refused"] = f"cudaError {err}"
-                        else:
-                            row.update(ms=timed(launch), err=rel(y, y_plain.double()),
-                                       err64=rel(y, y64))
-                        rows.append(row)
-                        fh.write(json.dumps(row) + "\n")
-                        print(json.dumps(row), flush=True)
-                done = [r for r in rows if r["C"] == C and r["d"] == d
-                        and r["variant"] == "committed" and "ms" in r]
-                picks.append({"C": C, "d": d, "rule": libs["committed"].dilated_unit_tile(C, 3, d),
-                              "fastest": min(done, key=lambda r: r["ms"])["tile"]})
-    for p in picks:
-        print(f"C={p['C']} d={p['d']}: rule picks {p['rule']}, fastest {p['fastest']}", flush=True)
-    print(json.dumps({"card": card, "picks": picks}), flush=True)
+                        yp = run_parent()
+                        tile = (parent.kernel_tile_bf16(B, C, T, 3, d) if bf16
+                                else parent.kernel_tile(C, 3, d))
+                        par = [timed(run_parent)]
+                        com = [timed(committed), timed(committed)]
+                        par.append(timed(run_parent))
+                        row.update(ms=sum(com) / 2, parent_ms=sum(par) / 2, parent_runs=par,
+                                   runs=com, parent_tile=tile, parent_err=rel(yp, y_plain),
+                                   parent_l2_weight_bytes=B * -(-T // tile) * 4 * C * C * elem)
+                    else:
+                        row["ms"] = timed(committed)
+                    emit(row)
+                    summary.append({k: row.get(k) for k in (
+                        "kind", "C", "T", "d", "plain_ms", "parent_ms", "ms", "bound_ms",
+                        "l2_weight_bytes", "parent_l2_weight_bytes", "err", "err64")})
+                    if args.quick:
+                        continue
+                    best = (row["ms"], "committed")
+                    wbuf = torch.empty((3 if bf16 else 8) * C * C, dtype=dtype, device="cuda")
+                    hbuf = torch.empty_like(x)
+                    yv = torch.empty_like(x)
+                    for fused in (True, False):
+                        for np_ in N_PER_PASS[kind]:
+                            for stages, x_stages in ((2, 2), (3, 2), (4, 2), (4, 4)):
+                                for flush in ((True, False) if not bf16 else (False,)):
+                                    def launch():
+                                        return lib.dilated_unit_forward(
+                                            x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                                            yv.data_ptr(), wbuf.data_ptr(), hbuf.data_ptr(),
+                                            B, C, T, 3, d, left, int(bf16), int(fused), np_,
+                                            stages, x_stages, int(flush), stream)
+
+                                    v = {**base, "variant": "plan", "fused": fused, "np": np_,
+                                         "w_stages": stages, "x_stages": x_stages,
+                                         "flush": flush}
+                                    if launch() != 0:  # does not fit this card's shared memory
+                                        torch.cuda.synchronize()
+                                        v["refused"] = True
+                                    else:
+                                        v.update(ms=timed(launch), err=rel(yv, y_plain),
+                                                 err64=rel(yv, y64))
+                                        best = min(best, (v["ms"], f"fused={fused} np={np_} "
+                                                          f"stages={stages}/{x_stages} "
+                                                          f"flush={flush}"))
+                                    emit(v)
+                    summary[-1]["fastest"] = best[1]
+                    summary[-1]["fastest_ms"] = best[0]
+    print(json.dumps({"card": card, "shapes": summary}), flush=True)
 
 
 if __name__ == "__main__":

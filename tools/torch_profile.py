@@ -73,7 +73,8 @@ def device_summary(prof, calls: int, wall_ms: float, top: int) -> list[str]:
     return lines
 
 
-UNIT_KERNEL = re.compile(r"dilated_unit(_bf16)?_kernel")
+# the fused unit's kernels (csrc/dilated_unit.cu): its weight preparation and the unit
+UNIT_KERNEL = re.compile(r"unit_kernel|prepare_weights")
 # cuDNN's kernels by name: convolutions (forward, data and weight gradients)
 # and the layout transforms around them
 CONV_KERNEL = re.compile(r"xmma|fprop|dgrad|wgrad|implicit_gemm|cudnn|convolve|conv[12]d", re.I)
@@ -195,6 +196,8 @@ def main() -> None:
                 model(x)
             torch.cuda.synchronize()
         report += ["== offline v2 B=16 x 131072"] + device_summary(prof, 3, wall, args.top)
+        report.append(f"fused unit kernels (weight preparation and unit, 22 calls): "
+                      f"{kernel_ms(prof, 3, UNIT_KERNEL):.3f} ms per forward")
 
         cfg = compose(["v2", "causal"])
         model = build_rave(cfg, stream_batch=1, seed=4, device="cuda").eval()
