@@ -12,8 +12,9 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                every (C, T, d, pad) of the v2 forward at B=16 x 131072
                samples, fp32 with TF32 off, and at each C a ragged length
                (T - 21: no whole 128-frame tile, padded for TMA's 16-byte
-               rows) and B=1 (a grid that fills few SMs); max relative error
-               <= 1e-4; both times by CUDA events;
+               rows) and B=1 (a grid that fills few SMs), and the centered
+               shapes at B=2 (phase 11's validation and eval batches); max
+               relative error <= 1e-4; both times by CUDA events;
   4. kernel_bf16 : the bf16 variant at the 22 unit shapes of a B=8 step
                (centered and causal), the 11 centered ones at B=16, and the
                ragged and B=1 shapes of phase 3; the referee is the plain
@@ -63,16 +64,42 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                deterministic, after one warm step: losses equal to 1e-6,
                gradients to 1e-5 (global relative L2), 44 launches (forward
                and recompute) against 22, and a lower peak memory;
- 11. the kernels' JSON line, then the last line
+ 11. loop    : the training driver through the port's command line, in
+               process (`rave_tpu_torch.cli.main`): a seeded corpus of .wav
+               tones, chirps and noise (104 records of 131072 samples, 2 of
+               them the validation split) -> `preprocess` -> `train --config
+               v2` at B=8 x 131072 with the device-resident dataset,
+               pre-warmup, adversarial and critic steps, validation before
+               and after the warmup, periodic and final checkpoints -> a
+               second `train` with more steps that resumes -> a `--bf16
+               --device_data off` run of all three programs through the host
+               loader -> `eval`
+               twice. Each step, validation and checkpoint save of the
+               training loop is observed in process (it ends in a synchronize and
+               records its time and its launches of each variant): exactly
+               22 launches of the step's variant per step and 22 fp32 per
+               validation or eval batch; finite losses; the PCA buffers set
+               by the pre-warmup validation; the run dir's files and
+               checkpoints; the resumed state bit-equal to its checkpoint
+               and its first batch the one an unbroken device pipeline makes
+               at that step; eval finite and the same twice. Prints loop ms
+               per step by phase against phase `train`'s bare steps, the
+               device-data batch's device ms, the checkpoint's seconds and
+               MB, and the peak memory;
+ 12. the kernels' JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Per-shape details go to build/chip_smoke.json.
+Per-shape details go to build/chip_smoke.json; the loop phase works in
+build/loop (its corpus, db and run dirs).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -101,6 +128,16 @@ TRAIN_BATCH = 8  # data.batch of the v2 preset: the unit shapes above at half th
 PEAK_FLOPS = {"fp32": 495e12 / 3, "bf16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES_PER_CALL = 1_000_000  # ~0.6 ms of the card's clock per timed call (cuda_ms)
+# the loop phase: 104 records (2 in the validation split); a short warmup and a critic
+# step every other step, so that a few steps run all three programs
+LOOP_RECORDS, LOOP_FILES = 104, 4
+LOOP_SCHEDULE = ["train.phase_1_duration=6", "train.update_discriminator_every=2",
+                 "train.ema=0.999"]  # EMA on: validation and `eval --ema_weights` use it
+LOOP_STEPS, LOOP_RESUME_STEPS = 12, 16
+LOOP_BF16_STEPS, LOOP_BF16_WARMUP = 10, 4  # three or four steps of each program
+LOOP_VAL_EVERY, LOOP_SAVE_EVERY = 6, 8
+EVAL_METRICS = ("spectral_distance", "waveform_l1", "frechet_mel_distance")
+LOOP_VAL_BATCH = 2  # the validation split of LOOP_RECORDS records, in one batch
 
 
 def rel_err(a, b, floor: float = 1e-12) -> float:
@@ -222,7 +259,10 @@ def phase_kernel() -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for case, B, C, T, d, mode in kernel_cases(BATCH, ("centered", "causal")):
+    # the loop's validation and eval batches: the 2 clips of the validation split
+    val_cases = [("val", LOOP_VAL_BATCH, C, T, d, "centered") for C, T, dils in UNIT_SHAPES
+                 for d in dils]
+    for case, B, C, T, d, mode in kernel_cases(BATCH, ("centered", "causal")) + val_cases:
         x = torch.randn(B, C, T, device="cuda", generator=gen)
         w1, w2 = unit_weights(C, gen, torch.float32)
         left, right = get_padding(3, 1, d, mode)
@@ -742,6 +782,352 @@ def phase_remat(crop) -> dict:
     return out
 
 
+def write_corpus(folder: Path, seed: int = 11) -> None:
+    """LOOP_FILES seeded .wav files of tones, chirps, noise and their mix,
+    LOOP_RECORDS records of N_SIGNAL samples in all."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    folder.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    n = LOOP_RECORDS // LOOP_FILES * N_SIGNAL
+    t = np.arange(n) / SAMPLE_RATE
+    f0 = rng.uniform(80, 800, size=3)
+    tone = sum(0.2 * np.sin(2 * np.pi * f * (1 + k) * t) / (1 + k) for k, f in enumerate(f0))
+    chirp = 0.4 * np.sin(2 * np.pi * (60 + 40 * t) * t)
+    noise = 0.15 * rng.standard_normal(n)
+    for name, x in (("tones", tone), ("chirp", chirp), ("noise", noise),
+                    ("mix", 0.5 * (tone + chirp) + 0.5 * noise)):
+        wavfile.write(folder / f"{name}.wav", SAMPLE_RATE,
+                      (np.clip(x, -1, 1) * 32767).astype(np.int16))
+
+
+class LoopProbe:
+    """Observes the training driver in process: its receptive-field probe,
+    each step, validation, checkpoint save and restore end in a synchronize
+    and record their wall time and their kernel launches of each variant; a
+    restore also keeps a host copy of the state it restored. The launch
+    counts are read, never reset, so the phase's totals stay those of the
+    main path."""
+
+    NAMES = ("receptive_field", "build_train_steps", "run_validation", "save_checkpoint",
+             "restore_checkpoint")
+
+    def __init__(self):
+        from rave_tpu_torch.train import loop
+
+        self.loop, self.events, self.keep_x_at = loop, [], None
+        self.saved = {name: getattr(loop, name) for name in self.NAMES}
+
+    def __enter__(self):
+        loop = self.loop
+        loop.receptive_field = self.observe("receptive_field", self.saved["receptive_field"])
+        loop.run_validation = self.observe("validation", self.saved["run_validation"])
+        loop.save_checkpoint = self.observe("save", self.saved["save_checkpoint"])
+        loop.restore_checkpoint = self.observe("restore", self.saved["restore_checkpoint"])
+        loop.build_train_steps = lambda *a, **k: {
+            which: self.observe("step", fn, which)
+            for which, fn in self.saved["build_train_steps"](*a, **k).items()}
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.loop, name, fn)
+
+    @staticmethod
+    def counts():
+        from rave_tpu_torch.ops.kernels import dilated_unit
+
+        return dilated_unit.launches - dilated_unit.launches_bf16, dilated_unit.launches_bf16
+
+    def observe(self, kind: str, fn, which: str = ""):
+        import torch
+
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            (fp32, bf16), t0 = self.counts(), time.perf_counter()
+            step = args[0].step if kind == "step" else None
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            after = self.counts()
+            event = {"kind": kind, "start": t0, "end": t1, "ms": (t1 - t0) * 1e3,
+                     "fp32": after[0] - fp32, "bf16": after[1] - bf16}
+            if kind == "step":
+                event["step"] = step
+                event["phase"] = ("dis" if which == "dis" else
+                                  "gen_adversarial" if args[2] else "gen_prewarmup")
+                event["finite"] = all(math.isfinite(float(v)) for v in out.values())
+                if step == self.keep_x_at:
+                    event["x"] = args[1].clone()
+            elif kind == "validation":
+                event["batches"] = len(args[2])
+                event["value"] = out[0]
+            elif kind == "save":
+                event["step"], event["mb"] = args[1].step, out.stat().st_size / 2**20
+            elif kind == "restore" and out is not None:
+                st = args[1]
+                event["path"], event["state"] = out, host_copy({
+                    "step": st.step, "model": st.model.state_dict(),
+                    "discriminator": st.discriminator.state_dict(),
+                    "gen_opt": st.gen_opt.state_dict(), "dis_opt": st.dis_opt.state_dict(),
+                    "ema": st.ema})
+            self.events.append(event)
+            return out
+
+        return call
+
+    def take(self) -> list:
+        events, self.events = self.events, []
+        return events
+
+
+def loop_ms(events) -> dict:
+    """Mean loop ms per step by phase: from the end of one step to the end of
+    the next (the loop's own work, data and logging included), over steps
+    that follow a step of the same run with no validation or save between,
+    after each phase's first step; and the bare step calls' mean over the same
+    steps."""
+    loop_times, bare, seen = {}, {}, set()
+    for prev, ev in zip(events, events[1:]):
+        if ev["kind"] != "step":
+            continue
+        if ev["phase"] not in seen:
+            seen.add(ev["phase"])
+            continue
+        if prev["kind"] == "step":
+            loop_times.setdefault(ev["phase"], []).append((ev["end"] - prev["end"]) * 1e3)
+            bare.setdefault(ev["phase"], []).append(ev["ms"])
+    return {k: {"loop_ms": statistics.mean(v), "step_ms": statistics.mean(bare[k]), "n": len(v)}
+            for k, v in loop_times.items()}
+
+
+def host_copy(tree):
+    """A copy of a nest of dicts, lists and tensors, its tensors cloned to the host."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def unequal(a, b, path: str = "") -> list:
+    """Paths where two nests of dicts, lists and tensors differ in any bit."""
+    import torch
+
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return [f"{path} keys"]
+        return [p for k in a for p in unequal(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path} length"]
+        return [p for i, (x, y) in enumerate(zip(a, b)) for p in unequal(x, y, f"{path}[{i}]")]
+    if torch.is_tensor(a):
+        return [] if a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()) else [path]
+    return [] if a == b else [path]
+
+
+def _cli(args) -> str:
+    """Run a command of the port's CLI in this process; its standard output."""
+    from rave_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli.main([str(a) for a in args])
+    check(code == 0, f"cli {args[0]} exited {code}: {out.getvalue()[-2000:]}")
+    return out.getvalue()
+
+
+def _check_steps(events, kind: str, first: int, last: int) -> None:
+    steps = [e for e in events if e["kind"] == "step"]
+    check([e["step"] for e in steps] == list(range(first, last)),
+          f"{kind} run took steps {[e['step'] for e in steps]}, expected {first}..{last - 1}")
+    other = "fp32" if kind == "bf16" else "bf16"
+    for e in steps:
+        check(e[kind] == 22 and e[other] == 0, f"{kind} run, step {e['step']} ({e['phase']}): "
+              f"{e['fp32']} fp32 and {e['bf16']} bf16 launches, expected 22 {kind}")
+        check(e["finite"], f"{kind} run, step {e['step']}: non-finite metrics")
+    for e in events:
+        if e["kind"] == "validation":
+            check(e["fp32"] == 22 * e["batches"] and e["bf16"] == 0,
+                  f"validation over {e['batches']} batches: {e['fp32']} fp32 / {e['bf16']} bf16 "
+                  "launches")
+            check(math.isfinite(e["value"]), f"validation value {e['value']}")
+        if e["kind"] == "receptive_field":
+            check(e["fp32"] > 0 and e["fp32"] % 22 == 0 and e["bf16"] == 0,
+                  f"receptive-field probe: {e['fp32']} fp32, {e['bf16']} bf16 launches")
+
+
+def phase_loop(train_ms: dict, train_bf16_ms: dict) -> dict:
+    import torch
+
+    from rave_tpu_torch import config as config_lib
+    from rave_tpu_torch.data.dataset import get_dataset, split_dataset
+    from rave_tpu_torch.data.device_data import DeviceDataPipeline
+    from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.train.loop import device_batches
+    from rave_tpu_torch.utils import checkpoint
+
+    work = ROOT / "build" / "loop"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_corpus(work / "corpus")
+    db, runs = work / "db", work / "runs"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    _cli(["preprocess", "--input_path", work / "corpus", "--output_path", db,
+          "--num_signal", N_SIGNAL, "--sampling_rate", SAMPLE_RATE])
+    common = ["--config", "v2", "--db_path", db, "--out_path", runs, "--batch", TRAIN_BATCH,
+              "--n_signal", N_SIGNAL, "--device", "cuda"]
+    for o in LOOP_SCHEDULE:
+        common += ["--override", o]
+    with LoopProbe() as probe:
+        # fp32 with the device-resident dataset, then a resume with more steps
+        out = _cli(["train", "--name", "loop", "--max_steps", LOOP_STEPS, "--val_every",
+                    LOOP_VAL_EVERY, "--save_every", LOOP_SAVE_EVERY, "--device_data", "on",
+                    *common])
+        run_dir = Path(out.strip().splitlines()[-1].removeprefix("run dir: "))
+        first = probe.take()
+        probe.keep_x_at = LOOP_STEPS
+        out2 = _cli(["train", "--name", "loop", "--max_steps", LOOP_RESUME_STEPS, "--val_every",
+                     LOOP_VAL_EVERY, "--save_every", LOOP_SAVE_EVERY, "--device_data", "on",
+                     *common])
+        resumed = probe.take()
+        probe.keep_x_at = None
+        # bf16 through the host loader and the pinned, non-blocking prefetch
+        out3 = _cli(["train", "--name", "loop_bf16", "--bf16", "--max_steps", LOOP_BF16_STEPS,
+                     "--val_every", 1000, "--save_every", 1000, "--device_data", "off",
+                     "--no_resume", *common, "--override",
+                     f"train.phase_1_duration={LOOP_BF16_WARMUP}"])
+        run_bf16 = Path(out3.strip().splitlines()[-1].removeprefix("run dir: "))
+        bf16_events = probe.take()
+    evals = []
+    for ema in (False, False, True):
+        before = LoopProbe.counts()
+        ev = json.loads(_cli(["eval", "--run", run_dir, "--db_path", db, "--split", "val",
+                              "--device", "cuda", *(["--ema_weights"] if ema else [])]
+                             ).strip().splitlines()[-1])
+        ev["fp32"], ev["bf16"] = (a - b for a, b in zip(LoopProbe.counts(), before))
+        evals.append(ev)
+    torch.cuda.synchronize()
+    launches = {"fp32": dilated_unit.launches - dilated_unit.launches_bf16,
+                "bf16": dilated_unit.launches_bf16}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    # the runs: launches, steps, files, checkpoints, PCA
+    _check_steps(first, "fp32", 0, LOOP_STEPS)
+    _check_steps(resumed, "fp32", LOOP_STEPS, LOOP_RESUME_STEPS)
+    _check_steps(bf16_events, "bf16", 0, LOOP_BF16_STEPS)
+    check("native (C++) input pipeline is not ported" in out3, "bf16 run did not use the Loader")
+    check([checkpoint.checkpoint_step(p) for p in checkpoint.list_checkpoints(str(run_bf16))]
+          == [LOOP_BF16_STEPS], "the bf16 run's final checkpoint")
+    check(f"resumed at step {LOOP_STEPS}" in out2, "the second run did not resume")
+    for events in (first, bf16_events):
+        phases = {e["phase"] for e in events if e["kind"] == "step"}
+        check(phases == {"gen_prewarmup", "gen_adversarial", "dis"}, f"phases run: {phases}")
+    cfg = config_lib.from_dict(json.loads((run_dir / "config.json").read_text()))
+    warmup = cfg.train.phase_1_duration
+    check(sum(e["kind"] == "validation" for e in first) == 2, "validations of the first run")
+    vals = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    check([r["step"] for r in vals if "validation" in r]
+          == [LOOP_VAL_EVERY, LOOP_STEPS, LOOP_RESUME_STEPS], f"validation rows {vals}")
+    check({r["step"] for r in vals if "loss_gen" in r} >= {1, 2}, "no loss rows at steps 1, 2")
+    check(all(math.isfinite(v) for r in vals for v in r.values()), "non-finite metrics row")
+    check((run_dir / "status.json").is_file(), "no status.json")
+    ckpts = [checkpoint.checkpoint_step(p) for p in checkpoint.list_checkpoints(str(run_dir))]
+    check(ckpts == [LOOP_VAL_EVERY, LOOP_SAVE_EVERY, LOOP_STEPS, LOOP_RESUME_STEPS],
+          f"checkpoints at {ckpts}")
+    ckpt_pre = torch.load(checkpoint.latest_checkpoint(str(run_dir), LOOP_VAL_EVERY),
+                          map_location="cpu", weights_only=True)["model"]
+    check(LOOP_VAL_EVERY <= warmup and bool(ckpt_pre["fidelity"].gt(0).all())
+          and not torch.equal(ckpt_pre["latent_pca"], torch.eye(cfg.latent_size)),
+          "the pre-warmup validation left the PCA buffers unset")
+    final = torch.load(checkpoint.latest_checkpoint(str(run_dir)), map_location="cpu",
+                       weights_only=True)
+    check(all(torch.equal(final["model"][k], ckpt_pre[k])
+              for k in ("latent_pca", "latent_mean", "fidelity")),
+          "the PCA buffers moved after the warmup")
+
+    # resume: the state the second run restored, EMA included, bit-equal to its
+    # checkpoint; the schedule continued
+    restores = [e for e in first + resumed if e["kind"] == "restore" and "state" in e]
+    check(len(restores) == 1 and restores[0] in resumed
+          and checkpoint.checkpoint_step(restores[0]["path"]) == LOOP_STEPS,
+          f"restores: {[(e['path'], e in resumed) for e in restores]}")
+    restored = restores[0]["state"]
+    saved = torch.load(restores[0]["path"], map_location="cpu", weights_only=True)
+    bad = unequal(restored, saved)
+    check(not bad and restored["step"] == LOOP_STEPS and restored["ema"] is not None,
+          f"restore not bit-equal: {bad[:5]}")
+    dataset = get_dataset(str(db), cfg.sampling_rate, N_SIGNAL)
+    train_idx, _ = split_dataset(dataset)
+    pipeline = DeviceDataPipeline(str(db), train_idx, TRAIN_BATCH, N_SIGNAL, SAMPLE_RATE,
+                                  device="cuda")
+    unbroken = device_batches(pipeline, 0)
+    for _ in range(LOOP_STEPS + 1):  # the batches of steps 0 .. LOOP_STEPS
+        x_unbroken = next(unbroken)
+    x_resumed = next(e["x"] for e in resumed if e.get("x") is not None)
+    check(torch.equal(x_resumed, x_unbroken),
+          f"the resumed run's batch at step {LOOP_STEPS} is not the unbroken pipeline's")
+    batch_ms = cuda_ms(lambda: pipeline.batch_at(LOOP_STEPS), 20)
+
+    # eval: finite, repeatable, 22 fp32 launches per batch
+    for k in EVAL_METRICS:
+        check(all(math.isfinite(ev[k]) for ev in evals), f"eval {k} not finite")
+    check(evals[0] == evals[1], f"eval differs between calls: {evals[:2]}")
+    check(evals[2]["ema"] and evals[2]["spectral_distance"] != evals[0]["spectral_distance"],
+          f"eval --ema_weights: {evals[2]}")
+    for ev in evals:
+        check(ev["n_clips"] == LOOP_VAL_BATCH, f"eval over {ev['n_clips']} clips")
+        check(ev["fp32"] == 22 * ev["n_batches"] and ev["bf16"] == 0,
+              f"eval launches {ev['fp32']} fp32, {ev['bf16']} bf16")
+    accounted = sum(e["fp32"] for e in first + resumed + bf16_events) + sum(
+        ev["fp32"] for ev in evals)
+    check(launches["fp32"] == accounted and
+          launches["bf16"] == sum(e["bf16"] for e in bf16_events),
+          f"launches {launches} not all in the probe, the steps, validation and eval")
+
+    saves = [e for e in first + resumed + bf16_events if e["kind"] == "save"]
+    timing = {"fp32": loop_ms(first + resumed), "bf16": loop_ms(bf16_events)}
+    out = {"records": LOOP_RECORDS, "run_dir": str(run_dir.relative_to(ROOT)),
+           "checkpoints": ckpts, "launches": launches, "peak_gb": peak_gb,
+           "loop_ms": timing, "bare_step_ms": {"fp32": train_ms, "bf16": train_bf16_ms},
+           "device_batch_ms": batch_ms, "save_s": [e["ms"] / 1e3 for e in saves],
+           "checkpoint_mb": [e["mb"] for e in saves], "eval": evals[0],
+           "eval_ema": evals[2],
+           "validation_ms": [e["ms"] for e in first + resumed if e["kind"] == "validation"],
+           "probe_ms": [e["ms"] for e in first + resumed + bf16_events
+                        if e["kind"] == "receptive_field"],
+           "validation": [r["validation"] for r in vals if "validation" in r],
+           "seconds": time.perf_counter() - t0}
+    summary = "; ".join(f"{kind} {ph} {v['loop_ms']:.1f} (step {v['step_ms']:.1f}, x{v['n']}; "
+                        f"phase train {out['bare_step_ms'][kind].get(ph, float('nan')):.1f})"
+                        for kind, t in timing.items() for ph, v in sorted(t.items()))
+    print(f"loop: cli preprocess {LOOP_RECORDS} records -> train v2 B={TRAIN_BATCH} x {N_SIGNAL} "
+          f"steps 0..{LOOP_STEPS - 1} (device data), resumed to {LOOP_RESUME_STEPS}, bf16 "
+          f"{LOOP_BF16_STEPS} steps (host loader) -> eval x2; 22 launches per step and per "
+          f"validation/eval batch, {launches['fp32']} fp32 + {launches['bf16']} bf16 in all; "
+          f"checkpoints {ckpts}; restore bit-equal (EMA included); validation {out['validation']}; eval "
+          + ", ".join(f"{k} {evals[0][k]}" for k in EVAL_METRICS)
+          + "; with --ema_weights " + ", ".join(f"{k} {evals[2][k]}" for k in EVAL_METRICS),
+          flush=True)
+    print(f"loop times: ms per step, loop (bare step call; phase train's bare step): {summary}; "
+          f"device-data batch {batch_ms:.3f} ms (device); checkpoint save "
+          f"{', '.join(f'{s:.2f}' for s in out['save_s'])} s of "
+          f"{', '.join(f'{mb:.1f}' for mb in out['checkpoint_mb'])} MiB; validation "
+          f"{', '.join(f'{ms:.1f}' for ms in out['validation_ms'])} ms; receptive-field probe "
+          f"{', '.join(f'{ms:.0f}' for ms in out['probe_ms'])} ms; "
+          f"peak {peak_gb:.2f} GiB; phase {out['seconds']:.1f} s", flush=True)
+    shutil.rmtree(runs, ignore_errors=True)  # ~0.7 GB per checkpoint
+    return out
+
+
 def main() -> None:
     if not (ROOT / KERNEL_SOURCE).is_file():
         raise SystemExit(f"chip_smoke: {KERNEL_SOURCE} not found; run from a checkout")
@@ -758,6 +1144,7 @@ def main() -> None:
     train = phase_train()
     train_bf16 = phase_train_bf16(tuple(train["crop_frames"]))
     remat = phase_remat(tuple(train["crop_frames"]))
+    loop = phase_loop(train["ms_per_step"], train_bf16["ms_per_step"])
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "rave_tpu"))
     check(not foreign, f"the port loaded the JAX package or jax: {foreign[:5]}")
 
@@ -775,12 +1162,14 @@ def main() -> None:
         "name": "fused_dilated_unit", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": offline["launches"],
         "launches_train": train["launches"], "launches_remat_step": remat["remat_launches"],
+        "launches_loop": loop["launches"]["fp32"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": sum(r["ms"] for r in main_rows), "plain_ms": sum(r["plain_ms"] for r in main_rows),
         "bound_ms": bound32["bound_ms"], "bound_by": bound32["bound_by"], "library_ms": None,
     }, {
         "name": "fused_dilated_unit_bf16", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": train_bf16["launches"],
+        "launches_loop": loop["launches"]["bf16"],
         "max_abs_err": max(r["max_abs_err"] for r in rows_bf16),
         "ms": sum(r["ms"] for r in main_bf16), "plain_ms": sum(r["plain_ms"] for r in main_bf16),
         "bound_ms": bound16["bound_ms"], "bound_by": bound16["bound_by"], "library_ms": None,
@@ -791,7 +1180,7 @@ def main() -> None:
         {"card": card, "build": build_info, "kernel_shapes": rows, "kernel_bf16_shapes": rows_bf16,
          "bounds": bounds,
          "offline": offline, "stream": stream, "grad_shapes": grad, "train": train,
-         "train_bf16": train_bf16, "remat": remat, **kernels}, indent=1))
+         "train_bf16": train_bf16, "remat": remat, "loop": loop, **kernels}, indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,5 +21,13 @@ points build on the GPU unless the caller passes `device="cpu"`.
   - rave_tpu_torch.train   : schedules, train state (two Adams, EMA), the
                              three step programs (with train.bf16,
                              bf16_dis and remat), the receptive-field probe
-  - rave_tpu_torch.utils   : weight bridge from rave_tpu parameter trees
+                             and PCA, the training driver (loop.train) and
+                             evaluation
+  - rave_tpu_torch.data    : the ARS store, preprocess, transforms,
+                             datasets, the host loader and the
+                             device-resident pipeline
+  - rave_tpu_torch.utils   : weight bridge from rave_tpu parameter trees,
+                             checkpoints, metrics logging, per-step seeds
+  - rave_tpu_torch.cli     : `python -m rave_tpu_torch.cli preprocess |
+                             train | eval`
 """

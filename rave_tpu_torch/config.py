@@ -1,17 +1,22 @@
-"""Configuration of the port's serving path and v2 training step.
+"""Configuration of the port's serving path, training step and training loop.
 
 The part of rave_tpu/config.py the port reads, owned by the port so that
 nothing here depends on the JAX package: the fields `factory.build_rave`,
-`factory.build_discriminator` / `build_audio_distance` and the train step
-read, with the same names, defaults and resolved accessors, and the two
-presets the port builds, `v2` and `causal`. `compose(names, overrides)`
-stacks presets and applies dotted overrides as the reference does
-(`compose(["v2", "causal"], ["capacity=2", "ratios=[4,4,2]"])`).
-tests/test_torch_config.py holds every field and accessor equal to the JAX
-package's for these presets.
+`factory.build_discriminator` / `build_audio_distance`, the train step and
+the training driver read, with the same names, defaults and resolved
+accessors, and the two presets the port builds, `v2` and `causal`.
+`compose(names, overrides)` stacks presets and applies dotted overrides as
+the reference does (`compose(["v2", "causal"], ["capacity=2",
+"ratios=[4,4,2]"])`). `snapshot` / `config_hash` / `from_dict` write and
+read a run's `config.json` as the JAX package's do; the hash covers the
+port's fields only, so a port run dir is named differently from a JAX run
+dir of the same settings. tests/test_torch_config.py holds every field and
+accessor equal to the JAX package's for these presets.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
 import math
 from dataclasses import dataclass, field
@@ -95,6 +100,7 @@ class TrainConfig:
     adam_b1: float = 0.5
     adam_b2: float = 0.9
     lr_end_factor: float = 0.1  # LinearLR 1.0 -> 0.1 over phase 1
+    max_steps: int = 6_000_000
     ema: Optional[float] = None
     remat: bool = False  # recompute the autoencode pass in the backward
     bf16: bool = False  # the model computes in bfloat16 (train/steps.py)
@@ -104,8 +110,15 @@ class TrainConfig:
 
 @dataclass
 class DataConfig:
+    sampling_rate: int = 44100
     n_signal: int = 131072
     batch: int = 8
+    augmentations: Tuple[str, ...] = ()
+    n_channels: int = 1  # resolved at train time from the dataset's metadata
+    derivative: bool = False
+    normalize: bool = False
+    rand_pitch: Optional[float] = None
+    workers: int = 8
 
 
 @dataclass
@@ -261,3 +274,41 @@ def apply_override(cfg: RaveConfig, assignment: str) -> None:
         cur.update(val)  # 'train.weights={"adversarial": 2.0}' updates one weight
     else:
         setattr(obj, parts[-1], val)
+
+
+def to_dict(cfg: RaveConfig) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def snapshot(cfg: RaveConfig) -> str:
+    """Canonical JSON snapshot (a run dir's config.json)."""
+    return json.dumps(to_dict(cfg), indent=2, sort_keys=True, default=str)
+
+
+def config_hash(cfg: RaveConfig) -> str:
+    return hashlib.md5(snapshot(cfg).encode()).hexdigest()[:10]
+
+
+def from_dict(d: dict) -> RaveConfig:
+    """Inverse of `to_dict`; keys the port has no field for are ignored."""
+
+    def build(cls, dd):
+        kw = {}
+        for f in dataclasses.fields(cls):
+            if f.name not in dd:
+                continue
+            v = dd[f.name]
+            if f.name in _SECTIONS:
+                kw[f.name] = build(_SECTIONS[f.name], v)
+            elif isinstance(v, list):
+                kw[f.name] = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+            else:
+                kw[f.name] = v
+        return cls(**kw)
+
+    return build(RaveConfig, d)
+
+
+_SECTIONS = {"encoder": EncoderConfig, "latent": LatentConfig, "decoder": DecoderConfig,
+             "discriminator": DiscriminatorConfig, "distance": DistanceConfig,
+             "train": TrainConfig, "data": DataConfig}

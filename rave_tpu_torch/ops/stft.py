@@ -6,7 +6,9 @@ periodic Hann window, centering by reflect padding of n_fft // 2 on both
 sides, frames of n_fft every `hop` samples, one batched `torch.fft.rfft`,
 and an optional division by the window's L2 norm. `torch.stft` is not used
 because its `normalized` divides by sqrt(n_fft), not by the window's norm.
-The mel projection is not ported (v2 has `distance.num_mels = None`).
+`mel_filterbank` (numpy, the same as rave_tpu/ops/stft.py:158) serves the
+Fréchet mel distance of train/evaluate.py; the loss's mel projection is not
+ported (v2 has `distance.num_mels = None`).
 """
 from __future__ import annotations
 
@@ -49,6 +51,46 @@ def spectrogram(x: torch.Tensor, n_fft: int, hop: int, *, power: float | None = 
         return s
     mag = s.abs()
     return mag if power == 1.0 else mag ** power
+
+
+def _hz_to_mel(f: np.ndarray) -> np.ndarray:
+    """Slaney mel scale (librosa default, htk=False)."""
+    f = np.asarray(f, dtype=np.float64)
+    f_min, f_sp = 0.0, 200.0 / 3
+    mels = (f - f_min) / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = np.log(6.4) / 27.0
+    log_t = f >= min_log_hz
+    return np.where(log_t, min_log_mel + np.log(np.maximum(f, 1e-10) / min_log_hz) / logstep,
+                    mels)
+
+
+def _mel_to_hz(m: np.ndarray) -> np.ndarray:
+    m = np.asarray(m, dtype=np.float64)
+    f_min, f_sp = 0.0, 200.0 / 3
+    freqs = f_min + f_sp * m
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = np.log(6.4) / 27.0
+    log_t = m >= min_log_mel
+    return np.where(log_t, min_log_hz * np.exp(logstep * (m - min_log_mel)), freqs)
+
+
+def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int) -> np.ndarray:
+    """Slaney-normalized triangular mel filterbank [n_mels, n_fft//2+1]
+    (librosa.filters.mel parity; reference: rave/core.py:255-266)."""
+    fmax = sample_rate / 2.0
+    n_bins = n_fft // 2 + 1
+    fft_freqs = np.linspace(0, fmax, n_bins)
+    mel_pts = _mel_to_hz(np.linspace(_hz_to_mel(0.0), _hz_to_mel(fmax), n_mels + 2))
+    fdiff = np.diff(mel_pts)
+    ramps = mel_pts[:, None] - fft_freqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0, np.minimum(lower, upper))
+    enorm = 2.0 / (mel_pts[2 : n_mels + 2] - mel_pts[:n_mels])
+    return (weights * enorm[:, None]).astype(np.float32)
 
 
 @dataclass(frozen=True)

@@ -1,2 +1,3 @@
-"""The v2 training step: schedules, train state, the three step programs
-and the receptive-field probe (PyTorch port of rave_tpu/train/)."""
+"""Training: schedules, train state, the three step programs, the
+receptive-field probe and PCA, the training loop (`loop.train`) and evaluation
+(PyTorch port of rave_tpu/train/)."""

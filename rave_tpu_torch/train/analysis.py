@@ -1,4 +1,4 @@
-"""The receptive-field probe of the training setup.
+"""Validation-time analytics: the receptive-field probe and the latent PCA.
 
 PyTorch port of rave_tpu/train/analysis.py::receptive_field (reference
 rave/core.py:180-217). It differentiates one output sample of encode ->
@@ -7,6 +7,10 @@ the non-zero gradient; the training loop turns it into the valid-signal crop
 `rf // n_band` (rave_tpu/train/loop.py:165-169). On a GPU the probe runs
 through the fused units' `autograd.Function`, kernel forward and plain
 backward.
+
+`pca` is rave_tpu/train/analysis.py::pca, the same numpy: the loop turns
+the validation latents into the model's `latent_pca`, `latent_mean` and
+`fidelity` buffers (reference rave/model.py:463-488).
 """
 from __future__ import annotations
 
@@ -52,3 +56,19 @@ def crop_frames(cfg: RaveConfig, rf: Tuple[int, int], n_channels: int = 1) -> Tu
     """The band frames `valid_signal_crop` drops on each side (loop.py:168-169)."""
     dim = cfg.n_band * n_channels
     return rf[0] // dim, rf[1] // dim
+
+
+def pca(latents: np.ndarray):
+    """Full PCA of [N, D] latents -> (components [D, D], mean [D],
+    cumulative explained-variance 'fidelity' [D]), float32; a numpy SVD
+    stand-in for sklearn.PCA."""
+    mean = latents.mean(0)
+    z = latents - mean
+    _, s, vt = np.linalg.svd(z, full_matrices=False)  # rows of vt: the principal axes
+    var = s**2 / max(len(z) - 1, 1)
+    fidelity = np.cumsum(var / var.sum())
+    comp = vt
+    if comp.shape[0] < z.shape[1]:  # fewer samples than dims: pad the basis
+        comp = np.concatenate([comp, np.eye(z.shape[1])[comp.shape[0]:]], 0)
+        fidelity = np.pad(fidelity, (0, z.shape[1] - len(fidelity)), constant_values=1.0)
+    return comp.astype(np.float32), mean.astype(np.float32), fidelity.astype(np.float32)
