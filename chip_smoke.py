@@ -86,11 +86,28 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                per step by phase against phase `train`'s bare steps, the
                device-data batch's device ms, the checkpoint's seconds and
                MB, and the peak memory;
- 12. the kernels' JSON line, then the last line
+ 12. export  : phase 11's run through the port's command line: `export
+               --streaming --ema_weights` and `export --stereo --sr 88200`
+               (manifests: the latent size truncated from the run's
+               fidelity buffer, ratios, latency, stream batch and rate, the
+               step programs exported on the card; export seconds and MiB);
+               `generate` of a seeded 30 s wav (ragged against the block):
+               exactly 22 launches, the written wav within 1/32767 of
+               `ExportedRAVE.forward` on the same input and seed; the
+               artifact on the card against the same artifact on the CPU
+               (plain unit) on a 3 s clip, offline and 8 streaming blocks,
+               <= 1e-3; `forward_step.pt2` (`torch.export.load`) in lockstep
+               with the eager streaming forward over 32 blocks, outputs and
+               state <= 1e-5. Prints generate's realtime factor end to end
+               and for the bare forward, the streaming p50 per block (eager
+               and .pt2) against the block's budget, the peak memory, and the
+               unit at the 30 s forward's 11 centered shapes at B=1 against
+               its plain version (phase 3's machinery);
+ 13. the kernels' JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Per-shape details go to build/chip_smoke.json; the loop phase works in
-build/loop (its corpus, db and run dirs).
+Per-shape details go to build/chip_smoke.json; the loop and export phases
+work in build/loop (corpus, db, run dirs, artifacts, generated wavs).
 """
 from __future__ import annotations
 
@@ -138,6 +155,9 @@ LOOP_BF16_STEPS, LOOP_BF16_WARMUP = 10, 4  # three or four steps of each program
 LOOP_VAL_EVERY, LOOP_SAVE_EVERY = 6, 8
 EVAL_METRICS = ("spectral_distance", "waveform_l1", "frechet_mel_distance")
 LOOP_VAL_BATCH = 2  # the validation split of LOOP_RECORDS records, in one batch
+# the export phase: generate's file, the card-vs-CPU clip and block counts
+EXPORT_SECONDS, CLIP_SECONDS, GENERATE_SEED = 30.0, 3.0, 5
+CPU_STREAM_BLOCKS, PROGRAM_BLOCKS, PROGRAM_TOL = 8, 32, 1e-5
 
 
 def rel_err(a, b, floor: float = 1e-12) -> float:
@@ -249,7 +269,9 @@ def kernel_cases(batch: int, modes) -> list:
     return cases
 
 
-def phase_kernel() -> list:
+def kernel_row(gen, case: str, B: int, C: int, T: int, d: int, mode: str) -> dict:
+    """The fp32 kernel against its plain version on one seeded shape: the
+    error (<= KERNEL_TOL) and both device times."""
     import torch
 
     from rave_tpu_torch.nn.conv import get_padding
@@ -257,33 +279,38 @@ def phase_kernel() -> list:
         fused_dilated_unit, fused_dilated_unit_reference, kernel_plan,
     )
 
+    x = torch.randn(B, C, T, device="cuda", generator=gen)
+    w1, w2 = unit_weights(C, gen, torch.float32)
+    left, right = get_padding(3, 1, d, mode)
+    args = (x, w1, w2, d, left, right)
+    with torch.inference_mode():
+        y_k = fused_dilated_unit(*args)
+        y_p = fused_dilated_unit_reference(*args)
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(y_k, y_p), float((y_k - y_p).abs().max())
+        check(bool(torch.isfinite(y_k).all()) and y_k.shape == x.shape,
+              f"kernel output not finite or of shape {tuple(y_k.shape)} at {B, C, T, d, mode}")
+        check(err <= KERNEL_TOL, f"kernel vs plain at B={B} C={C} T={T} d={d} {mode}: "
+                                 f"rel err {err:.3e} > {KERNEL_TOL}")
+        ms = cuda_ms(lambda: fused_dilated_unit(*args), 20)
+        plain_ms = cuda_ms(lambda: fused_dilated_unit_reference(*args), 20)
+    flop = 2 * 4 * C * C * T * B
+    return {"case": case, "B": B, "C": C, "T": T, "d": d, "mode": mode,
+            "plan": kernel_plan(B, C, T, 3, d, left, False)._asdict(),
+            "rel_err": err, "max_abs_err": abs_err, "ms": ms,
+            "plain_ms": plain_ms, "tflops": flop / ms / 1e9,
+            "plain_tflops": flop / plain_ms / 1e9}
+
+
+def phase_kernel() -> list:
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
     # the loop's validation and eval batches: the 2 clips of the validation split
     val_cases = [("val", LOOP_VAL_BATCH, C, T, d, "centered") for C, T, dils in UNIT_SHAPES
                  for d in dils]
-    for case, B, C, T, d, mode in kernel_cases(BATCH, ("centered", "causal")) + val_cases:
-        x = torch.randn(B, C, T, device="cuda", generator=gen)
-        w1, w2 = unit_weights(C, gen, torch.float32)
-        left, right = get_padding(3, 1, d, mode)
-        args = (x, w1, w2, d, left, right)
-        with torch.inference_mode():
-            y_k = fused_dilated_unit(*args)
-            y_p = fused_dilated_unit_reference(*args)
-            torch.cuda.synchronize()
-            err, abs_err = rel_err(y_k, y_p), float((y_k - y_p).abs().max())
-            check(bool(torch.isfinite(y_k).all()) and y_k.shape == x.shape,
-                  f"kernel output not finite or of shape {tuple(y_k.shape)} at {B, C, T, d, mode}")
-            check(err <= KERNEL_TOL, f"kernel vs plain at B={B} C={C} T={T} d={d} {mode}: "
-                                     f"rel err {err:.3e} > {KERNEL_TOL}")
-            ms = cuda_ms(lambda: fused_dilated_unit(*args), 20)
-            plain_ms = cuda_ms(lambda: fused_dilated_unit_reference(*args), 20)
-        flop = 2 * 4 * C * C * T * B
-        rows.append({"case": case, "B": B, "C": C, "T": T, "d": d, "mode": mode,
-                     "plan": kernel_plan(B, C, T, 3, d, left, False)._asdict(),
-                     "rel_err": err, "max_abs_err": abs_err, "ms": ms,
-                     "plain_ms": plain_ms, "tflops": flop / ms / 1e9,
-                     "plain_tflops": flop / plain_ms / 1e9})
+    rows = [kernel_row(gen, *case)
+            for case in kernel_cases(BATCH, ("centered", "causal")) + val_cases]
     worst = max(r["rel_err"] for r in rows)
     print(f"kernel: {len(rows)} shapes, max rel err {worst:.2e} <= {KERNEL_TOL}; "
           f"kernel/plain ms: {shape_summary(rows)}", flush=True)
@@ -1124,7 +1151,198 @@ def phase_loop(train_ms: dict, train_bf16_ms: dict) -> dict:
           f"{', '.join(f'{ms:.1f}' for ms in out['validation_ms'])} ms; receptive-field probe "
           f"{', '.join(f'{ms:.0f}' for ms in out['probe_ms'])} ms; "
           f"peak {peak_gb:.2f} GiB; phase {out['seconds']:.1f} s", flush=True)
-    shutil.rmtree(runs, ignore_errors=True)  # ~0.7 GB per checkpoint
+    return out
+
+
+def write_signal(path: Path, seconds: float, seed: int) -> int:
+    """A seeded mono .wav of tones, a chirp and noise; its length in samples."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    n = int(round(seconds * SAMPLE_RATE))
+    t = np.arange(n) / SAMPLE_RATE
+    f0 = rng.uniform(80, 800, size=3)
+    x = sum(0.15 * np.sin(2 * np.pi * f * (1 + k) * t) / (1 + k) for k, f in enumerate(f0))
+    x = x + 0.2 * np.sin(2 * np.pi * (60 + 30 * t) * t) + 0.05 * rng.standard_normal(n)
+    wavfile.write(path, SAMPLE_RATE, (np.clip(x, -1, 1) * 32767).astype(np.int16))
+    return n
+
+
+def phase_export(run_dir: Path) -> dict:
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from rave_tpu_torch.data.audio_io import decode_file
+    from rave_tpu_torch.export.artifact import ExportedRAVE
+    from rave_tpu_torch.export.generate import load_signal
+    from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.utils import checkpoint
+    from rave_tpu_torch.utils.rng import normal_from_seed
+
+    work = ROOT / "build" / "loop"
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. the loop's run exported twice through the CLI
+    arts = {}
+    for key, flags in (("streaming_ema", ["--streaming", "--ema_weights"]),
+                       ("stereo_88200", ["--stereo", "--sr", 2 * SAMPLE_RATE])):
+        torch.cuda.synchronize()
+        dilated_unit.launches = dilated_unit.launches_bf16 = 0
+        t0 = time.perf_counter()
+        text = _cli(["export", "--run", run_dir, "--output", work / "export" / key,
+                     "--device", "cuda", *flags])
+        torch.cuda.synchronize()
+        path = Path(text.strip().splitlines()[-1].removeprefix("exported: "))
+        arts[key] = {"path": path, "seconds": time.perf_counter() - t0,
+                     "mib": sum(f.stat().st_size for f in path.iterdir()) / 2**20,
+                     "launches": dilated_unit.launches,
+                     "manifest": json.loads((path / "manifest.json").read_text())}
+    cfg = json.loads((run_dir / "config.json").read_text())
+    fid = torch.load(checkpoint.latest_checkpoint(str(run_dir)), map_location="cpu",
+                     weights_only=True)["model"]["fidelity"].numpy()
+    D, ratio = cfg["latent_size"], 2048  # v2: 16 bands x 4 x 4 x 4 x 2
+    k = max(int(np.argmax(fid > 0.95)), 1)
+    latent = min(2 ** math.ceil(math.log2(k)), D)
+    for key, a in arts.items():
+        m, stereo = a["manifest"], key.startswith("stereo")
+        check(m["format"] == "rtpu-torch-v1" and m["latent_size"] == latent
+              and m["full_latent_size"] == D, f"{key}: latent {m['latent_size']} of "
+              f"{m['full_latent_size']}, expected {latent} of {D} from fidelity {fid.tolist()}")
+        check((m["methods"]["encode"]["out_ratio"], m["methods"]["decode"]["in_ratio"],
+               m["methods"]["forward"]["out_ratio"], m["block_size"]) == (ratio, ratio, 1, ratio),
+              f"{key}: ratios {m['methods']}")
+        lat = m["latency"]
+        check(lat["encode_latent_frames"] > 0 and lat["decode_samples"] > 0 and
+              lat["total_samples"] == lat["encode_latent_frames"] * ratio + lat["decode_samples"],
+              f"{key}: latency {lat}")
+        check((m["stream_batch"], m["target_sampling_rate"], m["streaming"])
+              == ((2, 2 * SAMPLE_RATE, False) if stereo else (1, SAMPLE_RATE, True)),
+              f"{key}: stream batch {m['stream_batch']}, rate {m['target_sampling_rate']}")
+        check(all(e["device"].startswith("cuda") for e in m["aot"].values()), f"{key}: aot")
+    latencies = [a["manifest"]["latency"] for a in arts.values()]
+    check(latencies[0] == latencies[1], f"the two artifacts' latencies differ: {latencies}")
+
+    # 2. generate through the CLI on a 30 s file (ragged against the block)
+    art_path = arts["streaming_ema"]["path"]
+    wav = work / "generate_in.wav"
+    n = write_signal(wav, EXPORT_SECONDS, seed=21)
+    torch.cuda.synchronize()
+    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    t0 = time.perf_counter()
+    _cli(["generate", "--model", art_path, "--input", wav, "--out_path", work / "generated",
+          "--seed", GENERATE_SEED, "--device", "cuda"])
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = dilated_unit.launches
+    check(launches == 22 and dilated_unit.launches_bf16 == 0,
+          f"generate: {launches} launches ({dilated_unit.launches_bf16} bf16), expected 22 fp32")
+    art = ExportedRAVE(str(art_path), device="cuda", seed=GENERATE_SEED)
+    x = load_signal(decode_file(str(wav), SAMPLE_RATE, 1), 1, 1, art.block_size).cuda()
+    y = art.forward(x)[0, 0, :n].clamp(-1, 1).cpu().numpy()
+    sr, written = wavfile.read(work / "generated" / "generate_in_reconstructed.wav")
+    wav_err = float(np.abs(written / 32767 - y).max())
+    check(sr == SAMPLE_RATE and written.shape == (n,) and np.isfinite(y).all()
+          and wav_err <= 1 / 32767 + 1e-7,
+          f"generated wav ({sr} Hz, {written.shape}) {wav_err:.3e} from the artifact's forward")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        art.forward(x)
+    torch.cuda.synchronize()
+    forward_s = (time.perf_counter() - t0) / 3
+
+    # 3. the card against the CPU (plain unit), same artifact and seeds
+    clip = x[..., : -(-int(CLIP_SECONDS * SAMPLE_RATE) // art.block_size) * art.block_size]
+    cpu = ExportedRAVE(str(art_path), device="cpu")
+    y_gpu, y_cpu = art.forward(clip, seed=7).cpu(), cpu.forward(clip.cpu(), seed=7)
+    offline_err = rel_err(y_gpu, y_cpu)
+    art.reset_stream()
+    B = art.block_size
+    outs = [(art.forward(clip[..., i * B:(i + 1) * B], streaming=True, seed=50 + i).cpu(),
+             cpu.forward(clip[..., i * B:(i + 1) * B].cpu(), streaming=True, seed=50 + i))
+            for i in range(CPU_STREAM_BLOCKS)]
+    stream_err = rel_err(torch.cat([a for a, _ in outs], -1), torch.cat([b for _, b in outs], -1))
+    # the stereo artifact (two rows, resampled at both ends) likewise, and the
+    # seeded draws themselves
+    st_path = arts["stereo_88200"]["path"]
+    st_gpu, st_cpu = ExportedRAVE(str(st_path), device="cuda"), ExportedRAVE(str(st_path), "cpu")
+    xs = torch.randn(2, 1, 4 * st_gpu.block_size, generator=torch.Generator().manual_seed(8))
+    ys_gpu = st_gpu.forward(xs.cuda() * 0.1, seed=9).cpu()
+    stereo_err = rel_err(ys_gpu, st_cpu.forward(xs * 0.1, seed=9))
+    draws = normal_from_seed(12345, (1, D, 4096), 1, device="cuda").cpu()
+    draw_err = float((draws - normal_from_seed(12345, (1, D, 4096), 1)).abs().max())
+    check(offline_err <= MODEL_TOL and stream_err <= MODEL_TOL and stereo_err <= MODEL_TOL
+          and ys_gpu.shape == xs.shape and draw_err <= 1e-6,
+          f"artifact GPU vs CPU rel err: offline {offline_err:.3e}, streaming {stream_err:.3e}, "
+          f"stereo at 88.2 kHz {stereo_err:.3e} > {MODEL_TOL}; seeded draws {draw_err:.3e}")
+
+    # 4. forward_step.pt2 in lockstep with the eager streaming forward; beside
+    # them, the model's bare step pair (no codec, no seed, no state swap)
+    program = art.load_program("forward")
+    art.reset_stream()
+    state = [s.clone() for s in art.state]
+    eager_ms, program_ms, bare_ms, y_err, state_err = [], [], [], 0.0, 0.0
+    for i in range(PROGRAM_BLOCKS):
+        xb = x[..., i * B:(i + 1) * B]
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        with torch.no_grad():
+            art.model.step_decode(art.model.step_encode(xb)[:, :D])
+        torch.cuda.synchronize()
+        bare_ms.append((time.perf_counter() - tb) * 1e3)
+        t0 = time.perf_counter()
+        y_e = art.forward(xb, streaming=True, seed=1000 + i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y_p, state = program(state, xb, torch.tensor(1000 + i, device="cuda"))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        eager_ms.append((t1 - t0) * 1e3)
+        program_ms.append((t2 - t1) * 1e3)
+        y_err = max(y_err, rel_err(y_p, y_e))
+        state_err = max([state_err] + [rel_err(a, b, 1e-6) for a, b in zip(state, art.state)])
+    check(y_err <= PROGRAM_TOL and state_err <= PROGRAM_TOL,
+          f"forward_step.pt2 vs eager over {PROGRAM_BLOCKS} blocks: y {y_err:.3e}, state "
+          f"{state_err:.3e} > {PROGRAM_TOL}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    # 5. the unit at the 30 s forward's 11 centered shapes, B=1
+    N = x.shape[-1]
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    unit_rows = [kernel_row(gen, "export_b1", 1, C, N // (16 * 4 ** i), d, "centered")
+                 for i, (C, _, dils) in enumerate(UNIT_SHAPES) for d in dils]
+    p50 = {"eager": statistics.median(eager_ms), "program": statistics.median(program_ms),
+           "bare_model_steps": statistics.median(bare_ms)}
+    out = {"artifacts": {k: {kk: (str(v.relative_to(ROOT)) if kk == "path" else v)
+                             for kk, v in a.items() if kk != "manifest"} for k, a in arts.items()},
+           "latent_size": latent, "generate_launches": launches, "generate_s": generate_s,
+           "forward_s": forward_s, "seconds_of_audio": n / SAMPLE_RATE,
+           "realtime_factor_generate": n / SAMPLE_RATE / generate_s,
+           "realtime_factor_forward": n / SAMPLE_RATE / forward_s, "wav_err": wav_err,
+           "gpu_vs_cpu_rel_err": {"offline": offline_err, "stream": stream_err,
+                                  "stereo_88200": stereo_err, "draws_abs": draw_err},
+           "program_rel_err": {"y": y_err, "state": state_err}, "block_ms_p50": p50,
+           "block_budget_ms": B / SAMPLE_RATE * 1e3, "peak_gb": peak_gb, "unit_b1": unit_rows,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"export: cli export x2 (--streaming --ema_weights; --stereo --sr {2 * SAMPLE_RATE}) "
+          + "; ".join(f"{k} {a['seconds']:.1f} s, {a['mib']:.1f} MiB" for k, a in arts.items())
+          + f"; latent {latent} of {D}; generate {n / SAMPLE_RATE:.1f} s of audio: {launches} "
+          f"launches, wav {wav_err:.2e} from forward; GPU vs CPU offline {offline_err:.2e}, "
+          f"{CPU_STREAM_BLOCKS} blocks {stream_err:.2e}, stereo {stereo_err:.2e} <= {MODEL_TOL}, "
+          f"draws {draw_err:.1e}; forward_step.pt2 vs "
+          f"eager {PROGRAM_BLOCKS} blocks y {y_err:.2e}, state {state_err:.2e} <= {PROGRAM_TOL}",
+          flush=True)
+    print(f"export times: generate realtime factor {out['realtime_factor_generate']:.1f}x end "
+          f"to end ({generate_s:.2f} s), {out['realtime_factor_forward']:.1f}x bare forward "
+          f"({forward_s * 1e3:.1f} ms); streaming p50 per block eager {p50['eager']:.3f} ms, "
+          f".pt2 {p50['program']:.3f} ms, the model's bare steps {p50['bare_model_steps']:.3f} "
+          f"ms (budget {out['block_budget_ms']:.2f} ms); peak "
+          f"{peak_gb:.2f} GiB; unit B=1 kernel/plain ms: {shape_summary(unit_rows)}; phase "
+          f"{out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -1145,6 +1363,9 @@ def main() -> None:
     train_bf16 = phase_train_bf16(tuple(train["crop_frames"]))
     remat = phase_remat(tuple(train["crop_frames"]))
     loop = phase_loop(train["ms_per_step"], train_bf16["ms_per_step"])
+    export = phase_export(ROOT / loop["run_dir"])
+    shutil.rmtree(ROOT / "build" / "loop" / "runs", ignore_errors=True)  # ~0.7 GB per checkpoint
+    shutil.rmtree(ROOT / "build" / "loop" / "export", ignore_errors=True)
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "rave_tpu"))
     check(not foreign, f"the port loaded the JAX package or jax: {foreign[:5]}")
 
@@ -1152,8 +1373,11 @@ def main() -> None:
     main_rows = [r for r in rows if r["case"] == "main" and r["mode"] == "centered"] * 2
     main_bf16 = [r for r in rows_bf16 if r["case"] == "main" and r["mode"] == "centered"
                  and r["B"] == TRAIN_BATCH] * 2
-    bound32, bound16 = unit_bound(main_rows, BATCH, "fp32"), unit_bound(main_bf16, TRAIN_BATCH, "bf16")
+    bound32 = unit_bound(main_rows, BATCH, "fp32")
+    bound16 = unit_bound(main_bf16, TRAIN_BATCH, "bf16")
+    export_rows = export["unit_b1"] * 2  # generate's forward: each shape in encoder and decoder
     bounds = {"fp32_b16_forward": bound32, "bf16_b8_forward": bound16,
+              "fp32_b1_generate_forward": unit_bound(export_rows, 1, "fp32"),
               **{f"{k}_b8_fwd_bwd": unit_bound(grad[k] * 2, TRAIN_BATCH, k, backward=True)
                  for k in ("fp32", "bf16")}}
     print("bounds (22 units): " + "; ".join(f"{k} {b['bound_ms']:.3f} ms ({b['bound_by']})"
@@ -1163,6 +1387,10 @@ def main() -> None:
         "replaces": KERNEL_REPLACES, "launches": offline["launches"],
         "launches_train": train["launches"], "launches_remat_step": remat["remat_launches"],
         "launches_loop": loop["launches"]["fp32"],
+        "launches_export": export["generate_launches"],
+        "ms_export_b1": sum(r["ms"] for r in export_rows),
+        "plain_ms_export_b1": sum(r["plain_ms"] for r in export_rows),
+        "bound_ms_export_b1": bounds["fp32_b1_generate_forward"]["bound_ms"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": sum(r["ms"] for r in main_rows), "plain_ms": sum(r["plain_ms"] for r in main_rows),
         "bound_ms": bound32["bound_ms"], "bound_by": bound32["bound_by"], "library_ms": None,
@@ -1180,7 +1408,8 @@ def main() -> None:
         {"card": card, "build": build_info, "kernel_shapes": rows, "kernel_bf16_shapes": rows_bf16,
          "bounds": bounds,
          "offline": offline, "stream": stream, "grad_shapes": grad, "train": train,
-         "train_bf16": train_bf16, "remat": remat, "loop": loop, **kernels}, indent=1))
+         "train_bf16": train_bf16, "remat": remat, "loop": loop, "export": export, **kernels},
+        indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

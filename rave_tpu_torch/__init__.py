@@ -8,7 +8,8 @@ points build on the GPU unless the caller passes `device="cpu"`.
 
   - rave_tpu_torch.config  : the v2 / causal configuration (model, critic,
                              distance, train and data fields)
-  - rave_tpu_torch.ops     : PQMF filter design and analysis/synthesis;
+  - rave_tpu_torch.ops     : PQMF filter design and analysis/synthesis; the
+                             kaiser resampler;
                              STFT, the v1 audio distance, GAN losses; the
                              fused dilated residual unit kernel, fp32 and
                              bf16 (and its autograd.Function)
@@ -26,8 +27,12 @@ points build on the GPU unless the caller passes `device="cpu"`.
   - rave_tpu_torch.data    : the ARS store, preprocess, transforms,
                              datasets, the host loader and the
                              device-resident pipeline
+  - rave_tpu_torch.export  : the `.rtpu` artifact (manifest, weights,
+                             `torch.export` step programs), ExportedRAVE,
+                             export_model and generate
   - rave_tpu_torch.utils   : weight bridge from rave_tpu parameter trees,
                              checkpoints, metrics logging, per-step seeds
+                             and normal draws from a seed tensor
   - rave_tpu_torch.cli     : `python -m rave_tpu_torch.cli preprocess |
-                             train | eval`
+                             train | eval | export | generate`
 """

@@ -7,9 +7,14 @@ The ported commands of rave_tpu/cli.py, with the same flags plus
   train      : the training driver (train/loop.py); `--bf16` sets
                train.bf16 and train.bf16_dis, as the JAX CLI's does
   eval       : reconstruction metrics of a run (train/evaluate.py)
+  export     : run -> `.rtpu` artifact with its `torch.export` step
+               programs (export/export.py)
+  generate   : files -> reconstructed wavs through an artifact or a run
+               (export/generate.py)
 
-The other commands of the JAX CLI exit non-zero and name the ROADMAP item
-that ports them.
+The other commands of the JAX CLI, and the options of these that need a
+module the port does not have yet, exit 2 and name the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
@@ -18,12 +23,23 @@ import sys
 
 NOT_PORTED = {
     "train_prior": "A12 (the prior)",
-    "export": "A13 (export and generate)",
-    "export_onnx": "A13 (export and generate)",
-    "generate": "A13 (export and generate)",
+    # rave_tpu emits ONNX for the v1 family only (rave_tpu/cli.py:197-201)
+    "export_onnx": "A11 (v1, then its ONNX export)",
     "import_torch": "A15 (reference checkpoints into the port)",
     "remote_dataset": "A18 (the remote dataset)",
 }
+
+
+# (command, option) -> the ROADMAP item that ports what the option needs
+NOT_PORTED_OPTIONS = {
+    ("export", "--prior"): "A12 (the prior)",
+    ("generate", "--prior_seconds"): "A12 (the prior)",
+}
+
+
+def refuse(what: str, item: str) -> int:
+    print(f"{what} is not ported to rave_tpu_torch yet: ROADMAP {item}", file=sys.stderr)
+    return 2
 
 
 def _add_config_flags(p: argparse.ArgumentParser):
@@ -119,7 +135,55 @@ def cmd_eval(argv):
     eval_main(argv)
 
 
-COMMANDS = {"preprocess": cmd_preprocess, "train": cmd_train, "eval": cmd_eval}
+def cmd_export(argv):
+    p = argparse.ArgumentParser("rave_tpu_torch export")
+    p.add_argument("--run", required=True)
+    p.add_argument("--streaming", action="store_true")
+    p.add_argument("--fidelity", type=float, default=0.95)
+    p.add_argument("--stereo", action="store_true")
+    p.add_argument("--ema_weights", action="store_true")
+    p.add_argument("--channels", type=int, default=0)
+    p.add_argument("--sr", type=int, default=0, help="target sample rate")
+    p.add_argument("--output", default=None)
+    p.add_argument("--prior", default=None, help="prior run dir to bundle")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    a = p.parse_args(argv)
+    if a.prior:
+        return refuse("export --prior", NOT_PORTED_OPTIONS[("export", "--prior")])
+    from rave_tpu_torch.export.export import export_model
+
+    path = export_model(run=a.run, streaming=a.streaming, fidelity=a.fidelity, stereo=a.stereo,
+                        use_ema=a.ema_weights, channels=a.channels or None,
+                        target_sr=a.sr or None, output=a.output, device=a.device)
+    print(f"exported: {path}")
+
+
+def cmd_generate(argv):
+    p = argparse.ArgumentParser("rave_tpu_torch generate")
+    p.add_argument("--model", required=True, help="run dir or exported artifact")
+    p.add_argument("--input", nargs="+", default=[])
+    p.add_argument("--out_path", default="generated")
+    p.add_argument("--streaming", action="store_true")
+    p.add_argument("--chunk_size", type=int, default=0)
+    p.add_argument("--prior_seconds", type=float, default=0.0,
+                   help="unconditional generation from the artifact's prior")
+    p.add_argument("--prior_samples", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    a = p.parse_args(argv)
+    if a.prior_seconds:
+        return refuse("generate --prior_seconds",
+                      NOT_PORTED_OPTIONS[("generate", "--prior_seconds")])
+    if not a.input:
+        p.error("--input files are required")
+    from rave_tpu_torch.export.generate import generate
+
+    generate(model=a.model, inputs=a.input, out_path=a.out_path, streaming=a.streaming,
+             chunk_size=a.chunk_size or None, seed=a.seed, device=a.device)
+
+
+COMMANDS = {"preprocess": cmd_preprocess, "train": cmd_train, "eval": cmd_eval,
+            "export": cmd_export, "generate": cmd_generate}
 
 
 def main(argv=None) -> int:
@@ -129,14 +193,11 @@ def main(argv=None) -> int:
         return 0
     cmd = argv[0]
     if cmd in NOT_PORTED:
-        print(f"{cmd} is not ported to rave_tpu_torch yet: ROADMAP {NOT_PORTED[cmd]}",
-              file=sys.stderr)
-        return 2
+        return refuse(cmd, NOT_PORTED[cmd])
     if cmd not in COMMANDS:
         print(f"unknown command {cmd}; available: {sorted(COMMANDS)}", file=sys.stderr)
         return 1
-    COMMANDS[cmd](argv[1:])
-    return 0
+    return COMMANDS[cmd](argv[1:]) or 0
 
 
 if __name__ == "__main__":

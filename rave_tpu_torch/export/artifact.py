@@ -1,0 +1,336 @@
+"""The exported artifact (`.rtpu` directory) and `ExportedRAVE`, which serves it.
+
+PyTorch port of rave_tpu/export/artifact.py. An artifact is a directory:
+
+    manifest.json     the streaming metadata (per-method channels and
+                      ratios, latency, block size, latent family and size,
+                      attributes, the config), as the JAX package's, with
+                      `format` "rtpu-torch-v1" so that neither package loads
+                      the other's artifact
+    weights.pt        the generator's `state_dict` (trained or EMA
+                      weights, the analysis buffers), by `torch.save`
+    *_step.pt2        the streaming step programs, by `torch.export.save`
+
+Layout: the port's own, `[B, C, T]` waveforms and `[B, D, T_lat]` latents
+(the JAX artifact is `[B, T, C]`).
+
+The streaming state is explicit: `stream_slots(model)` names every stream
+buffer of the model (conv caches and carries, delay lines, the PQMF
+caches), in module order, which is the union of every method's state. A
+`StepProgram` runs one method as `(state, x, seed) -> (y, state')`: it puts
+the state into the model's buffers, runs the method, reads the buffers
+back and puts the originals back, so it changes no module and the same
+code runs eagerly (`ExportedRAVE`) and under `torch.export` (export.py).
+The sampling noise comes from the int64 `seed` (a uint32 value) through
+`normal_from_seed`, so an exported program holds no draw as a constant and
+draws what the eager artifact draws from the same seed.
+"""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rave_tpu_torch import config as config_lib
+from rave_tpu_torch.config import RaveConfig
+from rave_tpu_torch.factory import build_rave, resolve_device
+from rave_tpu_torch.models.rave import RAVE
+from rave_tpu_torch.nn.streaming import StreamingModule, init_stream_state
+from rave_tpu_torch.ops.resampler import Resampler
+from rave_tpu_torch.train.loop import fp32_exact
+from rave_tpu_torch.utils.rng import MASK32, hash32, normal_from_seed
+
+FORMAT = "rtpu-torch-v1"
+ENCODE_SALT, DECODE_SALT = 1, 2  # the latent noise of encode and of decode
+DECODE_SEED_OFFSET = 0x9E3779B9  # forward decodes with seed + this, mod 2^32 (as JAX)
+STEP_METHODS = ("encode", "decode", "forward")
+
+
+def refuse_family(cfg: RaveConfig) -> None:
+    fam = cfg.latent.family
+    if fam != "variational":
+        item = "A9 (discrete)" if fam == "discrete" else "A11 (other families)"
+        raise NotImplementedError(f"the {fam!r} latent codecs are not ported yet (ROADMAP {item})")
+
+
+def post_process_latent(cfg: RaveConfig, model: nn.Module, latent_size: int, z: torch.Tensor,
+                        eps: Optional[torch.Tensor] = None,
+                        seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Raw encoder output [B, 2D, T] -> user-facing latents [B, latent_size, T]:
+    mean + std * eps, centred, rotated by the PCA and truncated (reference
+    scripts/export.py:351-408). `model` holds the `latent_pca` and
+    `latent_mean` buffers; `eps` [B, D, T] defaults to draws from `seed`."""
+    refuse_family(cfg)
+    mean, scale = z.chunk(2, dim=1)
+    std = F.softplus(scale) + 1e-4
+    if eps is None:
+        eps = normal_from_seed(seed, mean.shape, ENCODE_SALT)
+    zs = mean + std * eps.to(mean.dtype)
+    zs = zs - model.latent_mean[:, None]
+    zs = torch.einsum("ij,bjt->bit", model.latent_pca, zs)
+    return zs[:, :latent_size]
+
+
+def pre_process_latent(cfg: RaveConfig, model: nn.Module, full_latent_size: int, z: torch.Tensor,
+                       noise: Optional[torch.Tensor] = None,
+                       seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """User-facing latents [B, L, T] -> decoder input [B, full_latent_size, T]:
+    padded with noise, rotated back and un-centred. `noise` [B, full - L, T]
+    defaults to draws from `seed`."""
+    refuse_family(cfg)
+    B, L, T = z.shape
+    if L < full_latent_size:
+        if noise is None:
+            noise = normal_from_seed(seed, (B, full_latent_size - L, T), DECODE_SALT)
+        z = torch.cat([z, noise.to(z.dtype)], dim=1)
+    z = torch.einsum("ij,bit->bjt", model.latent_pca, z)
+    return z + model.latent_mean[:, None]
+
+
+def stream_slots(model: nn.Module) -> List[Tuple[str, StreamingModule, str]]:
+    """(name, module, attribute) of every stream buffer under `model`, in
+    module order: the artifact's state, the same for every method."""
+    return [(f"{name}.{attr}" if name else attr, m, attr)
+            for name, m in model.named_modules() if isinstance(m, StreamingModule)
+            for attr in m._stream_shapes]
+
+
+def zero_state(model: nn.Module) -> List[torch.Tensor]:
+    return [torch.zeros_like(getattr(m, attr)) for _, m, attr in stream_slots(model)]
+
+
+class _Side(nn.Module):
+    """One half of the model and the latent codec beside it; its own
+    module, so that a program that runs it holds only its weights."""
+
+    def __init__(self, model: RAVE, cfg: RaveConfig, latent_size: int):
+        super().__init__()
+        self.cfg, self.latent_size = cfg, latent_size
+        self.register_buffer("latent_pca", model.latent_pca, persistent=False)
+        self.register_buffer("latent_mean", model.latent_mean, persistent=False)
+
+
+class EncodeSide(_Side):
+    def __init__(self, model: RAVE, cfg: RaveConfig, latent_size: int):
+        super().__init__(model, cfg, latent_size)
+        self.pqmf_analysis, self.encoder = model.pqmf_analysis, model.encoder
+
+    def forward(self, x, seed=None, eps=None, streaming: bool = False):
+        """[B, C, T] -> [B, latent_size, T / decimation]."""
+        if streaming:
+            z = self.encoder.step(self.pqmf_analysis.step(x))
+        else:
+            z = self.encoder(self.pqmf_analysis(x))
+        return post_process_latent(self.cfg, self, self.latent_size, z, eps, seed)
+
+
+class DecodeSide(_Side):
+    def __init__(self, model: RAVE, cfg: RaveConfig, latent_size: int):
+        super().__init__(model, cfg, latent_size)
+        self.decoder, self.pqmf_synthesis = model.decoder, model.pqmf_synthesis
+
+    def forward(self, z, seed=None, noise=None, streaming: bool = False):
+        """[B, latent_size, T_lat] -> [B, C, T_lat * decimation]."""
+        zp = pre_process_latent(self.cfg, self, self.cfg.augmented_latent_size(), z, noise, seed)
+        if streaming:
+            return self.pqmf_synthesis.step(self.decoder.step(zp))
+        return self.pqmf_synthesis(self.decoder(zp))
+
+
+class StepProgram(nn.Module):
+    """One streaming method as `(state, x, seed) -> (y, state')` (the JAX
+    artifact's `encode_step` / `decode_step` / `forward_step`): `state` the
+    list of `stream_slots(model)`, `seed` an int64 scalar holding a uint32.
+    `forward` decodes with `seed + 0x9E3779B9 mod 2^32`. `eps` / `noise`
+    replace the seed's draws (tests inject another package's draws)."""
+
+    def __init__(self, method: str, model: RAVE, encode: EncodeSide, decode: DecodeSide):
+        super().__init__()
+        self.method = method
+        if method != "decode":
+            self.encode = encode
+        if method != "encode":
+            self.decode = decode
+        self.slots = stream_slots(model)  # a plain list: registers no module twice
+
+    def forward(self, state: List[torch.Tensor], x: torch.Tensor, seed: torch.Tensor,
+                eps: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+        if len(state) != len(self.slots):
+            raise ValueError(f"{len(state)} state tensors for {len(self.slots)} stream buffers")
+        saved = [getattr(m, attr) for _, m, attr in self.slots]
+        for (_, m, attr), s in zip(self.slots, state):
+            setattr(m, attr, s)
+        try:
+            if self.method == "encode":
+                y = self.encode(x, seed, eps, streaming=True)
+            elif self.method == "decode":
+                y = self.decode(x, seed, noise, streaming=True)
+            else:
+                z = self.encode(x, seed, eps, streaming=True)
+                y = self.decode(z, (seed + DECODE_SEED_OFFSET) & MASK32, noise, streaming=True)
+            new = [getattr(m, attr) for _, m, attr in self.slots]
+        finally:
+            for (_, m, attr), s in zip(self.slots, saved):
+                setattr(m, attr, s)
+        return y, new
+
+
+class ExportedRAVE:
+    """An artifact loaded on `device` (the card unless the caller passes
+    `device="cpu"`): `encode`, `decode` and `forward`, offline or streaming
+    in whole blocks, at the artifact's `target_sampling_rate`.
+
+    Every call without an explicit `seed` takes the next seed of a chain
+    started from `seed` (the JAX artifact's `_rng` / `_next_rng`). The
+    streaming state (`state`, and the resampler's own) persists between
+    calls until `reset_stream`."""
+
+    def __init__(self, path: str, device: str | torch.device = "cuda", seed: int = 0):
+        self.path = Path(path)
+        self.device = resolve_device(device)
+        self.manifest = json.loads((self.path / "manifest.json").read_text())
+        if self.manifest.get("format") != FORMAT:
+            raise ValueError(f"{self.path} is a {self.manifest.get('format')!r} artifact; the "
+                             f"port reads {FORMAT!r} (export it with rave_tpu_torch.cli export)")
+        self.cfg = config_lib.from_dict(self.manifest["config"])
+        self.n_channels = self.manifest["n_channels"]
+        self.stream_batch = self.manifest["stream_batch"]
+        self.latent_size = self.manifest["latent_size"]
+        self.full_latent_size = self.manifest["full_latent_size"]
+        self.model = build_rave(self.cfg, n_channels=self.n_channels,
+                                stream_batch=self.stream_batch, device=self.device)
+        weights = torch.load(self.path / "weights.pt", map_location="cpu", weights_only=True)
+        self.model.load_state_dict(weights)
+        self.model.eval().requires_grad_(False)
+        self.encode_side = EncodeSide(self.model, self.cfg, self.latent_size)
+        self.decode_side = DecodeSide(self.model, self.cfg, self.latent_size)
+        self.steps = {m: StepProgram(m, self.model, self.encode_side, self.decode_side)
+                      for m in STEP_METHODS}
+        self.state = zero_state(self.model)
+        self._seed, self._calls = int(seed) & MASK32, 0
+        self.resampler = None
+        tsr = self.manifest.get("target_sampling_rate", self.manifest["sampling_rate"])
+        if tsr != self.manifest["sampling_rate"]:
+            self.resampler = Resampler(tsr, self.manifest["sampling_rate"], self.stream_batch,
+                                       self.n_channels).to(self.device)
+
+    # ---- seeds -----------------------------------------------------------
+    def next_seed(self) -> int:
+        """The next uint32 of the seed chain."""
+        self._calls += 1
+        return hash32(self._seed ^ hash32(self._calls))
+
+    def _seed_tensor(self, seed: Optional[int]) -> torch.Tensor:
+        seed = self.next_seed() if seed is None else int(seed) & MASK32
+        return torch.tensor(seed, dtype=torch.int64, device=self.device)
+
+    # ---- the step programs -----------------------------------------------
+    def load_program(self, method: str):
+        """The exported `<method>_step.pt2` as a callable module; it must
+        have been exported on this artifact's kind of device."""
+        entry = self.manifest.get("aot", {}).get(f"{method}_step")
+        if entry is None:
+            raise FileNotFoundError(f"{self.path} has no {method}_step program")
+        if torch.device(entry["device"]).type != self.device.type:
+            raise ValueError(
+                f"{self.path / entry['file']} was exported on {entry['device']} and holds its "
+                f"weights there; it does not run on {self.device}. Load the artifact with "
+                f"device={torch.device(entry['device']).type!r}, or export it again with "
+                f"--device {self.device.type}")
+        return torch.export.load(str(self.path / entry["file"])).module()
+
+    # ---- public surface --------------------------------------------------
+    def _check_block(self, n: int, unit: int, what: str) -> None:
+        if n % unit:
+            raise ValueError(f"streaming {what} must be a multiple of {unit} (got {n})")
+
+    def _resample(self, x: torch.Tensor, direction: str, streaming: bool) -> torch.Tensor:
+        if self.resampler is None:
+            return x
+        if direction == "in":
+            return self.resampler.to_model_sampling_rate(x, streaming)
+        return self.resampler.from_model_sampling_rate(x, streaming)
+
+    @fp32_exact()
+    @torch.no_grad()
+    def encode(self, x: torch.Tensor, streaming: bool = False, seed: Optional[int] = None,
+               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B, C, T] waveform at target_sr -> [B, latent_size, T_lat]."""
+        if streaming:
+            self._check_block(x.shape[-1], self.block_size, "chunks (samples)")
+        x = self._resample(x.to(self.device), "in", streaming)
+        s = self._seed_tensor(seed)
+        if streaming:
+            z, self.state = self.steps["encode"](self.state, x, s, eps=eps)
+            return z
+        return self.encode_side(x, s, eps)
+
+    @fp32_exact()
+    @torch.no_grad()
+    def decode(self, z: torch.Tensor, streaming: bool = False, seed: Optional[int] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B, latent_size, T_lat] -> [B, C, T] waveform at target_sr."""
+        if streaming:
+            self._check_block(z.shape[-1], self.manifest["block_size"] // self.cfg.decimation(),
+                              "latent chunks (frames)")
+        z, s = z.to(self.device), self._seed_tensor(seed)
+        if streaming:
+            y, self.state = self.steps["decode"](self.state, z, s, noise=noise)
+        else:
+            y = self.decode_side(z, s, noise)
+        return self._resample(y, "out", streaming)
+
+    @fp32_exact()
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor, streaming: bool = False, seed: Optional[int] = None,
+                eps: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """decode(encode(x)): encode with one seed of the chain (or `seed`),
+        decode with it + 0x9E3779B9, as the `forward_step` program."""
+        if streaming:
+            self._check_block(x.shape[-1], self.block_size, "chunks (samples)")
+        x = self._resample(x.to(self.device), "in", streaming)
+        s = self._seed_tensor(seed)
+        if streaming:
+            y, self.state = self.steps["forward"](self.state, x, s, eps=eps, noise=noise)
+        else:
+            z = self.encode_side(x, s, eps)
+            y = self.decode_side(z, (s + DECODE_SEED_OFFSET) & MASK32, noise)
+        return self._resample(y, "out", streaming)
+
+    @property
+    def block_size(self) -> int:
+        """The streaming block in target-rate samples."""
+        b = self.manifest["block_size"]
+        return b * self.resampler.ratio if self.resampler else b
+
+    def reset_stream(self) -> None:
+        self.state = zero_state(self.model)
+        if self.resampler is not None:
+            init_stream_state(self.resampler, self.stream_batch * self.n_channels)
+
+    # ---- AdaIN attributes and the prior ----------------------------------
+    # A v2 model has no AdaIN (the port refuses `use_adain`, ROADMAP A10):
+    # these do nothing, as the JAX artifact's do without an `adain` collection.
+    def set_learn_target(self, on: bool) -> None:
+        pass
+
+    def set_learn_source(self, on: bool) -> None:
+        pass
+
+    def reset_target(self) -> None:
+        pass
+
+    def reset_source(self) -> None:
+        pass
+
+    @property
+    def has_prior(self) -> bool:
+        return False
+
+    def sample_prior(self, n_frames: int, seed: Optional[int] = None, argmax: bool = False):
+        raise NotImplementedError("the prior is not ported yet (ROADMAP A12)")

@@ -1,0 +1,173 @@
+"""Exporter: port run directory -> `.rtpu` artifact.
+
+PyTorch port of rave_tpu/export/export.py (the reference's `rave export`,
+scripts/export.py:492-599): loads the newest checkpoint's generator
+(optionally its EMA weights), truncates the variational latent space to the
+requested fidelity, writes the weights and the manifest, decodes a zero
+latent at the stream batch as a smoke check, and exports the streaming step
+programs with `torch.export`.
+
+The step programs keep the JAX package's contract (its `_aot_lower`):
+
+    encode_step(state, x[B, C, block], seed)   -> (z[B, L, frames], state')
+    decode_step(state, z[B, L, frames], seed)  -> (y[B, C, block], state')
+    forward_step(state, x, seed)               -> (y, state')
+
+with the weights constant inside each program (each holds the weights of
+the half it runs), the state explicit (start from zeros; shapes in the
+manifest) and `seed` an int64 scalar holding a uint32. `forward_step`
+decodes with `seed + 0x9E3779B9 mod 2^32`. A program holds its weights on
+the device it was exported on; the manifest records it. Nothing fails
+quietly: a failed smoke decode or program export raises, and a failed
+export leaves no manifest `aot` section behind.
+"""
+from __future__ import annotations
+
+import json
+import math
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from rave_tpu_torch import config as config_lib
+from rave_tpu_torch.export.artifact import FORMAT, STEP_METHODS, ExportedRAVE, stream_slots
+from rave_tpu_torch.factory import resolve_device
+from rave_tpu_torch.utils.checkpoint import read_generator
+
+
+def truncated_latent_size(fidelity_curve: np.ndarray, fidelity: float, full: int) -> int:
+    """The smallest power of two of latent dimensions whose explained
+    variance passes `fidelity` (reference scripts/export.py:119-124)."""
+    size = max(int(np.argmax(fidelity_curve > fidelity)), 1)
+    return min(2 ** math.ceil(math.log2(size)), full)
+
+
+def _methods(n_channels: int, latent_size: int, ratio: int) -> dict:
+    signal = lambda kind, n: [f"(signal) {kind} {i}" for i in range(n)]  # noqa: E731
+    return {
+        "encode": {"in_channels": n_channels, "in_ratio": 1, "out_channels": latent_size,
+                   "out_ratio": ratio, "input_labels": signal("input", n_channels),
+                   "output_labels": signal("latent", latent_size)},
+        "decode": {"in_channels": latent_size, "in_ratio": ratio, "out_channels": n_channels,
+                   "out_ratio": 1, "input_labels": signal("latent", latent_size),
+                   "output_labels": signal("output", n_channels)},
+        "forward": {"in_channels": n_channels, "in_ratio": 1, "out_channels": n_channels,
+                    "out_ratio": 1, "input_labels": signal("input", n_channels),
+                    "output_labels": signal("output", n_channels)},
+    }
+
+
+def export_model(
+    run: str,
+    streaming: bool = False,
+    fidelity: float = 0.95,
+    stereo: bool = False,
+    use_ema: bool = False,
+    channels: Optional[int] = None,
+    target_sr: Optional[int] = None,
+    output: Optional[str] = None,
+    prior: Optional[str] = None,
+    device: str | torch.device = "cuda",
+) -> str:
+    """Export the run `run` into `<output or run dir>/<name>[_streaming].rtpu`
+    on `device`; returns the artifact's path."""
+    if prior is not None:
+        raise NotImplementedError("bundling a prior is not ported yet (ROADMAP A12)")
+    device = resolve_device(device)
+    cfg, weights, n_channels, run_dir = read_generator(run, use_ema)
+    n_channels = channels or n_channels
+    stream_batch = 2 if stereo else 1
+    latent_size = truncated_latent_size(weights["fidelity"].numpy(), fidelity, cfg.latent_size)
+    ratio, block = cfg.decimation(), cfg.block_size()
+    name = cfg.name + ("_streaming" if streaming else "")
+    out_dir = Path(output or run_dir) / f"{name}.rtpu"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    manifest = {
+        "format": FORMAT,
+        "name": cfg.name,
+        "streaming": streaming,
+        "sampling_rate": cfg.sampling_rate,
+        "target_sampling_rate": target_sr or cfg.sampling_rate,
+        "n_channels": n_channels,
+        "stream_batch": stream_batch,
+        "stereo": stereo,
+        "block_size": block,
+        "latent_family": cfg.latent.family,
+        # trained on the signal derivative: consumers integrate the output
+        # back (reference scripts/train.py:160-161, dataset.py:24-29)
+        "derivative": bool(cfg.data.derivative),
+        "latent_size": int(latent_size),
+        "full_latent_size": int(cfg.augmented_latent_size()),
+        "latent_rate_hz": cfg.sampling_rate / ratio,
+        "methods": _methods(n_channels, int(latent_size), ratio),
+        "latency": None,  # from the loaded model, below
+        # AdaIN is not ported (ROADMAP A10): a v2 model has no attributes
+        "attributes": [],
+        "attribute_ops": {},
+        "config": config_lib.to_dict(cfg),
+        "prior": None,
+        "version": 1,
+    }
+    torch.save(weights, out_dir / "weights.pt")
+    (out_dir / "manifest.json").write_text(json.dumps(manifest, indent=2))
+    art = ExportedRAVE(str(out_dir), device=device)
+    enc, dec = art.model.encode_delay, art.model.decode_delay
+    manifest["latency"] = {"encode_latent_frames": enc, "decode_samples": dec,
+                           "total_samples": enc * ratio + dec}
+
+    # the stereo smoke check (reference export.py:587-596): a zero latent at
+    # the stream batch decodes to the declared channel layout
+    y0 = art.decode(torch.zeros(stream_batch, int(latent_size), 8, device=device))
+    if tuple(y0.shape[:2]) != (stream_batch, n_channels) or not bool(torch.isfinite(y0).all()):
+        raise RuntimeError(f"smoke decode of a zero latent gave {tuple(y0.shape)} "
+                           f"(finite: {bool(torch.isfinite(y0).all())}), expected "
+                           f"({stream_batch}, {n_channels}, T)")
+
+    manifest["aot"] = export_programs(art, out_dir)
+    (out_dir / "manifest.json").write_text(json.dumps(manifest, indent=2))
+    return str(out_dir)
+
+
+def _specs(tensors) -> list:
+    return [{"shape": [int(d) for d in t.shape], "dtype": str(t.dtype).removeprefix("torch.")}
+            for t in tensors]
+
+
+def export_programs(art: ExportedRAVE, out_dir: Path) -> dict:
+    """`torch.export` each streaming step of `art` into `<method>_step.pt2`;
+    the manifest's `aot` section. Flat inputs are (state..., x, seed), flat
+    outputs (y, state'...), the state in the order of `state_leaves`."""
+    block, ratio, device = art.manifest["block_size"], art.cfg.decimation(), art.device
+    state = [s.clone() for s in art.state]
+    x = torch.zeros(art.stream_batch, art.n_channels, block, device=device)
+    z = torch.zeros(art.stream_batch, art.latent_size, block // ratio, device=device)
+    seed = torch.tensor(0, dtype=torch.int64, device=device)
+    leaves = [name for name, _, _ in stream_slots(art.model)]
+    report = {}
+    with torch.no_grad():
+        for method in STEP_METHODS:
+            name = f"{method}_step"
+            args = (state, z if method == "decode" else x, seed)
+            program = torch.export.export(art.steps[method], args, strict=False)
+            torch.export.save(program, str(out_dir / f"{name}.pt2"))
+            y, new_state = art.steps[method](*args)
+            inputs = [*state, args[1], seed]
+            outputs = [y, *new_state]
+            n = len(state)
+            report[name] = {
+                "file": f"{name}.pt2",
+                "device": str(device),
+                "inputs": _specs(inputs),
+                "outputs": _specs(outputs),
+                # state round trip: output[state_outputs[i]] feeds
+                # input[state_inputs[i]] on the next call
+                "n_state": n,
+                "state_inputs": list(range(n)),
+                "state_outputs": list(range(1, 1 + n)),
+                "state_leaves": leaves,
+                # torch.export keeps every input
+                "kept_inputs": list(range(len(inputs))),
+            }
+    return report

@@ -10,7 +10,9 @@ under a temporary name and renamed, so a file that is half written never
 matches `step_*.pt` and resume never picks it. `list_checkpoints`,
 `latest_checkpoint(step=)`, `search_for_run` and `search_for_config` behave
 as the JAX package's (reference rave/core.py:84-122). `load_run` is
-rave_tpu/export/export.py::load_run for the port: what `eval` needs.
+rave_tpu/export/export.py::load_run for the port, what `eval` and `export`
+need: it builds the generator alone and reads only its entries of the
+checkpoint (memory-mapped), not the critic or the Adams.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from typing import Optional
 import torch
 
 from rave_tpu_torch import config as config_lib
-from rave_tpu_torch.train.state import TrainState, create_train_state
+from rave_tpu_torch.factory import build_rave
+from rave_tpu_torch.train.state import TrainState
 
 CHECKPOINT = re.compile(r"step_(\d{10})\.pt")
 
@@ -121,22 +124,32 @@ def search_for_config(run_dir: str) -> Optional[str]:
     return str(hits[0]) if hits else None
 
 
+def read_generator(run: str, use_ema: bool = False, step: Optional[int] = None):
+    """(cfg, state_dict, n_channels, run_dir) of a port run directory: the
+    generator's `state_dict` (CPU tensors) in its newest checkpoint (or the
+    one at exactly `step`), with the EMA weights in place of the trained ones
+    when `use_ema` and the run kept an EMA."""
+    run_dir = search_for_run(run)
+    if run_dir is None:
+        raise FileNotFoundError(f"no checkpoints under {run}")
+    cfg = config_lib.from_dict(json.loads(Path(search_for_config(run_dir)).read_text()))
+    path = latest_checkpoint(run_dir, step)
+    if path is None:
+        raise FileNotFoundError(f"could not restore a checkpoint from {run_dir}")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    weights = dict(ckpt["model"])
+    if use_ema and ckpt["ema"] is not None:
+        weights.update(ckpt["ema"])
+    return cfg, weights, cfg.data.n_channels, run_dir
+
+
 def load_run(run: str, use_ema: bool = False, step: Optional[int] = None,
              device: str | torch.device = "cuda"):
     """(cfg, model, n_channels, run_dir) from a port run directory: the model
     of its newest checkpoint (or the one at exactly `step`) on `device`, with
     the EMA weights in place of the trained ones when `use_ema` and the run
     kept an EMA."""
-    run_dir = search_for_run(run)
-    if run_dir is None:
-        raise FileNotFoundError(f"no checkpoints under {run}")
-    cfg = config_lib.from_dict(json.loads(Path(search_for_config(run_dir)).read_text()))
-    n_channels = cfg.data.n_channels
-    state = create_train_state(cfg, n_channels=n_channels, device=device)
-    if restore_checkpoint(run_dir, state, step) is None:
-        raise FileNotFoundError(f"could not restore a checkpoint from {run_dir}")
-    if use_ema and state.ema is not None:
-        with torch.no_grad():
-            for name, p in state.model.named_parameters():
-                p.copy_(state.ema[name])
-    return cfg, state.model, n_channels, run_dir
+    cfg, weights, n_channels, run_dir = read_generator(run, use_ema, step)
+    model = build_rave(cfg, n_channels=n_channels, device=device)
+    model.load_state_dict(weights)
+    return cfg, model, n_channels, run_dir

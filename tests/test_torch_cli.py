@@ -3,8 +3,10 @@
 preprocess -> train -> resume -> eval through `main(argv)` with
 `--device cpu`, at the tiny config, with the receptive-field crop on
 (n_signal 16384 leaves frames after it); then a two-step `--bf16`
-`--smoke_test` run and a run with a profiler window. The commands not
-ported exit non-zero and name their ROADMAP item.
+`--smoke_test` run and a run with a profiler window; a run's `export`
+and `generate`, offline and streaming, against the artifact's own forward.
+The commands not ported, and the options that need what is not ported,
+exit non-zero and name their ROADMAP item.
 """
 import io
 import json
@@ -120,11 +122,62 @@ def test_trace_steps_writes_a_profile(db):
     assert code == 0 and trace["traceEvents"]
 
 
-@pytest.mark.parametrize("command", sorted(cli.NOT_PORTED))
-def test_unported_commands_name_their_item(command):
-    code, _, err = run([command, "--run", "x"])
-    assert code != 0
-    assert f"ROADMAP {cli.NOT_PORTED[command]}" in err and "A1" in err
+def test_export_generate(db, tmp_path):
+    """train -> export -> generate, offline and `--streaming`: each written
+    wav is the artifact's forward of the file (same seed chain), clipped and
+    truncated to int16, within one step of 1/32767."""
+    code, out, _ = run(train_args(db, "--name", "export", "--max_steps", 2, "--no_resume",
+                                  "--override", "train.valid_signal_crop=false"))
+    assert code == 0
+    run_dir = out.strip().splitlines()[-1].removeprefix("run dir: ")
+    code, out, _ = run(["export", "--device", "cpu", "--run", run_dir, "--streaming",
+                        "--output", tmp_path])
+    assert code == 0
+    art_dir = Path(out.strip().splitlines()[-1].removeprefix("exported: "))
+    assert art_dir == tmp_path / "v2_streaming.rtpu"
+    assert {p.name for p in art_dir.iterdir()} == {
+        "manifest.json", "weights.pt", "encode_step.pt2", "decode_step.pt2", "forward_step.pt2"}
+
+    from rave_tpu_torch.export.artifact import ExportedRAVE
+
+    block = json.loads((art_dir / "manifest.json").read_text())["block_size"]
+    n = 3 * block + 100  # ragged against the block
+    t = np.arange(n) / SR
+    wav = tmp_path / "in.wav"
+    wavfile.write(wav, SR, (0.4 * np.sin(2 * np.pi * 330 * t) * 32767).astype(np.int16))
+    x = torch.from_numpy(wavfile.read(wav)[1].astype(np.float32) / 32768)
+    x = torch.nn.functional.pad(x, (0, (-n) % block))[None, None]
+    for mode in ([], ["--streaming"]):
+        out_dir = tmp_path / f"gen{len(mode)}"
+        code, out, _ = run(["generate", "--device", "cpu", "--model", art_dir, "--input", wav,
+                            "--out_path", out_dir, "--seed", 3, *mode])
+        assert code == 0
+        sr, y = wavfile.read(out_dir / "in_reconstructed.wav")
+        assert sr == SR and y.shape == (n,) and y.dtype == np.int16
+        art = ExportedRAVE(str(art_dir), device="cpu", seed=3)
+        if mode:
+            want = torch.cat([art.forward(x[..., i:i + block], streaming=True)
+                              for i in range(0, x.shape[-1], block)], -1)
+        else:
+            want = art.forward(x)
+        want = want[0, 0, :n].clamp(-1, 1).numpy()
+        assert np.abs(y / 32767 - want).max() <= 1 / 32767 + 1e-7
+        assert np.abs(want).max() > 0
+
+
+REFUSED = [([command, "--run", "x"], item) for command, item in sorted(cli.NOT_PORTED.items())]
+REFUSED += [(["export", "--run", "x", "--prior", "p"],
+             cli.NOT_PORTED_OPTIONS[("export", "--prior")]),
+            (["generate", "--model", "x", "--prior_seconds", 1],
+             cli.NOT_PORTED_OPTIONS[("generate", "--prior_seconds")])]
+
+
+@pytest.mark.parametrize("argv, item", REFUSED,
+                         ids=[*sorted(cli.NOT_PORTED), "export--prior", "generate--prior_seconds"])
+def test_unported_commands_name_their_item(argv, item):
+    code, _, err = run(argv)
+    assert code == 2
+    assert f"ROADMAP {item}" in err and "A1" in err
 
 
 def test_usage_and_unknown_command():

@@ -4,8 +4,9 @@ A fresh interpreter imports the port, builds the tiny v2 through its own
 config and factory, runs a forward and the streaming pair, builds the
 tiny critic and runs one generator step of each phase and one critic step
 through the port's train state, then one generator and one critic step
-with `train.bf16` and `train.bf16_dis`, then `preprocess -> train -> eval`
-through the port's command line on a seeded corpus, with nothing kept
+with `train.bf16` and `train.bf16_dis`, then `preprocess -> train -> eval ->
+export -> generate` (offline and streaming) through the port's command
+line on a seeded corpus, with nothing kept
 from being imported (where tensorboard and tensorflow are installed,
 tensorflow imports jax: the metrics logger must not reach them), and then
 reports whether jax, flax or any module of the JAX package was ever
@@ -78,8 +79,17 @@ with contextlib.redirect_stdout(out):
     codes.append(cli.main(["eval", "--device", "cpu", "--db_path", str(root / "db"),
                            "--run", str(next((root / "runs").iterdir()))]))
 evaluation = json.loads(out.getvalue().strip().splitlines()[-1])
+with contextlib.redirect_stdout(io.StringIO()):
+    codes.append(cli.main(["export", "--device", "cpu", "--output", str(root / "art"),
+                           "--run", str(next((root / "runs").iterdir()))]))
+    for mode in ([], ["--streaming"]):
+        codes.append(cli.main(["generate", "--device", "cpu", "--model",
+                               str(root / "art" / "v2.rtpu"), "--input",
+                               str(root / "corpus" / "a.wav"), "--out_path",
+                               str(root / f"gen{len(mode)}"), *mode]))
+generated = [wavfile.read(root / f"gen{i}" / "a_reconstructed.wav")[1].shape for i in (0, 1)]
 print(json.dumps({
-    "codes": codes, "eval_step": evaluation["step"],
+    "codes": codes, "eval_step": evaluation["step"], "generated": generated,
     "eval_finite": all(np.isfinite(evaluation[k]) for k in ("spectral_distance", "waveform_l1",
                                                             "frechet_mel_distance")),
     "shape": list(y.shape), "finite": bool(torch.isfinite(y).all()),
@@ -103,7 +113,8 @@ def test_port_never_imports_jax():
     assert out["stream_shape"] == [1, 1, 512]
     assert out["train_step"] == 5 and all(math.isfinite(v) for v in out["losses"])
     assert out["rf"][0] > 0
-    assert out["codes"] == [0, 0, 0] and out["eval_step"] == 2 and out["eval_finite"]
+    assert out["codes"] == [0] * 6 and out["eval_step"] == 2 and out["eval_finite"]
+    assert out["generated"] == [[52 * 8192]] * 2
 
 
 FOREIGN = {"yaml", "orbax", "tensorboard", "jax", "jaxlib", "flax", "rave_tpu"}
