@@ -103,11 +103,36 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                and .pt2) against the block's budget, the peak memory, and the
                unit at the 30 s forward's 11 centered shapes at B=1 against
                its plain version (phase 3's machinery);
- 13. the kernels' JSON line, then the last line
+ 13. discrete : compose(["discrete"]) at full width (capacity 96, latent 128,
+               16 x 1024 codes, 128 noise channels, ratios 4.4.2.2), TF32
+               off: the unit at the shapes only it reaches (C=768, T=256,
+               d 1 and 3, at B=16 and B=8) against its plain version
+               (1e-4); the forward at B=16 x 131072 (22 launches, timed) and
+               at B=1 x 65536 the card against the CPU (encoder 1e-3, equal
+               codes >= 0.99, the decode of one index tensor 1e-3); at B=8 x
+               131072 the k-means step timed alone, then pre-warmup,
+               adversarial and critic steps (22 launches each, every
+               program updating the codebooks), `codebook_health`, and the
+               first step of each program at B=1 on the card against the
+               CPU (losses 1e-3); `cli train --config discrete` on phase
+               11's store resumed once (the restored state, codebooks and
+               `inited` included, bit-equal to its checkpoint; health logged
+               at each validation) and `cli eval`; `cli export --streaming`
+               and `cli generate` of a 30 s file (22 launches), the artifact
+               on the card against the CPU (equal codes >= 0.99, the decode
+               of one index tensor 1e-3), `forward_step.pt2` bit-equal to
+               the eager steps over 32 blocks, the streaming p50 against
+               the 1024-sample block's 23.22 ms; then v2 + wasserstein and
+               v2 + spherical: one generator step each at B=8 x 131072 (22
+               launches), the first step at B=1 and the artifact's codec
+               halves (`EncodeSide`, `DecodeSide`) of the stepped model on
+               the card against the CPU (1e-3); the phase aims at ~60 s;
+ 14. the kernels' JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Per-shape details go to build/chip_smoke.json; the loop and export phases
-work in build/loop (corpus, db, run dirs, artifacts, generated wavs).
+work in build/loop (corpus, db, run dirs, artifacts, generated wavs), the
+discrete phase in build/discrete (deleted at its end).
 """
 from __future__ import annotations
 
@@ -374,6 +399,7 @@ def phase_offline() -> dict:
 
     from rave_tpu_torch.config import compose
     from rave_tpu_torch.factory import build_rave
+    from rave_tpu_torch.models.blocks import LatentDraws
     from rave_tpu_torch.ops.kernels import dilated_unit
 
     cfg = compose(["v2"])
@@ -382,12 +408,13 @@ def phase_offline() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(BATCH, 1, N_SIGNAL, device="cuda", generator=gen) * 0.1
     T_lat = N_SIGNAL // cfg.decimation()
-    eps = torch.randn(BATCH, cfg.latent_size, T_lat, device="cuda", generator=gen)
+    draws = LatentDraws(eps=torch.randn(BATCH, cfg.latent_size, T_lat, device="cuda",
+                                        generator=gen))
     with torch.inference_mode():
-        model(x, eps=eps)  # warm (cuDNN heuristics, allocator)
+        model(x, draws)  # warm (cuDNN heuristics, allocator)
         torch.cuda.synchronize()
         dilated_unit.launches = dilated_unit.launches_bf16 = 0
-        y = model(x, eps=eps)
+        y = model(x, draws)
         torch.cuda.synchronize()
         launches = dilated_unit.launches
         check(tuple(y.shape) == (BATCH, 1, N_SIGNAL), f"output shape {tuple(y.shape)}")
@@ -398,7 +425,7 @@ def phase_offline() -> dict:
         iters = 5
         t0 = time.perf_counter()
         for _ in range(iters):
-            model(x, eps=eps)
+            model(x, draws)
         torch.cuda.synchronize()
         sec = (time.perf_counter() - t0) / iters
         rtf = BATCH * N_SIGNAL / SAMPLE_RATE / sec
@@ -406,10 +433,10 @@ def phase_offline() -> dict:
         # (b) the same weights and eps at B=1 x 65536: kernel on the GPU, plain on the CPU
         n = 65536
         xb = torch.randn(1, 1, n, generator=torch.Generator().manual_seed(2)) * 0.1
-        eb = torch.randn(1, cfg.latent_size, n // cfg.decimation(),
-                         generator=torch.Generator().manual_seed(3))
-        y_cpu = cpu_model(xb, eps=eb)
-        y_gpu = model(xb.cuda(), eps=eb.cuda()).cpu()
+        eb = LatentDraws(eps=torch.randn(1, cfg.latent_size, n // cfg.decimation(),
+                                         generator=torch.Generator().manual_seed(3)))
+        y_cpu = cpu_model(xb, eb)
+        y_gpu = model(xb.cuda(), eb.to("cuda")).cpu()
         err = rel_err(y_gpu, y_cpu)
         check(err <= MODEL_TOL, f"GPU vs CPU forward rel err {err:.3e} > {MODEL_TOL}")
     out = {"launches": launches, "forward_ms": sec * 1e3, "realtime_factor": rtf,
@@ -619,6 +646,7 @@ def _train_run(cfg, crop, x, bf16: bool) -> dict:
 def _step_once(cfg, crop, which: str, x, eps, device="cuda", dtype=None):
     """One pre-warmup generator step ("gen") or critic step ("dis") of `cfg`
     from the seed-0 state: (metrics, {name: gradient on the CPU})."""
+    from rave_tpu_torch.models.blocks import LatentDraws
     from rave_tpu_torch.train.state import create_train_state, make_optimizers
     from rave_tpu_torch.train.steps import build_train_steps
 
@@ -630,8 +658,8 @@ def _step_once(cfg, crop, which: str, x, eps, device="cuda", dtype=None):
         st.gen_opt, st.dis_opt = make_optimizers(cfg, st.model, st.discriminator)
     if which == "dis":
         st.step = cfg.train.phase_1_duration
-    x, eps = x.to(device, dtype or x.dtype), eps.to(device, dtype or eps.dtype)
-    m = steps["gen"](st, x, False, eps=eps) if which == "gen" else steps["dis"](st, x, eps=eps)
+    x, d = x.to(device, dtype or x.dtype), LatentDraws(eps=eps.to(device, dtype or eps.dtype))
+    m = steps["gen"](st, x, False, draws=d) if which == "gen" else steps["dis"](st, x, draws=d)
     module = st.model if which == "gen" else st.discriminator
     return ({k: float(v) for k, v in m.items()},
             {n: p.grad.cpu() for n, p in module.named_parameters()})
@@ -767,7 +795,7 @@ def phase_remat(crop) -> dict:
         cfg = compose(["v2"], [f"train.remat={str(remat).lower()}"])
         x = torch.randn(cfg.data.batch, 1, cfg.data.n_signal, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(6)) * 0.1
-        eps = draw_noise(cfg, x, torch.Generator(device="cuda").manual_seed(7))
+        draws = draw_noise(cfg, x, torch.Generator(device="cuda").manual_seed(7))
         state = create_train_state(cfg, seed=0, device="cuda")
         step = build_train_steps(cfg, crop)["gen"]
         torch.cuda.synchronize()
@@ -775,7 +803,7 @@ def phase_remat(crop) -> dict:
         base = torch.cuda.memory_allocated()
         dilated_unit.launches = dilated_unit.launches_bf16 = 0
         t0 = time.perf_counter()
-        m = step(state, x, False, eps=eps)
+        m = step(state, x, False, draws=draws)
         torch.cuda.synchronize()
         runs[name] = {"ms": (time.perf_counter() - t0) * 1e3, "launches": dilated_unit.launches,
                       "peak_gb": (torch.cuda.max_memory_allocated() - base) / 2**30,
@@ -970,7 +998,7 @@ def _cli(args) -> str:
     return out.getvalue()
 
 
-def _check_steps(events, kind: str, first: int, last: int) -> None:
+def _check_steps(events, kind: str, first: int, last: int, probe: bool = True) -> None:
     steps = [e for e in events if e["kind"] == "step"]
     check([e["step"] for e in steps] == list(range(first, last)),
           f"{kind} run took steps {[e['step'] for e in steps]}, expected {first}..{last - 1}")
@@ -985,8 +1013,8 @@ def _check_steps(events, kind: str, first: int, last: int) -> None:
                   f"validation over {e['batches']} batches: {e['fp32']} fp32 / {e['bf16']} bf16 "
                   "launches")
             check(math.isfinite(e["value"]), f"validation value {e['value']}")
-        if e["kind"] == "receptive_field":
-            check(e["fp32"] > 0 and e["fp32"] % 22 == 0 and e["bf16"] == 0,
+        if e["kind"] == "receptive_field":  # no probe runs for the discrete family: (0, 0)
+            check((e["fp32"] > 0) == probe and e["fp32"] % 22 == 0 and e["bf16"] == 0,
                   f"receptive-field probe: {e['fp32']} fp32, {e['bf16']} bf16 launches")
 
 
@@ -1346,6 +1374,400 @@ def phase_export(run_dir: Path) -> dict:
     return out
 
 
+# the discrete phase: the C=768 unit shapes only discrete reaches (T=256 at B=16 x 131072)
+DISCRETE_UNITS = [(768, 256, (1, 3))]
+DISCRETE_PREWARMUP_STEPS, DISCRETE_WARMED_STEPS = 3, 8  # after the k-means step; 2 critic
+DISCRETE_LOOP = ["train.phase_1_duration=3", "train.update_discriminator_every=2",
+                 "train.ema=0.999"]
+DISCRETE_LOOP_STEPS, DISCRETE_RESUME_STEPS, DISCRETE_VAL_EVERY = 6, 8, 3
+INDEX_AGREEMENT = 0.99  # card vs CPU: share of equal RVQ codes (ties may flip)
+
+
+def _family_step_b1(names, which: str, warmed: bool) -> dict:
+    """The first step of one program of `names` from the seed-0 state at B=1
+    x n_signal, on the card and on the CPU with the same draws (drawn on the
+    CPU): {device: metrics}."""
+    import torch
+
+    from rave_tpu_torch.config import compose
+    from rave_tpu_torch.train.state import create_train_state
+    from rave_tpu_torch.train.steps import build_train_steps, draw_noise
+
+    cfg = compose(names)
+    xb, _ = _b1_inputs(cfg)
+    draws = draw_noise(cfg, xb, torch.Generator().manual_seed(9))
+    out = {}
+    for device in ("cuda", "cpu"):
+        st = create_train_state(cfg, seed=0, device=device)
+        st.step = cfg.train.phase_1_duration if warmed else 0
+        steps = build_train_steps(cfg)  # no crop: the same on both devices
+        x, d = xb.to(device), draws.to(device)
+        m = (steps["gen"](st, x, warmed, draws=d) if which == "gen"
+             else steps["dis"](st, x, draws=d))
+        out[device] = {k: float(v) for k, v in m.items()}
+    return out
+
+
+def _loss_err(a: dict, b: dict) -> float:
+    return max(abs(a[k] - v) / max(abs(v), 1e-2) for k, v in b.items())
+
+
+def _discrete_offline(cfg) -> dict:
+    """B=16 x 131072 forward (timed, 22 launches) and, at phase `offline`'s
+    B=1 x 65536, the encoder output, the RVQ codes and the decode of one
+    index tensor on the card against the CPU."""
+    import torch
+
+    from rave_tpu_torch.factory import build_rave
+    from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.train.steps import draw_noise
+
+    cpu_model = build_rave(cfg, seed=0, device="cpu").eval()
+    model = copy.deepcopy(cpu_model).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(BATCH, 1, N_SIGNAL, device="cuda", generator=gen) * 0.1
+    draws = draw_noise(cfg, x, gen)
+    with torch.inference_mode():
+        model(x, draws)  # warm
+        torch.cuda.synchronize()
+        dilated_unit.launches = dilated_unit.launches_bf16 = 0
+        y = model(x, draws)
+        torch.cuda.synchronize()
+        launches = dilated_unit.launches
+        check(tuple(y.shape) == (BATCH, 1, N_SIGNAL) and bool(torch.isfinite(y).all()),
+              f"discrete forward {tuple(y.shape)} or not finite")
+        check(launches == 22 and dilated_unit.launches_bf16 == 0,
+              f"{launches} launches ({dilated_unit.launches_bf16} bf16) in a discrete forward")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            model(x, draws)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / 5
+
+        n = 65536
+        xb = torch.randn(1, 1, n, generator=torch.Generator().manual_seed(2)) * 0.1
+        z_cpu, z_gpu = cpu_model.encode(xb), model.encode(xb.cuda()).cpu()
+        z_err = rel_err(z_gpu, z_cpu)
+        idx_cpu = cpu_model.encoder.encode_indices(z_cpu)
+        idx_gpu = model.encoder.encode_indices(z_gpu.cuda()).cpu()
+        agree = float((idx_cpu == idx_gpu).float().mean())
+        noise = torch.randn(1, cfg.latent.noise_augmentation, z_cpu.shape[-1],
+                            generator=torch.Generator().manual_seed(3))
+        decode = lambda m, dev: m.decode(torch.cat(  # noqa: E731
+            [m.encoder.decode_indices(idx_cpu.to(dev)), noise.to(dev)], 1))
+        y_err = rel_err(decode(model, "cuda").cpu(), decode(cpu_model, "cpu"))
+    check(z_err <= MODEL_TOL and agree >= INDEX_AGREEMENT and y_err <= MODEL_TOL,
+          f"discrete card vs CPU: encoder {z_err:.3e}, codes equal {agree:.4f}, decode of one "
+          f"index tensor {y_err:.3e}")
+    return {"launches": launches, "forward_ms": sec * 1e3,
+            "realtime_factor": BATCH * N_SIGNAL / SAMPLE_RATE / sec, "z_rel_err": z_err,
+            "index_agreement": agree, "decode_rel_err": y_err}
+
+
+def _discrete_steps(cfg) -> dict:
+    """The k-means step (timed alone), pre-warmup steps, then steps picked by
+    pick_phase past the warmup, at B=8 x 131072 on the card: 22 launches per
+    step, finite losses, codebooks initialized once and updated by every
+    program; codebook_health after."""
+    import torch
+
+    from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.train.analysis import crop_frames, receptive_field
+    from rave_tpu_torch.train.loop import codebook_health
+    from rave_tpu_torch.train.state import create_train_state
+    from rave_tpu_torch.train.steps import build_train_steps, pick_phase
+
+    rf = receptive_field(cfg, device="cuda")
+    steps = build_train_steps(cfg, crop_frames(cfg, rf))
+    state = create_train_state(cfg, seed=0, device="cuda")
+    x = torch.randn(cfg.data.batch, 1, cfg.data.n_signal, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(6)) * 0.1
+    noise = torch.Generator(device="cuda").manual_seed(7)
+    codebooks = [m.codebook for m in state.model.encoder.rvq.vq]
+    times, launches = {"kmeans": [], "gen_prewarmup": [], "gen_adversarial": [], "dis": []}, 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def one_step(name: str, which: str, warmed: bool, quantize: bool) -> None:
+        nonlocal launches
+        before = [cb.embed.clone() for cb in codebooks]
+        torch.cuda.synchronize()
+        dilated_unit.launches = dilated_unit.launches_bf16 = 0
+        t0 = time.perf_counter()
+        if which == "dis":
+            m = steps["dis"](state, x, generator=noise, quantize=quantize)
+        else:
+            m = steps["gen"](state, x, warmed, generator=noise, quantize=quantize)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+        check(dilated_unit.launches == 22 and dilated_unit.launches_bf16 == 0,
+              f"discrete {name} step: {dilated_unit.launches} launches, expected 22 fp32")
+        launches += 22
+        bad = [k for k, v in m.items() if not math.isfinite(float(v))]
+        check(not bad, f"discrete {name} step: non-finite {bad}")
+        check(all(not torch.equal(cb.embed, b) for cb, b in zip(codebooks, before))
+              and all(float(cb.inited) == 1.0 for cb in codebooks),
+              f"discrete {name} step left a codebook as it was")
+
+    check(rf == (0, 0), f"discrete receptive field {rf}, expected (0, 0) as in JAX")
+    one_step("kmeans", "gen", False, True)
+    for _ in range(DISCRETE_PREWARMUP_STEPS):
+        one_step("gen_prewarmup", "gen", False, True)
+    state.step = cfg.train.phase_1_duration
+    for _ in range(DISCRETE_WARMED_STEPS):
+        which, warmed, quantize = pick_phase(cfg, state.step)
+        one_step("dis" if which == "dis" else "gen_adversarial", which, warmed, quantize)
+    perplexity, usage = codebook_health(state.model)
+    check(math.isfinite(perplexity) and perplexity > 1 and 0 < usage <= 1,
+          f"codebook health {perplexity}, {usage}")
+    ms = {k: statistics.mean(v[1:] if k != "kmeans" and len(v) > 1 else v) * 1e3
+          for k, v in times.items()}
+    return {"rf": list(rf), "ms_per_step": ms, "steps": {k: len(v) for k, v in times.items()},
+            "step_ms": {k: [t * 1e3 for t in v] for k, v in times.items()},
+            "launches": launches, "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "codebook_perplexity": perplexity, "codebook_usage": usage}
+
+
+def _discrete_loop(cfg, work: Path, db: Path) -> dict:
+    """`cli train --config discrete` on phase `loop`'s store, resumed once
+    (the restored state, codebooks and `inited` included, bit-equal to its
+    checkpoint; no second k-means), then `cli eval`."""
+    import torch
+
+    from rave_tpu_torch.utils import checkpoint
+
+    common = ["--config", "discrete", "--db_path", db, "--out_path", work / "runs", "--batch",
+              TRAIN_BATCH, "--n_signal", N_SIGNAL, "--device", "cuda", "--val_every",
+              DISCRETE_VAL_EVERY, "--save_every", 1000, "--device_data", "on", "--name", "d"]
+    for o in DISCRETE_LOOP:
+        common += ["--override", o]
+    with LoopProbe() as probe:
+        out = _cli(["train", "--max_steps", DISCRETE_LOOP_STEPS, *common])
+        run_dir = Path(out.strip().splitlines()[-1].removeprefix("run dir: "))
+        first = probe.take()
+        out2 = _cli(["train", "--max_steps", DISCRETE_RESUME_STEPS, *common])
+        resumed = probe.take()
+    before = LoopProbe.counts()
+    ev = json.loads(_cli(["eval", "--run", run_dir, "--db_path", db, "--split", "val",
+                          "--device", "cuda"]).strip().splitlines()[-1])
+    ev["fp32"] = LoopProbe.counts()[0] - before[0]
+    _check_steps(first, "fp32", 0, DISCRETE_LOOP_STEPS, probe=False)
+    _check_steps(resumed, "fp32", DISCRETE_LOOP_STEPS, DISCRETE_RESUME_STEPS, probe=False)
+    check(f"resumed at step {DISCRETE_LOOP_STEPS}" in out2, "the discrete run did not resume")
+    phases = {e["phase"] for e in first if e["kind"] == "step"}
+    check(phases == {"gen_prewarmup", "gen_adversarial", "dis"}, f"discrete phases {phases}")
+    restores = [e for e in resumed if e["kind"] == "restore" and "state" in e]
+    check(len(restores) == 1, f"discrete restores {len(restores)}")
+    saved = torch.load(restores[0]["path"], map_location="cpu", weights_only=True)
+    bad = unequal(restores[0]["state"], saved)
+    inited = [k for k in saved["model"] if k.endswith("inited")]
+    check(not bad and len(inited) == cfg.latent.num_quantizers
+          and all(float(saved["model"][k]) == 1.0 for k in inited),
+          f"discrete restore not bit-equal ({bad[:5]}) or codebooks not initialized")
+    rows = [json.loads(r) for r in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    health = [r for r in rows if "codebook_perplexity" in r]
+    check([r["step"] for r in health] == [3, 6, 8], f"codebook health rows {health}")
+    check(all(math.isfinite(ev[k]) for k in EVAL_METRICS) and ev["fp32"] == 22 * ev["n_batches"],
+          f"discrete eval {ev}")
+    ckpts = [checkpoint.checkpoint_step(p) for p in checkpoint.list_checkpoints(str(run_dir))]
+    return {"run_dir": run_dir, "checkpoints": ckpts, "eval": ev, "codebook_health": health,
+            "launches": sum(e["fp32"] for e in first + resumed) + ev["fp32"],
+            "step_ms": loop_ms(first + resumed)}
+
+
+def _discrete_export(cfg, run_dir: Path, work: Path) -> dict:
+    """`cli export --streaming` of the loop's run and `cli generate` of a 30 s
+    file; the card against the CPU (codes agree, one index tensor decodes
+    alike); `forward_step.pt2` bit-equal to the eager steps over 32 blocks;
+    the streaming p50 against the block's budget."""
+    import torch
+
+    from rave_tpu_torch.data.audio_io import decode_file
+    from rave_tpu_torch.export.artifact import ExportedRAVE
+    from rave_tpu_torch.export.generate import load_signal
+    from rave_tpu_torch.ops.kernels import dilated_unit
+
+    t0 = time.perf_counter()
+    text = _cli(["export", "--run", run_dir, "--streaming", "--output", work / "export",
+                 "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    path = Path(text.strip().splitlines()[-1].removeprefix("exported: "))
+    manifest = json.loads((path / "manifest.json").read_text())
+    want = (cfg.latent.num_quantizers, cfg.augmented_latent_size(), cfg.block_size())
+    got = tuple(manifest[k] for k in ("latent_size", "full_latent_size", "block_size"))
+    check(got == want, f"discrete manifest: latent, full latent, block {got}, expected {want}")
+    wav = work / "discrete_in.wav"
+    n = write_signal(wav, EXPORT_SECONDS, seed=22)
+    torch.cuda.synchronize()
+    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    t0 = time.perf_counter()
+    _cli(["generate", "--model", path, "--input", wav, "--out_path", work / "generated",
+          "--device", "cuda"])
+    torch.cuda.synchronize()
+    generate_s, launches = time.perf_counter() - t0, dilated_unit.launches
+    check(launches == 22, f"discrete generate: {launches} launches, expected 22")
+
+    art, cpu = ExportedRAVE(str(path), device="cuda"), ExportedRAVE(str(path), device="cpu")
+    B = art.block_size
+    x = load_signal(decode_file(str(wav), SAMPLE_RATE, 1), 1, 1, B).cuda()
+    clip = x[..., : -(-int(CLIP_SECONDS * SAMPLE_RATE) // B) * B]
+    idx_gpu, idx_cpu = art.encode(clip, seed=3).cpu(), cpu.encode(clip.cpu(), seed=3)
+    agree = float((idx_gpu == idx_cpu).float().mean())
+    y_err = rel_err(art.decode(idx_cpu.cuda(), seed=4).cpu(), cpu.decode(idx_cpu, seed=4))
+    check(agree >= INDEX_AGREEMENT and y_err <= MODEL_TOL,
+          f"discrete artifact card vs CPU: codes equal {agree:.4f}, decode {y_err:.3e}")
+
+    program = art.load_program("forward")
+    art.reset_stream()
+    state = [s.clone() for s in art.state]
+    eager_ms, program_ms, equal = [], [], True
+    for i in range(PROGRAM_BLOCKS):
+        xb = x[..., i * B:(i + 1) * B]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_e = art.forward(xb, streaming=True, seed=2000 + i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y_p, state = program(state, xb, torch.tensor(2000 + i, device="cuda"))
+        torch.cuda.synchronize()
+        eager_ms.append((t1 - t0) * 1e3)
+        program_ms.append((time.perf_counter() - t1) * 1e3)
+        equal = equal and torch.equal(y_p, y_e) and all(
+            torch.equal(a, b) for a, b in zip(state, art.state))
+    check(equal, f"discrete forward_step.pt2 not bit-equal to the eager steps over "
+                 f"{PROGRAM_BLOCKS} blocks")
+    return {"export_s": export_s, "generate_s": generate_s, "generate_launches": launches,
+            "realtime_factor_generate": n / SAMPLE_RATE / generate_s, "index_agreement": agree,
+            "decode_rel_err": y_err, "program_bit_equal": equal,
+            "block_ms_p50": {"eager": statistics.median(eager_ms),
+                             "program": statistics.median(program_ms)},
+            "block_budget_ms": B / SAMPLE_RATE * 1e3}
+
+
+def _other_family(names) -> dict:
+    """One generator step of `names` at B=8 x 131072 on the card (22
+    launches, finite), its first pre-warmup step at B=1 on the card against
+    the CPU, and the artifact's codec halves (`EncodeSide`, `DecodeSide`)
+    of the stepped model, offline, on the card against the CPU. Phase
+    `discrete`'s export checks `export_model` and the `.pt2` programs."""
+    import torch
+
+    from rave_tpu_torch.config import compose
+    from rave_tpu_torch.export.artifact import DecodeSide, EncodeSide
+    from rave_tpu_torch.export.export import user_latent_size
+    from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.train.state import create_train_state
+    from rave_tpu_torch.train.steps import build_train_steps
+
+    cfg = compose(names)
+    state = create_train_state(cfg, seed=0, device="cuda")
+    x = torch.randn(cfg.data.batch, 1, cfg.data.n_signal, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(6)) * 0.1
+    step = build_train_steps(cfg)["gen"]
+    step(state, x, False, generator=torch.Generator(device="cuda").manual_seed(7))  # warm
+    torch.cuda.synchronize()
+    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    t0 = time.perf_counter()
+    m = step(state, x, False, generator=torch.Generator(device="cuda").manual_seed(8))
+    torch.cuda.synchronize()
+    ms, launches = (time.perf_counter() - t0) * 1e3, dilated_unit.launches
+    check(launches == 22 and all(math.isfinite(float(v)) for v in m.values()),
+          f"{cfg.latent.family} step: {launches} launches, metrics {m}")
+    b1 = _family_step_b1(names, "gen", False)
+    loss_err = _loss_err(b1["cuda"], b1["cpu"])
+    latent_size = user_latent_size(cfg, None, 0.0)
+    gpu = state.model.eval()
+    cpu = copy.deepcopy(gpu).cpu()
+    clip = torch.randn(1, 1, 16 * cfg.block_size(), generator=torch.Generator().manual_seed(5))
+    clip = clip * 0.1
+    seeds = {dev: (torch.tensor(1, device=dev), torch.tensor(2, device=dev))
+             for dev in ("cuda", "cpu")}
+    with torch.inference_mode():
+        z_gpu = EncodeSide(gpu, cfg, latent_size)(clip.cuda(), seeds["cuda"][0]).cpu()
+        z_cpu = EncodeSide(cpu, cfg, latent_size)(clip, seeds["cpu"][0])
+        y_gpu = DecodeSide(gpu, cfg, latent_size)(z_cpu.cuda(), seeds["cuda"][1]).cpu()
+        y_cpu = DecodeSide(cpu, cfg, latent_size)(z_cpu, seeds["cpu"][1])
+    errs = {"encode": rel_err(z_gpu, z_cpu), "decode": rel_err(y_gpu, y_cpu)}
+    check(loss_err <= MODEL_TOL and max(errs.values()) <= MODEL_TOL
+          and z_gpu.shape[1] == latent_size and bool(torch.isfinite(y_gpu).all()),
+          f"{cfg.latent.family} card vs CPU: step losses {loss_err:.3e}, codec {errs}, "
+          f"latents {tuple(z_gpu.shape)}")
+    return {"step_ms": ms, "launches": launches, "b1_loss_rel_err": loss_err,
+            "codec_rel_err": errs, "latent_size": latent_size}
+
+
+def phase_discrete() -> dict:
+    """compose(["discrete"]) at full width; see the module docstring."""
+    import torch
+
+    from rave_tpu_torch.config import compose
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "discrete"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = compose(["discrete"])
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    kernel_rows = [kernel_row(gen, "discrete", B, C, T, d, "centered")
+                   for B in (BATCH, TRAIN_BATCH) for C, T, dils in DISCRETE_UNITS for d in dils]
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    offline = timed("offline", _discrete_offline, cfg)
+    train = timed("steps", _discrete_steps, cfg)
+    b1 = timed("b1_card_vs_cpu", lambda: {
+        k: _family_step_b1(["discrete"], which, warmed)
+        for k, which, warmed in (("gen_prewarmup", "gen", False),
+                                 ("gen_adversarial", "gen", True), ("dis", "dis", True))})
+    b1_err = {k: _loss_err(v["cuda"], v["cpu"]) for k, v in b1.items()}
+    check(max(b1_err.values()) <= MODEL_TOL, f"discrete B=1 card vs CPU losses {b1_err}")
+    loop = timed("loop", _discrete_loop, cfg, work, ROOT / "build" / "loop" / "db")
+    export = timed("export", _discrete_export, cfg, loop["run_dir"], work)
+    others = {names[-1]: timed(names[-1], _other_family, names)
+              for names in (["v2", "wasserstein"], ["v2", "spherical"])}
+    shutil.rmtree(work, ignore_errors=True)
+    launches = offline["launches"] + train["launches"] + loop["launches"] + \
+        export["generate_launches"] + sum(o["launches"] for o in others.values())
+    out = {"kernel_rows": kernel_rows, "offline": offline, "train": train,
+           "b1_loss_rel_err": b1_err, "loop": {k: v for k, v in loop.items() if k != "run_dir"},
+           "export": export, "others": others, "launches": launches, "part_seconds": seconds,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"discrete: units at C=768 T=256 kernel/plain ms {shape_summary(kernel_rows)} (max rel "
+          f"err {max(r['rel_err'] for r in kernel_rows):.2e} <= {KERNEL_TOL}); forward B={BATCH} x "
+          f"{N_SIGNAL} {offline['forward_ms']:.2f} ms = {offline['realtime_factor']:.1f}x "
+          f"realtime, 22 launches; B=1 x 65536 card vs CPU: encoder {offline['z_rel_err']:.2e}, "
+          f"codes equal {offline['index_agreement']:.4f}, decode {offline['decode_rel_err']:.2e}",
+          flush=True)
+    print(f"discrete steps B={TRAIN_BATCH} x {N_SIGNAL}: ms "
+          + ", ".join(f"{k} {v:.1f} (x{train['steps'][k]})"
+                      for k, v in train["ms_per_step"].items())
+          + " (each: " + "; ".join(f"{k} " + ", ".join(f"{t:.1f}" for t in v)
+                                   for k, v in train["step_ms"].items()) + ")"
+          + f"; peak {train['peak_gb']:.2f} GiB; codebook perplexity "
+          f"{train['codebook_perplexity']:.1f}, usage {train['codebook_usage']:.3f}; B=1 card vs "
+          f"CPU losses " + ", ".join(f"{k} {v:.1e}" for k, v in b1_err.items())
+          + f"; loop {DISCRETE_LOOP_STEPS} steps resumed to {DISCRETE_RESUME_STEPS} bit-equal "
+          f"(codebooks, inited), checkpoints {loop['checkpoints']}, eval "
+          f"{loop['eval']['spectral_distance']}", flush=True)
+    print(f"discrete export: {export['export_s']:.1f} s; generate 30 s "
+          f"{export['realtime_factor_generate']:.1f}x end to end, 22 launches; artifact card vs "
+          f"CPU codes equal {export['index_agreement']:.4f}, decode {export['decode_rel_err']:.2e}"
+          f"; forward_step.pt2 bit-equal over {PROGRAM_BLOCKS} blocks; streaming p50 eager "
+          f"{export['block_ms_p50']['eager']:.3f} ms, .pt2 {export['block_ms_p50']['program']:.3f}"
+          f" ms (budget {export['block_budget_ms']:.2f} ms); "
+          + "; ".join(f"{k}: step {o['step_ms']:.1f} ms, B=1 losses {o['b1_loss_rel_err']:.1e}, "
+                      f"codec {o['codec_rel_err']['encode']:.1e} / "
+                      f"{o['codec_rel_err']['decode']:.1e}" for k, o in others.items())
+          + f"; {launches} launches on the path; phase {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ")", flush=True)
+    return out
+
+
 def main() -> None:
     if not (ROOT / KERNEL_SOURCE).is_file():
         raise SystemExit(f"chip_smoke: {KERNEL_SOURCE} not found; run from a checkout")
@@ -1366,6 +1788,7 @@ def main() -> None:
     export = phase_export(ROOT / loop["run_dir"])
     shutil.rmtree(ROOT / "build" / "loop" / "runs", ignore_errors=True)  # ~0.7 GB per checkpoint
     shutil.rmtree(ROOT / "build" / "loop" / "export", ignore_errors=True)
+    discrete = phase_discrete()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "rave_tpu"))
     check(not foreign, f"the port loaded the JAX package or jax: {foreign[:5]}")
 
@@ -1376,8 +1799,12 @@ def main() -> None:
     bound32 = unit_bound(main_rows, BATCH, "fp32")
     bound16 = unit_bound(main_bf16, TRAIN_BATCH, "bf16")
     export_rows = export["unit_b1"] * 2  # generate's forward: each shape in encoder and decoder
+    # the discrete forward's 22 units at B=16: v2's shapes but C=768 at T=256
+    discrete_rows = [r for r in main_rows if r["C"] != 768] + [
+        r for r in discrete["kernel_rows"] if r["B"] == BATCH] * 2
     bounds = {"fp32_b16_forward": bound32, "bf16_b8_forward": bound16,
               "fp32_b1_generate_forward": unit_bound(export_rows, 1, "fp32"),
+              "fp32_b16_discrete_forward": unit_bound(discrete_rows, BATCH, "fp32"),
               **{f"{k}_b8_fwd_bwd": unit_bound(grad[k] * 2, TRAIN_BATCH, k, backward=True)
                  for k in ("fp32", "bf16")}}
     print("bounds (22 units): " + "; ".join(f"{k} {b['bound_ms']:.3f} ms ({b['bound_by']})"
@@ -1388,6 +1815,10 @@ def main() -> None:
         "launches_train": train["launches"], "launches_remat_step": remat["remat_launches"],
         "launches_loop": loop["launches"]["fp32"],
         "launches_export": export["generate_launches"],
+        "launches_discrete": discrete["launches"],
+        "ms_discrete_b16": sum(r["ms"] for r in discrete_rows),
+        "plain_ms_discrete_b16": sum(r["plain_ms"] for r in discrete_rows),
+        "bound_ms_discrete_b16": bounds["fp32_b16_discrete_forward"]["bound_ms"],
         "ms_export_b1": sum(r["ms"] for r in export_rows),
         "plain_ms_export_b1": sum(r["plain_ms"] for r in export_rows),
         "bound_ms_export_b1": bounds["fp32_b1_generate_forward"]["bound_ms"],
@@ -1408,7 +1839,8 @@ def main() -> None:
         {"card": card, "build": build_info, "kernel_shapes": rows, "kernel_bf16_shapes": rows_bf16,
          "bounds": bounds,
          "offline": offline, "stream": stream, "grad_shapes": grad, "train": train,
-         "train_bf16": train_bf16, "remat": remat, "loop": loop, "export": export, **kernels},
+         "train_bf16": train_bf16, "remat": remat, "loop": loop, "export": export,
+         "discrete": discrete, **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

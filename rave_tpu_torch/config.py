@@ -4,7 +4,8 @@ The part of rave_tpu/config.py the port reads, owned by the port so that
 nothing here depends on the JAX package: the fields `factory.build_rave`,
 `factory.build_discriminator` / `build_audio_distance`, the train step and
 the training driver read, with the same names, defaults and resolved
-accessors, and the two presets the port builds, `v2` and `causal`.
+accessors, and the presets the port builds: `v2`, `causal`, and the latent
+families `discrete`, `wasserstein` and `spherical`.
 `compose(names, overrides)` stacks presets and applies dotted overrides as
 the reference does (`compose(["v2", "causal"], ["capacity=2",
 "ratios=[4,4,2]"])`). `snapshot` / `config_hash` / `from_dict` write and
@@ -38,8 +39,11 @@ class EncoderConfig:
 
 @dataclass
 class LatentConfig:
-    family: str = "variational"
+    family: str = "variational"  # variational | wasserstein | discrete | spherical
     noise_augmentation: int = 0
+    # discrete
+    num_quantizers: int = 16
+    codebook_size: int = 1024
 
 
 @dataclass
@@ -226,6 +230,50 @@ def _v2(c: RaveConfig):
     t.beta_warmup_len = 20000
 
 
+@preset("discrete")
+def _discrete(c: RaveConfig):
+    """rave/configs/discrete.gin: v2 with ratios 4.4.2.2 and a 16 x 1024 RVQ."""
+    _v2(c)
+    c.name = "discrete"
+    c.ratios = (4, 4, 2, 2)
+    c.latent_size = 128
+    c.capacity = 96
+    c.latent.family = "discrete"
+    c.latent.num_quantizers = 16
+    c.latent.codebook_size = 1024
+    c.latent.noise_augmentation = 128
+    c.distance.log_epsilon = 1.0
+    c.train.phase_1_duration = 200_000
+    c.train.warmup_quantize = -1
+    c.train.num_skipped_features = 0
+    c.train.update_discriminator_every = 4
+    c.train.beta_initial = c.train.beta_target = 0.1
+    c.train.beta_warmup_len = 1
+
+
+@preset("wasserstein")
+def _wasserstein(c: RaveConfig):
+    """rave/configs/wasserstein.gin (applied on top of v2)."""
+    c.name = "wasserstein"
+    c.latent_size = 16
+    c.latent.family = "wasserstein"
+    c.latent.noise_augmentation = 128
+    c.train.phase_1_duration = 200_000
+    c.train.weights.update({"fullband_spectral_distance": 2.0,
+                            "multiband_spectral_distance": 2.0, "adversarial": 2.0})
+    c.train.beta_initial = c.train.beta_target = 100.0
+    c.train.beta_warmup_len = 1
+
+
+@preset("spherical")
+def _spherical(c: RaveConfig):
+    """rave/configs/spherical.gin (applied on top of v2)."""
+    c.name = "spherical"
+    c.latent_size = 16
+    c.latent.family = "spherical"
+    c.train.phase_1_duration = 200_000
+
+
 @preset("causal")
 def _causal(c: RaveConfig):
     """rave/configs/causal.gin: zero-lookahead convs everywhere."""
@@ -233,13 +281,18 @@ def _causal(c: RaveConfig):
     c.name = c.name + "_causal"
 
 
+# presets of rave_tpu.config that need a module the port does not have yet
+NOT_PORTED = {"v3": "A10 (snake, AdaIN, descript)", "discrete_v3": "A10 (snake, descript)"}
+
+
 def compose(names: List[str], overrides: Optional[List[str]] = None) -> RaveConfig:
     """Stack presets in order, then apply dotted overrides."""
     cfg = RaveConfig()
     for n in names:
         if n not in PRESETS:
+            item = NOT_PORTED.get(n, "A10-A11 (the other model families)")
             raise KeyError(f"preset {n!r} is not ported (have {sorted(PRESETS)}; "
-                           "ROADMAP A9-A11 list the other model families)")
+                           f"ROADMAP {item})")
         PRESETS[n](cfg)
     for ov in overrides or []:
         apply_override(cfg, ov)

@@ -21,9 +21,13 @@ caches), in module order, which is the union of every method's state. A
 the state into the model's buffers, runs the method, reads the buffers
 back and puts the originals back, so it changes no module and the same
 code runs eagerly (`ExportedRAVE`) and under `torch.export` (export.py).
-The sampling noise comes from the int64 `seed` (a uint32 value) through
-`normal_from_seed`, so an exported program holds no draw as a constant and
-draws what the eager artifact draws from the same seed.
+The sampling noise (the variational eps and padding, the discrete and
+wasserstein augmentation channels) comes from the int64 `seed` (a uint32
+value) through `normal_from_seed`, so an exported program holds no draw as
+a constant and draws what the eager artifact draws from the same seed. The
+latent codecs of the four families are `post_process_latent` /
+`pre_process_latent`; a discrete artifact's latents are its RVQ code
+indices [B, Q, T] as floats, and its decode program holds the codebooks.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from torch import nn
 from rave_tpu_torch import config as config_lib
 from rave_tpu_torch.config import RaveConfig
 from rave_tpu_torch.factory import build_rave, resolve_device
+from rave_tpu_torch.models.blocks import angles_to_unit_norm_vector, unit_norm_vector_to_angles
 from rave_tpu_torch.models.rave import RAVE
 from rave_tpu_torch.nn.streaming import StreamingModule, init_stream_state
 from rave_tpu_torch.ops.resampler import Resampler
@@ -50,21 +55,22 @@ DECODE_SEED_OFFSET = 0x9E3779B9  # forward decodes with seed + this, mod 2^32 (a
 STEP_METHODS = ("encode", "decode", "forward")
 
 
-def refuse_family(cfg: RaveConfig) -> None:
-    fam = cfg.latent.family
-    if fam != "variational":
-        item = "A9 (discrete)" if fam == "discrete" else "A11 (other families)"
-        raise NotImplementedError(f"the {fam!r} latent codecs are not ported yet (ROADMAP {item})")
-
-
 def post_process_latent(cfg: RaveConfig, model: nn.Module, latent_size: int, z: torch.Tensor,
                         eps: Optional[torch.Tensor] = None,
                         seed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Raw encoder output [B, 2D, T] -> user-facing latents [B, latent_size, T]:
-    mean + std * eps, centred, rotated by the PCA and truncated (reference
-    scripts/export.py:351-408). `model` holds the `latent_pca` and
-    `latent_mean` buffers; `eps` [B, D, T] defaults to draws from `seed`."""
-    refuse_family(cfg)
+    """Raw encoder output [B, D, T] -> user-facing latents [B, latent_size, T],
+    per family (reference scripts/export.py:351-408): variational, mean +
+    std * eps, centred, rotated by the PCA and truncated (`model` holds the
+    `latent_pca` and `latent_mean` buffers; `eps` [B, D, T] defaults to
+    draws from `seed`); discrete, the code indices [B, Q, T] as floats;
+    spherical, the angles; wasserstein, z itself."""
+    fam = cfg.latent.family
+    if fam == "discrete":
+        return model.encoder.encode_indices(z).float()
+    if fam == "spherical":
+        return unit_norm_vector_to_angles(z)
+    if fam == "wasserstein":
+        return z
     mean, scale = z.chunk(2, dim=1)
     std = F.softplus(scale) + 1e-4
     if eps is None:
@@ -78,15 +84,26 @@ def post_process_latent(cfg: RaveConfig, model: nn.Module, latent_size: int, z: 
 def pre_process_latent(cfg: RaveConfig, model: nn.Module, full_latent_size: int, z: torch.Tensor,
                        noise: Optional[torch.Tensor] = None,
                        seed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """User-facing latents [B, L, T] -> decoder input [B, full_latent_size, T]:
-    padded with noise, rotated back and un-centred. `noise` [B, full - L, T]
-    defaults to draws from `seed`."""
-    refuse_family(cfg)
+    """User-facing latents [B, L, T] -> decoder input [B, full_latent_size, T],
+    the inverse of `post_process_latent` up to the noise: variational,
+    padded with noise, rotated back and un-centred; discrete, the indices
+    clipped to the codebook, decoded (`model.rvq`) and given their
+    augmentation noise; spherical, the unit vectors of the angles;
+    wasserstein, the augmentation noise appended. `noise` [B, full - (the
+    decoded width), T] defaults to draws from `seed`."""
+    fam = cfg.latent.family
+    if fam == "spherical":
+        return angles_to_unit_norm_vector(z)
+    if fam == "discrete":
+        idx = z.clamp(0, cfg.latent.codebook_size - 1).to(torch.int64)
+        z = model.rvq.decode(idx).transpose(1, 2)
     B, L, T = z.shape
     if L < full_latent_size:
         if noise is None:
             noise = normal_from_seed(seed, (B, full_latent_size - L, T), DECODE_SALT)
         z = torch.cat([z, noise.to(z.dtype)], dim=1)
+    if fam != "variational":
+        return z
     z = torch.einsum("ij,bit->bjt", model.latent_pca, z)
     return z + model.latent_mean[:, None]
 
@@ -120,7 +137,7 @@ class EncodeSide(_Side):
         self.pqmf_analysis, self.encoder = model.pqmf_analysis, model.encoder
 
     def forward(self, x, seed=None, eps=None, streaming: bool = False):
-        """[B, C, T] -> [B, latent_size, T / decimation]."""
+        """[B, C, T] -> [B, latent_size, T / decimation] (discrete: indices)."""
         if streaming:
             z = self.encoder.step(self.pqmf_analysis.step(x))
         else:
@@ -132,6 +149,8 @@ class DecodeSide(_Side):
     def __init__(self, model: RAVE, cfg: RaveConfig, latent_size: int):
         super().__init__(model, cfg, latent_size)
         self.decoder, self.pqmf_synthesis = model.decoder, model.pqmf_synthesis
+        if cfg.latent.family == "discrete":  # the codebooks decode the indices
+            self.rvq = model.encoder.rvq
 
     def forward(self, z, seed=None, noise=None, streaming: bool = False):
         """[B, latent_size, T_lat] -> [B, C, T_lat * decimation]."""

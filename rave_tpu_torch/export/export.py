@@ -2,8 +2,10 @@
 
 PyTorch port of rave_tpu/export/export.py (the reference's `rave export`,
 scripts/export.py:492-599): loads the newest checkpoint's generator
-(optionally its EMA weights), truncates the variational latent space to the
-requested fidelity, writes the weights and the manifest, decodes a zero
+(optionally its EMA weights), sets the user-facing latent size per family
+(the variational space truncated to the requested fidelity; the discrete
+family's is its number of quantizers, the spherical one's its angles),
+writes the weights and the manifest, decodes a zero
 latent at the stream batch as a smoke check, and exports the streaming step
 programs with `torch.export`.
 
@@ -44,6 +46,19 @@ def truncated_latent_size(fidelity_curve: np.ndarray, fidelity: float, full: int
     return min(2 ** math.ceil(math.log2(size)), full)
 
 
+def user_latent_size(cfg, fidelity_curve: np.ndarray, fidelity: float) -> int:
+    """The artifact's latent size per family (rave_tpu/export/export.py:66-79):
+    the variational space truncated to `fidelity`, the discrete family's
+    number of quantizers, the spherical family's angles (one fewer than its
+    latent), the wasserstein latent as it is."""
+    fam = cfg.latent.family
+    if fam == "variational":
+        return truncated_latent_size(fidelity_curve, fidelity, cfg.latent_size)
+    if fam == "discrete":
+        return cfg.latent.num_quantizers
+    return cfg.latent_size - (fam == "spherical")
+
+
 def _methods(n_channels: int, latent_size: int, ratio: int) -> dict:
     signal = lambda kind, n: [f"(signal) {kind} {i}" for i in range(n)]  # noqa: E731
     return {
@@ -79,7 +94,7 @@ def export_model(
     cfg, weights, n_channels, run_dir = read_generator(run, use_ema)
     n_channels = channels or n_channels
     stream_batch = 2 if stereo else 1
-    latent_size = truncated_latent_size(weights["fidelity"].numpy(), fidelity, cfg.latent_size)
+    latent_size = user_latent_size(cfg, weights["fidelity"].numpy(), fidelity)
     ratio, block = cfg.decimation(), cfg.block_size()
     name = cfg.name + ("_streaming" if streaming else "")
     out_dir = Path(output or run_dir) / f"{name}.rtpu"

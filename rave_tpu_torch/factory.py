@@ -1,12 +1,14 @@
 """Factory: RaveConfig -> the port's model, critic and losses.
 
 PyTorch port of rave_tpu/factory.py: `build_rave` (:151-175) for the v2
-encoder and decoder kinds and the variational latent family;
+encoder and decoder kinds and the four latent families (`build_encoder`
+picks the wrapper as :82-99 does);
 `build_discriminator` (:178-232) for the `multiscale` and `combined`
 critics; `build_audio_distance` (:235-265) for `v1`; `build_gan_loss`
 (:268-269). Configs come from the port's own `rave_tpu_torch.config.compose`.
 Weights are drawn here from a seeded CPU `torch.Generator` (lecun-normal
-`v`, `g = ||v||` per output channel, zero bias), never from jax, and then
+`v`, `g = ||v||` per output channel, zero bias; a codebook's embed uniform
+as flax's variance_scaling(1, fan_in)), never from jax, and then
 moved to `device`: the card unless the caller asks for the CPU, so the
 same seed gives the same numbers on either.
 """
@@ -21,6 +23,7 @@ from rave_tpu_torch.models import blocks
 from rave_tpu_torch.models.discriminators import (
     CombineDiscriminators, MultiPeriodDiscriminator, MultiScaleDiscriminator,
 )
+from rave_tpu_torch.models.quantization import EuclideanCodebook
 from rave_tpu_torch.models.rave import RAVE
 from rave_tpu_torch.nn.conv import _WeightNormConv
 from rave_tpu_torch.ops.distances import AudioDistanceV1
@@ -46,9 +49,6 @@ def build_encoder(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1):
     if cfg.encoder.kind != "v2":
         raise NotImplementedError(f"encoder kind {cfg.encoder.kind!r} is not ported yet "
                                   "(ROADMAP A11, v1)")
-    if cfg.latent.family != "variational":
-        raise NotImplementedError(f"latent family {cfg.latent.family!r} is not ported yet "
-                                  "(ROADMAP A9 discrete, A11 wasserstein/spherical)")
     inner = blocks.EncoderV2(
         data_size=cfg.enc_data_size(),
         capacity=cfg.enc_capacity(),
@@ -67,7 +67,17 @@ def build_encoder(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1):
         in_delay=pqmf_analysis_delay(cfg),
         stream_batch=stream_batch,
     )
-    return blocks.VariationalEncoder(inner)
+    lat = cfg.latent
+    if lat.family == "variational":
+        return blocks.VariationalEncoder(inner)
+    if lat.family == "wasserstein":
+        return blocks.WassersteinEncoder(inner, lat.noise_augmentation)
+    if lat.family == "discrete":
+        return blocks.DiscreteEncoder(inner, lat.num_quantizers, lat.codebook_size,
+                                      cfg.latent_size, lat.noise_augmentation)
+    if lat.family == "spherical":
+        return blocks.SphericalEncoder(inner)
+    raise ValueError(f"unknown latent family {lat.family!r}")
 
 
 def build_decoder(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1):
@@ -105,15 +115,16 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
-    """Redraw every convolution's weights from `generator`, in module order."""
+    """Redraw every convolution's weights and every codebook's initial embed
+    from `generator`, in module order."""
     for m in model.modules():
-        if isinstance(m, _WeightNormConv):
+        if isinstance(m, (_WeightNormConv, EuclideanCodebook)):
             m.reset_parameters(generator)
 
 
 def build_rave(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1,
                seed: int = 0, device: str | torch.device = "cuda") -> RAVE:
-    """The v2 RAVE on `device`, weights drawn from `torch.Generator().manual_seed(seed)`."""
+    """The RAVE on `device`, weights drawn from `torch.Generator().manual_seed(seed)`."""
     device = resolve_device(device)
     model = RAVE(
         encoder=build_encoder(cfg, n_channels, stream_batch),

@@ -3,7 +3,9 @@
 PyTorch port of the v2 subset of rave_tpu/models/blocks.py, channels-first
 `[B, C, T]`: the pure delay algebra, the DilatedUnit residual stacks
 (whose offline path is the fused CUDA kernel on a GPU), EncoderV2,
-GeneratorV2 with amplitude modulation, and the variational latent.
+GeneratorV2 with amplitude modulation, and the latent families
+(variational, wasserstein, discrete over models/quantization.py, spherical
+with its angle codecs), each taking its draws explicitly (`LatentDraws`).
 Attribute names (`net.layers.N`, `inner`, `waveform`, `encoder`) mirror the
 flax module paths, so utils/convert.py maps weights by rename.
 
@@ -13,12 +15,14 @@ the ROADMAP item that ports them.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rave_tpu_torch.models.quantization import ResidualVectorQuantization
 from rave_tpu_torch.nn.combinators import Lambda, Residual, Sequential
 from rave_tpu_torch.nn.conv import Conv1d, ConvTranspose1d, conv_delay, get_padding, tconv_delay
 from rave_tpu_torch.ops.kernels.dilated_unit import fused_dilated_unit
@@ -255,11 +259,57 @@ class GeneratorV2(nn.Module):
         return self._mix(self.waveform.step(self.net.step(z)))
 
 
-class VariationalEncoder(nn.Module):
-    """Gaussian reparameterization + closed-form KL (reference rave/blocks.py:717-745).
+@dataclass
+class LatentDraws:
+    """What a latent family draws for one pass over latents [B, D, T]; the
+    fields a family does not read stay None. `eps` [B, D, T] is the
+    variational noise, or the wasserstein MMD's reference sample; `noise`
+    [B, noise_augmentation, T] the augmentation channels; `init_idx` and
+    `expire_idx` [num_quantizers, codebook_size] the discrete codebooks'
+    k-means and dead-code sample rows, indices into the B*T latent vectors
+    (b-major). `train/steps.py::draw_noise` draws them."""
 
-    `encoder` outputs 2*latent channels (mean ++ scale); std = softplus(scale) + 1e-4.
-    """
+    eps: Optional[torch.Tensor] = None
+    noise: Optional[torch.Tensor] = None
+    init_idx: Optional[torch.Tensor] = None
+    expire_idx: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "LatentDraws":
+        return LatentDraws(*(None if t is None else t.to(device) for t in
+                             (self.eps, self.noise, self.init_idx, self.expire_idx)))
+
+
+def unit_norm_vector_to_angles(x: torch.Tensor) -> torch.Tensor:
+    """Unit hypersphere -> normalized angles in [-1, 1] (reference
+    rave/blocks.py:933-946, exported spherical latents): [B, C, T] -> [B, C-1, T]."""
+    tail = torch.sqrt(torch.flip(torch.cumsum(torch.flip(x**2, [1]), 1), [1]) + 1e-12)
+    ang = torch.arccos(torch.clamp(x[:, :-1] / tail[:, :-1], -1.0, 1.0))  # t_k = ||x[k:]||
+    last = torch.where(x[:, -1:] >= 0, ang[:, -1:], 2 * math.pi - ang[:, -1:])
+    ang = torch.cat([ang[:, :-1] / math.pi, last / (2 * math.pi)], dim=1)
+    return 2 * (ang - 0.5)
+
+
+def angles_to_unit_norm_vector(angles: torch.Tensor) -> torch.Tensor:
+    """Inverse of `unit_norm_vector_to_angles` (reference rave/blocks.py:949-963):
+    [B, C-1, T] -> [B, C, T]."""
+    a = (angles / 2 + 0.5) % 1
+    a = torch.cat([a[:, :-1] * math.pi, a[:, -1:] * (2 * math.pi)], dim=1)
+    cos, sin = torch.cos(a), torch.cumprod(torch.sin(a), dim=1)
+    cos = torch.cat([cos, torch.ones_like(cos[:, :1])], dim=1)
+    sin = torch.cat([torch.ones_like(sin[:, :1]), sin], dim=1)
+    return cos * sin
+
+
+class LatentFamily(nn.Module):
+    """The latent wrapper around an encoder: `forward` (the encoder, frozen
+    after the warmup where the family freezes it), `step` and
+    `reparametrize(z, draws, quantize, train) -> (latent, regularization,
+    updates)`. `updates` is the state a training call computed in place of
+    writing it (the discrete codebooks; None for the other families): the
+    train step hands it to the family's `commit` after its backward."""
+
+    family = ""
+    freeze_when_warmed = True
 
     def __init__(self, encoder: nn.Module):
         super().__init__()
@@ -273,7 +323,7 @@ class VariationalEncoder(nn.Module):
         """After the warmup the encoder is frozen: the JAX package stops its
         gradient; here it runs without a graph, which gives the same
         gradients (none) and keeps no activations."""
-        if warmed_up:
+        if warmed_up and self.freeze_when_warmed:
             with torch.no_grad():
                 return self.encoder(x)
         return self.encoder(x)
@@ -281,15 +331,101 @@ class VariationalEncoder(nn.Module):
     def step(self, x):
         return self.encoder.step(x)
 
-    def reparametrize(self, z: torch.Tensor, generator: Optional[torch.Generator] = None,
-                      eps: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(mean + std * eps, KL). `eps` defaults to standard normal noise
-        drawn from `generator` (on the device of `z`)."""
+
+class VariationalEncoder(LatentFamily):
+    """Gaussian reparameterization + closed-form KL (reference rave/blocks.py:717-745).
+
+    `encoder` outputs 2*latent channels (mean ++ scale); std = softplus(scale) + 1e-4.
+    """
+
+    family = "variational"
+
+    def reparametrize(self, z: torch.Tensor, draws: LatentDraws, quantize: bool = True,
+                      train: bool = False):
+        """(mean + std * eps, KL, None)."""
         mean, scale = z.chunk(2, dim=1)
         std = F.softplus(scale) + 1e-4
         var = std * std
-        if eps is None:
-            eps = torch.randn(mean.shape, generator=generator, device=mean.device,
-                              dtype=mean.dtype)
         kl = torch.mean(torch.sum(mean * mean + var - torch.log(var) - 1, dim=1))
-        return mean + std * eps.to(mean.dtype), kl
+        return mean + std * draws.eps.to(mean.dtype), kl, None
+
+
+def _augment(z: torch.Tensor, draws: LatentDraws, channels: int) -> torch.Tensor:
+    """z with `channels` noise channels appended (the decoder's extra input)."""
+    return torch.cat([z, draws.noise.to(z.dtype)], dim=1) if channels else z
+
+
+class WassersteinEncoder(LatentFamily):
+    """MMD (RBF kernel) regularization against N(0, 1), and noise
+    augmentation (reference rave/blocks.py:748-791)."""
+
+    family = "wasserstein"
+
+    def __init__(self, encoder: nn.Module, noise_augmentation: int = 0):
+        super().__init__(encoder)
+        self.noise_augmentation = noise_augmentation
+
+    @staticmethod
+    def _mean_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        k = torch.mean((x[:, None] - y[None]) ** 2, dim=-1) / x.shape[-1]
+        return torch.mean(torch.exp(-k))
+
+    def reparametrize(self, z: torch.Tensor, draws: LatentDraws, quantize: bool = True,
+                      train: bool = False):
+        """(z with its noise channels, MMD of z's B*T vectors against eps, None)."""
+        D = z.shape[1]
+        flat = z.transpose(1, 2).reshape(-1, D)
+        ref = draws.eps.to(z.dtype).transpose(1, 2).reshape(-1, D)
+        mmd = (self._mean_kernel(flat, flat) + self._mean_kernel(ref, ref)
+               - 2 * self._mean_kernel(flat, ref))
+        return _augment(z, draws, self.noise_augmentation), mmd, None
+
+
+class DiscreteEncoder(LatentFamily):
+    """The RVQ latent with a schedule-gated `quantize` and noise augmentation
+    (reference rave/blocks.py:794-830). The RVQ runs on the latent's B*T
+    vectors, [B, T, D]."""
+
+    family = "discrete"
+
+    def __init__(self, encoder: nn.Module, num_quantizers: int, codebook_size: int,
+                 latent_size: int, noise_augmentation: int = 0):
+        super().__init__(encoder)
+        self.noise_augmentation = noise_augmentation
+        self.rvq = ResidualVectorQuantization(num_quantizers, latent_size, codebook_size)
+
+    def reparametrize(self, z: torch.Tensor, draws: LatentDraws, quantize: bool = True,
+                      train: bool = False):
+        """(quantized z with its noise channels, commitment loss, the codebooks'
+        new states when `train`); z passes as it is when not `quantize`."""
+        diff, updates = z.new_zeros((), dtype=torch.float32), None
+        if quantize:
+            q, diff, _, updates = self.rvq(z.transpose(1, 2), draws.init_idx, draws.expire_idx,
+                                           train)
+            z = q.transpose(1, 2)
+        return _augment(z, draws, self.noise_augmentation), diff, updates
+
+    def commit(self, updates) -> None:
+        self.rvq.commit(updates)
+
+    def encode_indices(self, z: torch.Tensor) -> torch.Tensor:
+        """Latents [B, D, T] -> code indices [B, Q, T]."""
+        return self.rvq.encode(z.transpose(1, 2))
+
+    def decode_indices(self, idx: torch.Tensor) -> torch.Tensor:
+        """Code indices [B, Q, T] -> latents [B, D, T]."""
+        return self.rvq.decode(idx).transpose(1, 2)
+
+
+class SphericalEncoder(LatentFamily):
+    """L2-normalized latents, zero regularization (reference
+    rave/blocks.py:833-849). As in the JAX package its encoder is not
+    frozen after the warmup."""
+
+    family = "spherical"
+    freeze_when_warmed = False
+
+    def reparametrize(self, z: torch.Tensor, draws: LatentDraws = None, quantize: bool = True,
+                      train: bool = False):
+        norm = torch.sqrt(torch.sum(z * z, dim=1, keepdim=True))
+        return z / norm, z.new_zeros(()), None

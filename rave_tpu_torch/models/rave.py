@@ -7,17 +7,19 @@ the reference RAVE.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 from torch import nn
 
+from rave_tpu_torch.models.blocks import LatentDraws
 from rave_tpu_torch.models.pqmf_module import PQMFAnalysis, PQMFSynthesis
 from rave_tpu_torch.ops.pqmf import PQMFBank
 
 
 class RAVE(nn.Module):
-    """Autoencoder over a variational latent (reference rave/model.py:136-270)."""
+    """Autoencoder over a latent family of models/blocks.py (reference
+    rave/model.py:136-270)."""
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module, pqmf: PQMFBank,
                  latent_size: int, sampling_rate: int, n_channels: int = 1,
@@ -74,20 +76,24 @@ class RAVE(nn.Module):
 
     # ---- offline ---------------------------------------------------------
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, n_channels, T] -> [B, 2*latent_size, T / decimation]."""
+        """[B, n_channels, T] -> the encoder's output [B, D, T / decimation]
+        (D = 2 * latent_size for the variational family, else latent_size)."""
         return self.encoder(self.transform_input(x))
 
-    def reparametrize(self, z: torch.Tensor, generator: Optional[torch.Generator] = None,
-                      eps: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.encoder.reparametrize(z, generator=generator, eps=eps)
+    def reparametrize(self, z: torch.Tensor, draws: LatentDraws
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(decoder input, regularization) of the latent family at inference,
+        on the family's `draws` (train/steps.py::draw_noise): the discrete
+        family quantizes and updates no codebook."""
+        zs, reg, _ = self.encoder.reparametrize(z, draws)
+        return zs, reg
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """[B, latent_size, T_lat] -> [B, n_channels, T_lat * decimation]."""
+        """[B, augmented latent, T_lat] -> [B, n_channels, T_lat * decimation]."""
         return self.synthesize(self.decode_multiband(z))
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                eps: Optional[torch.Tensor] = None) -> torch.Tensor:
-        zs, _ = self.reparametrize(self.encode(x), generator=generator, eps=eps)
+    def forward(self, x: torch.Tensor, draws: LatentDraws) -> torch.Tensor:
+        zs, _ = self.reparametrize(self.encode(x), draws)
         return self.decode(zs)
 
     # ---- streaming (see nn/streaming.py for the state) ---------------------

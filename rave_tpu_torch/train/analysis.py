@@ -3,8 +3,10 @@
 PyTorch port of rave_tpu/train/analysis.py::receptive_field (reference
 rave/core.py:180-217). It differentiates one output sample of encode ->
 reparametrize -> decode with respect to the input and reads the extent of
-the non-zero gradient; the training loop turns it into the valid-signal crop
-`rf // n_band` (rave_tpu/train/loop.py:165-169). On a GPU the probe runs
+the non-zero gradient. The discrete family's inference quantization looks
+codes up, so no gradient reaches the input: its field is (0, 0), as in the
+JAX package, without a probe. The training loop turns it into the
+valid-signal crop `rf // n_band` (rave_tpu/train/loop.py:165-169). On a GPU the probe runs
 through the fused units' `autograd.Function`, kernel forward and plain
 backward.
 
@@ -21,6 +23,7 @@ import torch
 
 from rave_tpu_torch.config import RaveConfig
 from rave_tpu_torch.factory import build_rave
+from rave_tpu_torch.train.steps import draw_noise
 
 
 def receptive_field(cfg: RaveConfig, n_channels: int = 1, device: str | torch.device = "cuda",
@@ -28,16 +31,16 @@ def receptive_field(cfg: RaveConfig, n_channels: int = 1, device: str | torch.de
     """(left, right) receptive field of encode + decode, in samples, from a
     freshly seeded model; the probe length doubles from 2**15 until the
     gradient's footprint fits."""
+    if cfg.latent.family == "discrete":
+        return 0, 0
     model = build_rave(cfg, n_channels=n_channels, seed=seed, device=device)
     model.requires_grad_(False)  # the input's gradient is all the probe reads
     N = 2 ** 15
     while True:
         x = np.random.default_rng(0).standard_normal((1, N, n_channels)).astype(np.float32)
         x = torch.from_numpy(x.transpose(0, 2, 1).copy()).to(device).requires_grad_()
-        z = model.encode(x)
-        eps = torch.randn(1, cfg.latent_size, z.shape[-1],
-                          generator=torch.Generator().manual_seed(seed + 2))
-        zs, _ = model.reparametrize(z, eps=eps.to(device))
+        draws = draw_noise(cfg, x.detach().cpu(), torch.Generator().manual_seed(seed + 2))
+        zs, _ = model.reparametrize(model.encode(x), draws.to(device))
         y = model.decode(zs)
         (grad,) = torch.autograd.grad(y[0, 0, y.shape[-1] // 2], x)
         g = grad[0, 0].abs().cpu().numpy()

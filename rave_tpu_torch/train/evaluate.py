@@ -71,8 +71,8 @@ def evaluate(
         if max_batches is not None and b >= max_batches:
             break
         x = torch.from_numpy(x).to(device)
-        eps = draw_noise(cfg, x, torch.Generator(device=device).manual_seed(VAL_NOISE_SEED))
-        zs, _ = model.reparametrize(model.encode(x), eps=eps)
+        draws = draw_noise(cfg, x, torch.Generator(device=device).manual_seed(VAL_NOISE_SEED))
+        zs, _ = model.reparametrize(model.encode(x), draws)
         y = model.decode(zs)[..., : x.shape[-1]]
         spectral.append((float(sum(distance(x, y).values())), x.shape[0]))
         wave.append((float((y - x).abs().mean()), x.shape[0]))

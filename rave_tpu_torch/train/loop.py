@@ -8,18 +8,21 @@ three step programs picked per global step, validation with the latent PCA,
 EMA, checkpoints and logging, in the order the JAX loop runs them.
 
 As in the JAX package, a step's randomness depends on the global step only:
-its reparametrization noise comes from `fold_in(seed + 1, step)` and the
-device pipeline's batch from `fold_in(seed, step)` (utils/rng.py), so a
-resumed run draws what an unbroken run would. Validation draws its noise
-from seed 1234 for every batch, as the JAX loop's `key(1234)`.
+its latent draws (the variational eps, the augmentation noise, the
+codebooks' sample rows) come from `fold_in(seed + 1, step)` and the device
+pipeline's batch from `fold_in(seed, step)` (utils/rng.py), so a resumed
+run draws what an unbroken run would. Validation draws its noise from seed
+1234 for every batch, as the JAX loop's `key(1234)`, and never trains a
+codebook (the JAX `val_step` reparametrizes with `train=False`). With the
+discrete family quantizing, each validation also logs `codebook_health`.
 
 Only the steps that log (1, 2 and every 100th) read a tensor back to the
 host; the others queue their work and go on. `train` runs with TF32 off for
 cuDNN convolutions and matmuls (restored on return): fp32 means fp32 here.
 
 Not ported: the C++ sampler (the port uses the host `Loader` where the JAX
-loop would pick it, ROADMAP A17), remote datasets (A18), multi-host data
-parallelism (A14) and the codebook health of the discrete family (A9).
+loop would pick it, ROADMAP A17), remote datasets (A18) and multi-host
+data parallelism (A14).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import contextlib
 import os
 import time
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -153,8 +156,8 @@ def run_validation(cfg: RaveConfig, state: TrainState, loader: Loader, distance,
                 break
             x = torch.from_numpy(x).to(device)
             z = model.encode(x)
-            eps = draw_noise(cfg, x, torch.Generator(device=device).manual_seed(VAL_NOISE_SEED))
-            zs, _ = model.reparametrize(z, eps=eps)
+            draws = draw_noise(cfg, x, torch.Generator(device=device).manual_seed(VAL_NOISE_SEED))
+            zs, _ = model.reparametrize(z, draws)
             y = model.decode(zs)[..., : x.shape[-1]]
             losses.append(sum(distance(x, y).values()))
             latents.append(z[:, :D].transpose(1, 2).reshape(-1, D))
@@ -169,6 +172,28 @@ def run_validation(cfg: RaveConfig, state: TrainState, loader: Loader, distance,
         wav = get_derivator_integrator(cfg.sampling_rate)[1](wav)
     logger.log_audio("audio_val", wav, cfg.sampling_rate, eval_number)
     return val, torch.cat(latents).cpu().numpy()
+
+
+def codebook_health(model: torch.nn.Module) -> Tuple[float, float]:
+    """(mean perplexity, mean live-code fraction) over every quantizer's EMA
+    `cluster_size` (rave_tpu/train/loop.py:380-398); on the host, at
+    validation. A code holding at least half a uniform share of the EMA
+    mass counts as live."""
+    perps, usages = [], []
+    for name, buf in model.named_buffers():
+        if not name.endswith("cluster_size"):
+            continue
+        cs = buf.detach().cpu().numpy().reshape(-1)
+        total = float(cs.sum())
+        if total <= 0:
+            continue
+        p = cs / total
+        entropy = float(-(p * np.log(np.maximum(p, 1e-12))).sum())
+        perps.append(float(np.exp(entropy)))
+        usages.append(float((cs > 0.5 * total / cs.size).mean()))
+    if not perps:
+        return 0.0, 0.0
+    return float(np.mean(perps)), float(np.mean(usages))
 
 
 def set_pca_buffers(model: torch.nn.Module, latents: np.ndarray) -> np.ndarray:
@@ -273,12 +298,12 @@ def train(
                 stop_trace(profiler, run_dir, progress)
                 profiler = None
             x = next(data)
-            which, warmed, _ = pick_phase(cfg, step)
-            eps = draw_noise(cfg, x, step_generator(seed + 1, step, device))
+            which, warmed, quantize = pick_phase(cfg, step)
+            draws = draw_noise(cfg, x, step_generator(seed + 1, step, device))
             if which == "gen":
-                metrics = steps["gen"](state, x, warmed, eps=eps)
+                metrics = steps["gen"](state, x, warmed, draws=draws, quantize=quantize)
             else:
-                metrics = steps["dis"](state, x, eps=eps)
+                metrics = steps["dis"](state, x, draws=draws, quantize=quantize)
             step = state.step
 
             if step % 100 == 0 or step <= 2:  # the only host reads of a step's tensors
@@ -303,6 +328,10 @@ def train(
                     fidelity = set_pca_buffers(state.model, latents)
                     for p in (0.8, 0.9, 0.95, 0.99):
                         logger.log(step, {f"fidelity_{p}": float(np.argmax(fidelity > p))})
+                if quantize and cfg.latent.family == "discrete":
+                    perplexity, usage = codebook_health(state.model)
+                    logger.log(step, {"codebook_perplexity": perplexity,
+                                      "codebook_usage": usage})
                 if val_loss is not None and val_loss <= best_val:
                     best_val = val_loss
                     save_checkpoint(str(run_dir), state)

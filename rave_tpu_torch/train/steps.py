@@ -9,12 +9,19 @@ PyTorch port of rave_tpu/train/steps.py (reference rave/model.py:288-424):
 
 `pick_phase` chooses the program per global step, as in the JAX package.
 Layouts are the port's: waveforms [B, C, T], band frames [B, C*M, T/M].
-What the JAX package draws from its "noise" rng, the reparametrization
-noise, comes from `eps` (a tensor shaped like the latent mean) or else from
+What the JAX package draws from its "noise" rng (the variational eps, the
+wasserstein reference sample, the augmentation noise, the codebooks'
+sample rows) comes from `draws` (`draw_noise`'s result) or else from
 `generator`, so a test can hand both packages the same numbers. It is drawn
 before the autoencode pass, so that `train.remat`'s recompute sees the same
 noise: `torch.utils.checkpoint` restores the global generators, not an
 explicit one.
+
+The discrete family's codebooks train in all three programs, the critic's
+and the warmed generator's too (the JAX critic step runs `_autoencode` with
+`train=True` and keeps the new codebooks, :250-270). Their training call
+returns the new state, and the step assigns it after its backward, so the
+remat recompute sees the codebooks and picks the codes the forward did.
 
 The precision options are the JAX package's casts, written out (not
 `torch.autocast`, whose op lists would compute something else):
@@ -42,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from rave_tpu_torch.config import RaveConfig
 from rave_tpu_torch.factory import build_audio_distance, build_gan_loss
+from rave_tpu_torch.models.blocks import LatentDraws
 from rave_tpu_torch.ops.dsp import mean_difference
 from rave_tpu_torch.train.schedules import (
     beta_factor, gen_lr_schedule, quantize_enabled, warmed_up,
@@ -49,31 +57,56 @@ from rave_tpu_torch.train.schedules import (
 from rave_tpu_torch.train.state import TrainState, update_ema
 
 
-def autoencode(model, x: torch.Tensor, eps: torch.Tensor, warmed: bool,
-               bf16: bool = False) -> Dict[str, torch.Tensor]:
+def autoencode(model, x: torch.Tensor, draws: LatentDraws, warmed: bool, bf16: bool = False,
+               quantize: bool = True) -> Dict[str, torch.Tensor]:
     """The full pass of a step (rave_tpu/train/steps.py:36-87, pqmf in and
-    out). With `bf16`, the casts of the JAX package's `_autoencode` (:48-77):
-    the encoder and decoder in bfloat16, the latent and the reparametrization
+    out), with the latent family's training call on its `draws`: the discrete RVQ
+    runs when `quantize`, returning its codebooks' new state as "updates"
+    (None for the other families) without writing it. With `bf16`, the
+    casts of the JAX package's `_autoencode` (:48-77): the encoder and
+    decoder in bfloat16, the latent and the reparametrization (the RVQ too)
     in fp32, the decoder's output back to fp32 before synthesis, and the
     multiband loss target analysed from the fp32 waveform."""
     x_enc = model.transform_input(x.to(torch.bfloat16) if bf16 else x)
     z = model.encoder(x_enc, warmed_up=warmed)
-    zs, reg = model.reparametrize(z.float() if bf16 else z, eps=eps)
+    zs, reg, updates = model.encoder.reparametrize(z.float() if bf16 else z, draws,
+                                                   quantize=quantize, train=True)
     y_mb = model.decode_multiband(zs.to(torch.bfloat16) if bf16 else zs)
     if bf16:
         y_mb = y_mb.float()
     y_raw = model.synthesize(y_mb)[..., : x.shape[-1]]
     x_bands = model.multiband(x) if bf16 else x_enc
     return {"x_bands": x_bands, "y_bands": y_mb[..., : x_bands.shape[-1]], "y_raw": y_raw,
-            "reg": reg}
+            "reg": reg, "updates": updates}
 
 
 def draw_noise(cfg: RaveConfig, x: torch.Tensor,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Standard normal noise shaped like the latent mean of waveform `x`
-    [B, C, T]: [B, latent_size, T / decimation], in x's dtype."""
-    shape = (x.shape[0], cfg.latent_size, x.shape[-1] // cfg.decimation())
-    return torch.randn(shape, generator=generator, device=x.device, dtype=x.dtype)
+               generator: Optional[torch.Generator] = None) -> LatentDraws:
+    """What the latent family draws for a pass over waveform `x` [B, C, T],
+    from `generator` in this order: eps, noise, init_idx, expire_idx
+    (`LatentDraws`; normals in x's dtype, latents [B, latent_size, T /
+    decimation]). The discrete sample rows are drawn on every call, as the
+    JAX package draws them on every training call, whether or not a code
+    expires."""
+    lat = cfg.latent
+    B, T = x.shape[0], x.shape[-1] // cfg.decimation()
+
+    def normal(channels):
+        return torch.randn((B, channels, T), generator=generator, device=x.device,
+                           dtype=x.dtype)
+
+    def rows():
+        return torch.randint(0, B * T, (lat.num_quantizers, lat.codebook_size),
+                             generator=generator, device=x.device)
+
+    draws = LatentDraws()
+    if lat.family in ("variational", "wasserstein"):
+        draws.eps = normal(cfg.latent_size)
+    if lat.family in ("wasserstein", "discrete") and lat.noise_augmentation:
+        draws.noise = normal(lat.noise_augmentation)
+    if lat.family == "discrete":
+        draws.init_idx, draws.expire_idx = rows(), rows()
+    return draws
 
 
 def crop(arr: torch.Tensor, frames: Tuple[int, int]) -> torch.Tensor:
@@ -153,17 +186,17 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
         return {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
 
     def gen_step(state: TrainState, x: torch.Tensor, warmed: bool,
-                 eps: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None) -> dict:
+                 draws: Optional[LatentDraws] = None,
+                 generator: Optional[torch.Generator] = None, quantize: bool = True) -> dict:
         params = list(state.model.parameters())
         state.gen_opt.zero_grad(set_to_none=True)
-        if eps is None:
-            eps = draw_noise(cfg, x, generator)
+        if draws is None:
+            draws = draw_noise(cfg, x, generator)
         if t.remat:
-            out = checkpoint(autoencode, state.model, x, eps, warmed, t.bf16,
+            out = checkpoint(autoencode, state.model, x, draws, warmed, t.bf16, quantize,
                              use_reentrant=False)
         else:
-            out = autoencode(state.model, x, eps, warmed, t.bf16)
+            out = autoencode(state.model, x, draws, warmed, t.bf16, quantize)
         total, _, metrics = losses_and_metrics(out, state.discriminator, x, warmed, state.step)
         total.backward(inputs=params)  # the generator's gradients only, not the critic's
         for p in params:
@@ -173,23 +206,27 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
         for group in state.gen_opt.param_groups:
             group["lr"] = lr
         state.gen_opt.step()
+        if out["updates"] is not None:  # the codebooks, once, after the backward
+            state.model.encoder.commit(out["updates"])
         metrics["gen_lr"] = lr
         if state.ema is not None:
             update_ema(state.ema, state.model, t.ema)
         state.step += 1
         return detached(metrics)
 
-    def dis_step(state: TrainState, x: torch.Tensor, eps: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None) -> dict:
-        if eps is None:
-            eps = draw_noise(cfg, x, generator)
-        with torch.no_grad():
-            out = autoencode(state.model, x, eps, True, t.bf16)
+    def dis_step(state: TrainState, x: torch.Tensor, draws: Optional[LatentDraws] = None,
+                 generator: Optional[torch.Generator] = None, quantize: bool = True) -> dict:
+        if draws is None:
+            draws = draw_noise(cfg, x, generator)
+        with torch.no_grad():  # the codebooks still train, as in the JAX critic step
+            out = autoencode(state.model, x, draws, True, t.bf16, quantize)
         state.dis_opt.zero_grad(set_to_none=True)
         _, loss_dis, metrics = losses_and_metrics(out, state.discriminator, x, True, state.step,
                                                   gen_metrics=t.dis_full_metrics)
         loss_dis.backward()
         state.dis_opt.step()
+        if out["updates"] is not None:
+            state.model.encoder.commit(out["updates"])
         state.step += 1
         return detached(metrics)
 

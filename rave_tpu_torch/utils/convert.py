@@ -1,13 +1,15 @@
 """Load a rave_tpu (JAX) model's or critic's variables into the port.
 
-`from_jax_variables(model, variables)` takes the JAX `params` and `buffers`
-trees (nested dicts of numpy arrays; jax arrays pass through `np.asarray`)
+`from_jax_variables(model, variables)` takes the JAX `params`, `buffers`
+and `codebook` trees (nested dicts of numpy arrays; jax arrays pass
+through `np.asarray`)
 and copies them into a port model (a RAVE, or a critic of
 models/discriminators.py) built from the same config. The port's
 attribute names mirror flax's module paths, so a path maps by rename:
 
     encoder/encoder/net/layers_9/inner/net/layers_1/v
       -> encoder.encoder.net.layers.9.inner.net.layers.1.v
+    encoder/rvq/vq_3/codebook/embed -> encoder.rvq.vq.3.codebook.embed
 
 and each leaf changes layout:
 
@@ -18,7 +20,8 @@ and each leaf changes layout:
     critics' 2D (K, 1) kernels [K, 1, I, O] -> [O, I, K] (the port keeps
     them as 1D kernels, models/discriminators.py);
   * `g` [1, 1, O] (or [1, 1, 1, O]) -> [O], one value per output channel;
-  * biases and the RAVE buffers are copied as they are.
+  * biases, the RAVE buffers and the discrete codebooks' state (`embed`,
+    `embed_avg`, `cluster_size`, `inited`) are copied as they are.
 
 `convert_tree(model, tree)` gives the converted arrays by port name without
 loading them (the tests compare gradients with it). Optimizer state is not
@@ -52,8 +55,8 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
 
 
 def port_name(jax_path: str) -> str:
-    """'a/layers_3/v' -> 'a.layers.3.v'."""
-    return ".".join(re.sub(r"^layers_(\d+)$", r"layers.\1", p) for p in jax_path.split("/"))
+    """'a/layers_3/v' -> 'a.layers.3.v'; 'rvq/vq_3' -> 'rvq.vq.3'."""
+    return ".".join(re.sub(r"^(layers|vq)_(\d+)$", r"\1.\2", p) for p in jax_path.split("/"))
 
 
 def _convert(owner: torch.nn.Module, leaf: str, value: np.ndarray) -> np.ndarray:
@@ -87,15 +90,16 @@ def convert_tree(model: torch.nn.Module, tree: Mapping[str, Any]) -> Dict[str, n
 
 
 def from_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> None:
-    """Copy JAX `{'params': ..., 'buffers': ...}` into `model`, strictly."""
-    unknown = set(variables) - {"params", "buffers", "cache"}
+    """Copy JAX `{'params': ..., 'buffers': ..., 'codebook': ...}` into
+    `model`, strictly."""
+    unknown = set(variables) - {"params", "buffers", "codebook", "cache"}
     if unknown:
         raise ValueError(f"unexpected variable collections {sorted(unknown)}")
     targets = dict(model.named_parameters())
     persistent = set(model.state_dict())
     targets.update({n: b for n, b in model.named_buffers() if n in persistent})
     loaded = set()
-    for collection in ("params", "buffers"):
+    for collection in ("params", "buffers", "codebook"):
         for name, value in convert_tree(model, variables.get(collection, {})).items():
             if name not in targets:
                 raise KeyError(f"{collection}: the port has no tensor {name}")

@@ -45,6 +45,7 @@ from rave_tpu.train import state as jax_state
 from rave_tpu.train import steps as jax_steps
 from rave_tpu_torch.config import compose
 from rave_tpu_torch.factory import build_discriminator, build_rave
+from rave_tpu_torch.models.blocks import LatentDraws
 from rave_tpu_torch.nn.conv import get_padding
 from rave_tpu_torch.ops.kernels import dilated_unit
 from rave_tpu_torch.ops.stft import stft
@@ -169,11 +170,12 @@ def port_step(jax_run, overrides, which, step, warmed):
     st.ema = {n: p.detach().clone() for n, p in st.model.named_parameters()}
     st.step = step
     steps = build_train_steps(cfg, CROP)
-    x, eps = to_port(jax_run["x"]), to_port(jax_run["fp32"][(which, warmed)]["eps"])
+    x = to_port(jax_run["x"])
+    draws = LatentDraws(eps=to_port(jax_run["fp32"][(which, warmed)]["eps"]))
     if which == "gen":
-        metrics = steps["gen"](st, x, warmed, eps=eps)
+        metrics = steps["gen"](st, x, warmed, draws=draws)
     else:
-        metrics = steps["dis"](st, x, eps=eps)
+        metrics = steps["dis"](st, x, draws=draws)
     assert st.step == step + 1
     module = st.model if which == "gen" else st.discriminator
     grads = {n: p.grad.numpy() for n, p in module.named_parameters()}

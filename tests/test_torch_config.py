@@ -1,7 +1,7 @@
 """The port's own model configuration against the JAX package's.
 
-rave_tpu_torch.config carries the fields of rave_tpu.config that the v2
-serving path and training step read (model, critic, distance, train and
+rave_tpu_torch.config carries the fields of rave_tpu.config that the
+serving path and training step of v2 and its latent families read (model, critic, distance, train and
 data fields), so that the port needs nothing of the JAX package. Every
 field it has, and every resolved accessor, must equal the JAX package's
 for the same presets and overrides (exact: these are ints, floats, tuples,
@@ -38,7 +38,10 @@ def assert_fields_equal(port, ref, path="cfg"):
     ["encoder.ratios=[4,4,2,2]", "decoder.ratios=[4,4,2,2]", "n_band=8", "mode=\"causal\""],
     TINY + TRAIN,
 ], ids=["default", "tiny", "per-side", "ratios", "train"])
-@pytest.mark.parametrize("names", [["v2"], ["v2", "causal"]], ids=["v2", "v2-causal"])
+@pytest.mark.parametrize("names", [["v2"], ["v2", "causal"], ["discrete"], ["discrete", "causal"],
+                                   ["v2", "wasserstein"], ["v2", "spherical"]],
+                         ids=["v2", "v2-causal", "discrete", "discrete-causal", "wasserstein",
+                              "spherical"])
 def test_presets_match_jax(names, overrides):
     port, ref = config.compose(names, overrides), jax_config.compose(names, overrides)
     assert_fields_equal(port, ref)
@@ -73,8 +76,8 @@ def test_unported_train_options_raise(flag):
 
 
 def test_refusals():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        config.compose(["v2", "discrete"])
+    with pytest.raises(KeyError, match="A10"):
+        config.compose(["discrete_v3"])
     with pytest.raises(AttributeError, match="mel_hop"):
         config.compose(["v2"], ["mel_hop=128"])
     for compose in (config.compose, jax_config.compose):

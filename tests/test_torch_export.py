@@ -17,7 +17,9 @@ rate, so the artifacts resample at both ends and stream two rows. Checks:
     against its eager steps on the same seeds: bit-equal outputs and state;
   * the seed sampler against a numpy copy of its hash, its determinism,
     and that a program draws from its seed input (no draw baked in);
-  * the refusals: families, the prior, a program on the wrong device.
+  * the refusals (the prior, a program on the wrong device), and that each
+    other latent family has its codec (tests/test_torch_families.py holds
+    them to the JAX package).
 """
 import json
 import math
@@ -43,6 +45,7 @@ from rave_tpu_torch.export import artifact
 from rave_tpu_torch.export.artifact import ExportedRAVE
 from rave_tpu_torch.export.export import export_model
 from rave_tpu_torch.export.generate import generate
+from rave_tpu_torch.factory import build_rave
 from rave_tpu_torch.train.state import create_train_state
 from rave_tpu_torch.utils import rng
 from rave_tpu_torch.utils.checkpoint import read_generator, save_checkpoint
@@ -343,10 +346,15 @@ def test_ema_weights_and_refusals(runs, mono, tmp_path):
         export_model(run=str(runs["port"]), prior="p", device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         generate(mono, [], prior_seconds=1.0, device="cpu")
-    for family, item in (("discrete", "A9"), ("spherical", "A11"), ("wasserstein", "A11")):
-        cfg = config.compose(["v2"], TINY + [f'latent.family="{family}"'])
-        with pytest.raises(NotImplementedError, match=item):
-            artifact.refuse_family(cfg)
+    for family in ("discrete", "spherical", "wasserstein"):  # each family has its codec
+        cfg = config.compose(["v2"], TINY + [f'latent.family="{family}"',
+                                             "latent.noise_augmentation=2"])
+        side = artifact.DecodeSide(build_rave(cfg, device="cpu"), cfg, 4)
+        width = {"discrete": cfg.latent.num_quantizers, "spherical": cfg.latent_size - 1,
+                 "wasserstein": cfg.latent_size}[family]
+        z = torch.zeros(1, width, 5)
+        x = artifact.pre_process_latent(cfg, side, cfg.augmented_latent_size(), z, seed=1)
+        assert x.shape == (1, cfg.augmented_latent_size(), 5), family
     with pytest.raises(ValueError, match="multiple"):
         art.forward(torch.zeros(1, 1, art.block_size + 1), streaming=True)
     art.manifest["aot"]["forward_step"]["device"] = "cuda:0"

@@ -6,7 +6,8 @@ tiny critic and runs one generator step of each phase and one critic step
 through the port's train state, then one generator and one critic step
 with `train.bf16` and `train.bf16_dis`, then `preprocess -> train -> eval ->
 export -> generate` (offline and streaming) through the port's command
-line on a seeded corpus, with nothing kept
+line on a seeded corpus, and `train --config discrete -> export
+--streaming -> generate --streaming`, with nothing kept
 from being imported (where tensorboard and tensorflow are installed,
 tensorflow imports jax: the metrics logger must not reach them), and then
 reports whether jax, flax or any module of the JAX package was ever
@@ -28,19 +29,20 @@ ROOT = Path(__file__).resolve().parents[1]
 SCRIPT = """
 import json, sys
 import torch
+torch.set_num_threads(2)  # beside the suite's other workers, as the in-process tests run
 import rave_tpu_torch
 from rave_tpu_torch.config import compose
 from rave_tpu_torch.factory import build_rave
 from rave_tpu_torch.nn.streaming import init_stream_state
 from rave_tpu_torch.train.analysis import crop_frames, receptive_field
 from rave_tpu_torch.train.state import create_train_state
-from rave_tpu_torch.train.steps import build_train_steps
+from rave_tpu_torch.train.steps import build_train_steps, draw_noise
 cfg = compose(["v2", "causal"], ["capacity=2", "latent_size=4", "ratios=[4,4,2]",
                                  "dilations=[[1,3],[1,3],[1]]"])
 model = build_rave(cfg, seed=0, device="cpu")
 x = torch.randn(1, 1, 4 * cfg.block_size(), generator=torch.Generator().manual_seed(0))
 with torch.inference_mode():
-    y = model(x, generator=torch.Generator().manual_seed(1))
+    y = model(x, draw_noise(cfg, x, torch.Generator().manual_seed(1)))
     init_stream_state(model, 1)
     z = model.step_encode(x[..., : cfg.block_size()])
     s = model.step_decode(z[:, : cfg.latent_size])
@@ -87,13 +89,33 @@ with contextlib.redirect_stdout(io.StringIO()):
                                str(root / "art" / "v2.rtpu"), "--input",
                                str(root / "corpus" / "a.wav"), "--out_path",
                                str(root / f"gen{len(mode)}"), *mode]))
+dargs = ["train", "--device", "cpu", "--config", "discrete", "--name", "iso_discrete",
+         "--db_path", str(root / "db"), "--out_path", str(root / "druns"), "--batch", "2",
+         "--n_signal", "8192", "--max_steps", "3", "--val_every", "3", "--workers", "2",
+         "--no_progress"]
+for o in tiny + ["latent.num_quantizers=2", "latent.codebook_size=16",
+                 "latent.noise_augmentation=2"]:
+    dargs += ["--override", o]
+codes.append(cli.main(dargs))
+drun = next((root / "druns").iterdir())
+with contextlib.redirect_stdout(io.StringIO()):
+    codes.append(cli.main(["export", "--device", "cpu", "--output", str(root / "dart"),
+                           "--streaming", "--run", str(drun)]))
+    codes.append(cli.main(["generate", "--device", "cpu", "--model",
+                           str(root / "dart" / "discrete_streaming.rtpu"), "--input",
+                           str(root / "corpus" / "a.wav"), "--out_path", str(root / "dgen"),
+                           "--streaming"]))
+dckpt = torch.load(sorted((drun / "checkpoints").iterdir())[-1], weights_only=True)["model"]
+inited = [float(v) for k, v in dckpt.items() if k.endswith("inited")]
 generated = [wavfile.read(root / f"gen{i}" / "a_reconstructed.wav")[1].shape for i in (0, 1)]
+generated.append(wavfile.read(root / "dgen" / "a_reconstructed.wav")[1].shape)
 print(json.dumps({
     "codes": codes, "eval_step": evaluation["step"], "generated": generated,
     "eval_finite": all(np.isfinite(evaluation[k]) for k in ("spectral_distance", "waveform_l1",
                                                             "frechet_mel_distance")),
     "shape": list(y.shape), "finite": bool(torch.isfinite(y).all()),
     "stream_shape": list(s.shape), "train_step": state.step, "losses": losses,
+    "discrete_inited": inited,
     "rf": list(receptive_field(tcfg, device="cpu")),
     "loaded": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "rave_tpu")),
@@ -113,8 +135,9 @@ def test_port_never_imports_jax():
     assert out["stream_shape"] == [1, 1, 512]
     assert out["train_step"] == 5 and all(math.isfinite(v) for v in out["losses"])
     assert out["rf"][0] > 0
-    assert out["codes"] == [0] * 6 and out["eval_step"] == 2 and out["eval_finite"]
-    assert out["generated"] == [[52 * 8192]] * 2
+    assert out["codes"] == [0] * 9 and out["eval_step"] == 2 and out["eval_finite"]
+    assert out["generated"] == [[52 * 8192]] * 3
+    assert out["discrete_inited"] == [1.0, 1.0]
 
 
 FOREIGN = {"yaml", "orbax", "tensorboard", "jax", "jaxlib", "flax", "rave_tpu"}

@@ -50,6 +50,7 @@ from rave_tpu.train.evaluate import evaluate as jax_evaluate
 from rave_tpu.utils import checkpoint as jax_checkpoint
 from rave_tpu.utils import logging as jax_logging
 from rave_tpu_torch import config
+from rave_tpu_torch.models.blocks import LatentDraws
 from rave_tpu_torch.train import evaluate as port_evaluate
 from rave_tpu_torch.train import loop
 from rave_tpu_torch.train.analysis import pca
@@ -188,8 +189,8 @@ def port_patches(mp, jax_run, phases=None, saves=None):
 
     def noise(cfg, x, generator=None):
         eps = jax_run["noise"][generator.initial_seed()]
-        assert eps.shape == draw_noise(cfg, x).shape
-        return eps
+        assert eps.shape == draw_noise(cfg, x).eps.shape
+        return LatentDraws(eps=eps)
 
     mp.setattr(loop, "create_train_state", create)
     mp.setattr(loop, "draw_noise", noise)
@@ -309,8 +310,8 @@ def test_evaluate_matches_jax(db, jax_run, tmp_path):
     checkpoint.save_checkpoint(str(run_dir), st)
     want = jax_evaluate(jax_run["run_dir"], db, split="val")
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(port_evaluate, "draw_noise",
-                   lambda cfg, x, generator: jax_run["noise"][generator.initial_seed()])
+        mp.setattr(port_evaluate, "draw_noise", lambda cfg, x, generator: LatentDraws(
+            eps=jax_run["noise"][generator.initial_seed()]))
         got = port_evaluate.evaluate(str(run_dir), db, split="val", device="cpu")
         again = port_evaluate.evaluate(str(run_dir), db, split="val", device="cpu")
     assert got == again

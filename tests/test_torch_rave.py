@@ -20,6 +20,7 @@ from rave_tpu.config import compose as jax_compose
 from rave_tpu.factory import build_rave as jax_build_rave
 from rave_tpu_torch.config import compose
 from rave_tpu_torch.factory import build_rave
+from rave_tpu_torch.models.blocks import LatentDraws
 from rave_tpu_torch.nn.streaming import init_stream_state
 from rave_tpu_torch.ops.kernels import dilated_unit
 from rave_tpu_torch.utils.convert import from_jax_variables
@@ -132,13 +133,13 @@ def test_encode_decode_forward_match(pair):
     zs = jnp.asarray(mean) + (jax.nn.softplus(jnp.asarray(scale)) + 1e-4) * jnp.asarray(eps)
     y_j = pair.jax("decode", np.asarray(zs))
     with torch.no_grad():
-        y_p = from_port(pair.model(to_port(x), eps=to_port(eps)))
+        y_p = from_port(pair.model(to_port(x), LatentDraws(eps=to_port(eps))))
     assert rel_err(y_p, y_j) < TOL
 
     _, kl_j = pair.jax_model.apply(pair.variables, jnp.asarray(z_j), jax.random.key(5),
                                    method="reparametrize")
     with torch.no_grad():
-        _, kl_p = pair.model.reparametrize(to_port(z_j), eps=to_port(eps))
+        _, kl_p = pair.model.reparametrize(to_port(z_j), LatentDraws(eps=to_port(eps)))
     assert abs(float(kl_p) - float(kl_j)) <= TOL * abs(float(kl_j))
     assert dilated_unit.launches == 0  # CPU: the plain path only
 

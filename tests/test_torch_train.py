@@ -38,6 +38,7 @@ from rave_tpu.train import schedules as jax_schedules
 from rave_tpu.train import state as jax_state
 from rave_tpu.train import steps as jax_steps
 from rave_tpu_torch.config import compose
+from rave_tpu_torch.models.blocks import LatentDraws
 from rave_tpu_torch.ops.kernels import dilated_unit
 from rave_tpu_torch.train import schedules
 from rave_tpu_torch.train.analysis import crop_frames, receptive_field
@@ -143,14 +144,14 @@ def test_step_matches_jax(jax_run, which, step, warmed, seed):
     ref = jax_run["phases"][(which, warmed)]
     cfg, st = port_state(jax_run, step)
     steps = build_train_steps(cfg, CROP)
-    x, eps = to_port(jax_run["x"]), to_port(ref["eps"])
+    x, draws = to_port(jax_run["x"]), LatentDraws(eps=to_port(ref["eps"]))
     gen_before = {n: p.detach().clone() for n, p in st.model.named_parameters()}
     dis_before = {n: p.detach().clone() for n, p in st.discriminator.named_parameters()}
     launches = dilated_unit.launches
     if which == "gen":
-        metrics = steps["gen"](st, x, warmed, eps=eps)
+        metrics = steps["gen"](st, x, warmed, draws=draws)
     else:
-        metrics = steps["dis"](st, x, eps=eps)
+        metrics = steps["dis"](st, x, draws=draws)
     assert dilated_unit.launches == launches  # CPU: the plain unit only
     assert st.step == ref["step"] == step + 1
 
@@ -182,12 +183,13 @@ def test_step_matches_jax(jax_run, which, step, warmed, seed):
 
 def test_dis_full_metrics_only_adds_logging(jax_run):
     cfg, st = port_state(jax_run, 6)
-    x, eps = to_port(jax_run["x"]), to_port(jax_run["phases"][("dis", True)]["eps"])
-    lite = build_train_steps(cfg, CROP)["dis"](st, x, eps=eps)
+    x = to_port(jax_run["x"])
+    draws = LatentDraws(eps=to_port(jax_run["phases"][("dis", True)]["eps"]))
+    lite = build_train_steps(cfg, CROP)["dis"](st, x, draws=draws)
     assert "loss_gen" not in lite and "multiband_spectral_distance" not in lite
     full_cfg = compose(["v2"], TINY + ["train.dis_full_metrics=true"])
     _, st2 = port_state(jax_run, 6)
-    full = build_train_steps(full_cfg, CROP)["dis"](st2, x, eps=eps)
+    full = build_train_steps(full_cfg, CROP)["dis"](st2, x, draws=draws)
     assert "loss_gen" in full and "multiband_spectral_distance" in full
     assert float(full["loss_dis"]) == float(lite["loss_dis"])
     for a, b in zip(st.discriminator.parameters(), st2.discriminator.parameters()):

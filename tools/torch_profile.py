@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the device time goes in rave_tpu_torch's v2 serving path and training step.
 
-    python3 tools/torch_profile.py [--out profile.txt] [--top 18]
+    python3 tools/torch_profile.py [--out profile.txt] [--top 18] [--cells a,b,...]
 
-from the root of a checkout, on a machine with a CUDA card and nvcc. Four
+from the root of a checkout, on a machine with a CUDA card and nvcc. The
 cells, all `compose` presets at full width with seeded random weights, fp32
-with TF32 off where they run fp32:
+with TF32 off where they run fp32 (`--cells` picks some; the first four by
+default):
 
   offline : compose(["v2"]), B=16 x 131072 samples, 3 forwards profiled
             (under `torch.inference_mode()`, as the next cell);
@@ -19,7 +20,16 @@ with TF32 off where they run fp32:
             that of every cuDNN kernel (the convolutions of critic and
             generator and their layout transforms);
   train_bf16 : the same with train.bf16 and train.bf16_dis (the CLI's
-            `--bf16`), the fused unit's bf16 kernel.
+            `--bf16`), the fused unit's bf16 kernel;
+  artifact_v2, artifact_discrete : the artifact's eager streaming block,
+            `StepProgram("forward")` over `EncodeSide` / `DecodeSide`, as
+            `ExportedRAVE.forward(streaming=True)` runs it, for
+            compose(["v2"]) (2048 samples) and compose(["discrete"]) (1024
+            samples: its latent codec is the RVQ's 16 encode and 16 decode
+            stages): 4 warm, 8 timed, 12 profiled;
+  train_discrete : the `train` cell for compose(["discrete"]); its warm
+            step runs the k-means init, the timed and profiled steps the
+            EMA codebooks.
 
 Each cell is timed unprofiled first (host clock around work that ends in
 `synchronize`), then traced by `torch.profiler` with CPU and CUDA activity.
@@ -107,7 +117,7 @@ def unit_share(prof, calls: int, busy_ms: float) -> str:
 BACKWARD_RANGE = "fused_dilated_unit.backward"
 
 
-def train_cell(activities, top: int, overrides=()) -> list[str]:
+def train_cell(activities, top: int, overrides=(), names=("v2",)) -> list[str]:
     import torch
     from torch.profiler import profile, record_function
 
@@ -124,7 +134,7 @@ def train_cell(activities, top: int, overrides=()) -> list[str]:
             return backward(ctx, grad_y)
 
     dilated_unit.FusedDilatedUnit.backward = staticmethod(traced_backward)
-    cfg = compose(["v2"], list(overrides))
+    cfg = compose(list(names), list(overrides))
     steps = build_train_steps(cfg, crop_frames(cfg, receptive_field(cfg, device="cuda")))
     state = create_train_state(cfg, seed=0, device="cuda")
     x = torch.randn(cfg.data.batch, 1, cfg.data.n_signal, device="cuda",
@@ -149,56 +159,77 @@ def train_cell(activities, top: int, overrides=()) -> list[str]:
             torch.cuda.synchronize()
         summary = device_summary(prof, 1, wall, top)
         busy_ms = float(summary[0].split()[2])
-        lines += [f"== train v2 {' '.join(overrides)} B={cfg.data.batch} x "
+        lines += [f"== train {'+'.join(names)} {' '.join(overrides)} B={cfg.data.batch} x "
                   f"{cfg.data.n_signal}, {name} step"]
         lines += summary[:1] + [unit_share(prof, 1, busy_ms)] + summary[1:]
     dilated_unit.FusedDilatedUnit.backward = staticmethod(backward)
     return lines
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="build/profile.txt")
-    ap.add_argument("--top", type=int, default=18)
-    args = ap.parse_args()
-    sys.path.insert(0, str(ROOT))
+def offline_cell(activities, top: int) -> list[str]:
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from rave_tpu_torch.config import compose
     from rave_tpu_torch.factory import build_rave
-    from rave_tpu_torch.nn.streaming import init_stream_state
-
-    if not torch.cuda.is_available():
-        raise SystemExit("torch_profile: no CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    report = [card]
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    from rave_tpu_torch.train.steps import draw_noise
 
     with torch.inference_mode():
         cfg = compose(["v2"])
         model = build_rave(cfg, seed=0, device="cuda").eval()
         gen = torch.Generator(device="cuda").manual_seed(1)
         x = torch.randn(16, 1, 131072, device="cuda", generator=gen) * 0.1
+        draws = draw_noise(cfg, x, gen)
         for _ in range(2):
-            model(x)
+            model(x, draws)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(5):
-            model(x)
+            model(x, draws)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / 5 * 1e3
         with profile(activities=activities) as prof:
             for _ in range(3):
-                model(x)
+                model(x, draws)
             torch.cuda.synchronize()
-        report += ["== offline v2 B=16 x 131072"] + device_summary(prof, 3, wall, args.top)
-        report.append(f"fused unit kernels (weight preparation and unit, 22 calls): "
-                      f"{kernel_ms(prof, 3, UNIT_KERNEL):.3f} ms per forward")
+    return (["== offline v2 B=16 x 131072"] + device_summary(prof, 3, wall, top)
+            + [f"fused unit kernels (weight preparation and unit, 22 calls): "
+               f"{kernel_ms(prof, 3, UNIT_KERNEL):.3f} ms per forward"])
 
+
+def block_cell(activities, top: int, title: str, block: int, step) -> list[str]:
+    """`step(i)` runs block i: 4 warm (cuDNN picks its algorithms, the
+    allocator fills), 8 timed one by one, 12 profiled."""
+    import torch
+    from torch.profiler import profile
+
+    for i in range(4):
+        step(i)
+    times = []
+    for i in range(4, 12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = statistics.median(times)
+    with profile(activities=activities) as prof:
+        for i in range(12, 24):
+            step(i)
+        torch.cuda.synchronize()
+    return ([f"== {title}, block {block}, unprofiled p50 {p50:.3f} ms "
+             f"(blocks {', '.join(f'{t:.3f}' for t in times)})"]
+            + device_summary(prof, 12, p50, top))
+
+
+def stream_cell(activities, top: int) -> list[str]:
+    import torch
+
+    from rave_tpu_torch.config import compose
+    from rave_tpu_torch.factory import build_rave
+    from rave_tpu_torch.nn.streaming import init_stream_state
+
+    with torch.inference_mode():
         cfg = compose(["v2", "causal"])
         model = build_rave(cfg, stream_batch=1, seed=4, device="cuda").eval()
         block = cfg.block_size()
@@ -210,26 +241,75 @@ def main() -> None:
             z = model.step_encode(x[..., i * block:(i + 1) * block])
             return model.step_decode(z[:, :cfg.latent_size])
 
-        for i in range(4):  # warm: cuDNN picks its algorithms, the allocator fills
-            step(i)
-        times = []
-        for i in range(4, 12):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(i)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        p50 = statistics.median(times)
-        with profile(activities=activities) as prof:
-            for i in range(12, 24):
-                step(i)
-            torch.cuda.synchronize()
-        report += [f"== stream v2 causal, block {block}, unprofiled p50 {p50:.3f} ms "
-                   f"(blocks {', '.join(f'{t:.3f}' for t in times)})"]
-        report += device_summary(prof, 12, p50, args.top)
+        return block_cell(activities, top, "stream v2 causal", block, step)
 
-    report += train_cell(activities, args.top)
-    report += train_cell(activities, args.top, ["train.bf16=true", "train.bf16_dis=true"])
+
+def artifact_cell(activities, top: int, names) -> list[str]:
+    import torch
+
+    from rave_tpu_torch.config import compose
+    from rave_tpu_torch.export.artifact import DecodeSide, EncodeSide, StepProgram, zero_state
+    from rave_tpu_torch.export.export import user_latent_size
+    from rave_tpu_torch.factory import build_rave
+
+    cfg = compose(list(names))
+    model = build_rave(cfg, stream_batch=1, seed=4, device="cuda").eval().requires_grad_(False)
+    latent_size = (cfg.latent_size if cfg.latent.family == "variational"  # untruncated
+                   else user_latent_size(cfg, None, 0.0))
+    program = StepProgram("forward", model, EncodeSide(model, cfg, latent_size),
+                          DecodeSide(model, cfg, latent_size))
+    block = cfg.block_size()
+    x = torch.randn(1, 1, block * 24, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5)) * 0.1
+    state = [zero_state(model)]
+    seed = torch.tensor(0, dtype=torch.int64, device="cuda")
+
+    def step(i):
+        y, state[0] = program(state[0], x[..., i * block:(i + 1) * block], seed)
+        return y
+
+    with torch.inference_mode():
+        return block_cell(activities, top, f"artifact {'+'.join(names)} streaming forward",
+                          block, step)
+
+
+CELLS = {
+    "offline": offline_cell,
+    "stream": stream_cell,
+    "train": lambda act, top: train_cell(act, top),
+    "train_bf16": lambda act, top: train_cell(act, top, ["train.bf16=true",
+                                                         "train.bf16_dis=true"]),
+    "artifact_v2": lambda act, top: artifact_cell(act, top, ["v2"]),
+    "artifact_discrete": lambda act, top: artifact_cell(act, top, ["discrete"]),
+    "train_discrete": lambda act, top: train_cell(act, top, names=["discrete"]),
+}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="build/profile.txt")
+    ap.add_argument("--top", type=int, default=18)
+    ap.add_argument("--cells", default="offline,stream,train,train_bf16",
+                    help=f"comma-separated, of {', '.join(CELLS)}")
+    args = ap.parse_args()
+    cells = args.cells.split(",")
+    unknown = [c for c in cells if c not in CELLS]
+    if unknown:
+        raise SystemExit(f"torch_profile: unknown cells {unknown}; known: {list(CELLS)}")
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile: no CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    report = [card]
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for cell in cells:
+        report += CELLS[cell](activities, args.top)
     text = "\n".join(report)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
