@@ -4,8 +4,10 @@ The part of rave_tpu/config.py the port reads, owned by the port so that
 nothing here depends on the JAX package: the fields `factory.build_rave`,
 `factory.build_discriminator` / `build_audio_distance`, the train step and
 the training driver read, with the same names, defaults and resolved
-accessors, and the presets the port builds: `v2`, `causal`, and the latent
-families `discrete`, `wasserstein` and `spherical`.
+accessors, and the presets the port builds: `v2`, `v3` (v2 with Snake,
+AdaIN and the descript critic), `causal`, the latent families `discrete`,
+`discrete_v3`, `wasserstein` and `spherical`, and the option presets
+`snake`, `adain` and `descript_discriminator`.
 `compose(names, overrides)` stacks presets and applies dotted overrides as
 the reference does (`compose(["v2", "causal"], ["capacity=2",
 "ratios=[4,4,2]"])`). `snapshot` / `config_hash` / `from_dict` write and
@@ -60,7 +62,7 @@ class DecoderConfig:
 
 @dataclass
 class DiscriminatorConfig:
-    kind: str = "multiscale"  # multiscale | combined (ported); spectral | descript
+    kind: str = "multiscale"  # multiscale | combined | descript (ported); spectral
     capacity: Optional[int] = None  # None -> cfg.capacity
     n_layers: int = 4
     kernel_size: int = 15
@@ -68,6 +70,9 @@ class DiscriminatorConfig:
     n_scales: int = 3
     periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
     period_kernel: Tuple[int, int] = (5, 1)
+    # descript
+    descript_periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
+    descript_fft_sizes: Tuple[int, ...] = (2048, 1024, 512)
 
 
 @dataclass
@@ -230,6 +235,19 @@ def _v2(c: RaveConfig):
     t.beta_warmup_len = 20000
 
 
+@preset("v3")
+def _v3(c: RaveConfig):
+    """rave/configs/v3.gin = v2 + adain + snake + descript."""
+    _v2(c)
+    c.name = "v3"
+    _snake(c)
+    _adain(c)
+    _descript(c)
+    c.train.beta_initial = 1e-6
+    c.train.beta_target = 5e-2
+    c.train.beta_warmup_len = 20000
+
+
 @preset("discrete")
 def _discrete(c: RaveConfig):
     """rave/configs/discrete.gin: v2 with ratios 4.4.2.2 and a 16 x 1024 RVQ."""
@@ -249,6 +267,20 @@ def _discrete(c: RaveConfig):
     c.train.update_discriminator_every = 4
     c.train.beta_initial = c.train.beta_target = 0.1
     c.train.beta_warmup_len = 1
+
+
+@preset("discrete_v3")
+def _discrete_v3(c: RaveConfig):
+    """rave/configs/discrete_v3.gin: discrete with Snake and the descript critic."""
+    _discrete(c)
+    c.name = "discrete_v3"
+    _snake(c)
+    _descript(c)
+    # discrete_v3.gin re-overrides BetaWarmupCallback after its includes
+    # (reference configs/discrete_v3.gin:9-12), undoing discrete's fixed beta.
+    c.train.beta_initial = 1e-6
+    c.train.beta_target = 5e-2
+    c.train.beta_warmup_len = 20000
 
 
 @preset("wasserstein")
@@ -281,8 +313,20 @@ def _causal(c: RaveConfig):
     c.name = c.name + "_causal"
 
 
-# presets of rave_tpu.config that need a module the port does not have yet
-NOT_PORTED = {"v3": "A10 (snake, AdaIN, descript)", "discrete_v3": "A10 (snake, descript)"}
+@preset("snake")
+def _snake(c: RaveConfig):
+    c.activation = "snake"
+
+
+@preset("adain")
+def _adain(c: RaveConfig):
+    c.encoder.use_adain = True
+    c.decoder.use_adain = True
+
+
+@preset("descript_discriminator")
+def _descript(c: RaveConfig):
+    c.discriminator.kind = "descript"
 
 
 def compose(names: List[str], overrides: Optional[List[str]] = None) -> RaveConfig:
@@ -290,9 +334,8 @@ def compose(names: List[str], overrides: Optional[List[str]] = None) -> RaveConf
     cfg = RaveConfig()
     for n in names:
         if n not in PRESETS:
-            item = NOT_PORTED.get(n, "A10-A11 (the other model families)")
             raise KeyError(f"preset {n!r} is not ported (have {sorted(PRESETS)}; "
-                           f"ROADMAP {item})")
+                           "ROADMAP A11, the other model families)")
         PRESETS[n](cfg)
     for ov in overrides or []:
         apply_override(cfg, ov)

@@ -16,11 +16,16 @@ Layout: the port's own, `[B, C, T]` waveforms and `[B, D, T_lat]` latents
 
 The streaming state is explicit: `stream_slots(model)` names every stream
 buffer of the model (conv caches and carries, delay lines, the PQMF
-caches), in module order, which is the union of every method's state. A
-`StepProgram` runs one method as `(state, x, seed) -> (y, state')`: it puts
-the state into the model's buffers, runs the method, reads the buffers
-back and puts the originals back, so it changes no module and the same
-code runs eagerly (`ExportedRAVE`) and under `torch.export` (export.py).
+caches) and every AdaIN buffer, in module order, which is the union of
+every method's state. A `StepProgram` runs one method as `(state, x, seed)
+-> (y, state')`: it puts the state into the model's buffers, runs the
+method with AdaIN learning (the JAX artifact's streaming calls make its
+`adain` collection mutable), reads the buffers back and puts the originals
+back, so it changes no module and the same code runs eagerly
+(`ExportedRAVE`) and under `torch.export` (export.py). The offline calls
+read the AdaIN state and never change it; `reset_stream` zeroes the stream
+buffers and keeps it; the attribute setters (`set_learn_target`, ...)
+write it, as the JAX artifact's do.
 The sampling noise (the variational eps and padding, the discrete and
 wasserstein augmentation channels) comes from the int64 `seed` (a uint32
 value) through `normal_from_seed`, so an exported program holds no draw as
@@ -31,6 +36,7 @@ indices [B, Q, T] as floats, and its decode program holds the codebooks.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 from pathlib import Path
 from typing import List, Optional, Tuple
@@ -42,8 +48,11 @@ from torch import nn
 from rave_tpu_torch import config as config_lib
 from rave_tpu_torch.config import RaveConfig
 from rave_tpu_torch.factory import build_rave, resolve_device
-from rave_tpu_torch.models.blocks import angles_to_unit_norm_vector, unit_norm_vector_to_angles
+from rave_tpu_torch.models.blocks import (
+    AdaIN, angles_to_unit_norm_vector, unit_norm_vector_to_angles,
+)
 from rave_tpu_torch.models.rave import RAVE
+from rave_tpu_torch.nn.conv import freeze_weights
 from rave_tpu_torch.nn.streaming import StreamingModule, init_stream_state
 from rave_tpu_torch.ops.resampler import Resampler
 from rave_tpu_torch.train.loop import fp32_exact
@@ -108,16 +117,45 @@ def pre_process_latent(cfg: RaveConfig, model: nn.Module, full_latent_size: int,
     return z + model.latent_mean[:, None]
 
 
-def stream_slots(model: nn.Module) -> List[Tuple[str, StreamingModule, str]]:
-    """(name, module, attribute) of every stream buffer under `model`, in
-    module order: the artifact's state, the same for every method."""
-    return [(f"{name}.{attr}" if name else attr, m, attr)
-            for name, m in model.named_modules() if isinstance(m, StreamingModule)
-            for attr in m._stream_shapes]
+def stream_slots(model: nn.Module) -> List[Tuple[str, nn.Module, str]]:
+    """(name, module, attribute) of every stream buffer and AdaIN buffer under
+    `model`, in module order: the artifact's state, the same for every method."""
+    slots = []
+    for name, m in model.named_modules():
+        if isinstance(m, StreamingModule):
+            attrs = list(m._stream_shapes)
+        elif isinstance(m, AdaIN):
+            attrs = AdaIN.STATE
+        else:
+            continue
+        slots += [(f"{name}.{attr}" if name else attr, m, attr) for attr in attrs]
+    return slots
 
 
-def zero_state(model: nn.Module) -> List[torch.Tensor]:
-    return [torch.zeros_like(getattr(m, attr)) for _, m, attr in stream_slots(model)]
+def initial_state(model: nn.Module) -> List[torch.Tensor]:
+    """The state a stream starts from: zero stream buffers, the AdaIN buffers
+    as the model holds them."""
+    return [getattr(m, attr).clone() if isinstance(m, AdaIN) else
+            torch.zeros_like(getattr(m, attr)) for _, m, attr in stream_slots(model)]
+
+
+@contextlib.contextmanager
+def swapped(slots, values, learning: bool = False):
+    """The buffers of `slots` set to `values` (AdaIN learning if `learning`),
+    and put back on exit."""
+    saved = [getattr(m, attr) for _, m, attr in slots]
+    adains = {m for _, m, _ in slots if isinstance(m, AdaIN)}
+    for (_, m, attr), v in zip(slots, values):
+        setattr(m, attr, v)
+    for m in adains:
+        m.learning = learning
+    try:
+        yield
+    finally:
+        for (_, m, attr), v in zip(slots, saved):
+            setattr(m, attr, v)
+        for m in adains:
+            m.learning = False
 
 
 class _Side(nn.Module):
@@ -180,10 +218,7 @@ class StepProgram(nn.Module):
                 eps: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
         if len(state) != len(self.slots):
             raise ValueError(f"{len(state)} state tensors for {len(self.slots)} stream buffers")
-        saved = [getattr(m, attr) for _, m, attr in self.slots]
-        for (_, m, attr), s in zip(self.slots, state):
-            setattr(m, attr, s)
-        try:
+        with swapped(self.slots, state, learning=True):
             if self.method == "encode":
                 y = self.encode(x, seed, eps, streaming=True)
             elif self.method == "decode":
@@ -192,21 +227,19 @@ class StepProgram(nn.Module):
                 z = self.encode(x, seed, eps, streaming=True)
                 y = self.decode(z, (seed + DECODE_SEED_OFFSET) & MASK32, noise, streaming=True)
             new = [getattr(m, attr) for _, m, attr in self.slots]
-        finally:
-            for (_, m, attr), s in zip(self.slots, saved):
-                setattr(m, attr, s)
         return y, new
 
 
 class ExportedRAVE:
     """An artifact loaded on `device` (the card unless the caller passes
     `device="cpu"`): `encode`, `decode` and `forward`, offline or streaming
-    in whole blocks, at the artifact's `target_sampling_rate`.
+    in whole blocks, at the artifact's `target_sampling_rate`. The model is
+    in eval mode with its kernels fixed (`freeze_weights`).
 
     Every call without an explicit `seed` takes the next seed of a chain
     started from `seed` (the JAX artifact's `_rng` / `_next_rng`). The
     streaming state (`state`, and the resampler's own) persists between
-    calls until `reset_stream`."""
+    calls until `reset_stream`, which keeps the AdaIN part of `state`."""
 
     def __init__(self, path: str, device: str | torch.device = "cuda", seed: int = 0):
         self.path = Path(path)
@@ -225,11 +258,16 @@ class ExportedRAVE:
         weights = torch.load(self.path / "weights.pt", map_location="cpu", weights_only=True)
         self.model.load_state_dict(weights)
         self.model.eval().requires_grad_(False)
+        freeze_weights(self.model)
         self.encode_side = EncodeSide(self.model, self.cfg, self.latent_size)
         self.decode_side = DecodeSide(self.model, self.cfg, self.latent_size)
         self.steps = {m: StepProgram(m, self.model, self.encode_side, self.decode_side)
                       for m in STEP_METHODS}
-        self.state = zero_state(self.model)
+        self.slots = stream_slots(self.model)
+        self.state = initial_state(self.model)
+        # the AdaIN buffers' places in `state` (the attributes' setters write them)
+        self.adain_indices = [i for i, (_, m, _) in enumerate(self.slots)
+                              if isinstance(m, AdaIN)]
         self._seed, self._calls = int(seed) & MASK32, 0
         self.resampler = None
         tsr = self.manifest.get("target_sampling_rate", self.manifest["sampling_rate"])
@@ -286,7 +324,8 @@ class ExportedRAVE:
         if streaming:
             z, self.state = self.steps["encode"](self.state, x, s, eps=eps)
             return z
-        return self.encode_side(x, s, eps)
+        with self._adain_state():
+            return self.encode_side(x, s, eps)
 
     @fp32_exact()
     @torch.no_grad()
@@ -300,7 +339,8 @@ class ExportedRAVE:
         if streaming:
             y, self.state = self.steps["decode"](self.state, z, s, noise=noise)
         else:
-            y = self.decode_side(z, s, noise)
+            with self._adain_state():
+                y = self.decode_side(z, s, noise)
         return self._resample(y, "out", streaming)
 
     @fp32_exact()
@@ -317,8 +357,9 @@ class ExportedRAVE:
         if streaming:
             y, self.state = self.steps["forward"](self.state, x, s, eps=eps, noise=noise)
         else:
-            z = self.encode_side(x, s, eps)
-            y = self.decode_side(z, (s + DECODE_SEED_OFFSET) & MASK32, noise)
+            with self._adain_state():
+                z = self.encode_side(x, s, eps)
+                y = self.decode_side(z, (s + DECODE_SEED_OFFSET) & MASK32, noise)
         return self._resample(y, "out", streaming)
 
     @property
@@ -328,24 +369,38 @@ class ExportedRAVE:
         return b * self.resampler.ratio if self.resampler else b
 
     def reset_stream(self) -> None:
-        self.state = zero_state(self.model)
+        """Zero the stream buffers; the AdaIN state stays as it is."""
+        fresh = initial_state(self.model)
+        self.state = [self.state[i] if i in self.adain_indices else t for i, t in enumerate(fresh)]
         if self.resampler is not None:
             init_stream_state(self.resampler, self.stream_batch * self.n_channels)
 
     # ---- AdaIN attributes and the prior ----------------------------------
-    # A v2 model has no AdaIN (the port refuses `use_adain`, ROADMAP A10):
-    # these do nothing, as the JAX artifact's do without an `adain` collection.
+    def _adain_state(self):
+        """The model's AdaIN buffers set to the artifact's AdaIN state (offline calls)."""
+        idx = self.adain_indices
+        return swapped([self.slots[i] for i in idx], [self.state[i] for i in idx])
+
+    def _set_adain(self, leaf: str, value: float) -> None:
+        """Fill every AdaIN buffer named `leaf` (rave_tpu/export/artifact.py:398-408);
+        nothing without AdaIN, as the JAX artifact without an `adain` collection."""
+        for i in self.adain_indices:
+            if self.slots[i][2] == leaf:
+                self.state[i] = torch.full_like(self.state[i], value)
+
     def set_learn_target(self, on: bool) -> None:
-        pass
+        self._set_adain("learn_y", 1.0 if on else 0.0)
 
     def set_learn_source(self, on: bool) -> None:
-        pass
+        self._set_adain("learn_x", 1.0 if on else 0.0)
 
     def reset_target(self) -> None:
-        pass
+        for leaf, value in (("mean_y", 0.0), ("std_y", 1.0), ("num_update_y", 0.0)):
+            self._set_adain(leaf, value)
 
     def reset_source(self) -> None:
-        pass
+        for leaf, value in (("mean_x", 0.0), ("std_x", 1.0), ("num_update_x", 0.0)):
+            self._set_adain(leaf, value)
 
     @property
     def has_prior(self) -> bool:

@@ -16,7 +16,8 @@ The step programs keep the JAX package's contract (its `_aot_lower`):
     forward_step(state, x, seed)               -> (y, state')
 
 with the weights constant inside each program (each holds the weights of
-the half it runs), the state explicit (start from zeros; shapes in the
+the half it runs), the state explicit (the stream buffers start from
+zeros, the AdaIN buffers from the model's; shapes and leaf names in the
 manifest) and `seed` an int64 scalar holding a uint32. `forward_step`
 decodes with `seed + 0x9E3779B9 mod 2^32`. A program holds its weights on
 the device it was exported on; the manifest records it. Nothing fails
@@ -57,6 +58,28 @@ def user_latent_size(cfg, fidelity_curve: np.ndarray, fidelity: float) -> int:
     if fam == "discrete":
         return cfg.latent.num_quantizers
     return cfg.latent_size - (fam == "spherical")
+
+
+def attributes(cfg) -> dict:
+    """The manifest's AdaIN `attributes` and `attribute_ops`, as
+    rave_tpu/export/export.py:165-195 writes them (the nn_tilde
+    register_attribute analog, reference scripts/export.py:306-341): each
+    attribute is a list of fills applied to every leaf of the stream state
+    (`aot.<method>.state_leaves`) whose name ends with `leaf`; fill None is
+    the user's value (a toggle), a constant a reset. Empty without AdaIN."""
+    if not (cfg.encoder.use_adain or cfg.decoder.use_adain):
+        return {"attributes": [], "attribute_ops": {}}
+    return {
+        "attributes": ["learn_target", "reset_target", "learn_source", "reset_source"],
+        "attribute_ops": {
+            "learn_target": [{"leaf": "learn_y", "fill": None}],
+            "learn_source": [{"leaf": "learn_x", "fill": None}],
+            "reset_target": [{"leaf": "mean_y", "fill": 0.0}, {"leaf": "std_y", "fill": 1.0},
+                             {"leaf": "num_update_y", "fill": 0.0}],
+            "reset_source": [{"leaf": "mean_x", "fill": 0.0}, {"leaf": "std_x", "fill": 1.0},
+                             {"leaf": "num_update_x", "fill": 0.0}],
+        },
+    }
 
 
 def _methods(n_channels: int, latent_size: int, ratio: int) -> dict:
@@ -118,9 +141,7 @@ def export_model(
         "latent_rate_hz": cfg.sampling_rate / ratio,
         "methods": _methods(n_channels, int(latent_size), ratio),
         "latency": None,  # from the loaded model, below
-        # AdaIN is not ported (ROADMAP A10): a v2 model has no attributes
-        "attributes": [],
-        "attribute_ops": {},
+        **attributes(cfg),
         "config": config_lib.to_dict(cfg),
         "prior": None,
         "version": 1,

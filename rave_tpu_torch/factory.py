@@ -3,8 +3,8 @@
 PyTorch port of rave_tpu/factory.py: `build_rave` (:151-175) for the v2
 encoder and decoder kinds and the four latent families (`build_encoder`
 picks the wrapper as :82-99 does);
-`build_discriminator` (:178-232) for the `multiscale` and `combined`
-critics; `build_audio_distance` (:235-265) for `v1`; `build_gan_loss`
+`build_discriminator` (:178-232) for the `multiscale`, `combined` and
+`descript` critics; `build_audio_distance` (:235-265) for `v1`; `build_gan_loss`
 (:268-269). Configs come from the port's own `rave_tpu_torch.config.compose`.
 Weights are drawn here from a seeded CPU `torch.Generator` (lecun-normal
 `v`, `g = ||v||` per output channel, zero bias; a codebook's embed uniform
@@ -20,6 +20,7 @@ import torch
 
 from rave_tpu_torch.config import RaveConfig
 from rave_tpu_torch.models import blocks
+from rave_tpu_torch.models.descript import DescriptDiscriminator
 from rave_tpu_torch.models.discriminators import (
     CombineDiscriminators, MultiPeriodDiscriminator, MultiScaleDiscriminator,
 )
@@ -145,7 +146,7 @@ def build_rave(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1,
 def build_discriminator(cfg: RaveConfig, n_channels: int = 1, seed: int = 0,
                         device: str | torch.device = "cuda") -> torch.nn.Module:
     """The critic on `device`, weights drawn from `torch.Generator().manual_seed(seed)`;
-    its period critics folded (models/discriminators.py)."""
+    its period critics folded (models/discriminators.py, models/descript.py)."""
     device = resolve_device(device)
     d = cfg.discriminator
     cap = d.capacity or cfg.capacity
@@ -159,9 +160,12 @@ def build_discriminator(cfg: RaveConfig, n_channels: int = 1, seed: int = 0,
                                      tuple(d.period_kernel), d.stride),
             MultiScaleDiscriminator(n_channels, **scales),
         ])
+    elif d.kind == "descript":  # no MSD rates, as rave_tpu/factory.py:223-231
+        critic = DescriptDiscriminator(n_channels, d.descript_periods,
+                                       fft_sizes=d.descript_fft_sizes)
     else:
         raise NotImplementedError(f"discriminator kind {d.kind!r} is not ported yet "
-                                  "(ROADMAP A10 descript, A11 spectral)")
+                                  "(ROADMAP A11, spectral)")
     init_weights(critic, torch.Generator().manual_seed(seed))
     return critic.to(device)
 

@@ -1,15 +1,20 @@
 """v2 encoder/generator building blocks (dual-mode, delay-tracked).
 
-PyTorch port of the v2 subset of rave_tpu/models/blocks.py, channels-first
-`[B, C, T]`: the pure delay algebra, the DilatedUnit residual stacks
-(whose offline path is the fused CUDA kernel on a GPU), EncoderV2,
-GeneratorV2 with amplitude modulation, and the latent families
+PyTorch port of the v2 / v3 subset of rave_tpu/models/blocks.py,
+channels-first `[B, C, T]`: the pure delay algebra, the activations
+(leaky ReLU, Snake), AdaIN, the DilatedUnit residual stacks (whose offline
+path is the fused CUDA kernel on a GPU when the activation is leaky ReLU),
+EncoderV2, GeneratorV2 with amplitude modulation, and the latent families
 (variational, wasserstein, discrete over models/quantization.py, spherical
 with its angle codecs), each taking its draws explicitly (`LatentDraws`).
 Attribute names (`net.layers.N`, `inner`, `waveform`, `encoder`) mirror the
 flax module paths, so utils/convert.py maps weights by rename.
 
-The v2 options this slice does not cover raise NotImplementedError naming
+Train and eval mode are PyTorch's (`model.train()` / `model.eval()`); only
+AdaIN reads them, as the JAX modules' `train` field: the identity in
+training, its transfer in eval mode.
+
+The options this slice does not cover raise NotImplementedError naming
 the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -25,6 +30,7 @@ from torch import nn
 from rave_tpu_torch.models.quantization import ResidualVectorQuantization
 from rave_tpu_torch.nn.combinators import Lambda, Residual, Sequential
 from rave_tpu_torch.nn.conv import Conv1d, ConvTranspose1d, conv_delay, get_padding, tconv_delay
+from rave_tpu_torch.nn.streaming import as_dtype
 from rave_tpu_torch.ops.kernels.dilated_unit import fused_dilated_unit
 
 # --------------------------------------------------------------------------
@@ -62,7 +68,7 @@ def generator_v2_delay(kernel_size: int, ratios, dilations, mode: str) -> int:
 
 
 # --------------------------------------------------------------------------
-# activations, unported options
+# activations, AdaIN, unported options
 # --------------------------------------------------------------------------
 
 
@@ -70,19 +76,94 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.2)
 
 
-def make_activation(name: str) -> nn.Module:
-    """Activation factory; 'leaky_relu' only in this slice."""
+class Snake(nn.Module):
+    """x + sin^2(alpha x) / (alpha + 1e-9) with one learnable alpha per
+    channel, initialized to ones and cast to the input's dtype (reference
+    rave/blocks.py:852-860, rave_tpu/models/blocks.py:170-185)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        alpha = as_dtype(self.alpha, x.dtype)[:, None]
+        return torch.addcdiv(x, torch.sin(alpha * x).square(), alpha + 1e-9)
+
+    def step(self, x):
+        return self(x)
+
+
+def make_activation(name: str, dim: int) -> nn.Module:
+    """Activation factory ('leaky_relu' | 'snake'); `dim` is the channel count."""
     if name == "leaky_relu":
         return Lambda(leaky_relu)
     if name == "snake":
-        raise NotImplementedError("activation='snake' is not ported yet (ROADMAP A10, v3)")
+        return Snake(dim)
     raise ValueError(f"unknown activation {name}")
 
 
-def _refuse_unported(use_adain: bool = False, recurrent_layers: int = 0,
-                     use_noise: bool = False) -> None:
-    if use_adain:
-        raise NotImplementedError("use_adain (AdaIN) is not ported yet (ROADMAP A10, v3)")
+ADAIN_MAX_BATCH = 8  # the JAX modules' `adain_max_batch`
+
+
+class AdaIN(nn.Module):
+    """Adaptive instance normalization with running statistics (reference
+    rave/blocks.py:863-926, rave_tpu/models/blocks.py:224-299).
+
+    The identity in training mode. In eval mode it maps the statistics over
+    time of a source ('x') onto those of a target ('y'),
+    `(x - mean_x) / (std_x + 1e-5) * std_y + mean_y`, once both were learned
+    and the target is no longer learning. Its buffers (`mean_*`, `std_*`
+    [ADAIN_MAX_BATCH, C, 1] per batch slot; `learn_*`, `num_update_*` [1])
+    are persistent: checkpoints and artifacts carry them. They change only
+    while `learning` is set, which the artifact's streaming steps do (the
+    JAX package's mutable `adain` collection); then each call folds its
+    statistics in by a cumulative moving average, the target's while
+    `learn_y`, else the source's while `learn_x`. Updates reassign the
+    buffers, as the stream state's do, so a `StepProgram` can swap them."""
+
+    STATE = ("mean_x", "std_x", "mean_y", "std_y", "learn_x", "learn_y", "num_update_x",
+             "num_update_y")
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.learning = False
+        for name in self.STATE:
+            shape = (ADAIN_MAX_BATCH, dim, 1) if name[:4] in ("mean", "std_") else (1,)
+            fill = torch.ones if name.startswith("std") else torch.zeros
+            self.register_buffer(name, fill(shape))
+
+    def forward(self, x):
+        return x if self.training else self._transfer(x)
+
+    def step(self, x):
+        return self._transfer(x)
+
+    def _transfer(self, x):
+        bs = x.shape[0]
+        if bs > ADAIN_MAX_BATCH:
+            raise ValueError(f"AdaIN holds statistics for {ADAIN_MAX_BATCH} batch slots; "
+                             f"a batch of {bs} runs only in training mode")
+        learn_y = self.learn_y > 0
+        idle_y = ~learn_y
+        if self.learning:
+            std, mean = torch.std_mean(x, -1, keepdim=True, correction=1)
+            learn_x = idle_y & (self.learn_x > 0)
+            for side, on in (("y", learn_y), ("x", learn_x)):
+                n = getattr(self, f"num_update_{side}")
+                rate = on / (n + 1)  # the cumulative moving average's weight
+                for stat, value in (("mean", mean), ("std", std)):
+                    old = getattr(self, f"{stat}_{side}")
+                    head = torch.lerp(old[:bs], as_dtype(value, old.dtype), rate)
+                    new = torch.where(on, torch.cat([head, old[bs:]]), old)
+                    setattr(self, f"{stat}_{side}", new)
+                setattr(self, f"num_update_{side}", n + on)
+        mx, sx = as_dtype(self.mean_x[:bs], x.dtype), as_dtype(self.std_x[:bs], x.dtype)
+        my, sy = as_dtype(self.mean_y[:bs], x.dtype), as_dtype(self.std_y[:bs], x.dtype)
+        transfer = idle_y & (torch.minimum(self.num_update_x, self.num_update_y) > 0)
+        return torch.where(transfer, (x - mx) / (sx + 1e-5) * sy + my, x)
+
+
+def _refuse_unported(recurrent_layers: int = 0, use_noise: bool = False) -> None:
     if recurrent_layers:
         raise NotImplementedError("recurrent_layers (GRU) is not ported yet (ROADMAP A11, hybrid)")
     if use_noise:
@@ -111,12 +192,13 @@ class DilatedUnit(nn.Module):
                  stream_batch: int = 1):
         super().__init__()
         self.kernel_size, self.dilation, self.mode = kernel_size, dilation, mode
+        self.activation = activation
         conv1 = Conv1d(dim, dim, kernel_size, dilation=dilation, mode=mode,
                        weight_norm=weight_norm, use_bias=False, stream_batch=stream_batch)
         conv2 = Conv1d(dim, dim, 1, mode=mode, weight_norm=weight_norm, use_bias=False,
                        in_delay=conv1.delay, stream_batch=stream_batch)
         self.net = Sequential([
-            make_activation(activation), conv1, make_activation(activation), conv2,
+            make_activation(activation, dim), conv1, make_activation(activation, dim), conv2,
         ])
 
     @property
@@ -131,12 +213,16 @@ class DilatedUnit(nn.Module):
 
 
 class FusedDilatedResidual(Residual):
-    """Residual(DilatedUnit) whose offline path is one fused call,
-    `fused_dilated_unit`: the CUDA kernel for a tensor on the GPU, the plain
-    `F.conv1d` version for one on the CPU. Parameters and the streaming path
-    (plain convolutions) are those of the plain Residual."""
+    """Residual(DilatedUnit) whose offline path, for a leaky-ReLU unit, is
+    one fused call, `fused_dilated_unit`: the CUDA kernel for a tensor on the
+    GPU, the plain `F.conv1d` version for one on the CPU. A unit of another
+    activation (Snake) runs the plain Residual, as the JAX package gates its
+    Pallas kernel (rave_tpu/models/blocks.py:366-371). Parameters and the
+    streaming path (plain convolutions) are those of the plain Residual."""
 
     def forward(self, x):
+        if self.inner.activation != "leaky_relu":
+            return super().forward(x)
         conv1, conv2 = self.inner.net.layers[1], self.inner.net.layers[3]
         w1 = conv1.weight().to(x.dtype)
         w2 = conv2.weight()[:, :, 0].to(x.dtype)
@@ -163,7 +249,7 @@ class EncoderV2(nn.Module):
                  activation: str = "leaky_relu", use_adain: bool = False,
                  recurrent_layers: int = 0, in_delay: int = 0, stream_batch: int = 1):
         super().__init__()
-        _refuse_unported(use_adain=use_adain, recurrent_layers=recurrent_layers)
+        _refuse_unported(recurrent_layers=recurrent_layers)
         self.kernel_size, self.mode, self.in_delay = kernel_size, mode, in_delay
         self.ratios, self.dilations = tuple(ratios), dilations
         conv = dict(mode=mode, weight_norm=weight_norm, use_bias=False, stream_batch=stream_batch)
@@ -173,16 +259,18 @@ class EncoderV2(nn.Module):
         delay, ch = conv0.delay, capacity
         for r, dils in zip(self.ratios, normalize_dilations(dilations, self.ratios)):
             for d in dils:
+                if use_adain:
+                    layers.append(AdaIN(ch))
                 res = residual_unit(ch, kernel_size, d, mode, weight_norm, activation,
                                     stream_batch)
                 layers.append(res)
                 delay += res.inner_delay
-            layers.append(make_activation(activation))
+            layers.append(make_activation(activation, ch))
             out_ch = ch * r if keep_dim else ch * 2
             down = Conv1d(ch, out_ch, 2 * r, stride=r, in_delay=delay, **conv)
             layers.append(down)
             delay, ch = down.delay, out_ch
-        layers.append(make_activation(activation))
+        layers.append(make_activation(activation, ch))
         layers.append(Conv1d(ch, latent_size * n_out, kernel_size, in_delay=delay, **conv))
         self.net = Sequential(layers)
 
@@ -214,8 +302,7 @@ class GeneratorV2(nn.Module):
                  activation: str = "leaky_relu", use_adain: bool = False,
                  recurrent_layers: int = 0, stream_batch: int = 1):
         super().__init__()
-        _refuse_unported(use_adain=use_adain, recurrent_layers=recurrent_layers,
-                         use_noise=use_noise)
+        _refuse_unported(recurrent_layers=recurrent_layers, use_noise=use_noise)
         self.kernel_size, self.mode = kernel_size, mode
         self.ratios, self.dilations = tuple(ratios), dilations
         self.amplitude_modulation = amplitude_modulation
@@ -227,16 +314,18 @@ class GeneratorV2(nn.Module):
         dilations_list = normalize_dilations(dilations, self.ratios)[::-1]
         for r, dils in zip(self.ratios[::-1], dilations_list):
             out_ch = ch // r if keep_dim else ch // 2
-            layers.append(make_activation(activation))
+            layers.append(make_activation(activation, ch))
             up = ConvTranspose1d(ch, out_ch, r, in_delay=delay, **conv)
             layers.append(up)
             delay, ch = up.delay, out_ch
             for d in dils:
+                if use_adain:
+                    layers.append(AdaIN(ch))
                 res = residual_unit(ch, kernel_size, d, mode, weight_norm, activation,
                                     stream_batch)
                 layers.append(res)
                 delay += res.inner_delay
-        layers.append(make_activation(activation))
+        layers.append(make_activation(activation, ch))
         self.net = Sequential(layers)
         out = (data_size or 1) * n_channels
         self.waveform = Conv1d(ch, 2 * out if amplitude_modulation else out,

@@ -1,12 +1,12 @@
 """The adversarial critics of v2: multi-scale, multi-period and their combination.
 
-PyTorch port of rave_tpu/models/discriminators.py (`WNConv` :22-73,
-`ConvNet` :76-152, `MultiScaleDiscriminator` :155-179,
-`MultiPeriodDiscriminator` :182-226, `CombineDiscriminators` :322-335),
-channels-first. Each sub-network returns its per-layer feature maps; the
-last one is the score. Module names mirror the flax paths
-(`discriminators_0.period_2_0.WNConv_3`), so utils/convert.py maps the
-critic's weights by rename as it does the model's.
+PyTorch port of rave_tpu/models/discriminators.py (`WNConv` :22-73, 1D
+and 2D, which models/descript.py's critic uses too; `ConvNet` :76-152,
+`MultiScaleDiscriminator` :155-179, `MultiPeriodDiscriminator` :182-226,
+`CombineDiscriminators` :322-335), channels-first. Each sub-network
+returns its per-layer feature maps; the last one is the score. Module
+names mirror the flax paths (`discriminators_0.period_2_0.WNConv_3`), so
+utils/convert.py maps the critic's weights by rename as it does the model's.
 
 The period critics' (k, 1) kernels never mix the period axis, so their
 weights are stored as 1D kernels [O, I, k] and, folded (the default, as in
@@ -31,16 +31,21 @@ Features = List[List[torch.Tensor]]
 
 
 class WNConv(_WeightNormConv):
-    """Non-streaming conv with symmetric padding and a bias; weight-normed
-    (`v` [O, I, K], `g` [O]) or plain (`w`)."""
+    """Non-streaming 1D or 2D conv with symmetric padding, groups and a bias;
+    weight-normed (`v` [O, I / groups, *kernel], `g` [O]) or plain (`w`).
+    An int `kernel_size` is 1D, a pair 2D; `stride` and `padding` are ints
+    or pairs as `F.conv1d` / `F.conv2d` take them."""
 
     out_dim = 0
 
-    def __init__(self, in_features: int, features: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, weight_norm: bool = True):
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Union[int, Tuple[int, int]], stride=1, padding=0,
+                 weight_norm: bool = True, groups: int = 1):
         super().__init__()
-        self.stride, self.padding = stride, padding
-        self._make_params((features, in_features, kernel_size), features, weight_norm, True)
+        self.stride, self.padding, self.groups = stride, padding, groups
+        kernel = (kernel_size,) if isinstance(kernel_size, int) else tuple(kernel_size)
+        self._make_params((features, in_features // groups, *kernel), features, weight_norm,
+                          True)
 
     def _params(self, x: torch.Tensor):
         """Weight and bias in the input's dtype (a bf16 critic under
@@ -48,14 +53,16 @@ class WNConv(_WeightNormConv):
         return self.weight().to(x.dtype), self.b.to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[N, I, T] -> [N, O, T']."""
+        """[N, I, T] -> [N, O, T'] (1D), [N, I, H, W] -> [N, O, H', W'] (2D)."""
         w, b = self._params(x)
-        return F.conv1d(x, w, b, self.stride, self.padding)
+        conv = F.conv1d if w.ndim == 3 else F.conv2d
+        return conv(x, w, b, self.stride, self.padding, groups=self.groups)
 
     def forward_2d(self, x: torch.Tensor) -> torch.Tensor:
-        """The kernel as (K, 1) over [B, I, H, W] -> [B, O, H', W]."""
+        """A 1D kernel K as (K, 1) over [B, I, H, W] -> [B, O, H', W]."""
         w, b = self._params(x)
-        return F.conv2d(x, w[..., None], b, (self.stride, 1), (self.padding, 0))
+        return F.conv2d(x, w[..., None], b, (self.stride, 1), (self.padding, 0),
+                        groups=self.groups)
 
 
 class ConvNet(nn.Module):

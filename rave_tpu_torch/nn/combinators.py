@@ -13,7 +13,7 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
-from rave_tpu_torch.nn.streaming import StreamingModule
+from rave_tpu_torch.nn.streaming import StreamingModule, as_dtype
 
 
 class Lambda(nn.Module):
@@ -45,7 +45,7 @@ class StreamDelay(StreamingModule):
     def step(self, x):
         if self.d == 0:
             return x
-        ext = torch.cat([self.buf.to(x.dtype), x], dim=-1)
+        ext = torch.cat([as_dtype(self.buf, x.dtype), x], dim=-1)
         self.buf = ext[..., ext.shape[-1] - self.d :]
         return ext[..., : x.shape[-1]]
 

@@ -20,6 +20,7 @@ Weight norm is stored as (v, g) with the norm taken per *output* channel
 over (in, k), `+1e-12` inside the square root, for both conv kinds
 (rave_tpu/nn/conv.py:70-73). `torch.nn.utils.weight_norm` normalises a
 transposed conv per input channel, so it is written out here.
+`freeze_weights` fixes the effective kernels for serving.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rave_tpu_torch.nn.streaming import StreamingModule
+from rave_tpu_torch.nn.streaming import StreamingModule, as_dtype
 
 # flax's lecun_normal: a normal truncated at two standard deviations,
 # rescaled so the truncated distribution has variance 1 / fan_in
@@ -111,6 +112,20 @@ class _WeightNormConv(StreamingModule):
         return self.w
 
 
+def freeze_weights(module: nn.Module) -> None:
+    """Replace every weight-normed conv's (v, g) under `module` by its
+    effective kernel `w`, for serving weights that never change (the
+    artifact; the JAX package's compiled step programs fold weight norm into
+    constants): each call then skips weight norm's ops, a third of a
+    streaming block's."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, _WeightNormConv) and m.weight_norm:
+                w = m.weight()
+                del m.v, m.g
+                m.w, m.weight_norm = nn.Parameter(w, requires_grad=False), False
+
+
 class Conv1d(_WeightNormConv):
     """Strided/dilated conv with centered|causal padding and streaming cache.
 
@@ -150,8 +165,8 @@ class Conv1d(_WeightNormConv):
         return sum(self.pad) + self.extra_delay
 
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight().to(x.dtype)
-        b = None if self.b is None else self.b.to(x.dtype)
+        w = as_dtype(self.weight(), x.dtype)
+        b = None if self.b is None else as_dtype(self.b, x.dtype)
         return F.conv1d(x, w, b, self.stride, 0, self.dilation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -160,7 +175,7 @@ class Conv1d(_WeightNormConv):
     def step(self, x: torch.Tensor) -> torch.Tensor:
         if self.cache_len == 0:
             return self._conv(x)
-        ext = torch.cat([self.cache.to(x.dtype), x], dim=-1)
+        ext = torch.cat([as_dtype(self.cache, x.dtype), x], dim=-1)
         y = self._conv(ext)
         self.cache = ext[..., ext.shape[-1] - self.cache_len :]
         # A pad-free fat-stride conv (kernel <= stride) whose extra shift
@@ -206,10 +221,10 @@ class ConvTranspose1d(_WeightNormConv):
 
     def _full(self, x: torch.Tensor) -> torch.Tensor:
         """[B, C, T] -> [B, features, (T-1)*ratio + k]."""
-        return F.conv_transpose1d(x, self.weight().to(x.dtype), stride=self.ratio)
+        return F.conv_transpose1d(x, as_dtype(self.weight(), x.dtype), stride=self.ratio)
 
     def _bias(self, y: torch.Tensor) -> torch.Tensor:
-        return y if self.b is None else y + self.b.to(y.dtype)[:, None]
+        return y if self.b is None else y + as_dtype(self.b, y.dtype)[:, None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = x.shape[-1] * self.ratio
@@ -220,7 +235,7 @@ class ConvTranspose1d(_WeightNormConv):
         y = self._full(x)
         out = y[..., :n]
         if self.carry_len > 0:
-            head = out[..., : self.carry_len] + self.carry.to(out.dtype)
+            head = out[..., : self.carry_len] + as_dtype(self.carry, out.dtype)
             out = torch.cat([head, out[..., self.carry_len :]], dim=-1)
             self.carry = y[..., n:]
         return self._bias(out)

@@ -1,7 +1,8 @@
 """Validation-time analytics: the receptive-field probe and the latent PCA.
 
 PyTorch port of rave_tpu/train/analysis.py::receptive_field (reference
-rave/core.py:180-217). It differentiates one output sample of encode ->
+rave/core.py:180-217). In eval mode, as the JAX probe's `train=False`
+model, it differentiates one output sample of encode ->
 reparametrize -> decode with respect to the input and reads the extent of
 the non-zero gradient. The discrete family's inference quantization looks
 codes up, so no gradient reaches the input: its field is (0, 0), as in the
@@ -33,7 +34,7 @@ def receptive_field(cfg: RaveConfig, n_channels: int = 1, device: str | torch.de
     gradient's footprint fits."""
     if cfg.latent.family == "discrete":
         return 0, 0
-    model = build_rave(cfg, n_channels=n_channels, seed=seed, device=device)
+    model = build_rave(cfg, n_channels=n_channels, seed=seed, device=device).eval()
     model.requires_grad_(False)  # the input's gradient is all the probe reads
     N = 2 ** 15
     while True:

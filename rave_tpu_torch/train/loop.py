@@ -11,9 +11,10 @@ As in the JAX package, a step's randomness depends on the global step only:
 its latent draws (the variational eps, the augmentation noise, the
 codebooks' sample rows) come from `fold_in(seed + 1, step)` and the device
 pipeline's batch from `fold_in(seed, step)` (utils/rng.py), so a resumed
-run draws what an unbroken run would. Validation draws its noise from seed
-1234 for every batch, as the JAX loop's `key(1234)`, and never trains a
-codebook (the JAX `val_step` reparametrizes with `train=False`). With the
+run draws what an unbroken run would. Validation runs the model in eval
+mode (the JAX loop's second, `train=False` model), draws its noise from
+seed 1234 for every batch, as the JAX loop's `key(1234)`, and never trains
+a codebook (the JAX `val_step` reparametrizes with `train=False`). With the
 discrete family quantizing, each validation also logs `codebook_health`.
 
 Only the steps that log (1, 2 and every 100th) read a tensor back to the
@@ -140,17 +141,30 @@ def ema_weights(model: torch.nn.Module, ema: Optional[dict]):
                 p.copy_(trained[n])
 
 
+@contextlib.contextmanager
+def eval_mode(model: torch.nn.Module):
+    """`model` in eval mode, its mode put back on exit."""
+    was = model.training
+    model.eval()
+    try:
+        yield
+    finally:
+        model.train(was)
+
+
 def run_validation(cfg: RaveConfig, state: TrainState, loader: Loader, distance, logger,
                    step: int, eval_number: int, max_batches: Optional[int] = None):
     """One pass over the validation split (or its first `max_batches`) with
-    the EMA weights when the run keeps them (reference rave/model.py:426-495):
-    logs `validation` and 8 clips; returns (mean loss, [N, D] latent means)."""
+    the EMA weights when the run keeps them (reference rave/model.py:426-495),
+    the model in eval mode (the JAX loop's `train=False` model) and put back
+    in its mode after: logs `validation` and 8 clips; returns (mean loss,
+    [N, D] latent means)."""
     model = state.model
     device = next(model.parameters()).device
     D = cfg.latent_size
     n_batches = len(loader) if max_batches is None else min(len(loader), max_batches)
     losses, latents, clips = [], [], []
-    with ema_weights(model, state.ema), torch.inference_mode():
+    with ema_weights(model, state.ema), eval_mode(model), torch.inference_mode():
         for b, x in enumerate(loader.epoch(0)):
             if b >= n_batches:
                 break

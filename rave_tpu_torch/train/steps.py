@@ -32,6 +32,10 @@ cast per op by the modules, so their gradients and the Adams are fp32.
 `train.remat` recomputes the generator step's autoencode pass in the
 backward, as `jax.checkpoint` does (rave_tpu/train/steps.py:212-213).
 
+The steps put the model in training mode (`model.train()`, the JAX
+package's `train=True` model): AdaIN is the identity there. Validation,
+eval and export run it in eval mode.
+
 Kept exactly as in the JAX package: the feature-matching weight is applied
 twice (once into the term, once in the weighted sum: the reference does);
 the first `num_skipped_features` feature maps of each critic are left out
@@ -188,6 +192,7 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
     def gen_step(state: TrainState, x: torch.Tensor, warmed: bool,
                  draws: Optional[LatentDraws] = None,
                  generator: Optional[torch.Generator] = None, quantize: bool = True) -> dict:
+        state.model.train()
         params = list(state.model.parameters())
         state.gen_opt.zero_grad(set_to_none=True)
         if draws is None:
@@ -216,6 +221,7 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
 
     def dis_step(state: TrainState, x: torch.Tensor, draws: Optional[LatentDraws] = None,
                  generator: Optional[torch.Generator] = None, quantize: bool = True) -> dict:
+        state.model.train()
         if draws is None:
             draws = draw_noise(cfg, x, generator)
         with torch.no_grad():  # the codebooks still train, as in the JAX critic step

@@ -146,10 +146,10 @@ def read_generator(run: str, use_ema: bool = False, step: Optional[int] = None):
 def load_run(run: str, use_ema: bool = False, step: Optional[int] = None,
              device: str | torch.device = "cuda"):
     """(cfg, model, n_channels, run_dir) from a port run directory: the model
-    of its newest checkpoint (or the one at exactly `step`) on `device`, with
-    the EMA weights in place of the trained ones when `use_ema` and the run
-    kept an EMA."""
+    of its newest checkpoint (or the one at exactly `step`) on `device`, in
+    eval mode, with the EMA weights in place of the trained ones when
+    `use_ema` and the run kept an EMA."""
     cfg, weights, n_channels, run_dir = read_generator(run, use_ema, step)
     model = build_rave(cfg, n_channels=n_channels, device=device)
     model.load_state_dict(weights)
-    return cfg, model, n_channels, run_dir
+    return cfg, model.eval(), n_channels, run_dir

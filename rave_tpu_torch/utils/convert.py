@@ -1,7 +1,7 @@
 """Load a rave_tpu (JAX) model's or critic's variables into the port.
 
-`from_jax_variables(model, variables)` takes the JAX `params`, `buffers`
-and `codebook` trees (nested dicts of numpy arrays; jax arrays pass
+`from_jax_variables(model, variables)` takes the JAX `params`, `buffers`,
+`codebook` and `adain` trees (nested dicts of numpy arrays; jax arrays pass
 through `np.asarray`)
 and copies them into a port model (a RAVE, or a critic of
 models/discriminators.py) built from the same config. The port's
@@ -16,12 +16,15 @@ and each leaf changes layout:
   * Conv1d `v`/`w` [K, I, O] -> [O, I, K];
   * ConvTranspose1d `v`/`w` [K, I, O] -> [I, O, K] (no flip: the JAX
     `_full` is a true transposed convolution, rave_tpu/nn/conv.py:254-267);
-  * the critics' `WNConv` `v`/`w` [K, I, O] -> [O, I, K], and the period
-    critics' 2D (K, 1) kernels [K, 1, I, O] -> [O, I, K] (the port keeps
-    them as 1D kernels, models/discriminators.py);
+  * the critics' `WNConv` `v`/`w` [K, I, O] -> [O, I, K], their 2D
+    kernels [KH, KW, I, O] -> [O, I, KH, KW], and the period critics'
+    (K, 1) kernels [K, 1, I, O] -> [O, I, K] (the port keeps those as 1D
+    kernels, models/discriminators.py and models/descript.py);
   * `g` [1, 1, O] (or [1, 1, 1, O]) -> [O], one value per output channel;
-  * biases, the RAVE buffers and the discrete codebooks' state (`embed`,
-    `embed_avg`, `cluster_size`, `inited`) are copied as they are.
+  * AdaIN's statistics `mean_*` / `std_*` [N, 1, C] -> [N, C, 1];
+  * biases, Snake's `alpha`, the RAVE buffers, AdaIN's counters and flags
+    and the discrete codebooks' state (`embed`, `embed_avg`,
+    `cluster_size`, `inited`) are copied as they are.
 
 `convert_tree(model, tree)` gives the converted arrays by port name without
 loading them (the tests compare gradients with it). Optimizer state is not
@@ -39,6 +42,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from rave_tpu_torch.models.blocks import AdaIN
 from rave_tpu_torch.models.discriminators import WNConv
 from rave_tpu_torch.nn.conv import Conv1d, ConvTranspose1d
 
@@ -61,16 +65,20 @@ def port_name(jax_path: str) -> str:
 
 def _convert(owner: torch.nn.Module, leaf: str, value: np.ndarray) -> np.ndarray:
     if leaf in ("v", "w"):
-        if isinstance(owner, WNConv) and value.ndim == 4:
-            if value.shape[1] != 1:
-                raise ValueError(f"2D kernel {value.shape}: only (K, 1) kernels are ported")
-            value = value[:, 0]
-        if isinstance(owner, (Conv1d, WNConv)):
+        if isinstance(owner, WNConv):
+            if value.ndim == 4 and getattr(owner, leaf).ndim == 3:  # a (K, 1) kernel
+                if value.shape[1] != 1:
+                    raise ValueError(f"2D kernel {value.shape} where the port has a (K, 1) one")
+                value = value[:, 0]
+            return value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.transpose(2, 1, 0)
+        if isinstance(owner, Conv1d):
             return value.transpose(2, 1, 0)
         if isinstance(owner, ConvTranspose1d):
             return value.transpose(1, 2, 0)
     if leaf == "g" and isinstance(owner, (Conv1d, ConvTranspose1d, WNConv)):
         return value.reshape(-1)
+    if isinstance(owner, AdaIN) and leaf.startswith(("mean_", "std_")):
+        return value.transpose(0, 2, 1)
     return value
 
 
@@ -90,16 +98,16 @@ def convert_tree(model: torch.nn.Module, tree: Mapping[str, Any]) -> Dict[str, n
 
 
 def from_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> None:
-    """Copy JAX `{'params': ..., 'buffers': ..., 'codebook': ...}` into
-    `model`, strictly."""
-    unknown = set(variables) - {"params", "buffers", "codebook", "cache"}
+    """Copy JAX `{'params': ..., 'buffers': ..., 'codebook': ..., 'adain':
+    ...}` into `model`, strictly."""
+    unknown = set(variables) - {"params", "buffers", "codebook", "adain", "cache"}
     if unknown:
         raise ValueError(f"unexpected variable collections {sorted(unknown)}")
     targets = dict(model.named_parameters())
     persistent = set(model.state_dict())
     targets.update({n: b for n, b in model.named_buffers() if n in persistent})
     loaded = set()
-    for collection in ("params", "buffers", "codebook"):
+    for collection in ("params", "buffers", "codebook", "adain"):
         for name, value in convert_tree(model, variables.get(collection, {})).items():
             if name not in targets:
                 raise KeyError(f"{collection}: the port has no tensor {name}")

@@ -1,7 +1,7 @@
 """The port's own model configuration against the JAX package's.
 
 rave_tpu_torch.config carries the fields of rave_tpu.config that the
-serving path and training step of v2 and its latent families read (model, critic, distance, train and
+serving path and training step of v2, v3 and their latent families read (model, critic, distance, train and
 data fields), so that the port needs nothing of the JAX package. Every
 field it has, and every resolved accessor, must equal the JAX package's
 for the same presets and overrides (exact: these are ints, floats, tuples,
@@ -39,9 +39,11 @@ def assert_fields_equal(port, ref, path="cfg"):
     TINY + TRAIN,
 ], ids=["default", "tiny", "per-side", "ratios", "train"])
 @pytest.mark.parametrize("names", [["v2"], ["v2", "causal"], ["discrete"], ["discrete", "causal"],
-                                   ["v2", "wasserstein"], ["v2", "spherical"]],
+                                   ["v2", "wasserstein"], ["v2", "spherical"], ["v3"],
+                                   ["v3", "causal"], ["discrete_v3"],
+                                   ["v2", "snake", "adain", "descript_discriminator"]],
                          ids=["v2", "v2-causal", "discrete", "discrete-causal", "wasserstein",
-                              "spherical"])
+                              "spherical", "v3", "v3-causal", "discrete-v3", "v2-options"])
 def test_presets_match_jax(names, overrides):
     port, ref = config.compose(names, overrides), jax_config.compose(names, overrides)
     assert_fields_equal(port, ref)
@@ -76,8 +78,11 @@ def test_unported_train_options_raise(flag):
 
 
 def test_refusals():
-    with pytest.raises(KeyError, match="A10"):
-        config.compose(["discrete_v3"])
+    """Presets of later items raise naming them; `discrete_v3` (A10) was
+    refused too and now composes as the JAX package's."""
+    assert_fields_equal(config.compose(["discrete_v3"]), jax_config.compose(["discrete_v3"]))
+    with pytest.raises(KeyError, match="A11"):
+        config.compose(["hybrid"])
     with pytest.raises(AttributeError, match="mel_hop"):
         config.compose(["v2"], ["mel_hop=128"])
     for compose in (config.compose, jax_config.compose):

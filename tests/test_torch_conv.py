@@ -16,7 +16,7 @@ import torch
 from rave_tpu.nn import Conv1d as JConv1d
 from rave_tpu.nn import ConvTranspose1d as JConvTranspose1d
 from rave_tpu.nn import stream_chunks as jax_stream_chunks
-from rave_tpu_torch.nn.conv import Conv1d, ConvTranspose1d, conv_delay, tconv_delay
+from rave_tpu_torch.nn.conv import Conv1d, ConvTranspose1d, conv_delay, freeze_weights, tconv_delay
 from rave_tpu_torch.nn.streaming import init_stream_state, stream_chunks
 from rave_tpu_torch.utils.convert import from_jax_variables
 
@@ -103,3 +103,23 @@ def test_weight_norm_is_per_output_channel():
         with torch.no_grad():
             torch.testing.assert_close(m.weight(), m.v, rtol=1e-6, atol=1e-6)
         assert m.g.shape == (m.features,)
+
+
+@pytest.mark.parametrize("kind", ["conv", "transpose"])
+def test_freeze_weights_fixes_the_kernel(kind):
+    """`freeze_weights` (the artifact's serving) replaces (v, g) by the
+    effective kernel: the same outputs bit for bit, offline and streaming,
+    and no weight-norm op per call."""
+    torch.manual_seed(0)
+    conv = Conv1d(3, 5, 3, weight_norm=True) if kind == "conv" else ConvTranspose1d(
+        3, 5, 2, weight_norm=True)
+    x = torch.randn(2, 3, 16)
+    with torch.no_grad():
+        want, w = conv(x), conv.weight()
+        init_stream_state(conv, 2)
+        want_step = conv.step(x)
+        freeze_weights(conv)
+        init_stream_state(conv, 2)
+        assert torch.equal(conv(x), want) and torch.equal(conv.step(x), want_step)
+    assert set(conv.state_dict()) == {"w", "b"} and torch.equal(conv.w, w)
+    assert not conv.weight_norm and not conv.w.requires_grad

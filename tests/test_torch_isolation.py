@@ -6,8 +6,10 @@ tiny critic and runs one generator step of each phase and one critic step
 through the port's train state, then one generator and one critic step
 with `train.bf16` and `train.bf16_dis`, then `preprocess -> train -> eval ->
 export -> generate` (offline and streaming) through the port's command
-line on a seeded corpus, and `train --config discrete -> export
---streaming -> generate --streaming`, with nothing kept
+line on a seeded corpus, `train --config discrete -> export
+--streaming -> generate --streaming`, and `train --config v3 -> export
+--streaming -> generate` with a streaming call that learns AdaIN's target
+statistics, with nothing kept
 from being imported (where tensorboard and tensorflow are installed,
 tensorflow imports jax: the metrics logger must not reach them), and then
 reports whether jax, flax or any module of the JAX package was ever
@@ -105,17 +107,37 @@ with contextlib.redirect_stdout(io.StringIO()):
                            str(root / "dart" / "discrete_streaming.rtpu"), "--input",
                            str(root / "corpus" / "a.wav"), "--out_path", str(root / "dgen"),
                            "--streaming"]))
+vargs = ["train", "--device", "cpu", "--config", "v3", "--name", "iso_v3", "--db_path",
+         str(root / "db"), "--out_path", str(root / "vruns"), "--batch", "2", "--n_signal",
+         "8192", "--max_steps", "3", "--val_every", "3", "--workers", "2", "--no_progress"]
+for o in tiny + ["train.update_discriminator_every=2", "train.valid_signal_crop=false",
+                 "discriminator.descript_periods=[2]", "discriminator.descript_fft_sizes=[256]"]:
+    vargs += ["--override", o]
+codes.append(cli.main(vargs))
+with contextlib.redirect_stdout(io.StringIO()):
+    codes.append(cli.main(["export", "--device", "cpu", "--output", str(root / "vart"),
+                           "--streaming", "--run", str(next((root / "vruns").iterdir()))]))
+    codes.append(cli.main(["generate", "--device", "cpu", "--model",
+                           str(root / "vart" / "v3_streaming.rtpu"), "--input",
+                           str(root / "corpus" / "a.wav"), "--out_path", str(root / "vgen")]))
+from rave_tpu_torch.export.artifact import ExportedRAVE
+vart = ExportedRAVE(str(root / "vart" / "v3_streaming.rtpu"), device="cpu")
+vart.set_learn_target(True)
+vart.forward(xt[:1, :, : vart.block_size], streaming=True)
+v3_learned = [float(s) for (n, _, _), s in zip(vart.slots, vart.state)
+              if n.endswith("num_update_y")]
 dckpt = torch.load(sorted((drun / "checkpoints").iterdir())[-1], weights_only=True)["model"]
 inited = [float(v) for k, v in dckpt.items() if k.endswith("inited")]
 generated = [wavfile.read(root / f"gen{i}" / "a_reconstructed.wav")[1].shape for i in (0, 1)]
 generated.append(wavfile.read(root / "dgen" / "a_reconstructed.wav")[1].shape)
+generated.append(wavfile.read(root / "vgen" / "a_reconstructed.wav")[1].shape)
 print(json.dumps({
     "codes": codes, "eval_step": evaluation["step"], "generated": generated,
     "eval_finite": all(np.isfinite(evaluation[k]) for k in ("spectral_distance", "waveform_l1",
                                                             "frechet_mel_distance")),
     "shape": list(y.shape), "finite": bool(torch.isfinite(y).all()),
     "stream_shape": list(s.shape), "train_step": state.step, "losses": losses,
-    "discrete_inited": inited,
+    "discrete_inited": inited, "v3_learned": v3_learned,
     "rf": list(receptive_field(tcfg, device="cpu")),
     "loaded": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "rave_tpu")),
@@ -135,9 +157,10 @@ def test_port_never_imports_jax():
     assert out["stream_shape"] == [1, 1, 512]
     assert out["train_step"] == 5 and all(math.isfinite(v) for v in out["losses"])
     assert out["rf"][0] > 0
-    assert out["codes"] == [0] * 9 and out["eval_step"] == 2 and out["eval_finite"]
-    assert out["generated"] == [[52 * 8192]] * 3
+    assert out["codes"] == [0] * 12 and out["eval_step"] == 2 and out["eval_finite"]
+    assert out["generated"] == [[52 * 8192]] * 4
     assert out["discrete_inited"] == [1.0, 1.0]
+    assert out["v3_learned"] == [1.0] * 6  # one target update in each AdaIN layer
 
 
 FOREIGN = {"yaml", "orbax", "tensorboard", "jax", "jaxlib", "flax", "rave_tpu"}

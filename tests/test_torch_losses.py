@@ -23,7 +23,7 @@ from rave_tpu_torch.config import compose
 from rave_tpu_torch.factory import build_audio_distance, build_discriminator, build_gan_loss
 from rave_tpu_torch.models.discriminators import MultiPeriodDiscriminator, MultiScaleDiscriminator
 from rave_tpu_torch.ops import dsp, stft
-from rave_tpu_torch.utils.convert import from_jax_variables
+from rave_tpu_torch.utils.convert import convert_tree, from_jax_variables
 
 TOL = 1e-5
 TINY = ["capacity=2", "discriminator.capacity=2", "latent_size=4", "ratios=[4,4,2]",
@@ -106,8 +106,17 @@ def test_unported_losses_raise():
         build_audio_distance(compose(["v2"], ['distance.kind="encodec"']))
     with pytest.raises(NotImplementedError, match="A11"):
         build_audio_distance(compose(["v2"], ["distance.num_mels=64"]))
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_discriminator(compose(["v2"], ['discriminator.kind="descript"']), device="cpu")
+    # the descript critic (A10) was refused too and is ported: it builds as
+    # the JAX factory's, parameter for parameter (tests/test_torch_descript.py
+    # holds its maps to the JAX critic's)
+    small = ['discriminator.kind="descript"', "discriminator.descript_periods=[2]",
+             "discriminator.descript_fft_sizes=[256]"]
+    variables = jax_params(jax_build_discriminator(jax_compose(["v2"], small)),
+                           signal((2, 1024, 1), seed=11))
+    port = build_discriminator(compose(["v2"], small), device="cpu")
+    from_jax_variables(port, variables)
+    assert {n for n, _ in port.named_parameters()} == set(
+        convert_tree(port, jax.tree_util.tree_map(np.asarray, variables["params"])))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the device time goes in rave_tpu_torch's v2 serving path and training step.
+"""Where the device time goes in rave_tpu_torch's serving paths and training steps.
 
     python3 tools/torch_profile.py [--out profile.txt] [--top 18] [--cells a,b,...]
 
@@ -22,14 +22,21 @@ default):
   train_bf16 : the same with train.bf16 and train.bf16_dis (the CLI's
             `--bf16`), the fused unit's bf16 kernel;
   artifact_v2, artifact_discrete : the artifact's eager streaming block,
-            `StepProgram("forward")` over `EncodeSide` / `DecodeSide`, as
-            `ExportedRAVE.forward(streaming=True)` runs it, for
+            `StepProgram("forward")` over `EncodeSide` / `DecodeSide` with the
+            kernels fixed, as `ExportedRAVE.forward(streaming=True)` runs it, for
             compose(["v2"]) (2048 samples) and compose(["discrete"]) (1024
             samples: its latent codec is the RVQ's 16 encode and 16 decode
             stages): 4 warm, 8 timed, 12 profiled;
   train_discrete : the `train` cell for compose(["discrete"]); its warm
             step runs the k-means init, the timed and profiled steps the
-            EMA codebooks.
+            EMA codebooks;
+  train_v3, artifact_v3 : the `train` and artifact cells for
+            compose(["v3"]) (Snake units, which bypass the fused kernel, AdaIN,
+            the descript critic); its 2048-sample block streams through
+            AdaIN's statistics, learning off.
+
+Every train cell also reports the critic's forward (the kernels launched
+under a `record_function` range around it) beside cuDNN's share.
 
 Each cell is timed unprofiled first (host clock around work that ends in
 `synchronize`), then traced by `torch.profiler` with CPU and CUDA activity.
@@ -98,23 +105,32 @@ def kernel_ms(prof, calls: int, pattern) -> float:
                and pattern.search(e.name)) / 1e3 / calls
 
 
+def range_ms(prof, calls: int, name: str) -> float:
+    """Device time of the kernels launched under the `record_function` range `name`."""
+    from torch.autograd import DeviceType
+
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CPU and e.name == name) / 1e3 / calls
+
+
 def unit_share(prof, calls: int, busy_ms: float) -> str:
     """Device time of the fused unit per call (its forward kernel, either
     variant, and the kernels under the backward's `record_function` range),
-    and that of cuDNN's kernels (convolutions and their layout transforms)."""
-    from torch.autograd import DeviceType
-
+    that of cuDNN's kernels (convolutions and their layout transforms), and
+    that of the critic's forward (the kernels under its range)."""
     fwd = kernel_ms(prof, calls, UNIT_KERNEL)
-    bwd = sum(e.device_time_total for e in prof.events()
-              if e.device_type == DeviceType.CPU and e.name == BACKWARD_RANGE) / 1e3 / calls
+    bwd = range_ms(prof, calls, BACKWARD_RANGE)
     conv = kernel_ms(prof, calls, CONV_KERNEL)
+    critic = range_ms(prof, calls, CRITIC_RANGE)
     return (f"fused unit: forward kernel {fwd:.3f} ms + recompute backward {bwd:.3f} ms = "
             f"{fwd + bwd:.3f} ms per call, {100 * (fwd + bwd) / busy_ms:.1f}% of device busy; "
             f"cuDNN convolutions and layout transforms (the recompute's included) {conv:.3f} ms, "
-            f"{100 * conv / busy_ms:.1f}%")
+            f"{100 * conv / busy_ms:.1f}%; the critic's forward {critic:.3f} ms, "
+            f"{100 * critic / busy_ms:.1f}%")
 
 
 BACKWARD_RANGE = "fused_dilated_unit.backward"
+CRITIC_RANGE = "critic.forward"
 
 
 def train_cell(activities, top: int, overrides=(), names=("v2",)) -> list[str]:
@@ -137,6 +153,13 @@ def train_cell(activities, top: int, overrides=(), names=("v2",)) -> list[str]:
     cfg = compose(list(names), list(overrides))
     steps = build_train_steps(cfg, crop_frames(cfg, receptive_field(cfg, device="cuda")))
     state = create_train_state(cfg, seed=0, device="cuda")
+    critic_forward = state.discriminator.forward
+
+    def traced_critic(x):
+        with record_function(CRITIC_RANGE):
+            return critic_forward(x)
+
+    state.discriminator.forward = traced_critic
     x = torch.randn(cfg.data.batch, 1, cfg.data.n_signal, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(6)) * 0.1
     noise = torch.Generator(device="cuda").manual_seed(7)
@@ -248,12 +271,16 @@ def artifact_cell(activities, top: int, names) -> list[str]:
     import torch
 
     from rave_tpu_torch.config import compose
-    from rave_tpu_torch.export.artifact import DecodeSide, EncodeSide, StepProgram, zero_state
+    from rave_tpu_torch.export.artifact import (
+        DecodeSide, EncodeSide, StepProgram, initial_state,
+    )
     from rave_tpu_torch.export.export import user_latent_size
     from rave_tpu_torch.factory import build_rave
+    from rave_tpu_torch.nn.conv import freeze_weights
 
     cfg = compose(list(names))
     model = build_rave(cfg, stream_batch=1, seed=4, device="cuda").eval().requires_grad_(False)
+    freeze_weights(model)  # as ExportedRAVE serves it
     latent_size = (cfg.latent_size if cfg.latent.family == "variational"  # untruncated
                    else user_latent_size(cfg, None, 0.0))
     program = StepProgram("forward", model, EncodeSide(model, cfg, latent_size),
@@ -261,7 +288,7 @@ def artifact_cell(activities, top: int, names) -> list[str]:
     block = cfg.block_size()
     x = torch.randn(1, 1, block * 24, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(5)) * 0.1
-    state = [zero_state(model)]
+    state = [initial_state(model)]
     seed = torch.tensor(0, dtype=torch.int64, device="cuda")
 
     def step(i):
@@ -282,6 +309,8 @@ CELLS = {
     "artifact_v2": lambda act, top: artifact_cell(act, top, ["v2"]),
     "artifact_discrete": lambda act, top: artifact_cell(act, top, ["discrete"]),
     "train_discrete": lambda act, top: train_cell(act, top, names=["discrete"]),
+    "train_v3": lambda act, top: train_cell(act, top, names=["v3"]),
+    "artifact_v3": lambda act, top: artifact_cell(act, top, ["v3"]),
 }
 
 
