@@ -13,11 +13,17 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                samples, fp32 with TF32 off, and at each C a ragged length
                (T - 21: no whole 128-frame tile, padded for TMA's 16-byte
                rows) and B=1 (a grid that fills few SMs), and the centered
-               shapes at B=2 (phase 11's validation and eval batches); max
-               relative error <= 1e-4; both times by CUDA events;
+               shapes at B=2 (phase 11's validation and eval batches); then
+               the unit shapes of phase 15's forwards that v2's do not
+               cover (`variant_unit_cases`: C = 48, 64, 128, 256, 512, whose
+               output passes and, in bf16, input chunks are partial, up to
+               C=64 at T=131072), centered at B=16, with a ragged length and
+               B=1 at each new C; max relative error <= 1e-4; both times by
+               CUDA events;
   4. kernel_bf16 : the bf16 variant at the 22 unit shapes of a B=8 step
-               (centered and causal), the 11 centered ones at B=16, and the
-               ragged and B=1 shapes of phase 3; the referee is the plain
+               (centered and causal), the 11 centered ones at B=16, the
+               ragged and B=1 shapes of phase 3, and the variants' shapes of
+               phase 3 at B=8; the referee is the plain
                version in fp32 on the same bf16 inputs and weights: the
                kernel may be no further from it than 1.1x the plain bf16
                version, and within 1e-2 of the plain bf16;
@@ -163,13 +169,39 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                B=16 forward, the k-means step apart, one step of each program
                at B=8, B=1 losses card vs CPU (1e-3) and `check_codes`;
                work in build/v3, deleted at the end;
- 15. the kernels' JSON line, then the last line
+ 15. variants : v2_small (capacity 48, ratios 4.2.2.2, the noise synth with
+               32 bands), v2_nopqmf (capacity 64, raw-waveform output,
+               decoder ratios 8.8.8.4) and hybrid (mel input, hop 256,
+               encoder ratios 2.2.2, a 2-layer GRU at the decoder's input)
+               at full width, TF32 off, each: (a) the forward at B=16 x
+               131072 with exactly 22, 22 and 14 launches, each unit's
+               (C, T, dilation) as VARIANT_UNITS lists them, timed, and at
+               B=1 x 65536 the card against the CPU (1e-3) on the same
+               weights and draws (the variational eps, the noise synth's
+               uniforms); (b) blocks of block_size() streamed through
+               step_encode and step_decode against the offline encode and
+               decode past the delays (1e-3; the noise synth's offline
+               draws shifted by its lag), and the p50 of 32 streaming
+               forward blocks against the block's budget; (c) the
+               receptive-field crop, one step of each program at B=8 x
+               131072 after a warm one (launches exact, ms, peak memory) and
+               the first step of each at B=1 x 65536 on the card against the
+               CPU (losses 1e-4); (d) `cli train --config <preset>` 3 steps
+               (the three programs) on phase 11's store with the device
+               dataset (v2_nopqmf's RandomCompress off for it), `cli export
+               --streaming`, `cli generate` of a 30 s file (a forward's
+               launches), the artifact on the card against the CPU (3 s clip
+               offline, 8 streaming blocks; 1e-3) and `forward_step.pt2`
+               against the eager steps over 32 blocks (1e-5), the streaming
+               p50 eager and .pt2. hybrid trains without the valid-signal
+               crop (ROADMAP C12). Work in build/variants, deleted at the end;
+ 16. the kernels' JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Per-shape details go to build/chip_smoke.json; the loop and export phases
 work in build/loop (corpus, db, run dirs, artifacts, generated wavs), the
-discrete phase in build/discrete and the v3 phase in build/v3 (each deleted
-at its end).
+discrete phase in build/discrete, the v3 phase in build/v3 and the
+variants phase in build/variants (each deleted at its end).
 """
 from __future__ import annotations
 
@@ -371,8 +403,8 @@ def phase_kernel() -> list:
     # the loop's validation and eval batches: the 2 clips of the validation split
     val_cases = [("val", LOOP_VAL_BATCH, C, T, d, "centered") for C, T, dils in UNIT_SHAPES
                  for d in dils]
-    rows = [kernel_row(gen, *case)
-            for case in kernel_cases(BATCH, ("centered", "causal")) + val_cases]
+    rows = [kernel_row(gen, *case) for case in kernel_cases(BATCH, ("centered", "causal"))
+            + val_cases + variant_unit_cases(BATCH)]
     worst = max(r["rel_err"] for r in rows)
     print(f"kernel: {len(rows)} shapes, max rel err {worst:.2e} <= {KERNEL_TOL}; "
           f"kernel/plain ms: {shape_summary(rows)}", flush=True)
@@ -395,7 +427,8 @@ def phase_kernel_bf16() -> list:
     gen = torch.Generator(device="cuda").manual_seed(20)
     rows = []
     cases = (kernel_cases(TRAIN_BATCH, ("centered", "causal"))
-             + [c for c in kernel_cases(BATCH, ("centered",)) if c[0] == "main"])
+             + [c for c in kernel_cases(BATCH, ("centered",)) if c[0] == "main"]
+             + variant_unit_cases(TRAIN_BATCH))
     for case, B, C, T, d, mode in cases:
         x = torch.randn(B, C, T, device="cuda", generator=gen).bfloat16()
         w1, w2 = unit_weights(C, gen, torch.bfloat16)
@@ -2434,6 +2467,416 @@ def phase_v3() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase `variants`: v2_small (the noise synth), v2_nopqmf (raw-waveform
+# output) and hybrid (mel input, a 2-layer GRU) at full width
+# ---------------------------------------------------------------------------
+
+VARIANTS = ("v2_small", "v2_nopqmf", "hybrid")
+# the residual units of one forward at B x 131072 samples, in launch order:
+# (C, T, dilations) of each stage, the encoder's then the decoder's
+VARIANT_UNITS = {
+    "v2_small": [(48, 8192, (1, 3, 9)), (96, 2048, (1, 3, 9)), (192, 1024, (1, 3, 9)),
+                 (384, 512, (1, 3)), (384, 512, (1, 3)), (192, 1024, (1, 3, 9)),
+                 (96, 2048, (1, 3, 9)), (48, 8192, (1, 3, 9))],
+    "v2_nopqmf": [(64, 8192, (1, 3, 9)), (128, 2048, (1, 3, 9)), (256, 512, (1, 3, 9)),
+                  (512, 128, (1, 3)), (512, 256, (1, 3)), (256, 2048, (1, 3, 9)),
+                  (128, 16384, (1, 3, 9)), (64, 131072, (1, 3, 9))],
+    "hybrid": [(96, 512, (1,)), (192, 256, (1,)), (384, 128, (1,)), (768, 128, (1, 3)),
+               (384, 512, (1, 3, 9)), (192, 2048, (1, 3, 9)), (96, 8192, (1, 3, 9))],
+}
+VARIANT_LAUNCHES = {k: sum(len(d) for _, _, d in v) for k, v in VARIANT_UNITS.items()}
+# hybrid's receptive field, 21759 / 21503 samples (architectural: the probe on the CPU at
+# capacity 2), divided by the channels alone as rave_tpu/train/loop.py:168 does under mel
+# input, crops more band frames than a 131072-sample clip has (ROADMAP C12): its steps and
+# run train without the crop
+VARIANT_OVERRIDES = {"hybrid": ["train.valid_signal_crop=false"]}
+# the run: a pre-warmup, an adversarial and a critic step, on the device dataset
+VARIANT_LOOP = ["train.phase_1_duration=1", "train.update_discriminator_every=2",
+                "data.augmentations=[]"]
+VARIANT_LOOP_STEPS, VARIANT_B1_SIGNAL = 3, 65536
+VARIANT_STREAM_BLOCKS = 32  # timed streaming forward blocks
+
+
+def variant_unit_cases(batch: int) -> list:
+    """The kernel cases of the variants' unit shapes that v2's do not cover,
+    centered at `batch`; then at each channel count new to the kernel, at
+    its longest T and widest dilation there, a ragged length (T - 21) at
+    `batch` and the length itself at B=1."""
+    v2 = {(C, T, d) for C, T, dils in UNIT_SHAPES for d in dils}
+    shapes = sorted({(C, T, d) for units in VARIANT_UNITS.values() for C, T, dils in units
+                     for d in dils} - v2)
+    cases = [("variant", batch, C, T, d, "centered") for C, T, d in shapes]
+    widths = {C for C, _, _ in UNIT_SHAPES}
+    widest = {}
+    for C, T, d in shapes:
+        if C not in widths:
+            widest[C] = max(widest.get(C, (0, 0)), (T, d))
+    for C, (T, d) in sorted(widest.items()):
+        cases += [("ragged", batch, C, T - 21, d, "centered"), ("b1", 1, C, T, d, "centered")]
+    return cases
+
+
+def unit_rows_of(rows, preset: str, batch: int) -> list:
+    """The kernel phases' rows of one forward's units of `preset` at `batch`
+    (each launch once), centered."""
+    table = {(r["C"], r["T"], r["d"]): r for r in rows
+             if r["B"] == batch and r["mode"] == "centered" and r["case"] in ("main", "variant")}
+    return [table[(C, T, d)] for C, T, dils in VARIANT_UNITS[preset] for d in dils]
+
+
+def variant_cfg(preset: str):
+    from rave_tpu_torch.config import compose
+
+    return compose([preset], VARIANT_OVERRIDES.get(preset, []))
+
+
+def _unit_trace(model) -> list:
+    """Forward hooks on every fused unit of `model`, recording (C, T,
+    dilation) per call; returns the list and the hooks."""
+    from rave_tpu_torch.models.blocks import FusedDilatedResidual
+
+    seen, hooks = [], []
+    for m in model.modules():
+        if isinstance(m, FusedDilatedResidual):
+            dil = m.inner.dilation
+            hooks.append(m.register_forward_hook(
+                lambda mod, args, out, dil=dil: seen.append((args[0].shape[1], args[0].shape[2],
+                                                             dil))))
+    return seen, hooks
+
+
+def _variant_draws(cfg, x, gen):
+    """The variational eps and the noise synth's uniforms of a pass over x."""
+    import torch
+
+    from rave_tpu_torch.models.blocks import LatentDraws
+
+    B, T_lat = x.shape[0], x.shape[-1] // cfg.decimation()
+    eps = torch.randn(B, cfg.latent_size, T_lat, device=x.device, generator=gen)
+    shape = cfg.noise_shape(x.shape[1], B, T_lat)
+    uniform = None if shape is None else torch.rand(shape, device=x.device, generator=gen)
+    return LatentDraws(eps=eps, uniform=uniform)
+
+
+def _variant_offline(preset: str, cfg) -> dict:
+    """B=16 x 131072 forward (exact launches, the units' shapes, timed), and
+    B=1 x 65536 card against CPU."""
+    import torch
+
+    from rave_tpu_torch.factory import build_rave
+    from rave_tpu_torch.ops.kernels import dilated_unit
+
+    cpu_model = build_rave(cfg, seed=0, device="cpu").eval()
+    model = copy.deepcopy(cpu_model).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(BATCH, 1, N_SIGNAL, device="cuda", generator=gen) * 0.1
+    draws = _variant_draws(cfg, x, gen)
+    want = VARIANT_LAUNCHES[preset]
+    with torch.inference_mode():
+        model(x, draws)  # warm
+        seen, hooks = _unit_trace(model)
+        torch.cuda.synchronize()
+        before = (dilated_unit.launches, dilated_unit.launches_bf16)
+        y = model(x, draws)
+        torch.cuda.synchronize()
+        launches = dilated_unit.launches - before[0]
+        for h in hooks:
+            h.remove()
+        units = [(C, T, d) for C, T, dils in VARIANT_UNITS[preset] for d in dils]
+        check(seen == units, f"{preset}: the forward's units {seen}, expected {units}")
+        check(launches == want and dilated_unit.launches_bf16 == before[1],
+              f"{preset}: {launches} launches in one forward, expected {want} fp32")
+        check(tuple(y.shape) == (BATCH, 1, N_SIGNAL) and bool(torch.isfinite(y).all()),
+              f"{preset}: output {tuple(y.shape)} or not finite")
+        iters = 5
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model(x, draws)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / iters
+        n = VARIANT_B1_SIGNAL
+        xb = torch.randn(1, 1, n, generator=torch.Generator().manual_seed(2)) * 0.1
+        db = _variant_draws(cfg, xb, torch.Generator().manual_seed(3))
+        y_cpu = cpu_model(xb, db)
+        y_gpu = model(xb.cuda(), db.to("cuda")).cpu()
+        err = rel_err(y_gpu, y_cpu)
+        check(err <= MODEL_TOL, f"{preset}: card vs CPU forward {err:.3e} > {MODEL_TOL}")
+    return {"launches_per_forward": want, "forward_ms": sec * 1e3,
+            "realtime_factor": BATCH * N_SIGNAL / SAMPLE_RATE / sec, "b1_rel_err": err}
+
+
+def _variant_stream(preset: str, cfg) -> dict:
+    """Streamed blocks of block_size() against the offline output past the
+    delays (encode; decode on the noise synth's offline draws shifted by its
+    lag), and the p50 of a streaming forward block (encode + decode)."""
+    import torch
+
+    from rave_tpu_torch.factory import build_rave
+    from rave_tpu_torch.nn.streaming import init_stream_state
+
+    model = build_rave(cfg, stream_batch=1, seed=4, device="cuda").eval()
+    block, D, dec = cfg.block_size(), cfg.latent_size, cfg.decimation()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    frames = block // dec
+    with torch.inference_mode():
+        De = model.encode_delay
+        n_enc = 8 + 2 * -(-De * dec // block)
+        x = torch.randn(1, 1, block * n_enc, device="cuda", generator=gen) * 0.1
+        init_stream_state(model, 1)
+        z_st = torch.cat([model.step_encode(x[..., i * block:(i + 1) * block])
+                          for i in range(n_enc)], -1)
+        z_off = model.encode(x)
+        z_err = rel_err(z_st[..., 2 * De:], z_off[..., De:z_off.shape[-1] - De])
+
+        Dd = model.decode_delay
+        n_dec = 8 + 2 * -(-Dd // block)
+        n_lat = frames * n_dec
+        latent = torch.randn(1, D, n_lat, device="cuda", generator=gen)
+        shape, u_off, u_st = cfg.noise_shape(1, 1, n_lat), None, [None] * n_dec
+        if shape is not None:
+            noise = model.decoder.synth.branches[1]
+            lag = noise.delay // noise.target_size
+            u_off = torch.rand(shape, device="cuda", generator=gen)
+            shifted = torch.cat([torch.zeros_like(u_off[:, :lag]), u_off[:, :shape[1] - lag]], 1)
+            u_st = shifted.split(shape[1] // n_dec, dim=1)
+        init_stream_state(model, 1)
+        y_st = torch.cat([model.step_decode(latent[..., i * frames:(i + 1) * frames], u_st[i])
+                          for i in range(n_dec)], -1)
+        y_off = model.decode(latent, u_off)
+        y_err = rel_err(y_st[..., 2 * Dd:], y_off[..., Dd:y_off.shape[-1] - Dd])
+        check(bool(torch.isfinite(y_st).all()) and y_st.shape == y_off.shape,
+              f"{preset}: stream {tuple(y_st.shape)} or not finite")
+        check(z_err <= MODEL_TOL and y_err <= MODEL_TOL,
+              f"{preset}: stream vs offline past the delays z {z_err:.3e}, y {y_err:.3e}")
+
+        init_stream_state(model, 1)
+        xs = torch.randn(1, 1, block * VARIANT_STREAM_BLOCKS, device="cuda", generator=gen)
+        times = []
+        for i in range(VARIANT_STREAM_BLOCKS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            z = model.step_encode(xs[..., i * block:(i + 1) * block])
+            shape = cfg.noise_shape(1, 1, frames)
+            u = None if shape is None else torch.rand(shape, device="cuda", generator=gen)
+            model.step_decode(z[:, :D], u)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return {"block": block, "encode_delay": De, "decode_delay": Dd, "z_rel_err": z_err,
+            "y_rel_err": y_err, "block_ms_p50": statistics.median(times) * 1e3,
+            "block_budget_ms": block / SAMPLE_RATE * 1e3}
+
+
+def _variant_state(cfg, device: str, step: int):
+    from rave_tpu_torch.train.state import create_train_state
+
+    st = create_train_state(cfg, seed=0, device=device)
+    st.step = step
+    return st
+
+
+def _variant_steps(preset: str, cfg) -> dict:
+    """The receptive-field crop, one step of each program at B=8 x 131072
+    after one warm step each (exact launches, times, peak memory), and the
+    first step of each program at B=1 on the card against the CPU (losses)."""
+    import torch
+
+    from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.train.analysis import crop_frames, receptive_field
+    from rave_tpu_torch.train.steps import build_train_steps, draw_noise
+
+    rf = receptive_field(cfg, device="cuda") if cfg.train.valid_signal_crop else (0, 0)
+    crop = crop_frames(cfg, rf)
+    steps = build_train_steps(cfg, crop)
+    t1 = cfg.train.phase_1_duration
+    programs = {"gen_prewarmup": ("gen", False, 0), "gen_adversarial": ("gen", True, t1 + 1),
+                "dis": ("dis", True, t1)}
+    want = VARIANT_LAUNCHES[preset]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(TRAIN_BATCH, 1, N_SIGNAL, device="cuda", generator=gen) * 0.1
+    st = _variant_state(cfg, "cuda", 0)
+    ms = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name, (which, warmed, step) in programs.items():
+        times = []
+        for _ in range(2):  # a warm step, then the timed one
+            st.step = step
+            draws = draw_noise(cfg, x, gen)
+            torch.cuda.synchronize()
+            before = (dilated_unit.launches, dilated_unit.launches_bf16)
+            t0 = time.perf_counter()
+            m = (steps["gen"](st, x, warmed, draws=draws) if which == "gen"
+                 else steps["dis"](st, x, draws=draws))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            n = dilated_unit.launches - before[0]
+            check(n == want and dilated_unit.launches_bf16 == before[1],
+                  f"{preset} {name}: {n} launches, expected {want} fp32")
+            bad = [k for k, v in m.items() if not math.isfinite(float(v))]
+            check(not bad, f"{preset} {name}: non-finite {bad}")
+        ms[name] = times[-1] * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    xb = torch.randn(1, 1, VARIANT_B1_SIGNAL, generator=torch.Generator().manual_seed(8)) * 0.1
+    db = draw_noise(cfg, xb, torch.Generator().manual_seed(9))
+    errs = {}
+    for name, (which, warmed, step) in programs.items():
+        losses = {}
+        for device in ("cuda", "cpu"):
+            s = _variant_state(cfg, device, step)
+            d = db.to(device)
+            m = (steps["gen"](s, xb.to(device), warmed, draws=d) if which == "gen"
+                 else steps["dis"](s, xb.to(device), draws=d))
+            losses[device] = {k: float(v) for k, v in m.items() if _is_loss(k)}
+        errs[name] = _loss_err(losses["cuda"], losses["cpu"])
+        check(errs[name] <= LOSS_TOL, f"{preset} {name} B=1 card vs CPU losses "
+                                      f"{errs[name]:.3e} > {LOSS_TOL}: {losses}")
+    return {"receptive_field": list(rf), "crop_frames": list(crop), "ms_per_step": ms,
+            "peak_gb": peak, "b1_loss_rel_err": errs}
+
+
+def _variant_loop_export(preset: str, cfg, work: Path, db: Path) -> dict:
+    """`cli train --config <preset>` a few steps on phase `loop`'s store
+    (device dataset), `cli export --streaming`, `cli generate` of a 30 s
+    file; the artifact on the card against the CPU (3 s clip offline and 8
+    streaming blocks, the same seeds), `forward_step.pt2` against the eager
+    steps over 32 blocks (<= 1e-5), the streaming p50."""
+    import torch
+
+    from rave_tpu_torch.data.audio_io import decode_file
+    from rave_tpu_torch.export.artifact import ExportedRAVE
+    from rave_tpu_torch.export.generate import load_signal
+    from rave_tpu_torch.ops.kernels import dilated_unit
+
+    want = VARIANT_LAUNCHES[preset]
+    args = ["train", "--config", preset, "--db_path", db, "--out_path", work / "runs",
+            "--batch", TRAIN_BATCH, "--n_signal", N_SIGNAL, "--device", "cuda", "--val_every",
+            1000, "--save_every", 1000, "--device_data", "on", "--name", preset,
+            "--max_steps", VARIANT_LOOP_STEPS]
+    for o in VARIANT_LOOP + VARIANT_OVERRIDES.get(preset, []):
+        args += ["--override", o]
+    with LoopProbe() as probe:
+        out = _cli(args)
+        events = probe.take()
+    run_dir = Path(out.strip().splitlines()[-1].removeprefix("run dir: "))
+    check("device-resident dataset" in out, f"{preset}: the run did not use the device dataset")
+    _check_steps(events, "fp32", 0, VARIANT_LOOP_STEPS, probe=cfg.train.valid_signal_crop,
+                 per_step=want)
+    phases = [e["phase"] for e in events if e["kind"] == "step"]
+    check(phases == ["gen_prewarmup", "gen_adversarial", "dis"], f"{preset} phases {phases}")
+
+    t0 = time.perf_counter()
+    text = _cli(["export", "--run", run_dir, "--streaming", "--output", work / "export",
+                 "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    path = Path(text.strip().splitlines()[-1].removeprefix("exported: "))
+    manifest = json.loads((path / "manifest.json").read_text())
+    check(manifest["block_size"] == cfg.block_size(), f"{preset} manifest block size")
+    wav = work / f"{preset}_in.wav"
+    n = write_signal(wav, EXPORT_SECONDS, seed=23)
+    torch.cuda.synchronize()
+    before = dilated_unit.launches
+    t0 = time.perf_counter()
+    _cli(["generate", "--model", path, "--input", wav, "--out_path", work / "generated",
+          "--device", "cuda"])
+    torch.cuda.synchronize()
+    generate_s, gen_launches = time.perf_counter() - t0, dilated_unit.launches - before
+    check(gen_launches == want, f"{preset} generate: {gen_launches} launches, expected {want}")
+
+    art, cpu = ExportedRAVE(str(path), device="cuda"), ExportedRAVE(str(path), device="cpu")
+    B = art.block_size
+    x = load_signal(decode_file(str(wav), SAMPLE_RATE, 1), 1, 1, B).cuda()
+    clip = x[..., : -(-int(CLIP_SECONDS * SAMPLE_RATE) // B) * B]
+    off_err = rel_err(art.forward(clip, seed=11).cpu(), cpu.forward(clip.cpu(), seed=11))
+    ys_card, ys_cpu = [], []
+    for i in range(CPU_STREAM_BLOCKS):
+        xb = x[..., i * B:(i + 1) * B]
+        ys_card.append(art.forward(xb, streaming=True, seed=100 + i).cpu())
+        ys_cpu.append(cpu.forward(xb.cpu(), streaming=True, seed=100 + i))
+    st_err = rel_err(torch.cat(ys_card, -1), torch.cat(ys_cpu, -1))
+    check(off_err <= MODEL_TOL and st_err <= MODEL_TOL,
+          f"{preset} artifact card vs CPU: offline {off_err:.3e}, streaming {st_err:.3e}")
+
+    program = art.load_program("forward")
+    art.reset_stream()
+    state = [s.clone() for s in art.state]
+    eager_ms, program_ms, worst = [], [], 0.0
+    for i in range(PROGRAM_BLOCKS):
+        xb = x[..., i * B:(i + 1) * B]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_e = art.forward(xb, streaming=True, seed=3000 + i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y_p, state = program(state, xb, torch.tensor(3000 + i, device="cuda"))
+        torch.cuda.synchronize()
+        eager_ms.append((t1 - t0) * 1e3)
+        program_ms.append((time.perf_counter() - t1) * 1e3)
+        worst = max([worst, rel_err(y_p, y_e)]
+                    + [rel_err(a, b, 1.0) for a, b in zip(state, art.state)])
+    check(worst <= PROGRAM_TOL, f"{preset} forward_step.pt2 vs eager {worst:.3e} > {PROGRAM_TOL}")
+    return {"loop_ms": loop_ms(events), "export_s": export_s, "generate_s": generate_s,
+            "realtime_factor_generate": n / SAMPLE_RATE / generate_s,
+            "generate_launches": gen_launches, "card_vs_cpu": {"offline": off_err,
+                                                               "streaming": st_err},
+            "program_vs_eager": worst, "block_ms_p50": {"eager": statistics.median(eager_ms),
+                                                        "program": statistics.median(program_ms)},
+            "block_budget_ms": B / SAMPLE_RATE * 1e3}
+
+
+def phase_variants() -> dict:
+    """v2_small, v2_nopqmf and hybrid at full width; see the module docstring."""
+    import torch
+
+    from rave_tpu_torch.ops.kernels import dilated_unit
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "variants"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    db = ROOT / "build" / "loop" / "db"
+    out = {}
+    torch.cuda.synchronize()
+    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    for preset in VARIANTS:
+        start = dilated_unit.launches
+        cfg = variant_cfg(preset)
+        parts = {"offline": lambda: _variant_offline(preset, cfg),
+                 "stream": lambda: _variant_stream(preset, cfg),
+                 "steps": lambda: _variant_steps(preset, cfg),
+                 "loop_export": lambda: _variant_loop_export(preset, cfg, work / preset, db)}
+        t0, res, seconds = time.perf_counter(), {}, {}
+        for name, run in parts.items():
+            t = time.perf_counter()
+            res[name] = run()
+            seconds[name] = time.perf_counter() - t
+        res["launches"] = dilated_unit.launches - start
+        res["seconds"], res["part_seconds"] = time.perf_counter() - t0, seconds
+        out[preset] = res
+        o, s, st, le = res["offline"], res["stream"], res["steps"], res["loop_export"]
+        print(f"variants {preset}: forward B={BATCH} x {N_SIGNAL} {o['forward_ms']:.2f} ms = "
+              f"{o['realtime_factor']:.1f}x realtime, {o['launches_per_forward']} launches per "
+              f"forward; B=1 card vs CPU {o['b1_rel_err']:.2e}; stream vs offline z "
+              f"{s['z_rel_err']:.2e} y {s['y_rel_err']:.2e}, p50 {s['block_ms_p50']:.3f} ms per "
+              f"{s['block']}-sample block (budget {s['block_budget_ms']:.2f}); steps B="
+              f"{TRAIN_BATCH} ms " + ", ".join(f"{k} {v:.1f}" for k, v in st["ms_per_step"].items())
+              + f", peak {st['peak_gb']:.2f} GiB, rf {st['receptive_field']}; B=1 card vs CPU "
+              "losses " + ", ".join(f"{k} {v:.1e}" for k, v in st["b1_loss_rel_err"].items())
+              + f"; cli train/export/generate: generate 30 s {le['realtime_factor_generate']:.1f}x"
+              f", artifact card vs CPU {le['card_vs_cpu']['offline']:.1e} / "
+              f"{le['card_vs_cpu']['streaming']:.1e}, .pt2 vs eager {le['program_vs_eager']:.1e}"
+              f", p50 eager {le['block_ms_p50']['eager']:.3f} / .pt2 "
+              f"{le['block_ms_p50']['program']:.3f} ms; {res['launches']} launches; "
+              f"{res['seconds']:.1f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    launches = dilated_unit.launches
+    check(dilated_unit.launches_bf16 == 0 and all(r["launches"] > 0 for r in out.values()),
+          f"variants: launches {[r['launches'] for r in out.values()]}, "
+          f"{dilated_unit.launches_bf16} bf16")
+    return {"presets": out, "launches": launches, "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> None:
     if not (ROOT / KERNEL_SOURCE).is_file():
         raise SystemExit(f"chip_smoke: {KERNEL_SOURCE} not found; run from a checkout")
@@ -2456,6 +2899,7 @@ def main() -> None:
     shutil.rmtree(ROOT / "build" / "loop" / "export", ignore_errors=True)
     discrete = phase_discrete()
     v3 = phase_v3()
+    variants = phase_variants()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "rave_tpu"))
     check(not foreign, f"the port loaded the JAX package or jax: {foreign[:5]}")
 
@@ -2474,8 +2918,20 @@ def main() -> None:
               "fp32_b16_discrete_forward": unit_bound(discrete_rows, BATCH, "fp32"),
               **{f"{k}_b8_fwd_bwd": unit_bound(grad[k] * 2, TRAIN_BATCH, k, backward=True)
                  for k in ("fp32", "bf16")}}
-    print("bounds (22 units): " + "; ".join(f"{k} {b['bound_ms']:.3f} ms ({b['bound_by']})"
-                                            for k, b in bounds.items()), flush=True)
+    # each variant's forward: its units at B=16 (fp32, its path) and B=8 (bf16)
+    variant_units = {f"{p}_{kind}": unit_rows_of(r, p, b) for p in VARIANTS
+                     for kind, r, b in (("fp32_b16", rows, BATCH), ("bf16_b8", rows_bf16,
+                                                                     TRAIN_BATCH))}
+    bounds.update({f"{k}_forward": unit_bound(v, BATCH if "b16" in k else TRAIN_BATCH,
+                                              k.split("_")[-2])
+                   for k, v in variant_units.items()})
+    print("bounds (a forward's units): " + "; ".join(
+        f"{k} {b['bound_ms']:.3f} ms ({b['bound_by']})" for k, b in bounds.items()), flush=True)
+
+    def per_variant(kind: str) -> dict:
+        return {key: {p: (sum(r[key] for r in variant_units[f"{p}_{kind}"]) if key != "bound_ms"
+                          else bounds[f"{p}_{kind}_forward"]["bound_ms"]) for p in VARIANTS}
+                for key in ("ms", "plain_ms", "bound_ms")}
     kernels = {"kernels": [{
         "name": "fused_dilated_unit", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": offline["launches"],
@@ -2484,6 +2940,8 @@ def main() -> None:
         "launches_export": export["generate_launches"],
         "launches_discrete": discrete["launches"],
         "launches_v3": v3["launches"],  # Snake units bypass the kernel, as in rave_tpu
+        "launches_variants": variants["launches"],
+        **{f"{k}_variants_b16": v for k, v in per_variant("fp32_b16").items()},
         "ms_discrete_b16": sum(r["ms"] for r in discrete_rows),
         "plain_ms_discrete_b16": sum(r["plain_ms"] for r in discrete_rows),
         "bound_ms_discrete_b16": bounds["fp32_b16_discrete_forward"]["bound_ms"],
@@ -2497,6 +2955,7 @@ def main() -> None:
         "name": "fused_dilated_unit_bf16", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": train_bf16["launches"],
         "launches_loop": loop["launches"]["bf16"],
+        **{f"{k}_variants_b8": v for k, v in per_variant("bf16_b8").items()},
         "max_abs_err": max(r["max_abs_err"] for r in rows_bf16),
         "ms": sum(r["ms"] for r in main_bf16), "plain_ms": sum(r["plain_ms"] for r in main_bf16),
         "bound_ms": bound16["bound_ms"], "bound_by": bound16["bound_by"], "library_ms": None,
@@ -2508,7 +2967,7 @@ def main() -> None:
          "bounds": bounds,
          "offline": offline, "stream": stream, "grad_shapes": grad, "train": train,
          "train_bf16": train_bf16, "remat": remat, "loop": loop, "export": export,
-         "discrete": discrete, "v3": v3, **kernels},
+         "discrete": discrete, "v3": v3, "variants": variants, **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,16 +6,19 @@ The port works in PyTorch's channels-first layout: waveforms are
 against; this package imports nothing of it, and never jax or flax. The entry
 points build on the GPU unless the caller passes `device="cpu"`.
 
-  - rave_tpu_torch.config  : the v2 / causal configuration (model, critic,
-                             distance, train and data fields)
+  - rave_tpu_torch.config  : the configuration (model, critic, distance,
+                             train and data fields) and its presets: v2,
+                             v3, causal, the latent families, and the v2
+                             variants (noise synth, raw output, mel input)
   - rave_tpu_torch.ops     : PQMF filter design and analysis/synthesis; the
-                             kaiser resampler;
+                             kaiser resampler; the noise synth's DSP;
                              STFT, the v1 audio distance, GAN losses; the
                              fused dilated residual unit kernel, fp32 and
                              bf16 (and its autograd.Function)
   - rave_tpu_torch.nn      : dual-mode (offline / streaming) convolutions
-                             with static delay algebra
-  - rave_tpu_torch.models  : v2 encoder/generator blocks, PQMF modules, RAVE;
+                             with static delay algebra, the GRU
+  - rave_tpu_torch.models  : v2 encoder/generator blocks (the noise synth),
+                             PQMF modules, the mel front-end, RAVE;
                              the multi-period and multi-scale critics
   - rave_tpu_torch.factory : build_rave, build_discriminator,
                              build_audio_distance, build_gan_loss
@@ -32,7 +35,7 @@ points build on the GPU unless the caller passes `device="cpu"`.
                              export_model and generate
   - rave_tpu_torch.utils   : weight bridge from rave_tpu parameter trees,
                              checkpoints, metrics logging, per-step seeds
-                             and normal draws from a seed tensor
+                             and normal and uniform draws from a seed tensor
   - rave_tpu_torch.cli     : `python -m rave_tpu_torch.cli preprocess |
                              train | eval | export | generate`
 """

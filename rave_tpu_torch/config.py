@@ -7,7 +7,10 @@ the training driver read, with the same names, defaults and resolved
 accessors, and the presets the port builds: `v2`, `v3` (v2 with Snake,
 AdaIN and the descript critic), `causal`, the latent families `discrete`,
 `discrete_v3`, `wasserstein` and `spherical`, and the option presets
-`snake`, `adain` and `descript_discriminator`.
+`snake`, `adain` and `descript_discriminator`, and the v2 variants: the
+noise synth (`noise`, `v2_small`), raw-waveform output (`v2_nopqmf`,
+`v2_nopqmf_small`) and mel input (`v2_with_augs`, `hybrid`, whose decoder
+has a 2-layer GRU).
 `compose(names, overrides)` stacks presets and applies dotted overrides as
 the reference does (`compose(["v2", "causal"], ["capacity=2",
 "ratios=[4,4,2]"])`). `snapshot` / `config_hash` / `from_dict` write and
@@ -31,7 +34,7 @@ class EncoderConfig:
     kind: str = "v2"
     capacity: Optional[int] = None  # None -> cfg.capacity
     ratios: Optional[Tuple[int, ...]] = None  # None -> cfg.ratios
-    data_size: Optional[int] = None  # None -> n_band (pqmf) / 1
+    data_size: Optional[int] = None  # None -> n_band (pqmf) / n_mels (mel) / 1
     dilations: Optional[Tuple] = None  # None -> cfg.dilations
     kernel_size: Optional[int] = None  # None -> cfg.kernel_size
     keep_dim: bool = False
@@ -55,7 +58,10 @@ class DecoderConfig:
     ratios: Optional[Tuple[int, ...]] = None
     keep_dim: bool = False
     amplitude_modulation: bool = True
-    use_noise: bool = False
+    use_noise: bool = False  # v2 NoiseGeneratorV2 branch
+    noise_hidden: int = 64
+    noise_ratios: Tuple[int, ...] = (2, 2, 2)
+    noise_bands: int = 5
     recurrent_layers: int = 0
     use_adain: bool = False
 
@@ -144,8 +150,11 @@ class RaveConfig:
     mode: str = "centered"  # causal preset flips to 'causal'
     activation: str = "leaky_relu"
     weight_norm: bool = True
-    input_mode: str = "pqmf"
-    output_mode: str = "pqmf"
+    input_mode: str = "pqmf"  # pqmf | mel | raw
+    output_mode: str = "pqmf"  # pqmf | raw
+    mel_n_fft: int = 2048
+    mel_hop: int = 256
+    n_mels: int = 128
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     latent: LatentConfig = field(default_factory=LatentConfig)
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
@@ -169,7 +178,9 @@ class RaveConfig:
     def enc_data_size(self) -> int:
         if self.encoder.data_size is not None:
             return self.encoder.data_size
-        return self.n_band if self.input_mode == "pqmf" else 1
+        if self.input_mode == "pqmf":
+            return self.n_band
+        return self.n_mels if self.input_mode == "mel" else 1
 
     def dec_data_size(self) -> int:
         return self.n_band if self.output_mode == "pqmf" else 1
@@ -184,15 +195,32 @@ class RaveConfig:
 
     def decimation(self) -> int:
         """Total waveform -> latent decimation."""
-        return math.prod(self.enc_ratios()) * (self.n_band if self.input_mode == "pqmf" else 1)
+        front = {"pqmf": self.n_band, "mel": self.mel_hop}.get(self.input_mode, 1)
+        return math.prod(self.enc_ratios()) * front
+
+    def noise_shape(self, n_channels: int, batch: int, latent_frames: int):
+        """The shape of the noise synth's uniform draws (`LatentDraws.uniform`)
+        for a latent of `latent_frames` frames: [batch, noise frames,
+        dec_data_size * n_channels, prod(noise_ratios)]; None without it."""
+        if not (self.decoder.kind == "v2" and self.decoder.use_noise):
+            return None
+        target = math.prod(self.decoder.noise_ratios)
+        frames = latent_frames * math.prod(self.dec_ratios()) // target
+        return batch, frames, self.dec_data_size() * n_channels, target
 
     def block_size(self) -> int:
         """Minimum streaming block in waveform samples: lcm of the encoder
-        decimation, the decoder upsampling and the PQMF 2-frame parity."""
+        decimation, the decoder upsampling, the PQMF 2-frame parity and the
+        noise branch's stride. Its strided causal convs drop input that is
+        not a whole number of their frames, so a block hands the branch
+        whole frames: it runs at the decoder's frame rate (n_band samples
+        per frame under pqmf output) and downsamples by prod(noise_ratios)."""
         band = self.n_band if self.output_mode == "pqmf" else 1
         b = math.lcm(self.decimation(), math.prod(self.dec_ratios()) * band)
         if self.input_mode == "pqmf" or self.output_mode == "pqmf":
             b = math.lcm(b, 2 * self.n_band)
+        if self.decoder.kind == "v2" and self.decoder.use_noise:
+            b = math.lcm(b, band * math.prod(self.decoder.noise_ratios))
         return b
 
 
@@ -233,6 +261,96 @@ def _v2(c: RaveConfig):
     t.beta_initial = 1e-6
     t.beta_target = 5e-2
     t.beta_warmup_len = 20000
+
+
+@preset("v2_small")
+def _v2_small(c: RaveConfig):
+    """rave/configs/v2_small.gin: capacity 48, ratios 4.2.2.2, the noise
+    synth with 32 bands."""
+    _v2(c)
+    c.name = "v2_small"
+    c.capacity = 48
+    c.ratios = (4, 2, 2, 2)
+    c.discriminator.capacity = 48
+    c.decoder.use_noise = True
+    c.decoder.noise_hidden = 64
+    c.decoder.noise_ratios = (2, 2, 2)
+    c.decoder.noise_bands = 32
+    c.train.update_discriminator_every = 2
+    c.train.beta_initial = c.train.beta_target = 0.01
+    c.train.beta_warmup_len = 300_000
+
+
+RANDOM_COMPRESS = '{"type":"RandomCompress","threshold":-40,"amp_range":[-60,-10],"prob":0.5}'
+
+
+@preset("v2_nopqmf")
+def _v2_nopqmf(c: RaveConfig):
+    """rave/configs/v2_nopqmf.gin: the decoder writes the raw waveform
+    (ratios 8.8.8.4), with RandomCompress (its lines 34-42)."""
+    _v2(c)
+    c.name = "v2_nopqmf"
+    c.capacity = 64
+    c.encoder.ratios = (4, 4, 4, 2)
+    c.decoder.ratios = (8, 8, 8, 4)
+    c.discriminator.capacity = 64
+    c.output_mode = "raw"
+    c.train.beta_initial = 1e-6
+    c.train.beta_target = 1e-2
+    c.train.beta_warmup_len = 500_000
+    c.data.augmentations = (RANDOM_COMPRESS,)
+
+
+@preset("v2_nopqmf_small")
+def _v2_nopqmf_small(c: RaveConfig):
+    """rave/configs/v2_nopqmf_small.gin: v1's base with v2 blocks at capacity
+    64, PQMF on the encoder side only, raw decoder ratios 8.8.8.4, phase 1
+    of 500k steps and a fixed beta of 0.02 (rave_tpu/config.py:343-376)."""
+    _v2(c)
+    c.name = "v2_nopqmf_small"
+    c.capacity = 64
+    c.encoder.ratios = (4, 4, 4, 2)
+    c.decoder.ratios = (8, 8, 8, 4)
+    c.discriminator.capacity = 64
+    c.output_mode = "raw"
+    c.train.phase_1_duration = 500_000
+    c.train.beta_initial = c.train.beta_target = 0.02
+    c.train.beta_warmup_len = 1
+    c.data.augmentations = (RANDOM_COMPRESS,)
+
+
+def _mel_input(c: RaveConfig):
+    """Mel-spectrogram input: 2048-point FFT, hop 256, 128 mels, encoder
+    ratios 2.2.2."""
+    c.input_mode = "mel"
+    c.mel_n_fft = 2048
+    c.mel_hop = 256
+    c.n_mels = 128
+    c.encoder.ratios = (2, 2, 2)
+
+
+@preset("v2_with_augs")
+def _v2_with_augs(c: RaveConfig):
+    """rave/configs/v2_with_augs.gin: mel input, with v1's loss weights and
+    fixed beta (it includes v1.gin, not v2.gin) and RandomCompress."""
+    _v2(c)
+    c.name = "v2_with_augs"
+    _mel_input(c)
+    c.train.weights["feature_matching"] = 10.0
+    c.train.beta_initial = c.train.beta_target = 0.1
+    c.train.beta_warmup_len = 1
+    c.data.augmentations = (RANDOM_COMPRESS,)
+
+
+@preset("hybrid")
+def _hybrid(c: RaveConfig):
+    """rave/configs/hybrid.gin: mel input, encoder dilations (1,), a 2-layer
+    GRU at the decoder's input."""
+    _v2(c)
+    c.name = "hybrid"
+    _mel_input(c)
+    c.encoder.dilations = (1,)
+    c.decoder.recurrent_layers = 2
 
 
 @preset("v3")
@@ -306,6 +424,15 @@ def _spherical(c: RaveConfig):
     c.train.phase_1_duration = 200_000
 
 
+@preset("noise")
+def _noise(c: RaveConfig):
+    """rave/configs/noise.gin: NoiseGeneratorV2 in GeneratorV2."""
+    c.decoder.use_noise = True
+    c.decoder.noise_hidden = 128
+    c.decoder.noise_ratios = (2, 2, 2)
+    c.decoder.noise_bands = 5
+
+
 @preset("causal")
 def _causal(c: RaveConfig):
     """rave/configs/causal.gin: zero-lookahead convs everywhere."""
@@ -335,7 +462,8 @@ def compose(names: List[str], overrides: Optional[List[str]] = None) -> RaveConf
     for n in names:
         if n not in PRESETS:
             raise KeyError(f"preset {n!r} is not ported (have {sorted(PRESETS)}; "
-                           "ROADMAP A11, the other model families)")
+                           "ROADMAP A11: v1 and its presets, onnx and raspberry; "
+                           "the spectral critic)")
         PRESETS[n](cfg)
     for ov in overrides or []:
         apply_override(cfg, ov)

@@ -28,8 +28,13 @@ buffers and keeps it; the attribute setters (`set_learn_target`, ...)
 write it, as the JAX artifact's do.
 The sampling noise (the variational eps and padding, the discrete and
 wasserstein augmentation channels) comes from the int64 `seed` (a uint32
-value) through `normal_from_seed`, so an exported program holds no draw as
-a constant and draws what the eager artifact draws from the same seed. The
+value) through `normal_from_seed`, and the decoder's noise synth's
+uniforms through `uniform_from_seed` (as the JAX artifact draws them from
+its "noise" rng), so an exported program holds no draw as a constant and
+draws what the eager artifact draws from the same seed. The encoder's
+front-end (PQMF, mel or none) and the output transform (PQMF synthesis or
+none) are the model's (`RAVE.transform_input` / `synthesize` and their
+streaming steps). The
 latent codecs of the four families are `post_process_latent` /
 `pre_process_latent`; a discrete artifact's latents are its RVQ code
 indices [B, Q, T] as floats, and its decode program holds the codebooks.
@@ -56,10 +61,11 @@ from rave_tpu_torch.nn.conv import freeze_weights
 from rave_tpu_torch.nn.streaming import StreamingModule, init_stream_state
 from rave_tpu_torch.ops.resampler import Resampler
 from rave_tpu_torch.train.loop import fp32_exact
-from rave_tpu_torch.utils.rng import MASK32, hash32, normal_from_seed
+from rave_tpu_torch.utils.rng import MASK32, hash32, normal_from_seed, uniform_from_seed
 
 FORMAT = "rtpu-torch-v1"
 ENCODE_SALT, DECODE_SALT = 1, 2  # the latent noise of encode and of decode
+SYNTH_SALT = 3  # the decoder's noise synth
 DECODE_SEED_OFFSET = 0x9E3779B9  # forward decodes with seed + this, mod 2^32 (as JAX)
 STEP_METHODS = ("encode", "decode", "forward")
 
@@ -172,30 +178,35 @@ class _Side(nn.Module):
 class EncodeSide(_Side):
     def __init__(self, model: RAVE, cfg: RaveConfig, latent_size: int):
         super().__init__(model, cfg, latent_size)
-        self.pqmf_analysis, self.encoder = model.pqmf_analysis, model.encoder
+        self.encoder, self.front = model.encoder, model.input_transform
 
     def forward(self, x, seed=None, eps=None, streaming: bool = False):
         """[B, C, T] -> [B, latent_size, T / decimation] (discrete: indices)."""
-        if streaming:
-            z = self.encoder.step(self.pqmf_analysis.step(x))
-        else:
-            z = self.encoder(self.pqmf_analysis(x))
+        if self.front is not None:
+            x = self.front.step(x) if streaming else self.front(x)
+        z = self.encoder.step(x) if streaming else self.encoder(x)
         return post_process_latent(self.cfg, self, self.latent_size, z, eps, seed)
 
 
 class DecodeSide(_Side):
     def __init__(self, model: RAVE, cfg: RaveConfig, latent_size: int):
         super().__init__(model, cfg, latent_size)
-        self.decoder, self.pqmf_synthesis = model.decoder, model.pqmf_synthesis
+        self.decoder, self.synthesis = model.decoder, model.output_transform
+        self.n_channels = model.n_channels
         if cfg.latent.family == "discrete":  # the codebooks decode the indices
             self.rvq = model.encoder.rvq
 
-    def forward(self, z, seed=None, noise=None, streaming: bool = False):
-        """[B, latent_size, T_lat] -> [B, C, T_lat * decimation]."""
+    def forward(self, z, seed=None, noise=None, streaming: bool = False, uniform=None):
+        """[B, latent_size, T_lat] -> [B, C, T_lat * decimation]. `uniform`
+        (the noise synth's draws) defaults to draws from `seed`."""
         zp = pre_process_latent(self.cfg, self, self.cfg.augmented_latent_size(), z, noise, seed)
-        if streaming:
-            return self.pqmf_synthesis.step(self.decoder.step(zp))
-        return self.pqmf_synthesis(self.decoder(zp))
+        shape = self.cfg.noise_shape(self.n_channels, z.shape[0], z.shape[-1])
+        if shape is not None and uniform is None:
+            uniform = uniform_from_seed(seed, shape, SYNTH_SALT)
+        y = self.decoder.step(zp, uniform) if streaming else self.decoder(zp, uniform)
+        if self.synthesis is None:
+            return y
+        return self.synthesis.step(y) if streaming else self.synthesis(y)
 
 
 class StepProgram(nn.Module):
@@ -203,7 +214,7 @@ class StepProgram(nn.Module):
     artifact's `encode_step` / `decode_step` / `forward_step`): `state` the
     list of `stream_slots(model)`, `seed` an int64 scalar holding a uint32.
     `forward` decodes with `seed + 0x9E3779B9 mod 2^32`. `eps` / `noise`
-    replace the seed's draws (tests inject another package's draws)."""
+    / `uniform` replace the seed's draws (tests inject another package's draws)."""
 
     def __init__(self, method: str, model: RAVE, encode: EncodeSide, decode: DecodeSide):
         super().__init__()
@@ -215,17 +226,19 @@ class StepProgram(nn.Module):
         self.slots = stream_slots(model)  # a plain list: registers no module twice
 
     def forward(self, state: List[torch.Tensor], x: torch.Tensor, seed: torch.Tensor,
-                eps: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+                eps: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                uniform: Optional[torch.Tensor] = None):
         if len(state) != len(self.slots):
             raise ValueError(f"{len(state)} state tensors for {len(self.slots)} stream buffers")
         with swapped(self.slots, state, learning=True):
             if self.method == "encode":
                 y = self.encode(x, seed, eps, streaming=True)
             elif self.method == "decode":
-                y = self.decode(x, seed, noise, streaming=True)
+                y = self.decode(x, seed, noise, streaming=True, uniform=uniform)
             else:
                 z = self.encode(x, seed, eps, streaming=True)
-                y = self.decode(z, (seed + DECODE_SEED_OFFSET) & MASK32, noise, streaming=True)
+                y = self.decode(z, (seed + DECODE_SEED_OFFSET) & MASK32, noise, streaming=True,
+                                uniform=uniform)
             new = [getattr(m, attr) for _, m, attr in self.slots]
         return y, new
 
@@ -330,24 +343,25 @@ class ExportedRAVE:
     @fp32_exact()
     @torch.no_grad()
     def decode(self, z: torch.Tensor, streaming: bool = False, seed: Optional[int] = None,
-               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+               noise: Optional[torch.Tensor] = None,
+               uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, latent_size, T_lat] -> [B, C, T] waveform at target_sr."""
         if streaming:
             self._check_block(z.shape[-1], self.manifest["block_size"] // self.cfg.decimation(),
                               "latent chunks (frames)")
         z, s = z.to(self.device), self._seed_tensor(seed)
         if streaming:
-            y, self.state = self.steps["decode"](self.state, z, s, noise=noise)
+            y, self.state = self.steps["decode"](self.state, z, s, noise=noise, uniform=uniform)
         else:
             with self._adain_state():
-                y = self.decode_side(z, s, noise)
+                y = self.decode_side(z, s, noise, uniform=uniform)
         return self._resample(y, "out", streaming)
 
     @fp32_exact()
     @torch.no_grad()
     def forward(self, x: torch.Tensor, streaming: bool = False, seed: Optional[int] = None,
-                eps: Optional[torch.Tensor] = None,
-                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                eps: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
         """decode(encode(x)): encode with one seed of the chain (or `seed`),
         decode with it + 0x9E3779B9, as the `forward_step` program."""
         if streaming:
@@ -355,11 +369,13 @@ class ExportedRAVE:
         x = self._resample(x.to(self.device), "in", streaming)
         s = self._seed_tensor(seed)
         if streaming:
-            y, self.state = self.steps["forward"](self.state, x, s, eps=eps, noise=noise)
+            y, self.state = self.steps["forward"](self.state, x, s, eps=eps, noise=noise,
+                                                  uniform=uniform)
         else:
             with self._adain_state():
                 z = self.encode_side(x, s, eps)
-                y = self.decode_side(z, (s + DECODE_SEED_OFFSET) & MASK32, noise)
+                y = self.decode_side(z, (s + DECODE_SEED_OFFSET) & MASK32, noise,
+                                     uniform=uniform)
         return self._resample(y, "out", streaming)
 
     @property

@@ -1,14 +1,16 @@
 """Factory: RaveConfig -> the port's model, critic and losses.
 
 PyTorch port of rave_tpu/factory.py: `build_rave` (:151-175) for the v2
-encoder and decoder kinds and the four latent families (`build_encoder`
+encoder and decoder kinds (with the noise synth and the GRUs), the three
+input and two output modes, and the four latent families (`build_encoder`
 picks the wrapper as :82-99 does);
 `build_discriminator` (:178-232) for the `multiscale`, `combined` and
 `descript` critics; `build_audio_distance` (:235-265) for `v1`; `build_gan_loss`
 (:268-269). Configs come from the port's own `rave_tpu_torch.config.compose`.
 Weights are drawn here from a seeded CPU `torch.Generator` (lecun-normal
 `v`, `g = ||v||` per output channel, zero bias; a codebook's embed uniform
-as flax's variance_scaling(1, fan_in)), never from jax, and then
+as flax's variance_scaling(1, fan_in); a GRU's as flax's GRUCell), never
+from jax, and then
 moved to `device`: the card unless the caller asks for the CPU, so the
 same seed gives the same numbers on either.
 """
@@ -27,6 +29,7 @@ from rave_tpu_torch.models.discriminators import (
 from rave_tpu_torch.models.quantization import EuclideanCodebook
 from rave_tpu_torch.models.rave import RAVE
 from rave_tpu_torch.nn.conv import _WeightNormConv
+from rave_tpu_torch.nn.gru import GRU
 from rave_tpu_torch.ops.distances import AudioDistanceV1
 from rave_tpu_torch.ops.dsp import GAN_LOSSES
 from rave_tpu_torch.ops.pqmf import PQMFBank
@@ -39,7 +42,10 @@ def get_pqmf_bank(attenuation: int, n_band: int) -> PQMFBank:
 
 
 def pqmf_analysis_delay(cfg: RaveConfig) -> int:
-    """Streaming delay (band frames) of the encoder's PQMF front-end."""
+    """Streaming delay (input frames) of the encoder's front-end: PQMF
+    analysis, or the mel frames' lag (`models/rave.py::MelAnalysis.delay`)."""
+    if cfg.input_mode == "mel":
+        return (cfg.mel_n_fft // 2 - cfg.mel_hop) // cfg.mel_hop
     if cfg.input_mode != "pqmf" or cfg.n_band == 1:
         return 0
     Q = get_pqmf_bank(cfg.pqmf_attenuation, cfg.n_band).taps
@@ -96,6 +102,9 @@ def build_decoder(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1):
         n_channels=n_channels,
         amplitude_modulation=cfg.decoder.amplitude_modulation,
         use_noise=cfg.decoder.use_noise,
+        noise_hidden=cfg.decoder.noise_hidden,
+        noise_ratios=cfg.decoder.noise_ratios,
+        noise_bands=cfg.decoder.noise_bands,
         mode=cfg.mode,
         weight_norm=cfg.weight_norm,
         activation=cfg.activation,
@@ -116,10 +125,10 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
-    """Redraw every convolution's weights and every codebook's initial embed
-    from `generator`, in module order."""
+    """Redraw every convolution's and GRU's weights and every codebook's
+    initial embed from `generator`, in module order."""
     for m in model.modules():
-        if isinstance(m, (_WeightNormConv, EuclideanCodebook)):
+        if isinstance(m, (_WeightNormConv, EuclideanCodebook, GRU)):
             m.reset_parameters(generator)
 
 
@@ -136,6 +145,9 @@ def build_rave(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1,
         n_channels=n_channels,
         input_mode=cfg.input_mode,
         output_mode=cfg.output_mode,
+        mel_n_fft=cfg.mel_n_fft,
+        mel_hop=cfg.mel_hop,
+        n_mels=cfg.n_mels,
         mode=cfg.mode,
         stream_batch=stream_batch,
     )

@@ -4,18 +4,20 @@ PyTorch port of the v2 / v3 subset of rave_tpu/models/blocks.py,
 channels-first `[B, C, T]`: the pure delay algebra, the activations
 (leaky ReLU, Snake), AdaIN, the DilatedUnit residual stacks (whose offline
 path is the fused CUDA kernel on a GPU when the activation is leaky ReLU),
-EncoderV2, GeneratorV2 with amplitude modulation, and the latent families
+EncoderV2 and GeneratorV2 (amplitude modulation, the filtered-noise synth
+`NoiseGeneratorV2` beside the waveform conv, and an optional GRU: at the
+encoder's output, at the generator's input), and the latent families
 (variational, wasserstein, discrete over models/quantization.py, spherical
 with its angle codecs), each taking its draws explicitly (`LatentDraws`).
-Attribute names (`net.layers.N`, `inner`, `waveform`, `encoder`) mirror the
-flax module paths, so utils/convert.py maps weights by rename.
+The noise synth's uniform noise is an input too (`LatentDraws.uniform`,
+`GeneratorV2(z, uniform)`), never drawn inside the module.
+Attribute names (`net.layers.N`, `inner`, `waveform`, `synth.branches.N`,
+`encoder`) mirror the flax module paths, so utils/convert.py maps weights
+by rename.
 
 Train and eval mode are PyTorch's (`model.train()` / `model.eval()`); only
 AdaIN reads them, as the JAX modules' `train` field: the identity in
 training, its transfer in eval mode.
-
-The options this slice does not cover raise NotImplementedError naming
-the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -28,9 +30,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from rave_tpu_torch.models.quantization import ResidualVectorQuantization
-from rave_tpu_torch.nn.combinators import Lambda, Residual, Sequential
+from rave_tpu_torch.nn.combinators import AlignBranches, Lambda, Residual, Sequential
 from rave_tpu_torch.nn.conv import Conv1d, ConvTranspose1d, conv_delay, get_padding, tconv_delay
+from rave_tpu_torch.nn.gru import GRU
 from rave_tpu_torch.nn.streaming import as_dtype
+from rave_tpu_torch.ops.dsp import amp_to_impulse_response, fft_convolve, mod_sigmoid
 from rave_tpu_torch.ops.kernels.dilated_unit import fused_dilated_unit
 
 # --------------------------------------------------------------------------
@@ -40,6 +44,13 @@ from rave_tpu_torch.ops.kernels.dilated_unit import fused_dilated_unit
 
 def dilated_unit_delay(kernel_size: int, dilation: int, mode: str) -> int:
     return get_padding(kernel_size, 1, dilation, mode)[1]
+
+
+def noise_generator_v2_delay(in_delay: int, ratios) -> int:
+    d = in_delay
+    for r in ratios:
+        d = conv_delay(d, 2 * r, r, 1, "causal")
+    return d * math.prod(ratios)
 
 
 def encoder_v2_delay(in_delay: int, kernel_size: int, ratios, dilations, mode: str) -> int:
@@ -61,14 +72,19 @@ def generator_v2_hidden_delay(kernel_size: int, ratios, dilations, mode: str) ->
     return d
 
 
-def generator_v2_delay(kernel_size: int, ratios, dilations, mode: str) -> int:
-    """Output delay without the noise branch (not ported, ROADMAP A11)."""
+def generator_v2_delay(kernel_size: int, ratios, dilations, mode: str, use_noise: bool = False,
+                       noise_ratios=()) -> int:
+    """Output delay: the hidden stream's, then the later of the waveform
+    conv and the noise branch (AlignBranches delays the other to it)."""
     d = generator_v2_hidden_delay(kernel_size, ratios, dilations, mode)
-    return conv_delay(d, kernel_size * 2 + 1, 1, 1, mode)
+    wave_d = conv_delay(d, kernel_size * 2 + 1, 1, 1, mode) - d
+    if use_noise:
+        return d + max(wave_d, noise_generator_v2_delay(d, noise_ratios) - d)
+    return d + wave_d
 
 
 # --------------------------------------------------------------------------
-# activations, AdaIN, unported options
+# activations, AdaIN
 # --------------------------------------------------------------------------
 
 
@@ -163,15 +179,6 @@ class AdaIN(nn.Module):
         return torch.where(transfer, (x - mx) / (sx + 1e-5) * sy + my, x)
 
 
-def _refuse_unported(recurrent_layers: int = 0, use_noise: bool = False) -> None:
-    if recurrent_layers:
-        raise NotImplementedError("recurrent_layers (GRU) is not ported yet (ROADMAP A11, hybrid)")
-    if use_noise:
-        raise NotImplementedError(
-            "use_noise (NoiseGeneratorV2, AlignBranches) is not ported yet (ROADMAP A11)"
-        )
-
-
 def normalize_dilations(dilations, ratios) -> list:
     """[[1,3,9],...] per ratio (reference rave/blocks.py:506-511)."""
     if isinstance(dilations[0], int):
@@ -240,7 +247,8 @@ class EncoderV2(nn.Module):
     """Dilated residual encoder with strided downsampling.
 
     Reference rave/blocks.py:514-596. Input [B, data_size*n_channels, T]
-    (multiband frames), output [B, latent_size*n_out, T/prod(ratios)].
+    (band frames, mel frames or the waveform), output [B, latent_size*n_out,
+    T/prod(ratios)], through a GRU when `recurrent_layers`.
     """
 
     def __init__(self, data_size: int, capacity: int, ratios: Sequence[int], latent_size: int,
@@ -249,7 +257,6 @@ class EncoderV2(nn.Module):
                  activation: str = "leaky_relu", use_adain: bool = False,
                  recurrent_layers: int = 0, in_delay: int = 0, stream_batch: int = 1):
         super().__init__()
-        _refuse_unported(recurrent_layers=recurrent_layers)
         self.kernel_size, self.mode, self.in_delay = kernel_size, mode, in_delay
         self.ratios, self.dilations = tuple(ratios), dilations
         conv = dict(mode=mode, weight_norm=weight_norm, use_bias=False, stream_batch=stream_batch)
@@ -272,6 +279,8 @@ class EncoderV2(nn.Module):
             delay, ch = down.delay, out_ch
         layers.append(make_activation(activation, ch))
         layers.append(Conv1d(ch, latent_size * n_out, kernel_size, in_delay=delay, **conv))
+        if recurrent_layers:
+            layers.append(GRU(latent_size * n_out, recurrent_layers, stream_batch))
         self.net = Sequential(layers)
 
     @property
@@ -286,30 +295,86 @@ class EncoderV2(nn.Module):
         return self.net.step(x)
 
 
+class NoiseGeneratorV2(nn.Module):
+    """Causal filtered-noise synth (reference rave/blocks.py:243-292,
+    rave_tpu/models/blocks.py:534-603): strided causal convs (kernel 2r,
+    stride r) from the hidden stream [B, in_size, T] to band amplitudes
+    [B, data_size*noise_bands*n_channels, T / prod(ratios)], each frame's
+    turned into a windowed impulse response of prod(ratios) taps that
+    filters that frame's uniform noise (FFT convolution, frame-local):
+    [B, data_size*n_channels, T], float32. `uniform` [B, frames,
+    data_size*n_channels, prod(ratios)] holds the frames' draws in [0, 1)."""
+
+    def __init__(self, in_size: int, hidden_size: int, data_size: int, ratios: Sequence[int],
+                 noise_bands: int, n_channels: int = 1, activation: str = "leaky_relu",
+                 in_delay: int = 0, stream_batch: int = 1):
+        super().__init__()
+        self.ratios, self.noise_bands, self.in_delay = tuple(ratios), noise_bands, in_delay
+        self.out_channels = data_size * n_channels
+        self.target_size = math.prod(self.ratios)
+        chans = [in_size] + (len(self.ratios) - 1) * [hidden_size]
+        chans.append(self.out_channels * noise_bands)
+        layers, d = [], in_delay
+        for i, r in enumerate(self.ratios):
+            conv = Conv1d(chans[i], chans[i + 1], 2 * r, stride=r, mode="causal", use_bias=False,
+                          in_delay=d, stream_batch=stream_batch)
+            layers.append(conv)
+            d = conv.delay
+            if i != len(self.ratios) - 1:
+                layers.append(make_activation(activation, chans[i + 1]))
+        self.net = Sequential(layers)
+
+    @property
+    def delay(self) -> int:
+        return noise_generator_v2_delay(self.in_delay, self.ratios)
+
+    def _synth(self, amp: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
+        B, _, n = amp.shape
+        d = self.out_channels
+        amp = mod_sigmoid(amp - 5.0).transpose(1, 2).reshape(B, n, d, self.noise_bands)
+        ir = amp_to_impulse_response(amp, self.target_size)  # [B, n, d, target]
+        if tuple(uniform.shape) != tuple(ir.shape):
+            raise ValueError(f"the noise synth takes uniform draws {tuple(ir.shape)}; got "
+                             f"{tuple(uniform.shape)}")
+        out = fft_convolve(uniform.float() * 2 - 1, ir)
+        return out.permute(0, 2, 1, 3).reshape(B, d, n * self.target_size)
+
+    def forward(self, x: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
+        return self._synth(self.net(x), uniform)
+
+    def step(self, x: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
+        return self._synth(self.net.step(x), uniform)
+
+
 class GeneratorV2(nn.Module):
     """Mirror decoder: transposed-conv upsampling + dilated residual units,
-    with optional amplitude modulation.
+    with optional amplitude modulation, filtered-noise branch and input GRU.
 
     Reference rave/blocks.py:599-714. Input [B, latent_size, T_latent];
     output [B, data_size*n_channels, T_frames] (multiband frames when
-    output_mode == 'pqmf').
+    output_mode == 'pqmf', the waveform under 'raw'). With `use_noise` the
+    waveform conv and `NoiseGeneratorV2` run side by side (`synth`, an
+    AlignBranches) and add before the tanh; the call then takes the noise
+    branch's `uniform` draws (`RaveConfig.noise_shape`).
     """
 
     def __init__(self, latent_size: int, capacity: int, ratios: Sequence[int],
                  kernel_size: int, dilations, data_size: int = 0, keep_dim: bool = False,
                  n_channels: int = 1, amplitude_modulation: bool = False,
-                 use_noise: bool = False, mode: str = "centered", weight_norm: bool = True,
+                 use_noise: bool = False, noise_hidden: int = 64, noise_ratios=(4, 4, 4),
+                 noise_bands: int = 5, mode: str = "centered", weight_norm: bool = True,
                  activation: str = "leaky_relu", use_adain: bool = False,
                  recurrent_layers: int = 0, stream_batch: int = 1):
         super().__init__()
-        _refuse_unported(recurrent_layers=recurrent_layers, use_noise=use_noise)
         self.kernel_size, self.mode = kernel_size, mode
         self.ratios, self.dilations = tuple(ratios), dilations
-        self.amplitude_modulation = amplitude_modulation
+        self.amplitude_modulation, self.use_noise = amplitude_modulation, use_noise
+        self.noise_ratios = tuple(noise_ratios)
         conv = dict(mode=mode, weight_norm=weight_norm, use_bias=False, stream_batch=stream_batch)
         ch = (math.prod(self.ratios) if keep_dim else 2 ** len(self.ratios)) * capacity
+        layers = [GRU(latent_size, recurrent_layers, stream_batch)] if recurrent_layers else []
         conv0 = Conv1d(latent_size, ch, kernel_size, **conv)
-        layers = [conv0]
+        layers.append(conv0)
         delay = conv0.delay
         dilations_list = normalize_dilations(dilations, self.ratios)[::-1]
         for r, dils in zip(self.ratios[::-1], dilations_list):
@@ -328,44 +393,64 @@ class GeneratorV2(nn.Module):
         layers.append(make_activation(activation, ch))
         self.net = Sequential(layers)
         out = (data_size or 1) * n_channels
-        self.waveform = Conv1d(ch, 2 * out if amplitude_modulation else out,
-                               kernel_size * 2 + 1, in_delay=delay, **conv)
+        wave_out = 2 * out if amplitude_modulation else out
+        waveform = Conv1d(ch, wave_out, kernel_size * 2 + 1, in_delay=delay, **conv)
+        if use_noise:
+            noise = NoiseGeneratorV2(ch, noise_hidden, data_size or 1, noise_ratios,
+                                     noise_bands, n_channels, activation, delay, stream_batch)
+            self.synth = AlignBranches((waveform, noise),
+                                       (waveform.delay - delay, noise.delay - delay),
+                                       (wave_out, out), stream_batch)
+        else:
+            self.waveform = waveform
 
     @property
     def delay(self) -> int:
-        return generator_v2_delay(self.kernel_size, self.ratios, self.dilations, self.mode)
+        return generator_v2_delay(self.kernel_size, self.ratios, self.dilations, self.mode,
+                                  self.use_noise, self.noise_ratios)
 
-    def _mix(self, wave: torch.Tensor) -> torch.Tensor:
+    def _branches(self, h: torch.Tensor, uniform: Optional[torch.Tensor], streaming: bool):
+        if not self.use_noise:
+            return (self.waveform.step(h) if streaming else self.waveform(h)), None
+        if uniform is None:
+            raise ValueError("the noise branch takes its uniform draws as an input "
+                             "(LatentDraws.uniform, train/steps.py::draw_noise)")
+        return self.synth.step(h, uniform) if streaming else self.synth(h, uniform)
+
+    def _mix(self, wave: torch.Tensor, noise: Optional[torch.Tensor]) -> torch.Tensor:
         if self.amplitude_modulation:
             wave, amp = wave.chunk(2, dim=1)
             wave = wave * torch.sigmoid(amp)
-        return torch.tanh(wave)
+        return torch.tanh(wave if noise is None else wave + noise)
 
-    def forward(self, z):
-        return self._mix(self.waveform(self.net(z)))
+    def forward(self, z, uniform: Optional[torch.Tensor] = None):
+        return self._mix(*self._branches(self.net(z), uniform, False))
 
-    def step(self, z):
-        return self._mix(self.waveform.step(self.net.step(z)))
+    def step(self, z, uniform: Optional[torch.Tensor] = None):
+        return self._mix(*self._branches(self.net.step(z), uniform, True))
 
 
 @dataclass
 class LatentDraws:
-    """What a latent family draws for one pass over latents [B, D, T]; the
-    fields a family does not read stay None. `eps` [B, D, T] is the
-    variational noise, or the wasserstein MMD's reference sample; `noise`
-    [B, noise_augmentation, T] the augmentation channels; `init_idx` and
-    `expire_idx` [num_quantizers, codebook_size] the discrete codebooks'
-    k-means and dead-code sample rows, indices into the B*T latent vectors
-    (b-major). `train/steps.py::draw_noise` draws them."""
+    """What a model draws for one pass over latents [B, D, T]; the fields it
+    does not read stay None. `eps` [B, D, T] is the variational noise, or
+    the wasserstein MMD's reference sample; `noise` [B, noise_augmentation,
+    T] the augmentation channels; `init_idx` and `expire_idx`
+    [num_quantizers, codebook_size] the discrete codebooks' k-means and
+    dead-code sample rows, indices into the B*T latent vectors (b-major);
+    `uniform` the decoder's noise synth's draws in [0, 1)
+    (`RaveConfig.noise_shape`). `train/steps.py::draw_noise` draws them."""
 
     eps: Optional[torch.Tensor] = None
     noise: Optional[torch.Tensor] = None
     init_idx: Optional[torch.Tensor] = None
     expire_idx: Optional[torch.Tensor] = None
+    uniform: Optional[torch.Tensor] = None
 
     def to(self, device) -> "LatentDraws":
         return LatentDraws(*(None if t is None else t.to(device) for t in
-                             (self.eps, self.noise, self.init_idx, self.expire_idx)))
+                             (self.eps, self.noise, self.init_idx, self.expire_idx,
+                              self.uniform)))
 
 
 def unit_norm_vector_to_angles(x: torch.Tensor) -> torch.Tensor:

@@ -1,20 +1,79 @@
-"""The RAVE autoencoder: PQMF analysis -> encoder -> decoder -> PQMF
-synthesis, with the analysis buffers that export reads.
+"""The RAVE autoencoder: input transform -> encoder -> decoder -> output
+transform, with the analysis buffers that export reads.
 
-PyTorch port of rave_tpu/models/rave.py for `input_mode` / `output_mode`
-'pqmf'. Layout: waveforms [B, n_channels, T], latents [B, D, T_lat], as in
-the reference RAVE.
+PyTorch port of rave_tpu/models/rave.py. The input transform is PQMF
+analysis (`input_mode` 'pqmf'), the log-mel front-end `MelAnalysis`
+('mel') or none ('raw'); the output transform PQMF synthesis
+(`output_mode` 'pqmf') or none ('raw': the decoder writes the waveform).
+The multiband loss's target is PQMF analysis whatever the input mode.
+Layout: waveforms [B, n_channels, T], latents [B, D, T_lat], as in the
+reference RAVE.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from rave_tpu_torch.models.blocks import LatentDraws
 from rave_tpu_torch.models.pqmf_module import PQMFAnalysis, PQMFSynthesis
+from rave_tpu_torch.nn.streaming import StreamingModule, as_dtype
 from rave_tpu_torch.ops.pqmf import PQMFBank
+from rave_tpu_torch.ops.stft import frame_signal, hann_window, mel_filterbank
+
+
+class MelAnalysis(StreamingModule):
+    """Log-mel front-end of mel input (rave_tpu/models/rave.py:25-95):
+    [B, C, T] -> [B, C*n_mels, frames], channel c*n_mels + m.
+
+    Offline, torchaudio's MelSpectrogram(center=True) with the reference's
+    last-frame crop (rave/model.py:238-242): reflect padding of n_fft/2 on
+    both sides, frames every `hop`, the last dropped, a periodic Hann,
+    |rfft|, the Slaney mel filterbank, log1p. Streaming keeps the last
+    n_fft - hop samples (`cache` [B, C, n_fft - hop]) and frames causally:
+    the stream lags the centred offline frames by (n_fft/2 - hop)/hop
+    frames (`delay`)."""
+
+    def __init__(self, sampling_rate: int, n_fft: int = 2048, hop: int = 256,
+                 n_mels: int = 128, n_channels: int = 1, stream_batch: int = 1):
+        super().__init__()
+        if (n_fft // 2) % hop:
+            raise ValueError(f"streaming mel needs hop | n_fft/2 (hop {hop}, n_fft {n_fft})")
+        self.n_fft, self.hop, self.n_mels = n_fft, hop, n_mels
+        self.register_buffer("window", torch.from_numpy(hann_window(n_fft)), persistent=False)
+        self.register_buffer("filterbank", torch.from_numpy(
+            mel_filterbank(sampling_rate, n_fft, n_mels)), persistent=False)
+        self.add_stream_state("cache", n_channels, n_fft - hop, stream_batch)
+
+    @property
+    def delay(self) -> int:
+        return (self.n_fft // 2 - self.hop) // self.hop
+
+    def _project(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames [B, C, F, n_fft] -> [B, C*n_mels, F], in the frames' dtype
+        (the FFT in float32 for a bf16 model: it takes no bf16)."""
+        dtype = frames.dtype
+        if dtype not in (torch.float32, torch.float64):
+            frames = frames.float()
+        mag = torch.fft.rfft(frames * as_dtype(self.window, frames.dtype), dim=-1).abs()
+        mel = torch.log1p(mag @ as_dtype(self.filterbank, mag.dtype).t())  # [B, C, F, M]
+        B, C, n, M = mel.shape
+        return as_dtype(mel.transpose(2, 3).reshape(B, C * M, n), dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, T = x.shape
+        flat = F.pad(x.reshape(B * C, 1, T), (self.n_fft // 2, self.n_fft // 2), mode="reflect")
+        frames = frame_signal(flat.reshape(B, C, -1), self.n_fft, self.hop)[:, :, :-1]
+        return self._project(frames)
+
+    def step(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] % self.hop:
+            raise ValueError(f"a mel block must be a multiple of the hop {self.hop}")
+        ext = torch.cat([as_dtype(self.cache, x.dtype), x], dim=-1)
+        self.cache = ext[..., ext.shape[-1] - self.cache.shape[-1]:]
+        return self._project(frame_signal(ext, self.n_fft, self.hop))
 
 
 class RAVE(nn.Module):
@@ -23,20 +82,25 @@ class RAVE(nn.Module):
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module, pqmf: PQMFBank,
                  latent_size: int, sampling_rate: int, n_channels: int = 1,
-                 input_mode: str = "pqmf", output_mode: str = "pqmf", mode: str = "centered",
+                 input_mode: str = "pqmf", output_mode: str = "pqmf", mel_n_fft: int = 2048,
+                 mel_hop: int = 256, n_mels: int = 128, mode: str = "centered",
                  stream_batch: int = 1):
         super().__init__()
-        if input_mode != "pqmf" or output_mode != "pqmf":
-            raise NotImplementedError(
-                f"input_mode={input_mode!r}, output_mode={output_mode!r}: only 'pqmf' is "
-                "ported (mel input: ROADMAP A11; raw output: ROADMAP A11)"
-            )
+        if input_mode not in ("pqmf", "mel", "raw") or output_mode not in ("pqmf", "raw"):
+            raise ValueError(f"input_mode={input_mode!r} (pqmf | mel | raw), "
+                             f"output_mode={output_mode!r} (pqmf | raw)")
         self.encoder, self.decoder, self.pqmf = encoder, decoder, pqmf
         self.latent_size, self.sampling_rate = latent_size, sampling_rate
         self.n_channels, self.mode = n_channels, mode
+        self.input_mode, self.output_mode = input_mode, output_mode
         self.pqmf_analysis = PQMFAnalysis(pqmf, n_channels, mode, stream_batch)
+        if input_mode == "mel":
+            self.mel_analysis = MelAnalysis(sampling_rate, mel_n_fft, mel_hop, n_mels,
+                                            n_channels, stream_batch)
         # the decoder's output delay is in band frames under 'pqmf' output
-        self.pqmf_synthesis = PQMFSynthesis(pqmf, n_channels, mode, decoder.delay, stream_batch)
+        self.pqmf_synthesis = PQMFSynthesis(pqmf, n_channels, mode,
+                                            decoder.delay if output_mode == "pqmf" else 0,
+                                            stream_batch)
         # analysis buffers read by export and the prior (reference rave/model.py:196-198)
         D = latent_size
         self.register_buffer("latent_pca", torch.eye(D))
@@ -48,31 +112,49 @@ class RAVE(nn.Module):
     @property
     def encode_delay(self) -> int:
         """Latent-rate delay of streaming encode vs offline (the encoder is
-        built with in_delay = PQMF analysis delay, so it is cumulative)."""
+        built with in_delay = the front-end's delay, so it is cumulative)."""
         return self.encoder.delay
 
     @property
     def decode_delay(self) -> int:
         """Waveform-rate delay of streaming decode vs offline."""
+        if self.output_mode != "pqmf":
+            return self.decoder.delay
         Q = self.pqmf.taps
         pad_r = 0 if self.mode == "causal" or Q == 0 else Q // 2
         return (self.decoder.delay + pad_r) * max(self.pqmf.n_band, 1)
 
     # ---- input / output transforms (what the train step composes) ----------
+    @property
+    def input_transform(self) -> Optional[nn.Module]:
+        """The encoder's front-end: PQMF analysis, the mel front-end, or None (raw)."""
+        return {"pqmf": self.pqmf_analysis,
+                "mel": getattr(self, "mel_analysis", None)}.get(self.input_mode)
+
+    @property
+    def output_transform(self) -> Optional[nn.Module]:
+        """PQMF synthesis under pqmf output, else None (the decoder writes the waveform)."""
+        return self.pqmf_synthesis if self.output_mode == "pqmf" else None
+
     def transform_input(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, n_channels, T] -> band frames [B, n_channels*n_band, T / n_band]."""
-        return self.pqmf_analysis(x)
+        """[B, n_channels, T] -> the encoder's input: band frames [B,
+        n_channels*n_band, T / n_band], mel frames [B, n_channels*n_mels, T /
+        hop], or x itself."""
+        front = self.input_transform
+        return x if front is None else front(x)
 
     def multiband(self, x: torch.Tensor) -> torch.Tensor:
         """PQMF analysis whatever the input mode (the multiband loss's target)."""
         return self.pqmf_analysis(x)
 
-    def decode_multiband(self, z: torch.Tensor) -> torch.Tensor:
-        """Decoder output in band frames, before synthesis."""
-        return self.decoder(z)
+    def decode_multiband(self, z: torch.Tensor, uniform: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+        """The decoder's output, before synthesis (band frames under pqmf output)."""
+        return self.decoder(z, uniform)
 
-    def synthesize(self, y_mb: torch.Tensor) -> torch.Tensor:
-        return self.pqmf_synthesis(y_mb)
+    def synthesize(self, y: torch.Tensor) -> torch.Tensor:
+        back = self.output_transform
+        return y if back is None else back(y)
 
     # ---- offline ---------------------------------------------------------
     def encode(self, x: torch.Tensor) -> torch.Tensor:
@@ -88,17 +170,21 @@ class RAVE(nn.Module):
         zs, reg, _ = self.encoder.reparametrize(z, draws)
         return zs, reg
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """[B, augmented latent, T_lat] -> [B, n_channels, T_lat * decimation]."""
-        return self.synthesize(self.decode_multiband(z))
+    def decode(self, z: torch.Tensor, uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B, augmented latent, T_lat] -> [B, n_channels, T_lat * decimation];
+        `uniform` feeds the noise branch (`RaveConfig.noise_shape`)."""
+        return self.synthesize(self.decode_multiband(z, uniform))
 
     def forward(self, x: torch.Tensor, draws: LatentDraws) -> torch.Tensor:
         zs, _ = self.reparametrize(self.encode(x), draws)
-        return self.decode(zs)
+        return self.decode(zs, draws.uniform)
 
     # ---- streaming (see nn/streaming.py for the state) ---------------------
     def step_encode(self, x: torch.Tensor) -> torch.Tensor:
-        return self.encoder.step(self.pqmf_analysis.step(x))
+        front = self.input_transform
+        return self.encoder.step(x if front is None else front.step(x))
 
-    def step_decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.pqmf_synthesis.step(self.decoder.step(z))
+    def step_decode(self, z: torch.Tensor, uniform: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+        y, back = self.decoder.step(z, uniform), self.output_transform
+        return y if back is None else back.step(y)

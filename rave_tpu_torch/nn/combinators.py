@@ -1,10 +1,11 @@
-"""Delay-aware combinators: Lambda, StreamDelay, Sequential, Residual.
+"""Delay-aware combinators: Lambda, StreamDelay, Sequential, Residual, AlignBranches.
 
 PyTorch port of rave_tpu/nn/combinators.py. Builders thread `in_delay`
 through child constructors; these combinators apply the children and, in
 streaming mode, delay the identity branch of a residual so both branches
-stay aligned. Attribute names (`layers.N`, `inner`) mirror the flax
-module paths (`layers_N`, `inner`) so weights map by rename.
+stay aligned, and delay parallel branches to a common output delay.
+Attribute names (`layers.N`, `inner`, `branches.N`) mirror the flax
+module paths (`layers_N`, `inner`, `branches_N`) so weights map by rename.
 """
 from __future__ import annotations
 
@@ -86,3 +87,27 @@ class Residual(nn.Module):
 
     def step(self, x):
         return self.skip_delay.step(x) + self.inner.step(x)
+
+
+class AlignBranches(nn.Module):
+    """Runs `branches` on one input; when streaming, delays branch i's output
+    by max(delays) - delays[i] frames so that all are aligned at max(delays)
+    (rave_tpu/nn/combinators.py:124-154). `features[i]` is branch i's
+    output channels."""
+
+    def __init__(self, branches: Sequence[nn.Module], delays: Sequence[int],
+                 features: Sequence[int], stream_batch: int = 1):
+        super().__init__()
+        self.branches = nn.ModuleList(branches)
+        self.delays = tuple(delays)
+        m = max(self.delays)
+        self.compensation = nn.ModuleList(
+            StreamDelay(m - d, f, stream_batch) for d, f in zip(self.delays, features))
+
+    def forward(self, x, *args):
+        """Each branch on x; `args` go to every branch after the first."""
+        return tuple(b(x, *args) if i else b(x) for i, b in enumerate(self.branches))
+
+    def step(self, x, *args):
+        return tuple(c.step(b.step(x, *args) if i else b.step(x))
+                     for i, (b, c) in enumerate(zip(self.branches, self.compensation)))

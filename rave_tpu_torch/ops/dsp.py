@@ -1,13 +1,48 @@
-"""Loss primitives of the training step: `mean_difference` and the GAN losses.
+"""DSP primitives of the noise synth, and the training step's losses.
 
-PyTorch port of rave_tpu/ops/dsp.py:59-110 (reference rave/core.py:151-170,
-236-252). Every function reduces to a mean over all elements, so it is
-indifferent to layout: the port's channels-first and folded critic feature
-maps give the same values as the JAX package's channels-last ones.
+PyTorch port of rave_tpu/ops/dsp.py (reference rave/core.py:20-81,
+151-170, 236-252). `mod_sigmoid`, `amp_to_impulse_response` and
+`fft_convolve` work on the last axis, as there. The losses reduce to a
+mean over all elements, so they are indifferent to layout: the port's
+channels-first and folded critic feature maps give the same values as the
+JAX package's channels-last ones.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+
+def mod_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Exponentiated sigmoid of the amplitude envelopes: 2 sigmoid(x)^2.3 + 1e-7."""
+    return 2 * torch.sigmoid(x) ** 2.3 + 1e-7
+
+
+def amp_to_impulse_response(amp: torch.Tensor, target_size: int) -> torch.Tensor:
+    """Real zero-phase amplitudes [..., F] -> a causal FIR kernel [..., target_size]
+    in float32: the symmetric impulse response, rolled to its centre,
+    windowed by a periodic Hann, zero-padded (or cropped from its end, when
+    it is longer than `target_size`, as torch's negative pad does in the
+    reference) and rolled back."""
+    ir = torch.fft.irfft(amp.float(), dim=-1)
+    filter_size = ir.shape[-1]
+    ir = torch.roll(ir, filter_size // 2, dims=-1)
+    n = torch.arange(filter_size, dtype=torch.float64, device=ir.device)
+    win = (0.5 - 0.5 * torch.cos(2 * torch.pi * n / filter_size)).float()  # hanning(n+1)[:-1]
+    ir = ir * win
+    extra = int(target_size) - filter_size
+    ir = F.pad(ir, (0, extra)) if extra >= 0 else ir[..., : int(target_size)]
+    return torch.roll(ir, -(filter_size // 2), dims=-1)
+
+
+def fft_convolve(signal: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Linear convolution of `signal` by `kernel` along the last axis by FFT,
+    the first len(signal) samples (both zero-padded to twice the length)."""
+    n = signal.shape[-1]
+    signal = F.pad(signal, (0, n))
+    kernel = F.pad(kernel, (kernel.shape[-1], 0))
+    out = torch.fft.irfft(torch.fft.rfft(signal) * torch.fft.rfft(kernel), n=signal.shape[-1])
+    return out[..., out.shape[-1] // 2 :]
 
 
 def mean_difference(target: torch.Tensor, value: torch.Tensor, norm: str = "L1",

@@ -6,8 +6,10 @@ periodic Hann window, centering by reflect padding of n_fft // 2 on both
 sides, frames of n_fft every `hop` samples, one batched `torch.fft.rfft`,
 and an optional division by the window's L2 norm. `torch.stft` is not used
 because its `normalized` divides by sqrt(n_fft), not by the window's norm.
-`mel_filterbank` (numpy, the same as rave_tpu/ops/stft.py:158) serves the
-Fréchet mel distance of train/evaluate.py; the loss's mel projection is not
+`frame_signal` is rave_tpu/ops/stft.py:28 (overlapping frames, no
+padding). `mel_filterbank` (numpy, the same as rave_tpu/ops/stft.py:158)
+serves the Fréchet mel distance of train/evaluate.py and the mel input
+front-end (models/rave.py::MelAnalysis); the loss's mel projection is not
 ported (v2 has `distance.num_mels = None`).
 """
 from __future__ import annotations
@@ -25,6 +27,12 @@ def hann_window(n: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n) / n)).astype(np.float32)
 
 
+def frame_signal(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
+    """[..., T] -> [..., frames, frame_length] overlapping frames every `hop`
+    samples, no padding: (T - frame_length) // hop + 1 frames."""
+    return x.unfold(-1, frame_length, hop)
+
+
 def stft(x: torch.Tensor, n_fft: int, hop: int, *, center: bool = True,
          normalized: bool = False) -> torch.Tensor:
     """Complex STFT of [B, T] -> [B, frames, n_fft // 2 + 1]. Centering
@@ -37,7 +45,7 @@ def stft(x: torch.Tensor, n_fft: int, hop: int, *, center: bool = True,
     if center:
         x = F.pad(x[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
     win = torch.from_numpy(hann_window(n_fft)).to(device=x.device, dtype=x.dtype)
-    spec = torch.fft.rfft(x.unfold(-1, n_fft, hop) * win, dim=-1)
+    spec = torch.fft.rfft(frame_signal(x, n_fft, hop) * win, dim=-1)
     if normalized:
         spec = spec / torch.sqrt(torch.sum(win * win))
     return spec

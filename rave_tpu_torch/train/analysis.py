@@ -6,10 +6,12 @@ model, it differentiates one output sample of encode ->
 reparametrize -> decode with respect to the input and reads the extent of
 the non-zero gradient. The discrete family's inference quantization looks
 codes up, so no gradient reaches the input: its field is (0, 0), as in the
-JAX package, without a probe. The training loop turns it into the
-valid-signal crop `rf // n_band` (rave_tpu/train/loop.py:165-169). On a GPU the probe runs
-through the fused units' `autograd.Function`, kernel forward and plain
-backward.
+JAX package, without a probe. The probe is architectural, so it runs a
+clone without GRUs (the reference disables recurrent layers for the same
+reason, rave/core.py:186-189). The training loop turns it into the
+valid-signal crop `rf // crop_dim` (rave_tpu/train/loop.py:165-175). On a
+GPU the probe runs through the fused units' `autograd.Function`, kernel
+forward and plain backward.
 
 `pca` is rave_tpu/train/analysis.py::pca, the same numpy: the loop turns
 the validation latents into the model's `latent_pca`, `latent_mean` and
@@ -17,6 +19,7 @@ the validation latents into the model's `latent_pca`, `latent_mean` and
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import numpy as np
@@ -34,7 +37,9 @@ def receptive_field(cfg: RaveConfig, n_channels: int = 1, device: str | torch.de
     gradient's footprint fits."""
     if cfg.latent.family == "discrete":
         return 0, 0
-    model = build_rave(cfg, n_channels=n_channels, seed=seed, device=device).eval()
+    probe = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, recurrent_layers=0),
+                                decoder=dataclasses.replace(cfg.decoder, recurrent_layers=0))
+    model = build_rave(probe, n_channels=n_channels, seed=seed, device=device).eval()
     model.requires_grad_(False)  # the input's gradient is all the probe reads
     N = 2 ** 15
     while True:
@@ -42,7 +47,7 @@ def receptive_field(cfg: RaveConfig, n_channels: int = 1, device: str | torch.de
         x = torch.from_numpy(x.transpose(0, 2, 1).copy()).to(device).requires_grad_()
         draws = draw_noise(cfg, x.detach().cpu(), torch.Generator().manual_seed(seed + 2))
         zs, _ = model.reparametrize(model.encode(x), draws.to(device))
-        y = model.decode(zs)
+        y = model.decode(zs, None if draws.uniform is None else draws.uniform.to(device))
         (grad,) = torch.autograd.grad(y[0, 0, y.shape[-1] // 2], x)
         g = grad[0, 0].abs().cpu().numpy()
         if g[0] == 0 and g[-1] == 0:
@@ -56,9 +61,16 @@ def receptive_field(cfg: RaveConfig, n_channels: int = 1, device: str | torch.de
             raise RuntimeError("receptive field larger than 2^21 samples")
 
 
+def crop_dim(cfg: RaveConfig, n_channels: int = 1) -> int:
+    """The divisor of the receptive field in `crop_frames`: n_band * channels
+    under PQMF input, else the channels, as rave_tpu/train/loop.py:168 has
+    it (a crop of band frames by samples under mel and raw input)."""
+    return cfg.n_band * n_channels if cfg.input_mode == "pqmf" else n_channels
+
+
 def crop_frames(cfg: RaveConfig, rf: Tuple[int, int], n_channels: int = 1) -> Tuple[int, int]:
     """The band frames `valid_signal_crop` drops on each side (loop.py:168-169)."""
-    dim = cfg.n_band * n_channels
+    dim = crop_dim(cfg, n_channels)
     return rf[0] // dim, rf[1] // dim
 
 

@@ -73,7 +73,7 @@ def evaluate(
         x = torch.from_numpy(x).to(device)
         draws = draw_noise(cfg, x, torch.Generator(device=device).manual_seed(VAL_NOISE_SEED))
         zs, _ = model.reparametrize(model.encode(x), draws)
-        y = model.decode(zs)[..., : x.shape[-1]]
+        y = model.decode(zs, draws.uniform)[..., : x.shape[-1]]
         spectral.append((float(sum(distance(x, y).values())), x.shape[0]))
         wave.append((float((y - x).abs().mean()), x.shape[0]))
         for key, sig in (("real", x), ("fake", y)):

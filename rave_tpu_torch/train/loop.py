@@ -44,7 +44,7 @@ from rave_tpu_torch.data.loader import Loader
 from rave_tpu_torch.data.store import get_training_channels, read_metadata
 from rave_tpu_torch.data.transforms import get_derivator_integrator
 from rave_tpu_torch.factory import build_audio_distance, resolve_device
-from rave_tpu_torch.train.analysis import crop_frames, pca, receptive_field
+from rave_tpu_torch.train.analysis import crop_dim, crop_frames, pca, receptive_field
 from rave_tpu_torch.train.state import TrainState, create_train_state
 from rave_tpu_torch.train.steps import build_train_steps, draw_noise, pick_phase
 from rave_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -172,7 +172,7 @@ def run_validation(cfg: RaveConfig, state: TrainState, loader: Loader, distance,
             z = model.encode(x)
             draws = draw_noise(cfg, x, torch.Generator(device=device).manual_seed(VAL_NOISE_SEED))
             zs, _ = model.reparametrize(z, draws)
-            y = model.decode(zs)[..., : x.shape[-1]]
+            y = model.decode(zs, draws.uniform)[..., : x.shape[-1]]
             losses.append(sum(distance(x, y).values()))
             latents.append(z[:, :D].transpose(1, 2).reshape(-1, D))
             if sum(c.shape[0] for c in clips) < 8:
@@ -261,7 +261,7 @@ def train(
         t0 = time.time()
         rf = receptive_field(cfg, n_channels=channels, device=device)
         crop = crop_frames(cfg, rf, channels)
-        if crop[0] + crop[1] >= d.n_signal // cfg.n_band:
+        if crop[0] + crop[1] >= d.n_signal * channels // crop_dim(cfg, channels):
             raise ValueError(
                 f"n_signal={d.n_signal} leaves no valid signal after cropping the model's "
                 f"receptive field ({rf[0]}+{rf[1]} samples) — raise --n_signal or disable "

@@ -11,7 +11,7 @@ PyTorch port of rave_tpu/train/steps.py (reference rave/model.py:288-424):
 Layouts are the port's: waveforms [B, C, T], band frames [B, C*M, T/M].
 What the JAX package draws from its "noise" rng (the variational eps, the
 wasserstein reference sample, the augmentation noise, the codebooks'
-sample rows) comes from `draws` (`draw_noise`'s result) or else from
+sample rows, the noise synth's uniforms) comes from `draws` (`draw_noise`'s result) or else from
 `generator`, so a test can hand both packages the same numbers. It is drawn
 before the autoencode pass, so that `train.remat`'s recompute sees the same
 noise: `torch.utils.checkpoint` restores the global generators, not an
@@ -63,35 +63,41 @@ from rave_tpu_torch.train.state import TrainState, update_ema
 
 def autoencode(model, x: torch.Tensor, draws: LatentDraws, warmed: bool, bf16: bool = False,
                quantize: bool = True) -> Dict[str, torch.Tensor]:
-    """The full pass of a step (rave_tpu/train/steps.py:36-87, pqmf in and
-    out), with the latent family's training call on its `draws`: the discrete RVQ
-    runs when `quantize`, returning its codebooks' new state as "updates"
-    (None for the other families) without writing it. With `bf16`, the
-    casts of the JAX package's `_autoencode` (:48-77): the encoder and
-    decoder in bfloat16, the latent and the reparametrization (the RVQ too)
-    in fp32, the decoder's output back to fp32 before synthesis, and the
-    multiband loss target analysed from the fp32 waveform."""
+    """The full pass of a step (rave_tpu/train/steps.py:36-87), with the
+    latent family's training call on its `draws`: the discrete RVQ runs
+    when `quantize`, returning its codebooks' new state as "updates" (None
+    for the other families) without writing it; the noise synth filters
+    `draws.uniform`. The multiband loss's pair: the decoder's band frames,
+    or under raw output PQMF analysis of its waveform; the encoder's band
+    frames, or under another input (or `bf16`) PQMF analysis of x. With
+    `bf16`, the casts of the JAX package's `_autoencode` (:48-77): the
+    encoder and decoder in bfloat16, the latent and the reparametrization
+    (the RVQ too) in fp32, the decoder's output back to fp32 before
+    synthesis, and the multiband loss target analysed from the fp32
+    waveform."""
     x_enc = model.transform_input(x.to(torch.bfloat16) if bf16 else x)
     z = model.encoder(x_enc, warmed_up=warmed)
     zs, reg, updates = model.encoder.reparametrize(z.float() if bf16 else z, draws,
                                                    quantize=quantize, train=True)
-    y_mb = model.decode_multiband(zs.to(torch.bfloat16) if bf16 else zs)
+    y_mb = model.decode_multiband(zs.to(torch.bfloat16) if bf16 else zs, draws.uniform)
     if bf16:
         y_mb = y_mb.float()
     y_raw = model.synthesize(y_mb)[..., : x.shape[-1]]
-    x_bands = model.multiband(x) if bf16 else x_enc
-    return {"x_bands": x_bands, "y_bands": y_mb[..., : x_bands.shape[-1]], "y_raw": y_raw,
+    y_bands = y_mb if model.output_mode == "pqmf" else model.multiband(y_raw)
+    x_bands = x_enc if model.input_mode == "pqmf" and not bf16 else model.multiband(x)
+    return {"x_bands": x_bands, "y_bands": y_bands[..., : x_bands.shape[-1]], "y_raw": y_raw,
             "reg": reg, "updates": updates}
 
 
 def draw_noise(cfg: RaveConfig, x: torch.Tensor,
                generator: Optional[torch.Generator] = None) -> LatentDraws:
-    """What the latent family draws for a pass over waveform `x` [B, C, T],
-    from `generator` in this order: eps, noise, init_idx, expire_idx
-    (`LatentDraws`; normals in x's dtype, latents [B, latent_size, T /
-    decimation]). The discrete sample rows are drawn on every call, as the
-    JAX package draws them on every training call, whether or not a code
-    expires."""
+    """What the model draws for a pass over waveform `x` [B, C, T], from
+    `generator` in this order: eps, noise, init_idx, expire_idx, uniform
+    (`LatentDraws`; normals and uniforms in x's dtype, latents [B,
+    latent_size, T / decimation]; the noise synth's uniforms last, so the
+    other draws are those of a model without it). The discrete sample rows
+    are drawn on every call, as the JAX package draws them on every
+    training call, whether or not a code expires."""
     lat = cfg.latent
     B, T = x.shape[0], x.shape[-1] // cfg.decimation()
 
@@ -110,6 +116,9 @@ def draw_noise(cfg: RaveConfig, x: torch.Tensor,
         draws.noise = normal(lat.noise_augmentation)
     if lat.family == "discrete":
         draws.init_idx, draws.expire_idx = rows(), rows()
+    shape = cfg.noise_shape(x.shape[1], B, T)
+    if shape is not None:
+        draws.uniform = torch.rand(shape, generator=generator, device=x.device, dtype=x.dtype)
     return draws
 
 

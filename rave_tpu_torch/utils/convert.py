@@ -10,6 +10,7 @@ attribute names mirror flax's module paths, so a path maps by rename:
     encoder/encoder/net/layers_9/inner/net/layers_1/v
       -> encoder.encoder.net.layers.9.inner.net.layers.1.v
     encoder/rvq/vq_3/codebook/embed -> encoder.rvq.vq.3.codebook.embed
+    decoder/synth/branches_1/net/layers_0/w -> decoder.synth.branches.1.net.layers.0.w
 
 and each leaf changes layout:
 
@@ -22,6 +23,9 @@ and each leaf changes layout:
     kernels, models/discriminators.py and models/descript.py);
   * `g` [1, 1, O] (or [1, 1, 1, O]) -> [O], one value per output channel;
   * AdaIN's statistics `mean_*` / `std_*` [N, 1, C] -> [N, C, 1];
+  * the GRU's `rnn_<i>/cell/<gate>/kernel` [in, out] and `bias` keep
+    flax's layout (nn/gru.py assembles torch's weights from them); its
+    gate `in` is the port's `in_`;
   * biases, Snake's `alpha`, the RAVE buffers, AdaIN's counters and flags
     and the discrete codebooks' state (`embed`, `embed_avg`,
     `cluster_size`, `inited`) are copied as they are.
@@ -45,6 +49,7 @@ import torch
 from rave_tpu_torch.models.blocks import AdaIN
 from rave_tpu_torch.models.discriminators import WNConv
 from rave_tpu_torch.nn.conv import Conv1d, ConvTranspose1d
+from rave_tpu_torch.nn.gru import GATE_NAMES
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -59,8 +64,11 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
 
 
 def port_name(jax_path: str) -> str:
-    """'a/layers_3/v' -> 'a.layers.3.v'; 'rvq/vq_3' -> 'rvq.vq.3'."""
-    return ".".join(re.sub(r"^(layers|vq)_(\d+)$", r"\1.\2", p) for p in jax_path.split("/"))
+    """'a/layers_3/v' -> 'a.layers.3.v'; 'rvq/vq_3' -> 'rvq.vq.3';
+    'synth/branches_0' -> 'synth.branches.0'; a GRU cell's 'in' -> 'in_'."""
+    parts = [re.sub(r"^(layers|vq|branches)_(\d+)$", r"\1.\2", p) for p in jax_path.split("/")]
+    return ".".join(GATE_NAMES.get(p, p) if i and parts[i - 1] == "cell" else p
+                    for i, p in enumerate(parts))
 
 
 def _convert(owner: torch.nn.Module, leaf: str, value: np.ndarray) -> np.ndarray:

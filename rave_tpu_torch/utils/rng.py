@@ -1,4 +1,4 @@
-"""Random streams: per-step generator seeds, and normal draws from a seed tensor.
+"""Random streams: per-step generator seeds, and normal and uniform draws from a seed tensor.
 
 The JAX package derives each step's randomness as `fold_in(key(seed), step)`,
 so that a resumed run draws what an unbroken run would. The port does the
@@ -14,7 +14,9 @@ product splits its constant in 16-bit halves, so nothing overflows), then
 Box-Muller in float64, rounded to float32. It is a function of its inputs
 alone, the same on the CPU and the card up to the rounding of the float64
 transform, and traces into an exported program as ordinary ops, so the
-eager artifact and its `.pt2` programs draw the same numbers. `hash32` takes
+eager artifact and its `.pt2` programs draw the same numbers.
+`uniform_from_seed` draws the noise synth's uniforms the same way, one
+counter per draw, exact in float32 (24 bits over 2^24). `hash32` takes
 a Python int, a numpy integer array or an int64 tensor alike.
 """
 from __future__ import annotations
@@ -74,3 +76,14 @@ def normal_from_seed(seed: torch.Tensor | int, shape: Sequence[int], salt: int,
     u2 = bits[:, 1] / 2.0**24
     z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
     return z.float().reshape(tuple(shape))
+
+
+def uniform_from_seed(seed: torch.Tensor | int, shape: Sequence[int], salt: int,
+                      device: str | torch.device | None = None) -> torch.Tensor:
+    """Uniform float32 draws in [0, 1) of `shape` from a uint32 `seed` (an int64
+    tensor, or an int) and a constant `salt`: draw i uses the counter i."""
+    if not torch.is_tensor(seed):
+        seed = torch.tensor(int(seed), dtype=torch.int64, device=device)
+    n = math.prod(shape)
+    bits = uniform_bits(seed, salt, torch.arange(n, dtype=torch.int64, device=seed.device))
+    return ((bits >> 8).float() / 2.0**24).reshape(tuple(shape))

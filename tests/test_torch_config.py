@@ -51,6 +51,34 @@ def test_presets_match_jax(names, overrides):
         assert getattr(port, name)() == getattr(ref, name)(), name
 
 
+VARIANT_TINY = {
+    "v2_small": ["capacity=2", "latent_size=4", "ratios=[4,2]", "dilations=[[1],[1]]",
+                 "decoder.noise_hidden=4"],
+    "noise": TINY + ["decoder.noise_ratios=[4,2]", "decoder.noise_bands=8"],
+    "v2_nopqmf": ["capacity=2", "encoder.ratios=[4,2]", "decoder.ratios=[16,8]"],
+    "v2_nopqmf_small": ["capacity=2", "encoder.ratios=[4,2]", "decoder.ratios=[16,8]"],
+    "hybrid": ["n_mels=16", "mel_n_fft=512", "mel_hop=128", "encoder.ratios=[4,4]",
+               "decoder.recurrent_layers=1"],
+    "v2_with_augs": ["n_mels=16", "mel_n_fft=512", "mel_hop=128", "encoder.ratios=[4,4]",
+                     'mode="causal"'],
+}
+
+
+@pytest.mark.parametrize("tiny", [False, True], ids=["default", "tiny"])
+@pytest.mark.parametrize("name", list(VARIANT_TINY))
+def test_variant_presets_match_jax(name, tiny):
+    """The noise synth, raw output and mel input presets: every field
+    (`noise_*`, `mel_*`, `n_mels`, the modes) and accessor (the mel input's
+    data size and decimation, the noise stride in the block) as the JAX
+    package's."""
+    names = ["v2", "noise"] if name == "noise" else [name]
+    overrides = VARIANT_TINY[name] if tiny else []
+    port, ref = config.compose(names, overrides), jax_config.compose(names, overrides)
+    assert_fields_equal(port, ref)
+    for accessor in ACCESSORS:
+        assert getattr(port, accessor)() == getattr(ref, accessor)(), accessor
+
+
 def test_defaults_match_jax():
     assert_fields_equal(config.RaveConfig(), jax_config.RaveConfig())
 
@@ -78,13 +106,17 @@ def test_unported_train_options_raise(flag):
 
 
 def test_refusals():
-    """Presets of later items raise naming them; `discrete_v3` (A10) was
-    refused too and now composes as the JAX package's."""
+    """Presets of later items raise naming them; `discrete_v3` (A10) and
+    `hybrid` (A11's mel input and GRU) were refused too and now compose as
+    the JAX package's. The v1 family's presets and fields are still refused
+    (A11)."""
     assert_fields_equal(config.compose(["discrete_v3"]), jax_config.compose(["discrete_v3"]))
-    with pytest.raises(KeyError, match="A11"):
-        config.compose(["hybrid"])
-    with pytest.raises(AttributeError, match="mel_hop"):
-        config.compose(["v2"], ["mel_hop=128"])
+    assert_fields_equal(config.compose(["hybrid"]), jax_config.compose(["hybrid"]))
+    for name in ("v1", "onnx", "raspberry"):
+        with pytest.raises(KeyError, match="A11"):
+            config.compose([name])
+    with pytest.raises(AttributeError, match="loud_stride"):
+        config.compose(["v2"], ["decoder.loud_stride=2"])
     for compose in (config.compose, jax_config.compose):
         with pytest.raises(ValueError, match="rate-preserving"):
             compose(["v2"], ["decoder.ratios=[4,4,2]"])

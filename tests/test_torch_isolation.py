@@ -9,7 +9,9 @@ export -> generate` (offline and streaming) through the port's command
 line on a seeded corpus, `train --config discrete -> export
 --streaming -> generate --streaming`, and `train --config v3 -> export
 --streaming -> generate` with a streaming call that learns AdaIN's target
-statistics, with nothing kept
+statistics, `train --config v2_small -> export --streaming -> generate
+--streaming` (the noise synth), and a `hybrid` forward (mel input, the
+GRU) with its streaming pair, with nothing kept
 from being imported (where tensorboard and tensorflow are installed,
 tensorflow imports jax: the metrics logger must not reach them), and then
 reports whether jax, flax or any module of the JAX package was ever
@@ -120,6 +122,30 @@ with contextlib.redirect_stdout(io.StringIO()):
     codes.append(cli.main(["generate", "--device", "cpu", "--model",
                            str(root / "vart" / "v3_streaming.rtpu"), "--input",
                            str(root / "corpus" / "a.wav"), "--out_path", str(root / "vgen")]))
+sargs = ["train", "--device", "cpu", "--config", "v2_small", "--name", "iso_small", "--db_path",
+         str(root / "db"), "--out_path", str(root / "sruns"), "--batch", "2", "--n_signal",
+         "8192", "--max_steps", "2", "--val_every", "2", "--workers", "2", "--no_progress"]
+for o in tiny + ["ratios=[4,2]", "dilations=[[1],[1]]", "decoder.noise_hidden=4",
+                 "train.valid_signal_crop=false"]:
+    sargs += ["--override", o]
+codes.append(cli.main(sargs))
+with contextlib.redirect_stdout(io.StringIO()):
+    codes.append(cli.main(["export", "--device", "cpu", "--output", str(root / "sart"),
+                           "--streaming", "--run", str(next((root / "sruns").iterdir()))]))
+    codes.append(cli.main(["generate", "--device", "cpu", "--model",
+                           str(root / "sart" / "v2_small_streaming.rtpu"), "--input",
+                           str(root / "corpus" / "a.wav"), "--out_path", str(root / "sgen"),
+                           "--streaming"]))
+hcfg = compose(["hybrid"], ["capacity=2", "latent_size=4", "n_mels=16", "mel_n_fft=512",
+                            "mel_hop=128", "encoder.ratios=[4]", "ratios=[4,4,2]",
+                            "dilations=[[1],[1],[1]]"])
+hmodel = build_rave(hcfg, seed=0, device="cpu")
+xh = torch.randn(1, 1, 4 * hcfg.block_size(), generator=torch.Generator().manual_seed(4))
+with torch.inference_mode():
+    yh = hmodel(xh, draw_noise(hcfg, xh, torch.Generator().manual_seed(5)))
+    init_stream_state(hmodel, 1)
+    zh = hmodel.step_encode(xh[..., : hcfg.block_size()])
+    sh = hmodel.step_decode(zh[:, : hcfg.latent_size])
 from rave_tpu_torch.export.artifact import ExportedRAVE
 vart = ExportedRAVE(str(root / "vart" / "v3_streaming.rtpu"), device="cpu")
 vart.set_learn_target(True)
@@ -131,12 +157,15 @@ inited = [float(v) for k, v in dckpt.items() if k.endswith("inited")]
 generated = [wavfile.read(root / f"gen{i}" / "a_reconstructed.wav")[1].shape for i in (0, 1)]
 generated.append(wavfile.read(root / "dgen" / "a_reconstructed.wav")[1].shape)
 generated.append(wavfile.read(root / "vgen" / "a_reconstructed.wav")[1].shape)
+generated.append(wavfile.read(root / "sgen" / "a_reconstructed.wav")[1].shape)
 print(json.dumps({
     "codes": codes, "eval_step": evaluation["step"], "generated": generated,
     "eval_finite": all(np.isfinite(evaluation[k]) for k in ("spectral_distance", "waveform_l1",
                                                             "frechet_mel_distance")),
     "shape": list(y.shape), "finite": bool(torch.isfinite(y).all()),
     "stream_shape": list(s.shape), "train_step": state.step, "losses": losses,
+    "hybrid": [list(yh.shape), bool(torch.isfinite(yh).all()), list(sh.shape),
+               bool(torch.isfinite(sh).all())],
     "discrete_inited": inited, "v3_learned": v3_learned,
     "rf": list(receptive_field(tcfg, device="cpu")),
     "loaded": sorted(m for m in sys.modules
@@ -157,8 +186,9 @@ def test_port_never_imports_jax():
     assert out["stream_shape"] == [1, 1, 512]
     assert out["train_step"] == 5 and all(math.isfinite(v) for v in out["losses"])
     assert out["rf"][0] > 0
-    assert out["codes"] == [0] * 12 and out["eval_step"] == 2 and out["eval_finite"]
-    assert out["generated"] == [[52 * 8192]] * 4
+    assert out["codes"] == [0] * 15 and out["eval_step"] == 2 and out["eval_finite"]
+    assert out["generated"] == [[52 * 8192]] * 5
+    assert out["hybrid"] == [[1, 1, 2048], True, [1, 1, 512], True]
     assert out["discrete_inited"] == [1.0, 1.0]
     assert out["v3_learned"] == [1.0] * 6  # one target update in each AdaIN layer
 

@@ -19,7 +19,7 @@ import torch
 from rave_tpu.config import compose as jax_compose
 from rave_tpu.factory import build_rave as jax_build_rave
 from rave_tpu_torch.config import compose
-from rave_tpu_torch.factory import build_rave
+from rave_tpu_torch.factory import build_discriminator, build_rave
 from rave_tpu_torch.models.blocks import LatentDraws
 from rave_tpu_torch.nn.streaming import init_stream_state
 from rave_tpu_torch.ops.kernels import dilated_unit
@@ -179,25 +179,42 @@ def test_streaming_matches(pair):
     ("decoder.recurrent_layers=1", "A11"),
 ])
 def test_unported_options_raise(override, item):
-    """The options of later items raise naming them. Snake and AdaIN (A10)
-    were refused too and are ported: each now builds and its encode and
-    decode match the JAX model's (eval mode, AdaIN's statistics as
-    initialized), with the same test ids."""
+    """The options of later items raise naming them. Snake and AdaIN (A10),
+    the noise synth and the GRU (A11) were refused too and are ported: each
+    now builds and its encode and decode match the JAX model's (eval mode,
+    AdaIN's statistics as initialized, the noise synth on the JAX draws),
+    with the same test ids; for A11, the v1 family and the spectral critic
+    still raise naming it (its `export_onnx` command:
+    tests/test_torch_cli.py)."""
     cfg = compose(["v2"], TINY + [override])
-    if item != "A10":
-        with pytest.raises(NotImplementedError, match=item):
-            build_rave(cfg, device="cpu")
-        return
+    if item == "A11":
+        with pytest.raises(NotImplementedError, match="A11"):
+            build_rave(compose(["v2"], TINY + ['encoder.kind="v1"']), device="cpu")
+        with pytest.raises(NotImplementedError, match="A11"):
+            build_discriminator(compose(["v2"], TINY + ['discriminator.kind="spectral"']),
+                                device="cpu")
     jax_model = jax_build_rave(jax_compose(["v2"], TINY + [override]), train=False)
     x = (np.random.default_rng(0).standard_normal((1, cfg.block_size() * 4, 1)) * 0.3)
     x = x.astype(np.float32)
-    variables = jax.jit(jax_model.init)({"params": jax.random.key(0)}, jnp.asarray(x))
+    rngs = {"params": jax.random.key(0), "noise": jax.random.key(1)}
+    variables = jax.jit(jax_model.init)(rngs, jnp.asarray(x))
     variables = {k: v for k, v in variables.items() if k != "cache"}
     model = build_rave(cfg, device="cpu").eval()
     from_jax_variables(model, variables)
+    z_j = jax_model.apply(variables, jnp.asarray(x), method="encode")
+    uniform, real = [], jax.random.uniform
+
+    def recorded(key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
+        uniform.append(real(key, shape, dtype, minval, maxval))  # the noise synth's draw
+        return uniform[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.random, "uniform", recorded)
+        y_j = jax_model.apply(variables, z_j[..., :cfg.latent_size], method="decode",
+                              rngs={"noise": jax.random.key(2)})
+    assert len(uniform) == cfg.decoder.use_noise
     with torch.no_grad():
         z = model.encode(to_port(x))
-        y = model.decode(z[:, :cfg.latent_size])
-    z_j = jax_model.apply(variables, jnp.asarray(x), method="encode")
-    y_j = jax_model.apply(variables, z_j[..., :cfg.latent_size], method="decode")
+        y = model.decode(z[:, :cfg.latent_size],
+                         torch.from_numpy(np.array(uniform[0])) if uniform else None)
     assert rel_err(from_port(z), z_j) < TOL and rel_err(from_port(y), y_j) < TOL

@@ -33,7 +33,12 @@ default):
   train_v3, artifact_v3 : the `train` and artifact cells for
             compose(["v3"]) (Snake units, which bypass the fused kernel, AdaIN,
             the descript critic); its 2048-sample block streams through
-            AdaIN's statistics, learning off.
+            AdaIN's statistics, learning off;
+  offline_<p>, train_<p>, artifact_<p> for p in v2_small, v2_nopqmf,
+            hybrid : the `offline`, `train` and artifact cells for the v2
+            variants (the noise synth; raw-waveform output; mel input and a
+            GRU); hybrid's train cell without the valid-signal crop, which
+            empties its multiband loss (ROADMAP C12).
 
 Every train cell also reports the critic's forward (the kernels launched
 under a `record_function` range around it) beside cuDNN's share.
@@ -151,7 +156,8 @@ def train_cell(activities, top: int, overrides=(), names=("v2",)) -> list[str]:
 
     dilated_unit.FusedDilatedUnit.backward = staticmethod(traced_backward)
     cfg = compose(list(names), list(overrides))
-    steps = build_train_steps(cfg, crop_frames(cfg, receptive_field(cfg, device="cuda")))
+    rf = receptive_field(cfg, device="cuda") if cfg.train.valid_signal_crop else (0, 0)
+    steps = build_train_steps(cfg, crop_frames(cfg, rf))
     state = create_train_state(cfg, seed=0, device="cuda")
     critic_forward = state.discriminator.forward
 
@@ -189,22 +195,25 @@ def train_cell(activities, top: int, overrides=(), names=("v2",)) -> list[str]:
     return lines
 
 
-def offline_cell(activities, top: int) -> list[str]:
+def offline_cell(activities, top: int, names=("v2",)) -> list[str]:
     import torch
     from torch.profiler import profile
 
     from rave_tpu_torch.config import compose
     from rave_tpu_torch.factory import build_rave
+    from rave_tpu_torch.ops.kernels import dilated_unit
     from rave_tpu_torch.train.steps import draw_noise
 
     with torch.inference_mode():
-        cfg = compose(["v2"])
+        cfg = compose(list(names))
         model = build_rave(cfg, seed=0, device="cuda").eval()
         gen = torch.Generator(device="cuda").manual_seed(1)
         x = torch.randn(16, 1, 131072, device="cuda", generator=gen) * 0.1
         draws = draw_noise(cfg, x, gen)
-        for _ in range(2):
-            model(x, draws)
+        model(x, draws)
+        before = dilated_unit.launches
+        model(x, draws)
+        units = dilated_unit.launches - before
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(5):
@@ -215,8 +224,8 @@ def offline_cell(activities, top: int) -> list[str]:
             for _ in range(3):
                 model(x, draws)
             torch.cuda.synchronize()
-    return (["== offline v2 B=16 x 131072"] + device_summary(prof, 3, wall, top)
-            + [f"fused unit kernels (weight preparation and unit, 22 calls): "
+    return ([f"== offline {'+'.join(names)} B=16 x 131072"] + device_summary(prof, 3, wall, top)
+            + [f"fused unit kernels (weight preparation and unit, {units} calls): "
                f"{kernel_ms(prof, 3, UNIT_KERNEL):.3f} ms per forward"])
 
 
@@ -312,6 +321,11 @@ CELLS = {
     "train_v3": lambda act, top: train_cell(act, top, names=["v3"]),
     "artifact_v3": lambda act, top: artifact_cell(act, top, ["v3"]),
 }
+for _p in ("v2_small", "v2_nopqmf", "hybrid"):
+    _crop = ["train.valid_signal_crop=false"] if _p == "hybrid" else []
+    CELLS[f"offline_{_p}"] = lambda act, top, p=_p: offline_cell(act, top, [p])
+    CELLS[f"train_{_p}"] = lambda act, top, p=_p, o=_crop: train_cell(act, top, o, [p])
+    CELLS[f"artifact_{_p}"] = lambda act, top, p=_p: artifact_cell(act, top, [p])
 
 
 def main() -> None:
