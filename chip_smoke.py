@@ -65,6 +65,13 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                log_epsilon and at 1e-3) and a critic step: losses within 5%,
                the global relative L2 distance of the gradients under the
                bounds of GRAD_BF16_BOUND (their reasons are in PERF.md);
+               then v2_small and v2_nopqmf at full width with the same flags
+               (`VARIANT_BF16`, without the valid-signal crop): 2 pre-warmup
+               and 2 of each warmed program, their 22 bf16 launches per step,
+               ms and peak, and at B=1 the pre-warmup step (log_epsilon 1e-3)
+               and the critic step bf16 against fp32 under the same bounds;
+               hybrid (mel input) with train.bf16 refused, as rave_tpu cannot
+               take that step (ROADMAP C14);
  10. remat   : one fp32 pre-warmup step at B=8 x 131072 with and without
                train.remat from the same state and noise, cuDNN
                deterministic, after one warm step: losses equal to 1e-6,
@@ -195,13 +202,41 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                against the eager steps over 32 blocks (1e-5), the streaming
                p50 eager and .pt2. hybrid trains without the valid-signal
                crop (ROADMAP C12). Work in build/variants, deleted at the end;
- 16. the kernels' JSON line, then the last line
+ 16. prior   : the latent prior (run after phase 12, on phase 11's run and
+               store), TF32 off: (a) the stock prior (prior_v1.gin: resolution
+               32, res_size 512, skp_size 256, 10 layers) at latent_size 16
+               (512 channels) at B=8 over the 128 latent frames of the 262144
+               samples train_prior takes at v2's decimation: the forward on
+               the card against the CPU (1e-3), 64 chained `step` calls
+               against the offline logits (1e-4), one Adam step (ms, peak
+               memory); (b) `cli train_prior --smoke_test --n_signal 524288`
+               (2 steps, a decoded sample and a save after each; the loop's
+               16-step run keeps most of its 128 dimensions, whose diagonal
+               shift needs more than the default 128 frames): exactly 11 launches (one v2
+               half) per `encode_latents` and per `decode_latents`, 44 in
+               all, the latent size it chose; (c) `cli export --prior` (11
+               launches: its smoke decode) and `cli generate --prior_seconds
+               5` (11: one decode; the wav's length), `sample_prior(argmax=True)`
+               on the card against the CPU (the card's chain fed to the CPU's
+               prior gives the card's codes, float32 ties aside), `prior_step.pt2`
+               bit-equal to the eager step over 32 steps, and the p50 of a
+               prior step, eager and .pt2, under one latent frame's period
+               (2048 / 44100 s = 46.44 ms: a live prior makes a frame per
+               block); (d) the unit at every shape (b) and (c) gave it, as
+               recorded there (the encoder's at B=8 x 524288 samples, the
+               decoders' at B=1 over the validation sample's frames (128
+               less the shift's D - 1), 8 and 108 latent frames), against
+               its plain version (1e-4), one `encode_latents` batch of (b)
+               and the decode of a prior sample on the card against the CPU
+               (1e-3). Work in build/prior, deleted at its end;
+ 17. the kernels' JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Per-shape details go to build/chip_smoke.json; the loop and export phases
 work in build/loop (corpus, db, run dirs, artifacts, generated wavs), the
-discrete phase in build/discrete, the v3 phase in build/v3 and the
-variants phase in build/variants (each deleted at its end).
+prior phase in build/prior, the discrete phase in build/discrete, the v3
+phase in build/v3 and the variants phase in build/variants (each deleted
+at its end).
 """
 from __future__ import annotations
 
@@ -814,6 +849,7 @@ def phase_train_bf16(crop) -> dict:
 
     from rave_tpu_torch.config import compose
     from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.train.steps import build_train_steps
 
     flags = ["train.bf16=true", "train.bf16_dis=true"]
     cfg = compose(["v2"], flags)
@@ -837,7 +873,11 @@ def phase_train_bf16(crop) -> dict:
                         "grad_distance": _grad_distance(g16, g32),
                         "grad_bound": GRAD_BF16_BOUND[key],
                         "grad_max_rel": max(_grad_errors(g16, g32).values())}
-    out = {"batch": B, "n_signal": N, **run, "bf16_vs_fp32": compare}
+    out = {"batch": B, "n_signal": N, **run, "bf16_vs_fp32": compare,
+           "variants": {p: _variant_bf16(p, flags) for p in VARIANT_BF16}}
+    hybrid = compose(["hybrid"], flags + VARIANT_OVERRIDES["hybrid"])
+    check(refuses(lambda: build_train_steps(hybrid, (0, 0)), ValueError),
+          "hybrid (mel input) with train.bf16 built its steps; rave_tpu has no such step")
     print(f"train_bf16: v2 + {' '.join(flags)}, B={B} x {N}; ms per step (mean after one warm "
           f"step): " + ", ".join(f"{k} {v:.1f} (x{run['steps'][k] - 1})"
                                  for k, v in run["ms_per_step"].items())
@@ -846,12 +886,79 @@ def phase_train_bf16(crop) -> dict:
           + "; ".join(f"{k}: losses {c['loss_rel_err']:.2e} ({c['worst_loss']}) <= "
                       f"{BF16_LOSS_TOL}, grad distance {c['grad_distance']:.3e} <= "
                       f"{c['grad_bound']:g}" for k, c in compare.items()), flush=True)
-    for k, c in compare.items():
-        check(c["loss_rel_err"] <= BF16_LOSS_TOL,
-              f"bf16 {k} step: losses {c['loss_rel_err']:.3e} from fp32 ({c['worst_loss']})")
-        check(c["grad_distance"] <= c["grad_bound"],
-              f"bf16 {k} step: gradients {c['grad_distance']:.3e} from fp32, bound {c['grad_bound']}")
+    for preset, v in out["variants"].items():
+        r = v["run"]
+        print(f"train_bf16 {preset}: B={B} x {N} ms per step (mean after one warm step) "
+              + ", ".join(f"{k} {ms:.1f} (x{r['steps'][k] - 1})" for k, ms in
+                          r["ms_per_step"].items())
+              + f"; {r['launches_per_step']} bf16 launches and no fp32 per step, "
+              f"{r['launches']} in all; peak {r['peak_gb']:.2f} GiB; B=1 bf16 vs fp32: "
+              + "; ".join(f"{k}: losses {c['loss_rel_err']:.2e} ({c['worst_loss']}) <= "
+                          f"{BF16_LOSS_TOL}, grad distance {c['grad_distance']:.3e} <= "
+                          f"{c['grad_bound']:g}" for k, c in v["bf16_vs_fp32"].items())
+              + "; hybrid + train.bf16 refused (ROADMAP C14)", flush=True)
+    for what, cmp in [("v2", compare)] + [(p, v["bf16_vs_fp32"])
+                                          for p, v in out["variants"].items()]:
+        for k, c in cmp.items():
+            check(c["loss_rel_err"] <= BF16_LOSS_TOL,
+                  f"{what} bf16 {k} step: losses {c['loss_rel_err']:.3e} from fp32 "
+                  f"({c['worst_loss']})")
+            check(c["grad_distance"] <= c["grad_bound"],
+                  f"{what} bf16 {k} step: gradients {c['grad_distance']:.3e} from fp32, bound "
+                  f"{c['grad_bound']}")
     return out
+
+
+def _variant_bf16(preset: str, flags) -> dict:
+    """`preset` with `flags` (train.bf16 + bf16_dis) at full width: `_train_run`'s
+    steps (2 pre-warmup, then 2 of each program past the warmup: exact bf16
+    launches, finite, ms, peak), without the valid-signal crop (the probe is
+    phase `variants`' work; the crop changes no program); then at B=1 x
+    131072 from the seed-0 state, on the same draws, a pre-warmup generator
+    step at log_epsilon 1e-3 and a critic step in bf16 against fp32 on the
+    card, under phase 9's bounds."""
+    import torch
+
+    from rave_tpu_torch.config import compose
+    from rave_tpu_torch.train.state import create_train_state
+    from rave_tpu_torch.train.steps import build_train_steps, draw_noise
+
+    crop_off = ["train.valid_signal_crop=false"]
+    cfg = compose([preset], flags + crop_off)
+    x = torch.randn(TRAIN_BATCH, 1, N_SIGNAL, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(6)) * 0.1
+    run = _train_run(cfg, (0, 0), x, bf16=True, per_step=VARIANT_LAUNCHES[preset],
+                     prewarmup=2, cycles=2)
+    xb, _ = _b1_inputs(cfg)
+    draws = draw_noise(compose([preset]), xb, torch.Generator().manual_seed(9)).to("cuda")
+    xb = xb.to("cuda")
+
+    def step(overrides, which):
+        c = compose([preset], crop_off + overrides)
+        st = create_train_state(c, seed=0, device="cuda")
+        if which == "dis":
+            st.step = c.train.phase_1_duration
+        steps = build_train_steps(c, (0, 0))
+        m = (steps["gen"](st, xb, False, draws=draws) if which == "gen"
+             else steps["dis"](st, xb, draws=draws))
+        module = st.model if which == "gen" else st.discriminator
+        return ({k: float(v) for k, v in m.items()},
+                {n: p.grad.detach().cpu() for n, p in module.named_parameters()})
+
+    compare = {}
+    for key, which, extra in (("gen_eps1e-3", "gen", ["distance.log_epsilon=1e-3"]),
+                              ("dis", "dis", [])):
+        m32, g32 = step(extra, which)
+        m16, g16 = step(flags + extra, which)
+        check(all(g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+                  for g in g16.values()), f"{preset} bf16 {key} step: gradients not fp32 or "
+                                          "not finite")
+        losses = {k: abs(m16[k] - v) / max(abs(v), 1e-2) for k, v in m32.items() if _is_loss(k)}
+        compare[key] = {"loss_rel_err": max(losses.values()),
+                        "worst_loss": max(losses, key=losses.get),
+                        "grad_distance": _grad_distance(g16, g32),
+                        "grad_bound": GRAD_BF16_BOUND[key]}
+    return {"run": run, "bf16_vs_fp32": compare}
 
 
 def phase_remat(crop) -> dict:
@@ -1454,6 +1561,362 @@ def phase_export(run_dir: Path) -> dict:
 
 
 # the discrete phase: the C=768 unit shapes only discrete reaches (T=256 at B=16 x 131072)
+# the prior phase: the stock prior (prior_v1.gin) at latent_size 16 over the 128 latent
+# frames of the 262144 samples train_prior takes at v2's decimation (2048)
+PRIOR_LATENT, PRIOR_FRAMES, PRIOR_STREAM_STEPS = 16, 128, 64
+PRIOR_PROGRAM_STEPS, PRIOR_TIMED_STEPS, PRIOR_SECONDS = 32, 64, 5.0
+PRIOR_STREAM_TOL = 1e-4  # 64 chained steps against the offline logits
+PRIOR_FRAME_MS = 2048 / SAMPLE_RATE * 1e3  # one latent frame of v2: a live prior's budget
+# train_prior's clips: the loop's 16-step run keeps most of its 128 dimensions at fidelity
+# 0.95, and the diagonal shift of D dimensions takes D - 1 of the clip's frames, so the
+# default 262144 samples (128 frames) would leave one; 524288 leave at least 129
+PRIOR_N_SIGNAL = 524288
+# the units of one v2 encoder (or decoder): each shape's dilations once
+UNITS_PER_HALF = sum(len(d) for _, _, d in UNIT_SHAPES)
+
+
+def _stock_prior() -> dict:
+    """(a) The stock prior at full width on the card: the forward at B=8 x 128
+    frames against the same weights on the CPU, 64 chained steps against the
+    offline logits, and one Adam step (ms, peak memory)."""
+    import torch
+
+    from rave_tpu_torch.nn.streaming import init_stream_state
+    from rave_tpu_torch.prior.core import stack_one_hot
+    from rave_tpu_torch.prior.model import build_prior, prior_loss
+
+    prior = build_prior(PRIOR_LATENT, seed=0, device="cuda")
+    cpu = build_prior(PRIOR_LATENT, seed=0, device="cpu")
+    R = prior.resolution
+    classes = torch.randint(0, R, (TRAIN_BATCH, PRIOR_LATENT, PRIOR_FRAMES),
+                            generator=torch.Generator().manual_seed(12))
+    x_cpu = stack_one_hot(classes, R)
+    x = x_cpu.to("cuda")
+    with torch.no_grad():
+        logits = prior(x)
+        err_cpu = rel_err(logits.cpu(), cpu(x_cpu))
+        init_stream_state(prior, TRAIN_BATCH)
+        chained = torch.cat([prior.step(x[..., t:t + 1]) for t in range(PRIOR_STREAM_STEPS)], -1)
+        err_stream = rel_err(chained, logits[..., :PRIOR_STREAM_STEPS])
+    check(logits.shape == x.shape and bool(torch.isfinite(logits).all()),
+          f"prior logits {tuple(logits.shape)} or not finite")
+    check(err_cpu <= MODEL_TOL, f"prior card vs CPU {err_cpu:.3e} > {MODEL_TOL}")
+    check(err_stream <= PRIOR_STREAM_TOL,
+          f"prior {PRIOR_STREAM_STEPS} chained steps vs offline {err_stream:.3e}")
+    opt = torch.optim.Adam(prior.parameters(), lr=1e-4)
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(3):  # two warm steps, then the timed one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = prior_loss(prior, x, PRIOR_LATENT)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(math.isfinite(loss.item()), "prior loss not finite")
+    return {"channels": PRIOR_LATENT * R, "receptive_field": prior.receptive_field,
+            "params": sum(p.numel() for p in prior.parameters()), "card_vs_cpu": err_cpu,
+            "stream_vs_offline": err_stream, "step_ms": times[-1], "loss": loss.item(),
+            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 2**30}
+
+
+def v2_unit_shapes(batch: int, n_samples: int, mode: str = "centered") -> list:
+    """(B, C, T, d, mode) of the units of one v2 encoder over `n_samples`
+    samples, sorted; a decoder that writes `n_samples` has the same."""
+    return sorted((batch, C, n_samples // (16 * 4 ** i), d, mode)
+                  for i, (C, _, dils) in enumerate(UNIT_SHAPES) for d in dils)
+
+
+class UnitShapes:
+    """While open, records (B, C, T, d, mode) of every fused unit call on a
+    CUDA tensor, in process: the shapes the path gives the kernel."""
+
+    def __enter__(self):
+        from rave_tpu_torch.models.blocks import FusedDilatedResidual
+
+        self.cls, self.saved, self.seen = FusedDilatedResidual, FusedDilatedResidual.forward, []
+        saved, seen = self.saved, self.seen
+
+        def forward(mod, x):
+            if x.is_cuda and mod.inner.activation == "leaky_relu":
+                left, right = mod.inner.net.layers[1].pad
+                seen.append((x.shape[0], x.shape[1], x.shape[2], mod.inner.dilation,
+                             "centered" if left == right else "causal"))
+            return saved(mod, x)
+
+        self.cls.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.saved
+
+
+class PriorProbe:
+    """Counts the unit's launches of each `encode_latents` and `decode_latents`
+    call that `train_prior` makes (the frozen RAVE's halves), in process, and
+    the unit shapes of each from `shapes` (a `UnitShapes`); keeps the first
+    batch that `encode_latents` was given."""
+
+    NAMES = ("encode_latents", "decode_latents")
+
+    def __init__(self, shapes: UnitShapes):
+        from rave_tpu_torch.prior import train
+
+        self.module, self.calls = train, {name: [] for name in self.NAMES}
+        self.saved = {name: getattr(train, name) for name in self.NAMES}
+        self.shapes, self.first_x = shapes, None
+
+    def __enter__(self):
+        for name in self.NAMES:
+            setattr(self.module, name, self.observe(name, self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+    def observe(self, name: str, fn):
+        import torch
+
+        from rave_tpu_torch.ops.kernels import dilated_unit
+
+        def call(*args, **kwargs):
+            if name == "encode_latents" and self.first_x is None:
+                self.first_x = args[2].clone()
+            torch.cuda.synchronize()
+            before, seen, t0 = dilated_unit.launches, len(self.shapes.seen), time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls[name].append({"launches": dilated_unit.launches - before,
+                                     "ms": (time.perf_counter() - t0) * 1e3,
+                                     "units": sorted(self.shapes.seen[seen:])})
+            return out
+
+        return call
+
+
+def check_prior_codes(card_art, cpu_art, n: int, seed: int) -> dict:
+    """`sample_prior(argmax=True)` on the card against the CPU: the card's
+    chain of frames, fed to the CPU's prior (teacher-forced: causal, so its
+    offline logits are the chained steps'), gives the card's pick at every
+    step and dimension unless the two picks' CPU logits tie (CODE_TIE). The
+    latents that each device samples on its own are compared (reported)."""
+    import torch
+
+    from rave_tpu_torch.prior.model import split_classes
+
+    prior = card_art.prior_step.prior
+    D, R = prior.latent_size, prior.resolution
+    x = torch.zeros(1, D * R, 1, device="cuda")
+    state, frames = card_art.prior_state(), []
+    with torch.no_grad():
+        for i in range(n + D - 1):
+            x, state = card_art.prior_step(state, x, torch.tensor(0, device="cuda"), True)
+            frames.append(x)
+        card = torch.cat(frames, -1).cpu()
+        inputs = torch.cat([torch.zeros(1, D * R, 1), card[..., :-1]], -1)
+        logits = split_classes(cpu_art.prior_step.prior(inputs), D)  # [1, D, R, n + D - 1]
+    picks_card, picks_cpu = split_classes(card, D).argmax(2), logits.argmax(2)
+    bad = (picks_card != picks_cpu).nonzero()
+    l_card = logits[0, bad[:, 1], picks_card[0, bad[:, 1], bad[:, 2]], bad[:, 2]].double()
+    l_cpu = logits[0, bad[:, 1], picks_cpu[0, bad[:, 1], bad[:, 2]], bad[:, 2]].double()
+    ties = int(((l_cpu - l_card).abs() <= CODE_TIE * (l_cpu.abs() + l_card.abs())).sum())
+    check(len(bad) == ties, f"prior argmax codes: {len(bad)} differ on the card's chain, "
+                            f"{ties} of them ties")
+    z_card = card_art.sample_prior(n, seed=seed, argmax=True).cpu()
+    z_cpu = cpu_art.sample_prior(n, seed=seed, argmax=True)
+    return {"codes": int(picks_card.numel()), "codes_differ": len(bad), "code_ties": ties,
+            "own_chain_z_rel_err": rel_err(z_card, z_cpu)}
+
+
+def phase_prior(run_dir: Path, db: Path) -> dict:
+    """The latent prior on phase `loop`'s v2 run and store; see the module docstring."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from rave_tpu_torch.export.artifact import ExportedRAVE, prior_step_seed
+    from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.prior.train import encode_latents
+    from rave_tpu_torch.utils.checkpoint import load_run
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "prior"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    stock = _stock_prior()
+
+    # (b) train_prior --smoke_test: 2 steps, a validation sample and a save after each
+    torch.cuda.synchronize()
+    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    t0 = time.perf_counter()
+    shapes = UnitShapes().__enter__()  # closed after (c)'s generate
+    with PriorProbe(shapes) as probe:
+        out = _cli(["train_prior", "--run", run_dir, "--db_path", db, "--name", "smoke",
+                    "--out_path", work, "--n_signal", PRIOR_N_SIGNAL, "--smoke_test",
+                    "--device", "cuda"])
+    train_s = time.perf_counter() - t0
+    launches_train = dilated_unit.launches
+    prior_run = Path(out.strip().splitlines()[-1].removeprefix("prior run dir: "))
+    pcfg = json.loads((prior_run / "prior_config.json").read_text())
+    enc, dec = probe.calls["encode_latents"], probe.calls["decode_latents"]
+    check(len(enc) == 2 and len(dec) == 2, f"train_prior: {len(enc)} encodes, {len(dec)} decodes")
+    check(all(c["launches"] == UNITS_PER_HALF for c in enc + dec),
+          f"unit launches per encode_latents {[c['launches'] for c in enc]}, per decode "
+          f"{[c['launches'] for c in dec]}; expected {UNITS_PER_HALF} each")
+    check(launches_train == UNITS_PER_HALF * 4 and dilated_unit.launches_bf16 == 0,
+          f"train_prior: {launches_train} launches")
+    enc_units = v2_unit_shapes(TRAIN_BATCH, PRIOR_N_SIGNAL)
+    # the validation sample: 128 frames generated, less the D - 1 that undoing the shift
+    # takes (as rave_tpu/prior/train.py decodes it)
+    val_frames = min(128, PRIOR_N_SIGNAL // 2048) - pcfg["latent_size"] + 1
+    dec_units = v2_unit_shapes(1, val_frames * 2048)
+    check(all(c["units"] == enc_units for c in enc) and all(c["units"] == dec_units for c in dec),
+          f"unit shapes per encode_latents {[c['units'] for c in enc]}, per decode "
+          f"{[c['units'] for c in dec]}; expected {enc_units} and {dec_units}")
+    rows = [json.loads(r) for r in (prior_run / "metrics.jsonl").read_text().splitlines()]
+    check([r["step"] for r in rows] == [1, 2]
+          and all(math.isfinite(r["latent_prediction"]) for r in rows), f"prior rows {rows}")
+    check(len(list((prior_run / "checkpoints").iterdir())) == 2, "prior checkpoints")
+
+    # (c) export --prior, generate --prior_seconds, the artifact card vs CPU, .pt2, timing
+    t0 = time.perf_counter()
+    out = _cli(["export", "--run", run_dir, "--prior", prior_run, "--output", work / "export",
+                "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    path = out.strip().splitlines()[-1].removeprefix("exported: ")
+    launches_export = dilated_unit.launches - launches_train
+    before = dilated_unit.launches
+    t0 = time.perf_counter()
+    _cli(["generate", "--model", path, "--prior_seconds", PRIOR_SECONDS, "--out_path",
+          work / "gen", "--seed", GENERATE_SEED, "--device", "cuda"])
+    generate_s = time.perf_counter() - t0
+    launches_generate = dilated_unit.launches - before
+    launches = dilated_unit.launches
+    shapes.__exit__()
+    check(len(shapes.seen) == launches, f"{len(shapes.seen)} unit calls on the card recorded, "
+                                        f"{launches} launches counted")
+    check(launches_export == UNITS_PER_HALF and launches_generate == UNITS_PER_HALF,
+          f"export --prior {launches_export} launches (its smoke decode), generate "
+          f"--prior_seconds {launches_generate} (one decode); expected {UNITS_PER_HALF} each")
+    art = ExportedRAVE(path, device="cuda")
+    cpu_art = ExportedRAVE(path, device="cpu")
+    decim = art.cfg.decimation()
+    sr, wav = wavfile.read(work / "gen" / "prior_sample_0.wav")
+    n_frames = max(round(PRIOR_SECONDS * SAMPLE_RATE / decim), 1)
+    check(sr == SAMPLE_RATE and wav.shape == (n_frames * decim,),
+          f"prior sample wav {sr} Hz, {wav.shape}; expected {n_frames * decim} samples")
+    gen_units = sorted(shapes.seen[-UNITS_PER_HALF:])
+    check(gen_units == v2_unit_shapes(1, n_frames * decim),
+          f"generate --prior_seconds: unit shapes {gen_units}")
+    check(bool(np.abs(wav).max() > 0), "the prior sample is silent")
+
+    check(art.has_prior and art.manifest["prior"] == pcfg, "the artifact's prior")
+    codes = check_prior_codes(art, cpu_art, PRIOR_PROGRAM_STEPS, GENERATE_SEED)
+    program = art.load_program("prior")
+    D = art.prior_step.prior.latent_size * art.prior_step.prior.resolution
+    x_e = x_p = torch.zeros(1, D, 1, device="cuda")
+    s_e, s_p = art.prior_state(), art.prior_state()
+    with torch.no_grad():
+        for i in range(PRIOR_PROGRAM_STEPS):
+            seed = torch.tensor(prior_step_seed(GENERATE_SEED, i), dtype=torch.int64,
+                                device="cuda")
+            x_e, s_e = art.prior_step(s_e, x_e, seed)
+            x_p, s_p = program(s_p, x_p, seed)
+            check(torch.equal(x_e, x_p) and all(torch.equal(a, b) for a, b in zip(s_e, s_p)),
+                  f"prior_step.pt2 differs from the eager step at step {i}")
+
+    def step_ms(fn) -> list:
+        x, state, ms = torch.zeros(1, D, 1, device="cuda"), art.prior_state(), []
+        with torch.no_grad():
+            for i in range(PRIOR_TIMED_STEPS + 4):
+                seed = torch.tensor(prior_step_seed(1, i), dtype=torch.int64, device="cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x, state = fn(state, x, seed)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return ms[4:]
+
+    p50 = {"eager": statistics.median(step_ms(art.prior_step)),
+           "program": statistics.median(step_ms(program))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z = art.sample_prior(n_frames, seed=GENERATE_SEED)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    check(z.shape == (1, art.latent_size, n_frames) and bool(torch.isfinite(z).all()),
+          f"sample_prior {tuple(z.shape)} or not finite")
+
+    # (d) the unit at the path's shapes; an encode_latents batch and a sample's decode
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    unit_rows = [kernel_row(gen, "prior", *shape) for shape in sorted(set(shapes.seen))]
+    by_shape = {(r["B"], r["C"], r["T"], r["d"], r["mode"]): r for r in unit_rows}
+    path_rows = [by_shape[shape] for shape in shapes.seen]  # one per launch
+    unit_path = {"launches": len(path_rows), "ms": sum(r["ms"] for r in path_rows),
+                 "plain_ms": sum(r["plain_ms"] for r in path_rows),
+                 "bound_ms": sum(unit_bound([r], r["B"], "fp32")["bound_ms"] for r in path_rows),
+                 "max_abs_err": max(r["max_abs_err"] for r in unit_rows)}
+    x = probe.first_x
+    eps = torch.randn(x.shape[0], art.cfg.latent_size, x.shape[-1] // decim,
+                      generator=torch.Generator().manual_seed(17))
+    z_enc = {}
+    for dev in ("cuda", "cpu"):
+        cfg_d, vae, _, _ = load_run(str(run_dir), device=dev)
+        z_enc[dev] = encode_latents(cfg_d, vae, x.to(dev), pcfg["latent_size"],
+                                    eps=eps.to(dev)).cpu()
+        del vae
+    encode_err = rel_err(z_enc["cuda"], z_enc["cpu"])
+    decode_err = rel_err(art.decode(z, seed=GENERATE_SEED).cpu(),
+                         cpu_art.decode(z.cpu(), seed=GENERATE_SEED))
+    check(z_enc["cuda"].shape == (x.shape[0], pcfg["latent_size"], x.shape[-1] // decim)
+          and encode_err <= MODEL_TOL and decode_err <= MODEL_TOL,
+          f"prior path card vs CPU: encode_latents {tuple(z_enc['cuda'].shape)} "
+          f"{encode_err:.3e}, a sample's decode {decode_err:.3e} > {MODEL_TOL}")
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"stock": stock, "latent_size": pcfg["latent_size"], "artifact_latent_size":
+           art.latent_size, "train_s": train_s, "encode_ms": [c["ms"] for c in enc],
+           "decode_ms": [c["ms"] for c in dec], "ce": [r["latent_prediction"] for r in rows],
+           "export_s": export_s, "generate_s": generate_s, "wav_samples": int(wav.shape[0]),
+           "card_vs_cpu": codes, "program_steps_bit_equal": PRIOR_PROGRAM_STEPS,
+           "step_ms_p50": p50, "frame_budget_ms": PRIOR_FRAME_MS,
+           "sample_prior_s": sample_s, "sample_frames": n_frames,
+           "launches": launches, "launches_per_encode": UNITS_PER_HALF,
+           "launches_per_decode": UNITS_PER_HALF, "unit_rows": unit_rows,
+           "unit_path": unit_path, "card_vs_cpu_encode": encode_err,
+           "card_vs_cpu_decode": decode_err, "seconds": time.perf_counter() - t_phase}
+    print(f"prior: stock prior (latent {PRIOR_LATENT}, {stock['channels']} channels, rf "
+          f"{stock['receptive_field']}, {stock['params']} params) B={TRAIN_BATCH} x "
+          f"{PRIOR_FRAMES} frames: card vs CPU {stock['card_vs_cpu']:.2e}, "
+          f"{PRIOR_STREAM_STEPS} chained steps vs offline {stock['stream_vs_offline']:.2e}; "
+          f"Adam step {stock['step_ms']:.2f} ms, peak {stock['peak_gb']:.2f} GiB; "
+          f"cli train_prior --smoke_test on the loop's run: latent_size {out['latent_size']} "
+          f"(artifact {art.latent_size}), ce {out['ce']}, {UNITS_PER_HALF} launches per "
+          f"encode_latents ({', '.join(f'{ms:.1f}' for ms in out['encode_ms'])} ms) and per "
+          f"decode ({', '.join(f'{ms:.1f}' for ms in out['decode_ms'])} ms), {train_s:.1f} s; "
+          f"export --prior {export_s:.1f} s; generate --prior_seconds {PRIOR_SECONDS:g} "
+          f"{generate_s:.2f} s, {wav.shape[0]} samples; sample_prior({n_frames}) "
+          f"{sample_s:.2f} s; argmax codes card vs CPU on the card's chain: "
+          f"{codes['codes_differ']} of {codes['codes']} differ ({codes['code_ties']} ties), "
+          f"own chains' latents {codes['own_chain_z_rel_err']:.2e}; prior_step.pt2 "
+          f"bit-equal over {PRIOR_PROGRAM_STEPS} steps; step p50 eager {p50['eager']:.3f} / "
+          f".pt2 {p50['program']:.3f} ms (frame budget {PRIOR_FRAME_MS:.2f}); {launches} "
+          f"launches; card vs CPU encode_latents (B={x.shape[0]}) {encode_err:.2e}, a "
+          f"sample's decode {decode_err:.2e} <= {MODEL_TOL}; unit at the path's "
+          f"{len(unit_rows)} shapes: max rel err {max(r['rel_err'] for r in unit_rows):.2e} <= "
+          f"{KERNEL_TOL}, its {launches} launches {unit_path['ms']:.3f} ms (plain "
+          f"{unit_path['plain_ms']:.3f}, bound {unit_path['bound_ms']:.3f}); kernel/plain ms: "
+          f"{shape_summary(unit_rows)}; {out['seconds']:.1f} s", flush=True)
+    for kind, ms in p50.items():
+        check(ms < PRIOR_FRAME_MS, f"prior step p50 ({kind}) {ms:.3f} ms over one latent "
+                                   f"frame's {PRIOR_FRAME_MS:.2f} ms")
+    return out
+
+
 DISCRETE_UNITS = [(768, 256, (1, 3))]
 DISCRETE_PREWARMUP_STEPS, DISCRETE_WARMED_STEPS = 3, 8  # after the k-means step; 2 critic
 DISCRETE_LOOP = ["train.phase_1_duration=3", "train.update_discriminator_every=2",
@@ -2486,6 +2949,9 @@ VARIANT_UNITS = {
                (384, 512, (1, 3, 9)), (192, 2048, (1, 3, 9)), (96, 8192, (1, 3, 9))],
 }
 VARIANT_LAUNCHES = {k: sum(len(d) for _, _, d in v) for k, v in VARIANT_UNITS.items()}
+# the variants whose bf16 steps phase `train_bf16` drives: hybrid's mel input has no
+# bf16 step in rave_tpu (its rfft refuses bfloat16; ROADMAP C14), and the port refuses it
+VARIANT_BF16 = ("v2_small", "v2_nopqmf")
 # hybrid's receptive field, 21759 / 21503 samples (architectural: the probe on the CPU at
 # capacity 2), divided by the channels alone as rave_tpu/train/loop.py:168 does under mel
 # input, crops more band frames than a 131072-sample clip has (ROADMAP C12): its steps and
@@ -2531,21 +2997,6 @@ def variant_cfg(preset: str):
     return compose([preset], VARIANT_OVERRIDES.get(preset, []))
 
 
-def _unit_trace(model) -> list:
-    """Forward hooks on every fused unit of `model`, recording (C, T,
-    dilation) per call; returns the list and the hooks."""
-    from rave_tpu_torch.models.blocks import FusedDilatedResidual
-
-    seen, hooks = [], []
-    for m in model.modules():
-        if isinstance(m, FusedDilatedResidual):
-            dil = m.inner.dilation
-            hooks.append(m.register_forward_hook(
-                lambda mod, args, out, dil=dil: seen.append((args[0].shape[1], args[0].shape[2],
-                                                             dil))))
-    return seen, hooks
-
-
 def _variant_draws(cfg, x, gen):
     """The variational eps and the noise synth's uniforms of a pass over x."""
     import torch
@@ -2575,14 +3026,13 @@ def _variant_offline(preset: str, cfg) -> dict:
     want = VARIANT_LAUNCHES[preset]
     with torch.inference_mode():
         model(x, draws)  # warm
-        seen, hooks = _unit_trace(model)
         torch.cuda.synchronize()
         before = (dilated_unit.launches, dilated_unit.launches_bf16)
-        y = model(x, draws)
+        with UnitShapes() as shapes:
+            y = model(x, draws)
         torch.cuda.synchronize()
         launches = dilated_unit.launches - before[0]
-        for h in hooks:
-            h.remove()
+        seen = [(C, T, d) for _, C, T, d, _ in shapes.seen]
         units = [(C, T, d) for C, T, dils in VARIANT_UNITS[preset] for d in dils]
         check(seen == units, f"{preset}: the forward's units {seen}, expected {units}")
         check(launches == want and dilated_unit.launches_bf16 == before[1],
@@ -2895,6 +3345,7 @@ def main() -> None:
     remat = phase_remat(tuple(train["crop_frames"]))
     loop = phase_loop(train["ms_per_step"], train_bf16["ms_per_step"])
     export = phase_export(ROOT / loop["run_dir"])
+    prior = phase_prior(ROOT / loop["run_dir"], ROOT / "build" / "loop" / "db")
     shutil.rmtree(ROOT / "build" / "loop" / "runs", ignore_errors=True)  # ~0.7 GB per checkpoint
     shutil.rmtree(ROOT / "build" / "loop" / "export", ignore_errors=True)
     discrete = phase_discrete()
@@ -2941,6 +3392,9 @@ def main() -> None:
         "launches_discrete": discrete["launches"],
         "launches_v3": v3["launches"],  # Snake units bypass the kernel, as in rave_tpu
         "launches_variants": variants["launches"],
+        "launches_prior": prior["launches"],  # train_prior, export --prior, generate
+        **{f"{k}_prior": prior["unit_path"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                          "max_abs_err")},
         **{f"{k}_variants_b16": v for k, v in per_variant("fp32_b16").items()},
         "ms_discrete_b16": sum(r["ms"] for r in discrete_rows),
         "plain_ms_discrete_b16": sum(r["plain_ms"] for r in discrete_rows),
@@ -2967,7 +3421,7 @@ def main() -> None:
          "bounds": bounds,
          "offline": offline, "stream": stream, "grad_shapes": grad, "train": train,
          "train_bf16": train_bf16, "remat": remat, "loop": loop, "export": export,
-         "discrete": discrete, "v3": v3, "variants": variants, **kernels},
+         "prior": prior, "discrete": discrete, "v3": v3, "variants": variants, **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

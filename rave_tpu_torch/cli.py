@@ -6,10 +6,12 @@ The ported commands of rave_tpu/cli.py, with the same flags plus
   preprocess : corpus -> ARS store (data/preprocess.py)
   train      : the training driver (train/loop.py); `--bf16` sets
                train.bf16 and train.bf16_dis, as the JAX CLI's does
+  train_prior: the latent prior on a variational run (prior/train.py)
   eval       : reconstruction metrics of a run (train/evaluate.py)
   export     : run -> `.rtpu` artifact with its `torch.export` step
-               programs (export/export.py)
-  generate   : files -> reconstructed wavs through an artifact or a run
+               programs, `--prior` bundling a prior run (export/export.py)
+  generate   : files -> reconstructed wavs through an artifact or a run,
+               or `--prior_seconds` of the artifact's prior
                (export/generate.py)
 
 The other commands of the JAX CLI, and the options of these that need a
@@ -22,7 +24,6 @@ import argparse
 import sys
 
 NOT_PORTED = {
-    "train_prior": "A12 (the prior)",
     # rave_tpu emits ONNX for the v1 family only (rave_tpu/cli.py:197-201)
     "export_onnx": "A11 (v1, then its ONNX export)",
     "import_torch": "A15 (reference checkpoints into the port)",
@@ -32,8 +33,7 @@ NOT_PORTED = {
 
 # (command, option) -> the ROADMAP item that ports what the option needs
 NOT_PORTED_OPTIONS = {
-    ("export", "--prior"): "A12 (the prior)",
-    ("generate", "--prior_seconds"): "A12 (the prior)",
+    ("train_prior", "--config"): "A19 (the gin reader)",
 }
 
 
@@ -129,6 +129,40 @@ def cmd_train(argv):
     print(f"run dir: {run_dir}")
 
 
+def cmd_train_prior(argv):
+    p = argparse.ArgumentParser("rave_tpu_torch train_prior")
+    p.add_argument("--run", required=True, help="pretrained RAVE run dir")
+    p.add_argument("--db_path", required=True)
+    p.add_argument("--name", required=True)
+    p.add_argument("--out_path", default="runs")
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--n_signal", type=int, default=131072)
+    p.add_argument("--max_steps", type=int, default=1_000_000)
+    p.add_argument("--val_every", type=int, default=10000)
+    p.add_argument("--fidelity", type=float, default=0.95)
+    p.add_argument("--config", default=None,
+                   help="reference prior gin file (configs/prior/prior_v1.gin); not ported")
+    # the prior's architecture: the reference's prior_v1.gin bindings
+    # (rave/configs/prior/prior_v1.gin:1-8) unless a flag overrides them
+    for flag in ("resolution", "res_size", "skp_size", "kernel_size", "cycle_size", "n_layers"):
+        p.add_argument(f"--{flag}", type=int, default=None)
+    p.add_argument("--smoke_test", action="store_true")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    a = p.parse_args(argv)
+    if a.config:
+        return refuse("train_prior --config", NOT_PORTED_OPTIONS[("train_prior", "--config")])
+    from rave_tpu_torch.prior.train import train_prior
+
+    arch = dict(resolution=32, res_size=512, skp_size=256, kernel_size=3, cycle_size=4,
+                n_layers=10)
+    arch.update({k: getattr(a, k) for k in arch if getattr(a, k) is not None})
+    run_dir = train_prior(run=a.run, db_path=a.db_path, name=a.name, out_path=a.out_path,
+                          batch=a.batch, n_signal=a.n_signal, max_steps=a.max_steps,
+                          val_every=a.val_every, fidelity=a.fidelity,
+                          smoke_test=a.smoke_test, device=a.device, **arch)
+    print(f"prior run dir: {run_dir}")
+
+
 def cmd_eval(argv):
     from rave_tpu_torch.train.evaluate import main as eval_main
 
@@ -148,13 +182,12 @@ def cmd_export(argv):
     p.add_argument("--prior", default=None, help="prior run dir to bundle")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     a = p.parse_args(argv)
-    if a.prior:
-        return refuse("export --prior", NOT_PORTED_OPTIONS[("export", "--prior")])
     from rave_tpu_torch.export.export import export_model
 
     path = export_model(run=a.run, streaming=a.streaming, fidelity=a.fidelity, stereo=a.stereo,
                         use_ema=a.ema_weights, channels=a.channels or None,
-                        target_sr=a.sr or None, output=a.output, device=a.device)
+                        target_sr=a.sr or None, output=a.output, prior=a.prior,
+                        device=a.device)
     print(f"exported: {path}")
 
 
@@ -171,19 +204,17 @@ def cmd_generate(argv):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     a = p.parse_args(argv)
-    if a.prior_seconds:
-        return refuse("generate --prior_seconds",
-                      NOT_PORTED_OPTIONS[("generate", "--prior_seconds")])
-    if not a.input:
-        p.error("--input files are required")
+    if not a.input and not a.prior_seconds:
+        p.error("either --input files or --prior_seconds is required")
     from rave_tpu_torch.export.generate import generate
 
     generate(model=a.model, inputs=a.input, out_path=a.out_path, streaming=a.streaming,
-             chunk_size=a.chunk_size or None, seed=a.seed, device=a.device)
+             chunk_size=a.chunk_size or None, prior_seconds=a.prior_seconds,
+             prior_samples=a.prior_samples, seed=a.seed, device=a.device)
 
 
-COMMANDS = {"preprocess": cmd_preprocess, "train": cmd_train, "eval": cmd_eval,
-            "export": cmd_export, "generate": cmd_generate}
+COMMANDS = {"preprocess": cmd_preprocess, "train": cmd_train, "train_prior": cmd_train_prior,
+            "eval": cmd_eval, "export": cmd_export, "generate": cmd_generate}
 
 
 def main(argv=None) -> int:

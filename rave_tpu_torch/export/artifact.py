@@ -38,6 +38,19 @@ streaming steps). The
 latent codecs of the four families are `post_process_latent` /
 `pre_process_latent`; a discrete artifact's latents are its RVQ code
 indices [B, Q, T] as floats, and its decode program holds the codebooks.
+
+An artifact exported with a prior (`export --prior`) also holds
+`prior.json` (the prior run's `prior_config.json`, also the manifest's
+`prior`), `prior.pt` (the prior's `state_dict`) and `prior_step.pt2`. A
+`PriorStep` is one autoregressive step `(state, x[B, D*R, 1], seed) ->
+(next, state')`: the prior's logits for the frame after `x`, and the
+stacked one-hot sampled from them with Gumbel noise drawn from `seed`
+(`uniform_from_seed`, `prior_gumbel`). `ExportedRAVE.sample_prior` runs
+the prior's `generate` from a zero frame and a zero state on the same
+draws, one seed per step, so it samples what chained `PriorStep` calls
+sample; then it decodes the quantized frames with a dither from the same
+sampler, undoes the diagonal shift and pads the latent with normals up to
+the artifact's latent size (rave_tpu/export/artifact.py:212-243).
 """
 from __future__ import annotations
 
@@ -60,12 +73,15 @@ from rave_tpu_torch.models.rave import RAVE
 from rave_tpu_torch.nn.conv import freeze_weights
 from rave_tpu_torch.nn.streaming import StreamingModule, init_stream_state
 from rave_tpu_torch.ops.resampler import Resampler
+from rave_tpu_torch.prior.core import DiagonalShift, QuantizedNormal
+from rave_tpu_torch.prior.model import Prior, generate, gumbel_from_uniform, sample_prediction
 from rave_tpu_torch.train.loop import fp32_exact
 from rave_tpu_torch.utils.rng import MASK32, hash32, normal_from_seed, uniform_from_seed
 
 FORMAT = "rtpu-torch-v1"
 ENCODE_SALT, DECODE_SALT = 1, 2  # the latent noise of encode and of decode
 SYNTH_SALT = 3  # the decoder's noise synth
+PRIOR_SALT, PRIOR_DITHER_SALT, PRIOR_PAD_SALT = 4, 5, 6  # the prior's draws, its dither, padding
 DECODE_SEED_OFFSET = 0x9E3779B9  # forward decodes with seed + this, mod 2^32 (as JAX)
 STEP_METHODS = ("encode", "decode", "forward")
 
@@ -243,6 +259,42 @@ class StepProgram(nn.Module):
         return y, new
 
 
+class PriorStep(nn.Module):
+    """One step of the bundled prior as `(state, x, seed) -> (next, state')`:
+    `state` the list of `stream_slots(prior)`, `x` [B, D*R, 1] the last
+    frame, `next` the stacked one-hot sampled from the prior's logits with
+    Gumbel noise from `seed` (an int64 scalar holding a uint32), or their
+    argmax with `argmax`."""
+
+    def __init__(self, prior: Prior):
+        super().__init__()
+        self.prior = prior
+        self.slots = stream_slots(prior)
+
+    def forward(self, state: List[torch.Tensor], x: torch.Tensor, seed: torch.Tensor,
+                argmax: bool = False):
+        if len(state) != len(self.slots):
+            raise ValueError(f"{len(state)} state tensors for {len(self.slots)} stream buffers")
+        D, R = self.prior.latent_size, self.prior.resolution
+        with swapped(self.slots, state):
+            logits = self.prior.step(x)
+            new = [getattr(m, attr) for _, m, attr in self.slots]
+        gumbel = None if argmax else prior_gumbel(seed, x.shape[0], D, R)
+        return sample_prediction(logits, D, R, gumbel, argmax), new
+
+
+def prior_gumbel(seed: torch.Tensor, batch: int, latent_size: int,
+                 resolution: int) -> torch.Tensor:
+    """The Gumbel noise [B, D, R, 1] of one prior step, drawn from `seed`."""
+    return gumbel_from_uniform(uniform_from_seed(seed, (batch, latent_size, resolution, 1),
+                                                 PRIOR_SALT))
+
+
+def prior_step_seed(seed: int, i: int) -> int:
+    """The seed of step `i` of a prior sample drawn from `seed`."""
+    return hash32((seed & MASK32) ^ hash32(i + 1))
+
+
 class ExportedRAVE:
     """An artifact loaded on `device` (the card unless the caller passes
     `device="cpu"`): `encode`, `decode` and `forward`, offline or streaming
@@ -287,6 +339,14 @@ class ExportedRAVE:
         if tsr != self.manifest["sampling_rate"]:
             self.resampler = Resampler(tsr, self.manifest["sampling_rate"], self.stream_batch,
                                        self.n_channels).to(self.device)
+        self.prior_step = None
+        pc = self.manifest.get("prior")
+        if pc and (self.path / "prior.pt").exists():
+            prior = Prior(pc["latent_size"], pc["resolution"], pc["res_size"], pc["skp_size"],
+                          pc["kernel_size"], pc["cycle_size"], pc["n_layers"])
+            prior.load_state_dict(torch.load(self.path / "prior.pt", map_location="cpu",
+                                             weights_only=True))
+            self.prior_step = PriorStep(prior.to(self.device).eval().requires_grad_(False))
 
     # ---- seeds -----------------------------------------------------------
     def next_seed(self) -> int:
@@ -420,7 +480,38 @@ class ExportedRAVE:
 
     @property
     def has_prior(self) -> bool:
-        return False
+        return self.prior_step is not None
 
-    def sample_prior(self, n_frames: int, seed: Optional[int] = None, argmax: bool = False):
-        raise NotImplementedError("the prior is not ported yet (ROADMAP A12)")
+    def prior_state(self) -> List[torch.Tensor]:
+        """The zero stream state a prior sample starts from."""
+        return initial_state(self.prior_step.prior)
+
+    @fp32_exact()
+    @torch.no_grad()
+    def sample_prior(self, n_frames: int, seed: Optional[int] = None,
+                     argmax: bool = False) -> torch.Tensor:
+        """`n_frames` latent frames [1, latent_size, n_frames] from the bundled
+        prior, ready for `decode`: n_frames + D - 1 steps of the prior from a
+        zero frame (step i draws what `prior_step` draws from
+        `prior_step_seed(seed, i)`), decoded
+        with a dither drawn from the seed, the diagonal shift undone, and
+        normals from the seed for the latent dimensions the prior does not
+        model (rave_tpu/export/artifact.py:212-243)."""
+        if self.prior_step is None:
+            raise RuntimeError(f"{self.path} was exported without a prior")
+        s = self.next_seed() if seed is None else int(seed) & MASK32
+        prior = self.prior_step.prior
+        D, R = prior.latent_size, prior.resolution
+        n = n_frames + D - 1
+        gumbel = None if argmax else [
+            prior_gumbel(torch.tensor(prior_step_seed(s, i), dtype=torch.int64,
+                                      device=self.device), 1, D, R) for i in range(n)]
+        x0 = torch.zeros(1, D * R, 1, device=self.device)
+        ys = generate(prior, x0, n, gumbel, argmax=argmax)
+        seed_t = torch.tensor(s, dtype=torch.int64, device=self.device)
+        dither = uniform_from_seed(seed_t, (1, D, n), PRIOR_DITHER_SALT)
+        z = DiagonalShift().inverse(QuantizedNormal(R).decode(ys, dither))
+        if D < self.latent_size:
+            pad = normal_from_seed(seed_t, (1, self.latent_size - D, n_frames), PRIOR_PAD_SALT)
+            z = torch.cat([z, pad], dim=1)
+        return z[:, : self.latent_size]

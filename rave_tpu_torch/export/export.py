@@ -19,8 +19,15 @@ with the weights constant inside each program (each holds the weights of
 the half it runs), the state explicit (the stream buffers start from
 zeros, the AdaIN buffers from the model's; shapes and leaf names in the
 manifest) and `seed` an int64 scalar holding a uint32. `forward_step`
-decodes with `seed + 0x9E3779B9 mod 2^32`. A program holds its weights on
-the device it was exported on; the manifest records it. Nothing fails
+decodes with `seed + 0x9E3779B9 mod 2^32`. With `prior`, the prior run's
+config and newest weights are bundled (`prior.json`, `prior.pt`, the
+manifest's `prior` is its `prior_config.json`, as the JAX package's) with a
+fourth program,
+
+    prior_step(state, x[1, D*R, 1], seed)       -> (next[1, D*R, 1], state')
+
+one autoregressive step of the prior (artifact.py::PriorStep). A program
+holds its weights on the device it was exported on; the manifest records it. Nothing fails
 quietly: a failed smoke decode or program export raises, and a failed
 export leaves no manifest `aot` section behind.
 """
@@ -37,7 +44,7 @@ import torch
 from rave_tpu_torch import config as config_lib
 from rave_tpu_torch.export.artifact import FORMAT, STEP_METHODS, ExportedRAVE, stream_slots
 from rave_tpu_torch.factory import resolve_device
-from rave_tpu_torch.utils.checkpoint import read_generator
+from rave_tpu_torch.utils.checkpoint import read_generator, read_prior
 
 
 def truncated_latent_size(fidelity_curve: np.ndarray, fidelity: float, full: int) -> int:
@@ -110,9 +117,8 @@ def export_model(
     device: str | torch.device = "cuda",
 ) -> str:
     """Export the run `run` into `<output or run dir>/<name>[_streaming].rtpu`
-    on `device`; returns the artifact's path."""
-    if prior is not None:
-        raise NotImplementedError("bundling a prior is not ported yet (ROADMAP A12)")
+    on `device`, with the prior run under `prior` bundled when given; returns
+    the artifact's path."""
     device = resolve_device(device)
     cfg, weights, n_channels, run_dir = read_generator(run, use_ema)
     n_channels = channels or n_channels
@@ -122,6 +128,11 @@ def export_model(
     name = cfg.name + ("_streaming" if streaming else "")
     out_dir = Path(output or run_dir) / f"{name}.rtpu"
     out_dir.mkdir(parents=True, exist_ok=True)
+    manifest_prior = None
+    if prior is not None:  # reference scripts/export.py:543-558
+        manifest_prior, prior_weights, _ = read_prior(prior)
+        (out_dir / "prior.json").write_text(json.dumps(manifest_prior, indent=2))
+        torch.save(prior_weights, out_dir / "prior.pt")
     manifest = {
         "format": FORMAT,
         "name": cfg.name,
@@ -143,7 +154,7 @@ def export_model(
         "latency": None,  # from the loaded model, below
         **attributes(cfg),
         "config": config_lib.to_dict(cfg),
-        "prior": None,
+        "prior": manifest_prior,
         "version": 1,
     }
     torch.save(weights, out_dir / "weights.pt")
@@ -172,24 +183,30 @@ def _specs(tensors) -> list:
 
 
 def export_programs(art: ExportedRAVE, out_dir: Path) -> dict:
-    """`torch.export` each streaming step of `art` into `<method>_step.pt2`;
-    the manifest's `aot` section. Flat inputs are (state..., x, seed), flat
+    """`torch.export` each streaming step of `art` into `<method>_step.pt2`,
+    and the prior's step into `prior_step.pt2` when it has one; the
+    manifest's `aot` section. Flat inputs are (state..., x, seed), flat
     outputs (y, state'...), the state in the order of `state_leaves`."""
     block, ratio, device = art.manifest["block_size"], art.cfg.decimation(), art.device
-    state = [s.clone() for s in art.state]
     x = torch.zeros(art.stream_batch, art.n_channels, block, device=device)
     z = torch.zeros(art.stream_batch, art.latent_size, block // ratio, device=device)
+    programs = {f"{m}_step": (art.steps[m], art.state, z if m == "decode" else x,
+                              stream_slots(art.model)) for m in STEP_METHODS}
+    if art.has_prior:
+        prior = art.prior_step.prior
+        programs["prior_step"] = (art.prior_step, art.prior_state(),
+                                  torch.zeros(1, prior.latent_size * prior.resolution, 1,
+                                              device=device), art.prior_step.slots)
     seed = torch.tensor(0, dtype=torch.int64, device=device)
-    leaves = [name for name, _, _ in stream_slots(art.model)]
     report = {}
     with torch.no_grad():
-        for method in STEP_METHODS:
-            name = f"{method}_step"
-            args = (state, z if method == "decode" else x, seed)
-            program = torch.export.export(art.steps[method], args, strict=False)
+        for name, (module, state0, x_in, slots) in programs.items():
+            state = [s.clone() for s in state0]
+            args = (state, x_in, seed)
+            program = torch.export.export(module, args, strict=False)
             torch.export.save(program, str(out_dir / f"{name}.pt2"))
-            y, new_state = art.steps[method](*args)
-            inputs = [*state, args[1], seed]
+            y, new_state = module(*args)
+            inputs = [*state, x_in, seed]
             outputs = [y, *new_state]
             n = len(state)
             report[name] = {
@@ -202,7 +219,7 @@ def export_programs(art: ExportedRAVE, out_dir: Path) -> dict:
                 "n_state": n,
                 "state_inputs": list(range(n)),
                 "state_outputs": list(range(1, 1 + n)),
-                "state_leaves": leaves,
+                "state_leaves": [leaf for leaf, _, _ in slots],
                 # torch.export keeps every input
                 "kept_inputs": list(range(len(inputs))),
             }

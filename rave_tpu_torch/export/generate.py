@@ -8,6 +8,11 @@ clip, and write an int16 wav. A run directory is exported on the fly.
 
 A stereo artifact (`stream_batch` 2) takes a file's two channels as its two
 batch rows, offline and streaming; the JAX package feeds it one row.
+
+With `prior_seconds`, no input is read: each of `prior_samples` latent
+sequences of `round(seconds * sr / decimation)` frames is sampled from the
+artifact's bundled prior (seed `seed + i`), decoded offline and written as
+`prior_sample_<i>.wav` (rave_tpu/export/generate.py:96-120).
 """
 from __future__ import annotations
 
@@ -30,18 +35,19 @@ def generate(
     streaming: bool = False,
     chunk_size: Optional[int] = None,
     prior_seconds: float = 0.0,
+    prior_samples: int = 1,
     seed: int = 0,
     device: str | torch.device = "cuda",
 ) -> List[Path]:
     """Reconstruct each of `inputs` into `<out_path>/<stem>_reconstructed.wav`
-    on `device`; the noise comes from the seed chain of `seed`. Returns the
-    files written."""
-    if prior_seconds:
-        raise NotImplementedError("generation from a prior is not ported yet (ROADMAP A12)")
+    on `device` (or, with `prior_seconds`, sample the artifact's prior); the
+    noise comes from the seed chain of `seed`. Returns the files written."""
     p = Path(model)
     if not (p / "manifest.json").exists():
         p = Path(export_model(run=model, streaming=streaming, device=device))
     art = ExportedRAVE(str(p), device=device, seed=seed)
+    if prior_seconds:
+        return generate_prior(art, out_path, prior_seconds, prior_samples, seed)
     sr = art.manifest.get("target_sampling_rate", art.manifest["sampling_rate"])
     block = chunk_size or art.block_size
     if streaming and block % art.block_size:
@@ -77,6 +83,29 @@ def generate(
         out_file = out_dir / (Path(f).stem + "_reconstructed.wav")
         wavfile.write(out_file, sr, (y * 32767).astype(np.int16))
         print(f"wrote {out_file}")
+        written.append(out_file)
+    return written
+
+
+def generate_prior(art: ExportedRAVE, out_path: str, seconds: float, n: int,
+                   seed: int) -> List[Path]:
+    """Unconditional generation: `n` latent sequences sampled from the
+    artifact's prior, decoded, as `<out_path>/prior_sample_<i>.wav`."""
+    if not art.has_prior:
+        raise RuntimeError(f"{art.path} was exported without a prior: export it again with "
+                           "`export --prior <prior run dir>`")
+    sr = art.manifest.get("target_sampling_rate", art.manifest["sampling_rate"])
+    decim = art.manifest["methods"]["decode"]["in_ratio"]
+    n_frames = max(int(round(seconds * art.manifest["sampling_rate"] / decim)), 1)
+    out_dir = Path(out_path)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    written = []
+    for i in range(n):
+        y = art.decode(art.sample_prior(n_frames, seed=seed + i))[0].T.cpu().numpy()
+        y = np.clip(y, -1, 1)
+        out_file = out_dir / f"prior_sample_{i}.wav"
+        wavfile.write(out_file, sr, (y * 32767).astype(np.int16))
+        print(f"wrote {out_file} ({y.shape[0] / sr:.2f}s)")
         written.append(out_file)
     return written
 

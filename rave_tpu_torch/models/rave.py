@@ -52,15 +52,13 @@ class MelAnalysis(StreamingModule):
         return (self.n_fft // 2 - self.hop) // self.hop
 
     def _project(self, frames: torch.Tensor) -> torch.Tensor:
-        """frames [B, C, F, n_fft] -> [B, C*n_mels, F], in the frames' dtype
-        (the FFT in float32 for a bf16 model: it takes no bf16)."""
-        dtype = frames.dtype
-        if dtype not in (torch.float32, torch.float64):
-            frames = frames.float()
+        """frames [B, C, F, n_fft] -> [B, C*n_mels, F], the FFT in the frames'
+        dtype, as the JAX package's (whose rfft takes no bfloat16: a bf16
+        step with mel input is refused, train/steps.py::build_train_steps)."""
         mag = torch.fft.rfft(frames * as_dtype(self.window, frames.dtype), dim=-1).abs()
         mel = torch.log1p(mag @ as_dtype(self.filterbank, mag.dtype).t())  # [B, C, F, M]
         B, C, n, M = mel.shape
-        return as_dtype(mel.transpose(2, 3).reshape(B, C * M, n), dtype)
+        return mel.transpose(2, 3).reshape(B, C * M, n)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C, T = x.shape

@@ -132,7 +132,10 @@ class Conv1d(_WeightNormConv):
     Offline: `forward(x)`, x [B, C, T] -> [B, features, T//stride].
     Streaming: `step(x)` with chunk length divisible by `stride`; carries
     `cache_len = pad_total + extra_delay` input frames of left context.
-    Weight layout: `v`/`w` [features, in, kernel], `g` [features].
+    Weight layout: `v`/`w` [features, in / groups, kernel], `g` [features];
+    `groups` splits the input and output channels into that many
+    contiguous blocks, each convolved with its own (flax's
+    `feature_group_count`, rave_tpu/nn/conv.py:107,135-137).
     """
 
     out_dim = 0
@@ -140,14 +143,18 @@ class Conv1d(_WeightNormConv):
     def __init__(
         self, in_features: int, features: int, kernel_size: int, stride: int = 1,
         dilation: int = 1, mode: str = "centered", use_bias: bool = True,
-        weight_norm: bool = False, in_delay: int = 0, stream_batch: int = 1,
+        weight_norm: bool = False, groups: int = 1, in_delay: int = 0, stream_batch: int = 1,
     ):
         super().__init__()
-        self.in_features, self.features = in_features, features
+        if in_features % groups or features % groups:
+            raise ValueError(f"groups={groups} must divide in_features={in_features} and "
+                             f"features={features}")
+        self.in_features, self.features, self.groups = in_features, features, groups
         self.kernel_size, self.stride, self.dilation = kernel_size, stride, dilation
         self.mode, self.in_delay = mode, in_delay
         self.pad = get_padding(kernel_size, stride, dilation, mode)
-        self._make_params((features, in_features, kernel_size), features, weight_norm, use_bias)
+        self._make_params((features, in_features // groups, kernel_size), features, weight_norm,
+                          use_bias)
         if self.cache_len > 0:
             self.add_stream_state("cache", in_features, self.cache_len, stream_batch)
 
@@ -167,7 +174,7 @@ class Conv1d(_WeightNormConv):
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
         w = as_dtype(self.weight(), x.dtype)
         b = None if self.b is None else as_dtype(self.b, x.dtype)
-        return F.conv1d(x, w, b, self.stride, 0, self.dilation)
+        return F.conv1d(x, w, b, self.stride, 0, self.dilation, self.groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv(F.pad(x, self.pad))

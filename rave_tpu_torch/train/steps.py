@@ -137,7 +137,15 @@ def split_features(features: List[List[torch.Tensor]]):
 
 def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
     """{'gen': gen_step, 'dis': dis_step}; each updates a `TrainState` in
-    place, advances its global step and returns the step's metrics."""
+    place, advances its global step and returns the step's metrics. Mel
+    input (`hybrid`, `v2_with_augs`) with `train.bf16` raises ValueError:
+    the JAX package's step takes the mel front-end's rfft of bfloat16 frames,
+    which its `jnp.fft.rfft` refuses (rave_tpu/models/rave.py:60-61), so
+    that step has no reference result (ROADMAP C14)."""
+    if cfg.train.bf16 and cfg.input_mode == "mel":
+        raise ValueError("train.bf16 with mel input (input_mode 'mel') is not a step of the "
+                         "reference: rave_tpu's mel front-end takes jnp.fft.rfft of bfloat16 "
+                         "frames, which raises (ROADMAP C14); train it in float32")
     distance = build_audio_distance(cfg)
     gan_loss = build_gan_loss(cfg)
     t = cfg.train

@@ -13,6 +13,11 @@ as the JAX package's (reference rave/core.py:84-122). `load_run` is
 rave_tpu/export/export.py::load_run for the port, what `eval` and `export`
 need: it builds the generator alone and reads only its entries of the
 checkpoint (memory-mapped), not the critic or the Adams.
+
+A prior run (prior/train.py) keeps its checkpoints the same way, each
+holding the step, the prior's `state_dict` and its Adam's
+(`save_prior_checkpoint`); `read_prior` gives a prior run's
+`prior_config.json` and newest weights, what `export --prior` bundles.
 """
 from __future__ import annotations
 
@@ -35,22 +40,35 @@ def checkpoint_step(path: Path) -> int:
     return int(CHECKPOINT.fullmatch(path.name).group(1))
 
 
-def save_checkpoint(run_dir: str, state: TrainState) -> Path:
-    """Write `state` as the checkpoint of its global step; returns its path."""
+def _write_checkpoint(run_dir: str, step: int, payload: dict) -> Path:
+    """`payload` as the checkpoint of `step`, written under a temporary name
+    and renamed; returns its path."""
     folder = Path(run_dir).absolute() / "checkpoints"
     folder.mkdir(parents=True, exist_ok=True)
-    path = folder / f"step_{state.step:010d}.pt"
+    path = folder / f"step_{step:010d}.pt"
     tmp = path.with_name(path.name + ".tmp")
-    torch.save({
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def save_checkpoint(run_dir: str, state: TrainState) -> Path:
+    """Write `state` as the checkpoint of its global step; returns its path."""
+    return _write_checkpoint(run_dir, state.step, {
         "step": state.step,
         "model": state.model.state_dict(),
         "discriminator": state.discriminator.state_dict(),
         "gen_opt": state.gen_opt.state_dict(),
         "dis_opt": state.dis_opt.state_dict(),
         "ema": state.ema,
-    }, tmp)
-    os.replace(tmp, path)
-    return path
+    })
+
+
+def save_prior_checkpoint(run_dir: str, step: int, prior: torch.nn.Module,
+                          opt: torch.optim.Optimizer) -> Path:
+    """Write a prior run's checkpoint of `step`: the prior's and its Adam's state."""
+    return _write_checkpoint(run_dir, step, {"step": step, "prior": prior.state_dict(),
+                                             "opt": opt.state_dict()})
 
 
 def list_checkpoints(run_dir: str):
@@ -153,3 +171,14 @@ def load_run(run: str, use_ema: bool = False, step: Optional[int] = None,
     model = build_rave(cfg, n_channels=n_channels, device=device)
     model.load_state_dict(weights)
     return cfg, model.eval(), n_channels, run_dir
+
+
+def read_prior(run: str):
+    """(prior_config dict, the prior's `state_dict` (CPU tensors), run_dir) of
+    the newest checkpoint of the prior run under `run`."""
+    run_dir = search_for_run(run)
+    if run_dir is None:
+        raise FileNotFoundError(f"no checkpoints under {run}")
+    pcfg = json.loads((Path(run_dir) / "prior_config.json").read_text())
+    ckpt = torch.load(latest_checkpoint(run_dir), map_location="cpu", weights_only=True)
+    return pcfg, ckpt["prior"], run_dir

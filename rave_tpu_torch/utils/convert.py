@@ -30,6 +30,10 @@ and each leaf changes layout:
     and the discrete codebooks' state (`embed`, `embed_avg`,
     `cluster_size`, `inited`) are copied as they are.
 
+`from_jax_prior(prior, params)` does the same for a flax `Prior`'s params
+(`pre_net/layers_0`, `res_<i>/dconv|rconv|sconv`, `post_net/layers_<j>`;
+its grouped convs' kernels [K, I/groups, O] -> [O, I/groups, K]).
+
 `convert_tree(model, tree)` gives the converted arrays by port name without
 loading them (the tests compare gradients with it). Optimizer state is not
 converted: a port train state starts its Adam moments from zero.
@@ -131,3 +135,9 @@ def from_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> 
     missing = sorted(set(targets) - loaded)
     if missing:
         raise KeyError(f"port tensors not set by the JAX variables: {missing}")
+
+
+def from_jax_prior(prior: torch.nn.Module, params: Mapping[str, Any]) -> None:
+    """Copy a flax `Prior`'s `params` into the port's `Prior` (prior/model.py),
+    strictly: the names map by rename, the kernels by the Conv1d transpose."""
+    from_jax_variables(prior, {"params": params})

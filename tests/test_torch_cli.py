@@ -166,14 +166,12 @@ def test_export_generate(db, tmp_path):
 
 
 REFUSED = [([command, "--run", "x"], item) for command, item in sorted(cli.NOT_PORTED.items())]
-REFUSED += [(["export", "--run", "x", "--prior", "p"],
-             cli.NOT_PORTED_OPTIONS[("export", "--prior")]),
-            (["generate", "--model", "x", "--prior_seconds", 1],
-             cli.NOT_PORTED_OPTIONS[("generate", "--prior_seconds")])]
+REFUSED += [(["train_prior", "--run", "x", "--db_path", "d", "--name", "n", "--config",
+              "prior_v1.gin"], cli.NOT_PORTED_OPTIONS[("train_prior", "--config")])]
 
 
 @pytest.mark.parametrize("argv, item", REFUSED,
-                         ids=[*sorted(cli.NOT_PORTED), "export--prior", "generate--prior_seconds"])
+                         ids=[*sorted(cli.NOT_PORTED), "train_prior--config"])
 def test_unported_commands_name_their_item(argv, item):
     code, _, err = run(argv)
     assert code == 2

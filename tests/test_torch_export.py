@@ -17,7 +17,8 @@ rate, so the artifacts resample at both ends and stream two rows. Checks:
     against its eager steps on the same seeds: bit-equal outputs and state;
   * the seed sampler against a numpy copy of its hash, its determinism,
     and that a program draws from its seed input (no draw baked in);
-  * the refusals (the prior, a program on the wrong device), and that each
+  * the refusals (a prior the artifact does not hold or a prior run that
+    does not exist, a program on the wrong device), and that each
     other latent family has its codec (tests/test_torch_families.py holds
     them to the JAX package).
 """
@@ -340,11 +341,11 @@ def test_ema_weights_and_refusals(runs, mono, tmp_path):
         setter(True)  # v2 has no AdaIN: nothing to set, as in the JAX artifact
     art.reset_target()
     art.reset_source()
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(RuntimeError, match="without a prior"):
         art.sample_prior(4)
-    with pytest.raises(NotImplementedError, match="A12"):
-        export_model(run=str(runs["port"]), prior="p", device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        export_model(run=str(runs["port"]), prior=str(tmp_path / "no_prior"), device="cpu")
+    with pytest.raises(RuntimeError, match="without a prior"):
         generate(mono, [], prior_seconds=1.0, device="cpu")
     for family in ("discrete", "spherical", "wasserstein"):  # each family has its codec
         cfg = config.compose(["v2"], TINY + [f'latent.family="{family}"',

@@ -15,7 +15,10 @@ GRU) with its streaming pair, with nothing kept
 from being imported (where tensorboard and tensorflow are installed,
 tensorflow imports jax: the metrics logger must not reach them), and then
 reports whether jax, flax or any module of the JAX package was ever
-imported.
+imported. A second interpreter does the same for the latent prior:
+`preprocess`, a tiny v2 run saved by the port's checkpoint module,
+`train_prior --smoke_test`, `export --prior` and `generate
+--prior_seconds`.
 Every module of the port is also read (`ast`): none imports yaml, orbax or
 tensorboard at module level (the machine with the GPU has none of them),
 nor jax, flax or the JAX package.
@@ -191,6 +194,63 @@ def test_port_never_imports_jax():
     assert out["hybrid"] == [[1, 1, 2048], True, [1, 1, 512], True]
     assert out["discrete_inited"] == [1.0, 1.0]
     assert out["v3_learned"] == [1.0] * 6  # one target update in each AdaIN layer
+
+
+PRIOR_SCRIPT = """
+import contextlib, io, json, pathlib, sys, tempfile
+import numpy as np
+import torch
+from scipy.io import wavfile
+torch.set_num_threads(2)
+from rave_tpu_torch import cli, config
+from rave_tpu_torch.train.state import create_train_state
+from rave_tpu_torch.utils.checkpoint import save_checkpoint
+root = pathlib.Path(tempfile.mkdtemp())
+(root / "corpus").mkdir()
+wav = 0.3 * np.sin(2 * np.pi * 220 * np.arange(20 * 8192) / 44100)
+wavfile.write(root / "corpus" / "a.wav", 44100, (wav * 32767).astype(np.int16))
+cfg = config.compose(["v2"], ["capacity=2", "latent_size=4", "ratios=[4,4,2]",
+                              "dilations=[[1],[1],[1]]", "discriminator.capacity=2"])
+state = create_train_state(cfg, device="cpu")
+state.model.fidelity.copy_(torch.tensor([0.2, 0.4, 0.97, 1.0]))
+(root / "run").mkdir()
+(root / "run" / "config.json").write_text(config.snapshot(cfg))
+save_checkpoint(str(root / "run"), state)
+tiny = ["--resolution", "8", "--res_size", "16", "--skp_size", "8", "--n_layers", "3"]
+codes = []
+with contextlib.redirect_stdout(io.StringIO()):
+    codes.append(cli.main(["preprocess", "--input_path", str(root / "corpus"), "--output_path",
+                           str(root / "db"), "--num_signal", "8192", "--workers", "2"]))
+    codes.append(cli.main(["train_prior", "--device", "cpu", "--run", str(root / "run"),
+                           "--db_path", str(root / "db"), "--name", "iso", "--out_path",
+                           str(root / "priors"), "--batch", "2", "--n_signal", "8192",
+                           "--smoke_test", *tiny]))
+    codes.append(cli.main(["export", "--device", "cpu", "--run", str(root / "run"), "--prior",
+                           str(root / "priors" / "iso_prior"), "--output", str(root / "art")]))
+    codes.append(cli.main(["generate", "--device", "cpu", "--model", str(root / "art" / "v2.rtpu"),
+                           "--prior_seconds", "0.25", "--out_path", str(root / "gen")]))
+manifest = json.loads((root / "art" / "v2.rtpu" / "manifest.json").read_text())
+print(json.dumps({
+    "codes": codes, "prior": manifest["prior"]["latent_size"], "aot": sorted(manifest["aot"]),
+    "wav": list(wavfile.read(root / "gen" / "prior_sample_0.wav")[1].shape),
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "rave_tpu")),
+}))
+"""
+
+
+def test_prior_never_imports_jax():
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH", "")) if p)}
+    proc = subprocess.run([sys.executable, "-c", PRIOR_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == [], out["loaded"]
+    assert out["codes"] == [0] * 4
+    assert out["prior"] == 2  # fidelity 0.95 passes at index 2: 2 dimensions
+    assert out["aot"] == ["decode_step", "encode_step", "forward_step", "prior_step"]
+    assert out["wav"] == [round(0.25 * 44100 / 512) * 512]
 
 
 FOREIGN = {"yaml", "orbax", "tensorboard", "jax", "jaxlib", "flax", "rave_tpu"}

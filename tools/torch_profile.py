@@ -38,7 +38,12 @@ default):
             hybrid : the `offline`, `train` and artifact cells for the v2
             variants (the noise synth; raw-waveform output; mel input and a
             GRU); hybrid's train cell without the valid-signal crop, which
-            empties its multiband loss (ROADMAP C12).
+            empties its multiband loss (ROADMAP C12);
+  prior_step : one autoregressive step of the stock prior (prior_v1.gin) at
+            latent_size 128 (4096 channels, the latent size of the v2 run
+            in chip_smoke.py's phase `prior`), `PriorStep` as the
+            artifact's `prior_step.pt2` runs it, each step's frame fed
+            back: 4 warm, 8 timed, 12 profiled.
 
 Every train cell also reports the critic's forward (the kernels launched
 under a `record_function` range around it) beside cuDNN's share.
@@ -309,8 +314,29 @@ def artifact_cell(activities, top: int, names) -> list[str]:
                           block, step)
 
 
+def prior_step_cell(activities, top: int) -> list[str]:
+    import torch
+
+    from rave_tpu_torch.export.artifact import PriorStep, initial_state, prior_step_seed
+    from rave_tpu_torch.prior.model import build_prior
+
+    prior = build_prior(128, seed=0, device="cuda").eval().requires_grad_(False)
+    program = PriorStep(prior)
+    carry = [initial_state(prior), torch.zeros(1, prior.latent_size * prior.resolution, 1,
+                                               device="cuda")]
+
+    def step(i):
+        seed = torch.tensor(prior_step_seed(1, i), dtype=torch.int64, device="cuda")
+        carry[1], carry[0] = program(carry[0], carry[1], seed)
+        return carry[1]
+
+    with torch.inference_mode():
+        return block_cell(activities, top, "prior_step, the stock prior at latent 128", 1, step)
+
+
 CELLS = {
     "offline": offline_cell,
+    "prior_step": prior_step_cell,
     "stream": stream_cell,
     "train": lambda act, top: train_cell(act, top),
     "train_bf16": lambda act, top: train_cell(act, top, ["train.bf16=true",
