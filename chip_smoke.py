@@ -116,93 +116,7 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                and .pt2) against the block's budget, the peak memory, and the
                unit at the 30 s forward's 11 centered shapes at B=1 against
                its plain version (phase 3's machinery);
- 13. discrete : compose(["discrete"]) at full width (capacity 96, latent 128,
-               16 x 1024 codes, 128 noise channels, ratios 4.4.2.2), TF32
-               off: the unit at the shapes only it reaches (C=768, T=256,
-               d 1 and 3, at B=16 and B=8) against its plain version
-               (1e-4); the forward at B=16 x 131072 (22 launches, timed) and
-               at B=1 x 65536 the card against the CPU (encoder 1e-3; fed the
-               card's latent, the CPU's quantizers pick the card's codes, float32
-               ties aside: `check_codes`; the decode of one index tensor
-               1e-3); at B=8 x
-               131072 the k-means step timed alone, then pre-warmup,
-               adversarial and critic steps (22 launches each, every
-               program updating the codebooks), `codebook_health`, and the
-               first step of each program at B=1 on the card against the
-               CPU (losses 1e-3); `cli train --config discrete` on phase
-               11's store resumed once (the restored state, codebooks and
-               `inited` included, bit-equal to its checkpoint; health logged
-               at each validation) and `cli eval`; `cli export --streaming`
-               and `cli generate` of a 30 s file (22 launches), the artifact
-               on the card against the CPU (latents 1e-3 and `check_codes`, the
-               decode of one index tensor 1e-3), `forward_step.pt2` bit-equal to
-               the eager steps over 32 blocks, the streaming p50 against
-               the 1024-sample block's 23.22 ms; then v2 + wasserstein and
-               v2 + spherical: one generator step each at B=8 x 131072 (22
-               launches), the first step at B=1 and the artifact's codec
-               halves (`EncodeSide`, `DecodeSide`) of the stepped model on
-               the card against the CPU (1e-3); the phase aims at ~60 s;
- 14. v3     : compose(["v3"]) at full width (capacity 96, latent 128, ratios
-               4.4.4.2, Snake, AdaIN before each residual unit, the descript
-               critic with periods 2, 3, 5, 7, 11 and FFT sizes 2048, 1024,
-               512), TF32 off. Its Snake units bypass the kernel, as the JAX
-               package gates its Pallas kernel to leaky ReLU: every count of
-               this phase is 0. (a) the forward at B=16 x 131072 in training
-               mode and at B=8 in eval mode with learned AdaIN statistics
-               (AdaIN holds 8 batch slots), timed; at B=1 x 65536 in eval
-               mode the card against the CPU (1e-3), the transfer acting;
-               (b) the receptive-field probe, then fp32 and `train.bf16` +
-               `bf16_dis` steps of the three programs at B=8 x 131072 (ms per
-               step, peak memory), the first step of each program at B=1 on
-               the card against the CPU (losses 1e-3), and the critic alone,
-               forward and backward on the 16-row real+fake batch, device ms
-               split between its MPDs and MRDs; (c) `cli train --config v3` on
-               phase 11's store resumed once (bit-equal, AdaIN included),
-               AdaIN's calls recorded with the mode (training in the steps,
-               eval in validation, eval and the probe), `cli eval` twice,
-               equal; (d) `cli export --streaming`, `cli generate` of a 30 s
-               file, the AdaIN attributes (learn a target, learn a source,
-               transfer) on the card against the CPU call by call from the
-               CPU's state (1e-3), then free-running from a fresh state on
-               the card and on the CPU, each against its own fixed kernels in
-               float64: the card's outputs with cuDNN off no further than 3x
-               the CPU's,
-               and the card as it serves (cuDNN) with no growth of the error
-               over the transfer's blocks; the transfer
-               moving the output, `forward_step.pt2` bit-equal to the eager
-               steps over 32 blocks while the target learns (AdaIN's state
-               included), the resets bringing the identity back, the
-               streaming p50 under the 46.44 ms budget; (e) discrete_v3: the
-               B=16 forward, the k-means step apart, one step of each program
-               at B=8, B=1 losses card vs CPU (1e-3) and `check_codes`;
-               work in build/v3, deleted at the end;
- 15. variants : v2_small (capacity 48, ratios 4.2.2.2, the noise synth with
-               32 bands), v2_nopqmf (capacity 64, raw-waveform output,
-               decoder ratios 8.8.8.4) and hybrid (mel input, hop 256,
-               encoder ratios 2.2.2, a 2-layer GRU at the decoder's input)
-               at full width, TF32 off, each: (a) the forward at B=16 x
-               131072 with exactly 22, 22 and 14 launches, each unit's
-               (C, T, dilation) as VARIANT_UNITS lists them, timed, and at
-               B=1 x 65536 the card against the CPU (1e-3) on the same
-               weights and draws (the variational eps, the noise synth's
-               uniforms); (b) blocks of block_size() streamed through
-               step_encode and step_decode against the offline encode and
-               decode past the delays (1e-3; the noise synth's offline
-               draws shifted by its lag), and the p50 of 32 streaming
-               forward blocks against the block's budget; (c) the
-               receptive-field crop, one step of each program at B=8 x
-               131072 after a warm one (launches exact, ms, peak memory) and
-               the first step of each at B=1 x 65536 on the card against the
-               CPU (losses 1e-4); (d) `cli train --config <preset>` 3 steps
-               (the three programs) on phase 11's store with the device
-               dataset (v2_nopqmf's RandomCompress off for it), `cli export
-               --streaming`, `cli generate` of a 30 s file (a forward's
-               launches), the artifact on the card against the CPU (3 s clip
-               offline, 8 streaming blocks; 1e-3) and `forward_step.pt2`
-               against the eager steps over 32 blocks (1e-5), the streaming
-               p50 eager and .pt2. hybrid trains without the valid-signal
-               crop (ROADMAP C12). Work in build/variants, deleted at the end;
- 16. prior   : the latent prior (run after phase 12, on phase 11's run and
+ 13. prior   : the latent prior (run after phase 12, on phase 11's run and
                store), TF32 off: (a) the stock prior (prior_v1.gin: resolution
                32, res_size 512, skp_size 256, 10 layers) at latent_size 16
                (512 channels) at B=8 over the 128 latent frames of the 262144
@@ -229,14 +143,124 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                its plain version (1e-4), one `encode_latents` batch of (b)
                and the decode of a prior sample on the card against the CPU
                (1e-3). Work in build/prior, deleted at its end;
- 17. the kernels' JSON line, then the last line
+ 14. v1     : compose(["v1"]) at full width (capacity 64, latent 128, 16
+               bands, ratios 4.4.4.2, BatchNorm, the noise synth on, the
+               multiscale critic at capacity 64), TF32 off; v1 has no
+               DilatedUnit, so every count of (a)-(d) is 0: (a) the forward
+               at B=16 x 131072 in eval mode (BatchNorm on its running
+               statistics), timed, and at B=1 x 65536 the card against the
+               CPU (1e-3); (b) v1 causal streamed through step_encode and
+               step_decode against the offline pass past the delays (1e-3);
+               (c) one step of each program at B=8 x 131072 after a warm
+               one (ms, peak memory), the first step of each at B=1 on the
+               card against the CPU (losses and BatchNorm's running
+               statistics 1e-4); (d) `cli train --config v1` on phase 11's
+               store, resumed once (bit-equal, the running statistics
+               included), `cli export --streaming`, `cli generate` of a 30 s
+               file, the artifact on the card against the CPU (1e-3),
+               `forward_step.pt2` bit-equal to the eager steps over 32
+               blocks, the streaming p50, eager and .pt2, under the 46.44 ms
+               budget; (e) `cli export_onnx --verify` of a 2-step `--config
+               onnx` run (0 launches) and of phase 11's v2 run (its live
+               forward's 22 launches exactly, the kernel held against its
+               plain version at each shape they gave it, 1e-4), each
+               verify within 1e-4. Work in build/v1, deleted at the end;
+ 15. discrete : compose(["discrete"]) at full width (capacity 96, latent 128,
+               16 x 1024 codes, 128 noise channels, ratios 4.4.2.2), TF32
+               off: the unit at the shapes only it reaches (C=768, T=256,
+               d 1 and 3, at B=16 and B=8) against its plain version
+               (1e-4); the forward at B=16 x 131072 (22 launches, timed) and
+               at B=1 x 65536 the card against the CPU (encoder 1e-3; fed the
+               card's latent, the CPU's quantizers pick the card's codes, float32
+               ties aside: `check_codes`; the decode of one index tensor
+               1e-3); at B=8 x
+               131072 the k-means step timed alone, then pre-warmup,
+               adversarial and critic steps (22 launches each, every
+               program updating the codebooks), `codebook_health`, and the
+               first step of each program at B=1 on the card against the
+               CPU (losses 1e-3); `cli train --config discrete` on phase
+               11's store resumed once (the restored state, codebooks and
+               `inited` included, bit-equal to its checkpoint; health logged
+               at each validation) and `cli eval`; `cli export --streaming`
+               and `cli generate` of a 30 s file (22 launches), the artifact
+               on the card against the CPU (latents 1e-3 and `check_codes`, the
+               decode of one index tensor 1e-3), `forward_step.pt2` bit-equal to
+               the eager steps over 32 blocks, the streaming p50 against
+               the 1024-sample block's 23.22 ms; then v2 + wasserstein and
+               v2 + spherical: one generator step each at B=8 x 131072 (22
+               launches), the first step at B=1 and the artifact's codec
+               halves (`EncodeSide`, `DecodeSide`) of the stepped model on
+               the card against the CPU (1e-3); the phase aims at ~60 s;
+ 16. variants : v2_small (capacity 48, ratios 4.2.2.2, the noise synth with
+               32 bands), v2_nopqmf (capacity 64, raw-waveform output,
+               decoder ratios 8.8.8.4) and hybrid (mel input, hop 256,
+               encoder ratios 2.2.2, a 2-layer GRU at the decoder's input)
+               at full width, TF32 off, each: (a) the forward at B=16 x
+               131072 with exactly 22, 22 and 14 launches, each unit's
+               (C, T, dilation) as VARIANT_UNITS lists them, timed, and at
+               B=1 x 65536 the card against the CPU (1e-3) on the same
+               weights and draws (the variational eps, the noise synth's
+               uniforms); (b) blocks of block_size() streamed through
+               step_encode and step_decode against the offline encode and
+               decode past the delays (1e-3; the noise synth's offline
+               draws shifted by its lag), and the p50 of 32 streaming
+               forward blocks against the block's budget; (c) the
+               receptive-field crop, one step of each program at B=8 x
+               131072 after a warm one (launches exact, ms, peak memory) and
+               the first step of each at B=1 x 65536 on the card against the
+               CPU (losses 1e-4); (d) `cli train --config <preset>` 3 steps
+               (the three programs) on phase 11's store with the device
+               dataset (v2_nopqmf's RandomCompress off for it), `cli export
+               --streaming`, `cli generate` of a 30 s file (a forward's
+               launches), the artifact on the card against the CPU (3 s clip
+               offline, 8 streaming blocks; 1e-3) and `forward_step.pt2`
+               against the eager steps over 32 blocks (1e-5), the streaming
+               p50 eager and .pt2. hybrid trains without the valid-signal
+               crop (ROADMAP C12). Work in build/variants, deleted at the end;
+ 17. v3     : compose(["v3"]) at full width (capacity 96, latent 128, ratios
+               4.4.4.2, Snake, AdaIN before each residual unit, the descript
+               critic with periods 2, 3, 5, 7, 11 and FFT sizes 2048, 1024,
+               512), TF32 off. Its Snake units bypass the kernel, as the JAX
+               package gates its Pallas kernel to leaky ReLU: every count of
+               this phase is 0. (a) the forward at B=16 x 131072 in training
+               mode and at B=8 in eval mode with learned AdaIN statistics
+               (AdaIN holds 8 batch slots), timed; at B=1 x 65536 in eval
+               mode the card against the CPU (1e-3), the transfer acting;
+               (b) the receptive-field probe, then fp32 and `train.bf16` +
+               `bf16_dis` steps of the three programs at B=8 x 131072 (ms per
+               step, peak memory), the first step of each program at B=1 on
+               the card against the CPU (losses 1e-3), and the critic alone,
+               forward and backward on the 16-row real+fake batch, device ms
+               split between its MPDs and MRDs; (c) `cli train --config v3` on
+               phase 11's store resumed once (bit-equal, AdaIN included),
+               AdaIN's calls recorded with the mode (training in the steps,
+               eval in validation, eval and the probe), `cli eval` twice,
+               equal; (d) `cli export --streaming`, `cli generate` of a 30 s
+               file, the AdaIN attributes (learn a target, learn a source,
+               transfer) on the card against the CPU call by call from the
+               CPU's state (1e-3), then free-running from a fresh state on
+               the card and on the CPU, each against its own fixed kernels in
+               float64: the card's outputs with cuDNN off no further than 3x
+               the CPU's, and the card as it serves (cuDNN) with no growth
+               of the error over the 8 transfer blocks past the stream's
+               reach (the receptive field's left side plus the delay, from
+               the transfer's start: no block read sees the learning
+               segments), later half against earlier half; the transfer
+               moving the output, `forward_step.pt2` bit-equal to the eager
+               steps over 32 blocks while the target learns (AdaIN's state
+               included), the resets bringing the identity back, the
+               streaming p50 under the 46.44 ms budget; (e) discrete_v3: the
+               B=16 forward, the k-means step apart, one step of each program
+               at B=8, B=1 losses card vs CPU (1e-3) and `check_codes`;
+               work in build/v3, deleted at the end;
+ 18. the kernels' JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Per-shape details go to build/chip_smoke.json; the loop and export phases
 work in build/loop (corpus, db, run dirs, artifacts, generated wavs), the
-prior phase in build/prior, the discrete phase in build/discrete, the v3
-phase in build/v3 and the variants phase in build/variants (each deleted
-at its end).
+prior phase in build/prior, the v1 phase in build/v1, the discrete phase
+in build/discrete, the variants phase in build/variants and the v3 phase
+in build/v3 (each deleted at its end).
 """
 from __future__ import annotations
 
@@ -2357,9 +2381,12 @@ V3_CRITIC_ITERS = 5
 # a free-running AdaIN stream: the card's outputs with cuDNN off no further from a float64
 # run of its own fixed kernels than this many times the CPU's from its own (0.14-1.34x
 # read on an NVIDIA H100), or than FREE_FLOOR where both are at float32's rounding; the
-# served stream's error over the transfer's later blocks no more than this many times
-# its earlier blocks' (0.55-1.1x; PERF.md section 6)
+# served stream's error over the later half of the transfer's read blocks no more than
+# this many times its earlier half's (PERF.md section 6)
 FREE_DRIFT, FREE_FLOOR = 3.0, 1e-5
+# the transfer's blocks read for growth: those past the stream's reach (the receptive
+# field's left side plus the delay), which see only transferred input
+V3_READ_BLOCKS = 8
 
 
 def learn_adain(model, cfg, target, source) -> None:
@@ -2409,12 +2436,13 @@ def float64_twin(art, device: str = "cpu"):
     return as_float64(twin)
 
 
-def adain_stream(art, segments: dict, seed0: int = 500) -> dict:
+def adain_stream(art, segments: dict, seed0: int = 500, seeds=None) -> dict:
     """The AdaIN attributes driven free over one stream from a fresh state,
     as a live user drives them: `segments` {"learn_target", "learn_source",
     "transfer"} ([1, 1, n * block], on the artifact's device and dtype) go
     through `forward(streaming=True)` block by block, learning the target,
-    then the source, then transferring: {segment: outputs} and the AdaIN
+    then the source, then transferring, the i-th block of the stream with
+    seed `seeds[i]` (default seed0 + i): {segment: outputs} and the AdaIN
     state after, each flat on the CPU in float64."""
     import torch
 
@@ -2429,7 +2457,8 @@ def adain_stream(art, segments: dict, seed0: int = 500) -> dict:
         art.set_learn_source(flags[1])
         ys, signal = [], segments[name]
         for t in range(0, signal.shape[-1], B):
-            ys.append(art.forward(signal[..., t:t + B], streaming=True, seed=seed0 + i).cpu())
+            seed = seed0 + i if seeds is None else seeds[i]
+            ys.append(art.forward(signal[..., t:t + B], streaming=True, seed=seed).cpu())
             i += 1
         out[name] = torch.cat(ys, -1).double().reshape(-1)
     out["adain_state"] = torch.cat([art.state[j].cpu().double().reshape(-1)
@@ -2550,6 +2579,19 @@ def _v3_steps(cfg) -> dict:
             "critic_fwd_bwd_ms": _critic_ms(cfg)}
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, no autotuning; both put back on exit."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
 def _v3_loop(work: Path, db: Path) -> dict:
     """`cli train --config v3` on phase `loop`'s store: a short warmup and a
     critic step every other step, validation every other step, resumed once
@@ -2588,7 +2630,9 @@ def _v3_loop(work: Path, db: Path) -> dict:
 
     AdaIN.forward = recorded
     try:
-        with LoopProbe() as probe:
+        # deterministic cuDNN: one tree trains one set of weights, and phase v3's
+        # free-running drift check reads one ratio (ROADMAP C15)
+        with LoopProbe() as probe, deterministic_cudnn():
             loop.run_validation = labelled("validation", loop.run_validation)
             loop.receptive_field = labelled("probe", loop.receptive_field)
             out = _cli(["train", "--max_steps", V3_LOOP_STEPS, *common])
@@ -2645,6 +2689,7 @@ def _v3_export(run_dir: Path, work: Path) -> dict:
     from rave_tpu_torch.export.artifact import ExportedRAVE
     from rave_tpu_torch.export.generate import load_signal
     from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.train.analysis import receptive_field
 
     t0 = time.perf_counter()
     text = _cli(["export", "--run", run_dir, "--streaming", "--output", work / "export",
@@ -2750,8 +2795,17 @@ def _v3_export(run_dir: Path, work: Path) -> dict:
     # the card's outputs no further than FREE_DRIFT x the CPU's. As the card
     # serves, with cuDNN, the transfer amplifies cuDNN's float32 rounding
     # 2-25x further than the CPU's, by the trained weights (PERF.md section
-    # 6): there the error must not grow over the transfer's blocks.
-    segments = {"learn_target": target, "learn_source": source, "transfer": clip}
+    # 6): there the error must not grow over the transfer's blocks. A block
+    # output within the stream's reach of the transfer's start still sees
+    # the learning segments, so the growth is read over the V3_READ_BLOCKS
+    # blocks past it.
+    left, _ = receptive_field(art.cfg, device="cuda")
+    settle = -(-(left + manifest["latency"]["total_samples"]) // B)
+    n_blocks = settle + V3_READ_BLOCKS
+    transfer = x[..., 2 * k:2 * k + n_blocks * B]
+    check(transfer.shape[-1] == n_blocks * B, f"v3: {x.shape[-1]} samples hold no "
+                                              f"{n_blocks}-block transfer")
+    segments = {"learn_target": target, "learn_source": source, "transfer": transfer}
     on_cpu = {k: v.cpu() for k, v in segments.items()}
     in_f64 = {k: v.double() for k, v in on_cpu.items()}
     ref = {"card": adain_stream(float64_twin(art), in_f64),
@@ -2764,14 +2818,16 @@ def _v3_export(run_dir: Path, work: Path) -> dict:
         torch.backends.cudnn.enabled = enabled
     drift = {k: {"card": rel_err(served[k], v), "card_cudnn_off": rel_err(plain[k], v),
                  "cpu": rel_err(cpu_run[k], ref["cpu"][k])} for k, v in ref["card"].items()}
-    n_blocks = clip.shape[-1] // B
     blocks = [rel_err(a, b) for a, b in zip(served["transfer"].reshape(n_blocks, -1),
                                             ref["card"]["transfer"].reshape(n_blocks, -1))]
-    half = n_blocks // 2
+    read = blocks[settle:]
+    half = len(read) // 2
+    drift_ratio = max(read[half:]) / max(read[:half])
     check(all(drift[k]["card_cudnn_off"] <= max(FREE_DRIFT * drift[k]["cpu"], FREE_FLOOR)
-              for k in segments) and max(blocks[half:]) <= FREE_DRIFT * max(blocks[:half]),
+              for k in segments) and drift_ratio <= FREE_DRIFT,
           f"v3 artifact free-running from float64 {drift} (the card with cuDNN off over "
-          f"{FREE_DRIFT}x the CPU?), the served transfer by block {blocks} (grows?)")
+          f"{FREE_DRIFT}x the CPU?), the served transfer by block {blocks}, read past block "
+          f"{settle} (grows?)")
     kernels = max(rel_err(v.cpu(), cpu.model.state_dict()[k], 1e-30)
                   for k, v in art.model.state_dict().items() if k.endswith(".w"))
     p50 = {"eager": statistics.median(eager_ms), "program": statistics.median(program_ms)}
@@ -2780,6 +2836,7 @@ def _v3_export(run_dir: Path, work: Path) -> dict:
     return {"export_s": export_s, "generate_s": generate_s, "generate_launches": launches,
             "realtime_factor_generate": n / SAMPLE_RATE / generate_s, "card_vs_cpu": errs,
             "free_stream_vs_float64": drift, "free_transfer_by_block": blocks,
+            "free_transfer_settle_blocks": settle, "free_drift_ratio": drift_ratio,
             "fixed_kernels_card_vs_cpu": kernels,
             "transfer_rel_change": moved,
             "reset_rel_err": back, "program_bit_equal": equal,
@@ -2913,6 +2970,8 @@ def phase_v3() -> dict:
               for k, e in export["free_stream_vs_float64"].items())
           + ", the served transfer by block " + " ".join(
               f"{e:.1e}" for e in export["free_transfer_by_block"])
+          + f" (past block {export['free_transfer_settle_blocks']}, later / earlier half "
+          f"{export['free_drift_ratio']:.2f}x, <= {FREE_DRIFT})"
           + f" (fixed kernels card vs CPU {export['fixed_kernels_card_vs_cpu']:.1e})"
           + f"; transfer moved {export['transfer_rel_change']:.2e}, reset back "
           f"{export['reset_rel_err']:.1e}; forward_step.pt2 bit-equal over {PROGRAM_BLOCKS} "
@@ -3085,7 +3144,7 @@ def _variant_stream(preset: str, cfg) -> dict:
         latent = torch.randn(1, D, n_lat, device="cuda", generator=gen)
         shape, u_off, u_st = cfg.noise_shape(1, 1, n_lat), None, [None] * n_dec
         if shape is not None:
-            noise = model.decoder.synth.branches[1]
+            noise = model.decoder.synth.branches[-1]  # the noise synth, v2's or v1's
             lag = noise.delay // noise.target_size
             u_off = torch.rand(shape, device="cuda", generator=gen)
             shifted = torch.cat([torch.zeros_like(u_off[:, :lag]), u_off[:, :shape[1] - lag]], 1)
@@ -3125,10 +3184,17 @@ def _variant_state(cfg, device: str, step: int):
     return st
 
 
-def _variant_steps(preset: str, cfg) -> dict:
+def batch_stats(model) -> dict:
+    """BatchNorm's running statistics by name, on the CPU (none without v1's BatchNorm)."""
+    return {n: b.detach().cpu() for n, b in model.named_buffers()
+            if n.endswith((".bn.mean", ".bn.var"))}
+
+
+def _variant_steps(preset: str, cfg, want: int = None) -> dict:
     """The receptive-field crop, one step of each program at B=8 x 131072
-    after one warm step each (exact launches, times, peak memory), and the
-    first step of each program at B=1 on the card against the CPU (losses)."""
+    after one warm step each (exact launches, `want` per step, times, peak
+    memory), and the first step of each program at B=1 on the card against
+    the CPU (losses, and BatchNorm's running statistics after the step)."""
     import torch
 
     from rave_tpu_torch.ops.kernels import dilated_unit
@@ -3141,7 +3207,7 @@ def _variant_steps(preset: str, cfg) -> dict:
     t1 = cfg.train.phase_1_duration
     programs = {"gen_prewarmup": ("gen", False, 0), "gen_adversarial": ("gen", True, t1 + 1),
                 "dis": ("dis", True, t1)}
-    want = VARIANT_LAUNCHES[preset]
+    want = VARIANT_LAUNCHES[preset] if want is None else want
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn(TRAIN_BATCH, 1, N_SIGNAL, device="cuda", generator=gen) * 0.1
     st = _variant_state(cfg, "cuda", 0)
@@ -3170,20 +3236,25 @@ def _variant_steps(preset: str, cfg) -> dict:
 
     xb = torch.randn(1, 1, VARIANT_B1_SIGNAL, generator=torch.Generator().manual_seed(8)) * 0.1
     db = draw_noise(cfg, xb, torch.Generator().manual_seed(9))
-    errs = {}
+    errs, stats_errs = {}, {}
     for name, (which, warmed, step) in programs.items():
-        losses = {}
+        losses, stats = {}, {}
         for device in ("cuda", "cpu"):
             s = _variant_state(cfg, device, step)
             d = db.to(device)
             m = (steps["gen"](s, xb.to(device), warmed, draws=d) if which == "gen"
                  else steps["dis"](s, xb.to(device), draws=d))
             losses[device] = {k: float(v) for k, v in m.items() if _is_loss(k)}
+            stats[device] = batch_stats(s.model)
         errs[name] = _loss_err(losses["cuda"], losses["cpu"])
         check(errs[name] <= LOSS_TOL, f"{preset} {name} B=1 card vs CPU losses "
                                       f"{errs[name]:.3e} > {LOSS_TOL}: {losses}")
+        if stats["cpu"]:
+            stats_errs[name] = max(rel_err(v, stats["cpu"][k]) for k, v in stats["cuda"].items())
+            check(stats_errs[name] <= LOSS_TOL, f"{preset} {name} B=1 card vs CPU running "
+                                                f"statistics {stats_errs[name]:.3e} > {LOSS_TOL}")
     return {"receptive_field": list(rf), "crop_frames": list(crop), "ms_per_step": ms,
-            "peak_gb": peak, "b1_loss_rel_err": errs}
+            "peak_gb": peak, "b1_loss_rel_err": errs, "b1_stats_rel_err": stats_errs}
 
 
 def _variant_loop_export(preset: str, cfg, work: Path, db: Path) -> dict:
@@ -3327,6 +3398,281 @@ def phase_variants() -> dict:
     return {"presets": out, "launches": launches, "seconds": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# phase `v1`: the v1 preset at full width (EncoderV1 with BatchNorm, GeneratorV1
+# with its noise synth), and `export_onnx --verify`
+# ---------------------------------------------------------------------------
+
+# a pre-warmup, an adversarial and a critic step, resumed after the second
+V1_LOOP = ["train.phase_1_duration=1", "train.update_discriminator_every=2", "train.ema=0.999"]
+V1_LOOP_STEPS, V1_RESUME_STEPS = 2, 3
+ONNX_LOOP, ONNX_LOOP_STEPS = ["train.phase_1_duration=1"], 2  # a pre-warmup, then a critic step
+V1_STATS = 8  # BatchNorm's running mean and var in each of v1's 4 strided stages
+
+
+def _v1_offline(cfg) -> dict:
+    """The B=16 x 131072 forward in eval mode (BatchNorm on its running
+    statistics; no unit launch: v1 has no DilatedUnit), timed, and at B=1 x
+    65536 the card against the CPU on the same weights and draws."""
+    import torch
+
+    from rave_tpu_torch.factory import build_rave
+    from rave_tpu_torch.ops.kernels import dilated_unit
+
+    cpu_model = build_rave(cfg, seed=0, device="cpu").eval()
+    model = copy.deepcopy(cpu_model).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(BATCH, 1, N_SIGNAL, device="cuda", generator=gen) * 0.1
+    draws = _variant_draws(cfg, x, gen)
+    with torch.inference_mode():
+        model(x, draws)  # warm
+        torch.cuda.synchronize()
+        before = dilated_unit.launches
+        y = model(x, draws)
+        torch.cuda.synchronize()
+        launches = dilated_unit.launches - before
+        check(tuple(y.shape) == (BATCH, 1, N_SIGNAL) and bool(torch.isfinite(y).all())
+              and launches == 0, f"v1 forward {tuple(y.shape)}, {launches} unit launches")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            model(x, draws)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / 5
+        xb = torch.randn(1, 1, VARIANT_B1_SIGNAL, generator=torch.Generator().manual_seed(2)) * 0.1
+        db = _variant_draws(cfg, xb, torch.Generator().manual_seed(3))
+        err = rel_err(model(xb.cuda(), db.to("cuda")).cpu(), cpu_model(xb, db))
+    check(err <= MODEL_TOL, f"v1 B=1 card vs CPU forward {err:.3e} > {MODEL_TOL}")
+    return {"launches": launches, "forward_ms": sec * 1e3,
+            "realtime_factor": BATCH * N_SIGNAL / SAMPLE_RATE / sec, "b1_rel_err": err}
+
+
+def _v1_loop_export(work: Path, db: Path) -> dict:
+    """`cli train --config v1` on phase `loop`'s store, resumed once (the
+    restored state, BatchNorm's running statistics included, bit-equal to its
+    checkpoint; the statistics moved by the steps); `cli export --streaming`
+    and `cli generate` of a 30 s file; the artifact on the card against the
+    CPU; `forward_step.pt2` bit-equal to the eager steps over 32 blocks; the
+    streaming p50 of a block, eager and `.pt2`, under the block's budget."""
+    import torch
+
+    from rave_tpu_torch.data.audio_io import decode_file
+    from rave_tpu_torch.export.artifact import ExportedRAVE
+    from rave_tpu_torch.export.generate import load_signal
+    from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.utils import checkpoint
+
+    common = ["--config", "v1", "--db_path", db, "--out_path", work / "runs", "--batch",
+              TRAIN_BATCH, "--n_signal", N_SIGNAL, "--device", "cuda", "--val_every", 2,
+              "--save_every", 1000, "--device_data", "on", "--name", "v1"]
+    for o in V1_LOOP:
+        common += ["--override", o]
+    with LoopProbe() as probe:
+        out = _cli(["train", "--max_steps", V1_LOOP_STEPS, *common])
+        run_dir = Path(out.strip().splitlines()[-1].removeprefix("run dir: "))
+        first = probe.take()
+        out2 = _cli(["train", "--max_steps", V1_RESUME_STEPS, *common])
+        resumed = probe.take()
+    _check_steps(first, "fp32", 0, V1_LOOP_STEPS, per_step=0)
+    _check_steps(resumed, "fp32", V1_LOOP_STEPS, V1_RESUME_STEPS, per_step=0)
+    check(f"resumed at step {V1_LOOP_STEPS}" in out2, "the v1 run did not resume")
+    phases = [e["phase"] for e in first + resumed if e["kind"] == "step"]
+    check(phases == ["gen_prewarmup", "gen_adversarial", "dis"], f"v1 phases {phases}")
+    restores = [e for e in resumed if e["kind"] == "restore" and "state" in e]
+    check(len(restores) == 1, f"v1 restores {len(restores)}")
+    saved = torch.load(restores[0]["path"], map_location="cpu", weights_only=True)
+    bad = unequal(restores[0]["state"], saved)
+    stats = {k: v for k, v in saved["model"].items() if k.endswith((".bn.mean", ".bn.var"))}
+    moved = sum(not torch.equal(v, torch.zeros_like(v) if k.endswith("mean") else
+                                torch.ones_like(v)) for k, v in stats.items())
+    check(not bad and len(stats) == V1_STATS and moved == V1_STATS,
+          f"v1 restore not bit-equal ({bad[:5]}), or {len(stats)} running statistics "
+          f"({moved} moved)")
+
+    t0 = time.perf_counter()
+    text = _cli(["export", "--run", run_dir, "--streaming", "--output", work / "export",
+                 "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    path = Path(text.strip().splitlines()[-1].removeprefix("exported: "))
+    wav = work / "v1_in.wav"
+    n = write_signal(wav, EXPORT_SECONDS, seed=24)
+    torch.cuda.synchronize()
+    before = dilated_unit.launches
+    t0 = time.perf_counter()
+    _cli(["generate", "--model", path, "--input", wav, "--out_path", work / "generated",
+          "--device", "cuda"])
+    torch.cuda.synchronize()
+    generate_s, gen_launches = time.perf_counter() - t0, dilated_unit.launches - before
+    check(gen_launches == 0, f"v1 generate: {gen_launches} unit launches, expected 0")
+
+    art, cpu = ExportedRAVE(str(path), device="cuda"), ExportedRAVE(str(path), device="cpu")
+    final = torch.load(checkpoint.latest_checkpoint(str(run_dir)), map_location="cpu",
+                       weights_only=True)["model"]
+    check(not unequal(batch_stats(art.model), {k: final[k] for k in stats}),
+          "the artifact's running statistics are not the run's")
+    B = art.block_size
+    x = load_signal(decode_file(str(wav), SAMPLE_RATE, 1), 1, 1, B).cuda()
+    clip = x[..., : -(-int(CLIP_SECONDS * SAMPLE_RATE) // B) * B]
+    off_err = rel_err(art.forward(clip, seed=11).cpu(), cpu.forward(clip.cpu(), seed=11))
+    ys_card, ys_cpu = [], []
+    for i in range(CPU_STREAM_BLOCKS):
+        xb = x[..., i * B:(i + 1) * B]
+        ys_card.append(art.forward(xb, streaming=True, seed=100 + i).cpu())
+        ys_cpu.append(cpu.forward(xb.cpu(), streaming=True, seed=100 + i))
+    st_err = rel_err(torch.cat(ys_card, -1), torch.cat(ys_cpu, -1))
+    check(off_err <= MODEL_TOL and st_err <= MODEL_TOL,
+          f"v1 artifact card vs CPU: offline {off_err:.3e}, streaming {st_err:.3e}")
+
+    program = art.load_program("forward")
+    art.reset_stream()
+    state = [s.clone() for s in art.state]
+    eager_ms, program_ms, equal = [], [], True
+    for i in range(PROGRAM_BLOCKS):
+        xb = x[..., i * B:(i + 1) * B]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_e = art.forward(xb, streaming=True, seed=3000 + i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y_p, state = program(state, xb, torch.tensor(3000 + i, device="cuda"))
+        torch.cuda.synchronize()
+        eager_ms.append((t1 - t0) * 1e3)
+        program_ms.append((time.perf_counter() - t1) * 1e3)
+        equal = equal and torch.equal(y_p, y_e) and all(
+            torch.equal(a, b) for a, b in zip(state, art.state))
+    check(equal, f"v1 forward_step.pt2 not bit-equal to the eager steps over {PROGRAM_BLOCKS} "
+                 "blocks")
+    p50 = {"eager": statistics.median(eager_ms), "program": statistics.median(program_ms)}
+    budget = B / SAMPLE_RATE * 1e3
+    check(max(p50.values()) < budget, f"v1 streaming p50 {p50} over the {budget:.2f} ms budget")
+    ckpts = [e["mb"] for e in first + resumed if e["kind"] == "save"]
+    return {"loop_ms": loop_ms(first + resumed), "checkpoint_mb": ckpts, "export_s": export_s,
+            "generate_s": generate_s, "realtime_factor_generate": n / SAMPLE_RATE / generate_s,
+            "launches": sum(e["fp32"] + e["bf16"] for e in first + resumed) + gen_launches,
+            "card_vs_cpu": {"offline": off_err, "streaming": st_err},
+            "program_bit_equal": equal, "block_ms_p50": p50, "block_budget_ms": budget}
+
+
+def _export_onnx(run_dir: Path, out: Path) -> dict:
+    """`cli export_onnx --verify` of `run_dir` on the card: its seconds, the
+    file's size, the verify's error, and the unit launches it made (its live
+    forward's)."""
+    import torch
+
+    from rave_tpu_torch.ops.kernels import dilated_unit
+
+    torch.cuda.synchronize()
+    before = (dilated_unit.launches, dilated_unit.launches_bf16)
+    t0 = time.perf_counter()
+    text = _cli(["export_onnx", "--run", run_dir, "--output", out, "--verify", "--device",
+                 "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lines = text.strip().splitlines()
+    path = Path(next(v for v in lines if v.startswith("exported: ")).removeprefix("exported: "))
+    err = float(next(v for v in lines if v.startswith("verify: ")).split("= ")[1].split()[0])
+    check(err < 1e-4, f"export_onnx --verify of {run_dir.name}: {err:.3e}")
+    return {"seconds": seconds, "mib": path.stat().st_size / 2**20, "verify_max_abs_err": err,
+            "launches": dilated_unit.launches - before[0],
+            "launches_bf16": dilated_unit.launches_bf16 - before[1]}
+
+
+def _v1_onnx(work: Path, db: Path, v2_run: Path) -> dict:
+    """`cli train --config onnx` two steps on phase `loop`'s store, then `cli
+    export_onnx --verify` of it (no unit launch: v1) and of phase `loop`'s v2
+    run (its live forward's 22 launches, exactly; the kernel held against its
+    plain version at each shape they gave it)."""
+    import torch
+
+    args = ["train", "--config", "onnx", "--db_path", db, "--out_path", work / "runs",
+            "--batch", TRAIN_BATCH, "--n_signal", N_SIGNAL, "--device", "cuda", "--val_every",
+            1000, "--save_every", 1000, "--device_data", "on", "--name", "onnx",
+            "--max_steps", ONNX_LOOP_STEPS]
+    for o in ONNX_LOOP:
+        args += ["--override", o]
+    out = _cli(args)
+    run_dir = Path(out.strip().splitlines()[-1].removeprefix("run dir: "))
+    onnx = _export_onnx(run_dir, work / "onnx")
+    with UnitShapes() as shapes:
+        v2 = _export_onnx(v2_run, work / "onnx_v2")
+    check(onnx["launches"] == 0 and v2["launches"] == 22 and v2["launches_bf16"] == 0
+          and len(shapes.seen) == v2["launches"],
+          f"export_onnx --verify launches: onnx {onnx['launches']} (expected 0), v2 "
+          f"{v2['launches']} (expected 22, {len(shapes.seen)} unit shapes seen)")
+    # the kernel against its plain version at each shape the verify's live forward gave it
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows = {shape: kernel_row(gen, "onnx_verify", *shape) for shape in sorted(set(shapes.seen))}
+    path = [rows[shape] for shape in shapes.seen]  # one per launch
+    v2["unit_path"] = {"shapes": len(rows), "ms": sum(r["ms"] for r in path),
+                       "plain_ms": sum(r["plain_ms"] for r in path),
+                       "bound_ms": sum(unit_bound([r], r["B"], "fp32")["bound_ms"] for r in path),
+                       "max_abs_err": max(r["max_abs_err"] for r in path),
+                       "max_rel_err": max(r["rel_err"] for r in path)}
+    return {"onnx": onnx, "v2": v2}
+
+
+def phase_v1(v2_run: Path, db: Path) -> dict:
+    """compose(["v1"]) at full width and `export_onnx`; see the module docstring."""
+    import torch
+
+    from rave_tpu_torch.config import compose
+    from rave_tpu_torch.ops.kernels import dilated_unit
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "v1"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = compose(["v1"])
+    seconds, out = {}, {}
+    parts = {"offline": lambda: _v1_offline(cfg),
+             "stream": lambda: _variant_stream("v1 causal", compose(["v1", "causal"])),
+             "steps": lambda: _variant_steps("v1", cfg, want=0),
+             "loop_export": lambda: _v1_loop_export(work, db)}
+    torch.cuda.synchronize()
+    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    for name, run in parts.items():
+        t0 = time.perf_counter()
+        out[name] = run()
+        seconds[name] = time.perf_counter() - t0
+    launches = dilated_unit.launches
+    check(launches == 0 and dilated_unit.launches_bf16 == 0,
+          f"{launches} unit launches on the v1 path, expected 0")
+    t0 = time.perf_counter()
+    out["onnx"] = _v1_onnx(work, db, v2_run)
+    seconds["onnx"] = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    out.update({"launches": launches, "launches_onnx_verify": out["onnx"]["v2"]["launches"],
+                "part_seconds": seconds, "seconds": time.perf_counter() - t_phase})
+    o, s, st, le, ox = (out[k] for k in ("offline", "stream", "steps", "loop_export", "onnx"))
+    print(f"v1: forward B={BATCH} x {N_SIGNAL} (eval) {o['forward_ms']:.2f} ms = "
+          f"{o['realtime_factor']:.1f}x realtime, {launches} unit launches; B=1 card vs CPU "
+          f"{o['b1_rel_err']:.2e}; causal stream vs offline z {s['z_rel_err']:.2e} y "
+          f"{s['y_rel_err']:.2e}; steps B={TRAIN_BATCH} x {N_SIGNAL} ms " + ", ".join(
+              f"{k} {v:.1f}" for k, v in st["ms_per_step"].items())
+          + f", peak {st['peak_gb']:.2f} GiB; B=1 card vs CPU losses " + ", ".join(
+              f"{k} {v:.1e}" for k, v in st["b1_loss_rel_err"].items())
+          + ", running statistics " + ", ".join(
+              f"{k} {v:.1e}" for k, v in st["b1_stats_rel_err"].items())
+          + f"; cli train {V1_LOOP_STEPS} steps resumed to {V1_RESUME_STEPS} bit-equal "
+          f"(running statistics included); export {le['export_s']:.1f} s, generate 30 s "
+          f"{le['realtime_factor_generate']:.1f}x, artifact card vs CPU "
+          f"{le['card_vs_cpu']['offline']:.1e} / {le['card_vs_cpu']['streaming']:.1e}, "
+          f"forward_step.pt2 bit-equal over {PROGRAM_BLOCKS} blocks, streaming p50 eager "
+          f"{le['block_ms_p50']['eager']:.3f} ms, .pt2 {le['block_ms_p50']['program']:.3f} ms "
+          f"(budget {le['block_budget_ms']:.2f} ms); export_onnx --verify: onnx "
+          f"{ox['onnx']['seconds']:.1f} s, {ox['onnx']['mib']:.2f} MiB, err "
+          f"{ox['onnx']['verify_max_abs_err']:.1e}, {ox['onnx']['launches']} launches; v2 "
+          f"{ox['v2']['seconds']:.1f} s, {ox['v2']['mib']:.2f} MiB, err "
+          f"{ox['v2']['verify_max_abs_err']:.1e}, {ox['v2']['launches']} launches at "
+          f"{ox['v2']['unit_path']['shapes']} shapes, kernel vs plain max abs err "
+          f"{ox['v2']['unit_path']['max_abs_err']:.1e} (rel "
+          f"{ox['v2']['unit_path']['max_rel_err']:.1e}), {ox['v2']['unit_path']['ms']:.3f} ms "
+          f"(plain {ox['v2']['unit_path']['plain_ms']:.3f}, bound "
+          f"{ox['v2']['unit_path']['bound_ms']:.3f}); phase "
+          f"{out['seconds']:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + ")", flush=True)
+    return out
+
+
 def main() -> None:
     if not (ROOT / KERNEL_SOURCE).is_file():
         raise SystemExit(f"chip_smoke: {KERNEL_SOURCE} not found; run from a checkout")
@@ -3346,11 +3692,12 @@ def main() -> None:
     loop = phase_loop(train["ms_per_step"], train_bf16["ms_per_step"])
     export = phase_export(ROOT / loop["run_dir"])
     prior = phase_prior(ROOT / loop["run_dir"], ROOT / "build" / "loop" / "db")
+    v1 = phase_v1(ROOT / loop["run_dir"], ROOT / "build" / "loop" / "db")
     shutil.rmtree(ROOT / "build" / "loop" / "runs", ignore_errors=True)  # ~0.7 GB per checkpoint
     shutil.rmtree(ROOT / "build" / "loop" / "export", ignore_errors=True)
     discrete = phase_discrete()
-    v3 = phase_v3()
     variants = phase_variants()
+    v3 = phase_v3()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "rave_tpu"))
     check(not foreign, f"the port loaded the JAX package or jax: {foreign[:5]}")
 
@@ -3392,6 +3739,10 @@ def main() -> None:
         "launches_discrete": discrete["launches"],
         "launches_v3": v3["launches"],  # Snake units bypass the kernel, as in rave_tpu
         "launches_variants": variants["launches"],
+        "launches_v1": v1["launches"],  # v1 has no DilatedUnit, as in rave_tpu
+        "launches_onnx_verify": v1["launches_onnx_verify"],  # the v2 run's live forward
+        **{f"{k}_onnx_verify": v1["onnx"]["v2"]["unit_path"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
         "launches_prior": prior["launches"],  # train_prior, export --prior, generate
         **{f"{k}_prior": prior["unit_path"][k] for k in ("ms", "plain_ms", "bound_ms",
                                                           "max_abs_err")},
@@ -3421,7 +3772,8 @@ def main() -> None:
          "bounds": bounds,
          "offline": offline, "stream": stream, "grad_shapes": grad, "train": train,
          "train_bf16": train_bf16, "remat": remat, "loop": loop, "export": export,
-         "prior": prior, "discrete": discrete, "v3": v3, "variants": variants, **kernels},
+         "prior": prior, "discrete": discrete, "v3": v3, "variants": variants, "v1": v1,
+         **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,11 @@ The ported commands of rave_tpu/cli.py, with the same flags plus
   generate   : files -> reconstructed wavs through an artifact or a run,
                or `--prior_seconds` of the artifact's prior
                (export/generate.py)
+  export_onnx: run -> `<name>.onnx`, opset 12, for v1 and v2 without the
+               noise synth (export/onnx_export.py); `--verify` runs it in
+               the port's interpreter against the live model. Only the
+               `.onnx` is written: the JAX command's StableHLO graph is not
+               ported (`--skip_stablehlo` is accepted and changes nothing)
 
 The other commands of the JAX CLI, and the options of these that need a
 module the port does not have yet, exit 2 and name the ROADMAP item that
@@ -24,8 +29,6 @@ import argparse
 import sys
 
 NOT_PORTED = {
-    # rave_tpu emits ONNX for the v1 family only (rave_tpu/cli.py:197-201)
-    "export_onnx": "A11 (v1, then its ONNX export)",
     "import_torch": "A15 (reference checkpoints into the port)",
     "remote_dataset": "A18 (the remote dataset)",
 }
@@ -213,8 +216,70 @@ def cmd_generate(argv):
              prior_samples=a.prior_samples, seed=a.seed, device=a.device)
 
 
+def cmd_export_onnx(argv):
+    p = argparse.ArgumentParser("rave_tpu_torch export_onnx")
+    p.add_argument("--run", required=True)
+    p.add_argument("--output", default=None)
+    p.add_argument("--deterministic", action="store_true",
+                   help="use the posterior mean instead of RandomNormalLike sampling")
+    p.add_argument("--verify", action="store_true",
+                   help="evaluate the .onnx with the port's interpreter and compare it with "
+                   "the live model on --device")
+    p.add_argument("--skip_stablehlo", action="store_true",
+                   help="accepted for the JAX command's sake: the port writes only the .onnx")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    a = p.parse_args(argv)
+    from pathlib import Path
+
+    from rave_tpu_torch.export.onnx_export import export_onnx_model
+    from rave_tpu_torch.utils.checkpoint import load_run
+
+    cfg, model, n_channels, run_dir = load_run(a.run, device=a.device)
+    try:
+        if n_channels != 1:
+            raise NotImplementedError(f"ONNX export is mono; got n_channels={n_channels}")
+        data = export_onnx_model(cfg, model, deterministic=a.deterministic)
+    except NotImplementedError as e:
+        print(f"no .onnx for this configuration ({e})")
+        return 0
+    path = Path(a.output or run_dir) / f"{cfg.name}.onnx"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(data)
+    print(f"exported: {path}")
+    if a.verify:
+        err, n = verify_onnx(cfg, model)
+        print(f"verify: max |onnx - live| = {err:.2e} over {n} samples")
+        if not err < 1e-4:
+            print("ONNX verification failed", file=sys.stderr)
+            return 1
+    return 0
+
+
+def verify_onnx(cfg, model):
+    """(max |onnx - live|, samples): the deterministic graph in the port's
+    interpreter against the live model's encode, posterior mean and decode
+    on its device (TF32 off), over n_band * 256 seeded samples
+    (rave_tpu/cli.py::_verify_onnx)."""
+    import numpy as np
+    import torch
+
+    from rave_tpu_torch.export.onnx_export import export_onnx_model
+    from rave_tpu_torch.export.onnx_run import run as onnx_run
+    from rave_tpu_torch.train.loop import fp32_exact
+
+    T = cfg.n_band * 256
+    x = (np.random.default_rng(0).normal(size=(1, 1, T)) * 0.3).astype(np.float32)
+    device = next(model.parameters()).device
+    with torch.no_grad(), fp32_exact():
+        z = model.encode(torch.from_numpy(x).to(device))
+        want = model.decode(z[:, : cfg.latent_size]).cpu().numpy()
+    got = onnx_run(export_onnx_model(cfg, model, deterministic=True), {"audio_in": x})
+    return float(np.abs(got["audio_out"] - want).max()), T
+
+
 COMMANDS = {"preprocess": cmd_preprocess, "train": cmd_train, "train_prior": cmd_train_prior,
-            "eval": cmd_eval, "export": cmd_export, "generate": cmd_generate}
+            "eval": cmd_eval, "export": cmd_export, "generate": cmd_generate,
+            "export_onnx": cmd_export_onnx}
 
 
 def main(argv=None) -> int:

@@ -4,8 +4,11 @@ The part of rave_tpu/config.py the port reads, owned by the port so that
 nothing here depends on the JAX package: the fields `factory.build_rave`,
 `factory.build_discriminator` / `build_audio_distance`, the train step and
 the training driver read, with the same names, defaults and resolved
-accessors, and the presets the port builds: `v2`, `v3` (v2 with Snake,
-AdaIN and the descript critic), `causal`, the latent families `discrete`,
+accessors, and the presets the port builds: `v1` (EncoderV1 with
+BatchNorm, GeneratorV1 with its filtered-noise synth), its small noiseless
+`onnx` and `raspberry`, `v2`, `v3` (v2 with Snake,
+AdaIN and the descript critic), `causal`, `normalize_ambient` (a static
+compressor appended to the augmentations), the latent families `discrete`,
 `discrete_v3`, `wasserstein` and `spherical`, and the option presets
 `snake`, `adain` and `descript_discriminator`, and the v2 variants: the
 noise synth (`noise`, `v2_small`), raw-waveform output (`v2_nopqmf`,
@@ -31,13 +34,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 @dataclass
 class EncoderConfig:
-    kind: str = "v2"
+    kind: str = "v2"  # v1 | v2
     capacity: Optional[int] = None  # None -> cfg.capacity
     ratios: Optional[Tuple[int, ...]] = None  # None -> cfg.ratios
     data_size: Optional[int] = None  # None -> n_band (pqmf) / n_mels (mel) / 1
     dilations: Optional[Tuple] = None  # None -> cfg.dilations
     kernel_size: Optional[int] = None  # None -> cfg.kernel_size
     keep_dim: bool = False
+    sample_norm: bool = False  # v1: SampleNorm in place of BatchNorm
+    repeat_layers: int = 1  # v1: convs per stride
     recurrent_layers: int = 0
     use_adain: bool = False
 
@@ -53,7 +58,7 @@ class LatentConfig:
 
 @dataclass
 class DecoderConfig:
-    kind: str = "v2"
+    kind: str = "v2"  # v1 | v2
     capacity: Optional[int] = None
     ratios: Optional[Tuple[int, ...]] = None
     keep_dim: bool = False
@@ -64,6 +69,13 @@ class DecoderConfig:
     noise_bands: int = 5
     recurrent_layers: int = 0
     use_adain: bool = False
+    # v1 specifics
+    loud_stride: int = 1
+    use_noise_v1: bool = True
+    v1_noise_ratios: Tuple[int, ...] = (4, 4, 4)
+    v1_noise_bands: int = 5
+    res_kernel_sizes: Tuple[int, ...] = (3,)
+    res_dilations: Tuple[Tuple[int, ...], ...] = ((1, 1), (3, 1), (5, 1))
 
 
 @dataclass
@@ -201,26 +213,39 @@ class RaveConfig:
     def noise_shape(self, n_channels: int, batch: int, latent_frames: int):
         """The shape of the noise synth's uniform draws (`LatentDraws.uniform`)
         for a latent of `latent_frames` frames: [batch, noise frames,
-        dec_data_size * n_channels, prod(noise_ratios)]; None without it."""
-        if not (self.decoder.kind == "v2" and self.decoder.use_noise):
+        dec_data_size * n_channels, prod(noise_ratios)] (v1's
+        `v1_noise_ratios`); None without it."""
+        ratios = self.noise_ratios()
+        if ratios is None:
             return None
-        target = math.prod(self.decoder.noise_ratios)
+        target = math.prod(ratios)
         frames = latent_frames * math.prod(self.dec_ratios()) // target
         return batch, frames, self.dec_data_size() * n_channels, target
+
+    def noise_ratios(self) -> Optional[Tuple[int, ...]]:
+        """The decoder's noise synth's strides (v1's or v2's), None without one."""
+        d = self.decoder
+        if d.kind == "v1":
+            return tuple(d.v1_noise_ratios) if d.use_noise_v1 else None
+        return tuple(d.noise_ratios) if d.kind == "v2" and d.use_noise else None
 
     def block_size(self) -> int:
         """Minimum streaming block in waveform samples: lcm of the encoder
         decimation, the decoder upsampling, the PQMF 2-frame parity and the
-        noise branch's stride. Its strided causal convs drop input that is
-        not a whole number of their frames, so a block hands the branch
-        whole frames: it runs at the decoder's frame rate (n_band samples
-        per frame under pqmf output) and downsamples by prod(noise_ratios)."""
+        decoder's strided branches (the noise synth, v1's loudness stride).
+        Strided streaming convs drop input that is not a whole number of
+        their frames, so a block hands each branch whole frames: it runs at
+        the decoder's frame rate (n_band samples per frame under pqmf
+        output) and downsamples by prod(noise ratios) or `loud_stride`."""
         band = self.n_band if self.output_mode == "pqmf" else 1
         b = math.lcm(self.decimation(), math.prod(self.dec_ratios()) * band)
         if self.input_mode == "pqmf" or self.output_mode == "pqmf":
             b = math.lcm(b, 2 * self.n_band)
-        if self.decoder.kind == "v2" and self.decoder.use_noise:
-            b = math.lcm(b, band * math.prod(self.decoder.noise_ratios))
+        ratios = self.noise_ratios()
+        if ratios is not None:
+            b = math.lcm(b, band * math.prod(ratios))
+        if self.decoder.kind == "v1" and self.decoder.loud_stride > 1:
+            b = math.lcm(b, band * self.decoder.loud_stride)
         return b
 
 
@@ -235,24 +260,43 @@ def preset(name: str):
     return deco
 
 
-@preset("v2")
-def _v2(c: RaveConfig):
-    """rave/configs/v2.gin (which includes v1.gin): what rave_tpu.config's
-    `_v1` and `_v2` set of the fields the port has."""
-    c.name = "v2"
-    c.capacity = 96
+@preset("v1")
+def _v1(c: RaveConfig):
+    """rave/configs/v1.gin: EncoderV1 (BatchNorm) and GeneratorV1 (its
+    filtered-noise synth on) at capacity 64, the multiscale critic."""
+    c.name = "v1"
+    c.capacity = 64
     c.n_band = 16
     c.latent_size = 128
     c.ratios = (4, 4, 4, 2)
+    c.encoder.kind = "v1"
+    c.decoder.kind = "v1"
+    c.latent.family = "variational"
+    c.discriminator = DiscriminatorConfig(kind="multiscale", capacity=64)
+    t = c.train
+    t.phase_1_duration = 1_000_000
+    t.update_discriminator_every = 2
+    t.valid_signal_crop = False
+    t.num_skipped_features = 0
+    t.feature_matching_relative = False
+    t.weights["feature_matching"] = 10.0
+    t.beta_initial = t.beta_target = 0.1
+    t.beta_warmup_len = 1
+
+
+@preset("v2")
+def _v2(c: RaveConfig):
+    """rave/configs/v2.gin, which includes v1.gin."""
+    _v1(c)
+    c.name = "v2"
+    c.capacity = 96
     c.kernel_size = 3
     c.dilations = ((1, 3, 9), (1, 3, 9), (1, 3, 9), (1, 3))
     c.encoder.kind = "v2"
     c.decoder.kind = "v2"
-    c.latent.family = "variational"
     c.decoder.amplitude_modulation = True
     c.discriminator = DiscriminatorConfig(kind="combined", capacity=96)
     t = c.train
-    t.phase_1_duration = 1_000_000
     t.update_discriminator_every = 4
     t.valid_signal_crop = True
     t.num_skipped_features = 1
@@ -424,6 +468,36 @@ def _spherical(c: RaveConfig):
     c.train.phase_1_duration = 200_000
 
 
+@preset("onnx")
+def _onnx(c: RaveConfig):
+    """rave/configs/onnx.gin: v1 at capacity 32 without the noise synth
+    (its FFTs have no opset-12 lowering)."""
+    _v1(c)
+    c.name = "onnx"
+    c.capacity = 32
+    c.discriminator.capacity = 32
+    c.decoder.use_noise_v1 = False
+
+
+@preset("raspberry")
+def _raspberry(c: RaveConfig):
+    """rave/configs/raspberry.gin: onnx at capacity 16."""
+    _onnx(c)
+    c.name = "raspberry"
+    c.capacity = 16
+    c.discriminator.capacity = 16
+
+
+@preset("normalize_ambient")
+def _normalize_ambient(c: RaveConfig):
+    """rave/configs/normalize_ambient.gin: a static sox-compand ambient
+    normalizer (time 0.01,0.01, 6 dB knee, curve -30/-15 -10/-8 0/-5)
+    appended to the augmentations."""
+    c.data.augmentations = tuple(c.data.augmentations) + (
+        '{"type":"Compress","time":"0.01,0.01","lookup":"6:-30,-15,-10,-8,0,-5"}',
+    )
+
+
 @preset("noise")
 def _noise(c: RaveConfig):
     """rave/configs/noise.gin: NoiseGeneratorV2 in GeneratorV2."""
@@ -462,8 +536,7 @@ def compose(names: List[str], overrides: Optional[List[str]] = None) -> RaveConf
     for n in names:
         if n not in PRESETS:
             raise KeyError(f"preset {n!r} is not ported (have {sorted(PRESETS)}; "
-                           "ROADMAP A11: v1 and its presets, onnx and raspberry; "
-                           "the spectral critic)")
+                           "ROADMAP A11: the spectral critic)")
         PRESETS[n](cfg)
     for ov in overrides or []:
         apply_override(cfg, ov)

@@ -1,7 +1,7 @@
 """Factory: RaveConfig -> the port's model, critic and losses.
 
-PyTorch port of rave_tpu/factory.py: `build_rave` (:151-175) for the v2
-encoder and decoder kinds (with the noise synth and the GRUs), the three
+PyTorch port of rave_tpu/factory.py: `build_rave` (:151-175) for the v1
+and v2 encoder and decoder kinds (with the noise synths and the GRUs), the three
 input and two output modes, and the four latent families (`build_encoder`
 picks the wrapper as :82-99 does);
 `build_discriminator` (:178-232) for the `multiscale`, `combined` and
@@ -53,27 +53,26 @@ def pqmf_analysis_delay(cfg: RaveConfig) -> int:
 
 
 def build_encoder(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1):
-    if cfg.encoder.kind != "v2":
-        raise NotImplementedError(f"encoder kind {cfg.encoder.kind!r} is not ported yet "
-                                  "(ROADMAP A11, v1)")
-    inner = blocks.EncoderV2(
-        data_size=cfg.enc_data_size(),
-        capacity=cfg.enc_capacity(),
-        ratios=cfg.enc_ratios(),
-        latent_size=cfg.latent_size,
-        n_out=cfg.num_latent_out(),
-        kernel_size=cfg.encoder.kernel_size or cfg.kernel_size,
-        dilations=tuple(cfg.encoder.dilations or cfg.dilations),
-        keep_dim=cfg.encoder.keep_dim,
-        n_channels=n_channels,
-        mode=cfg.mode,
-        weight_norm=cfg.weight_norm,
-        activation=cfg.activation,
-        use_adain=cfg.encoder.use_adain,
-        recurrent_layers=cfg.encoder.recurrent_layers,
-        in_delay=pqmf_analysis_delay(cfg),
-        stream_batch=stream_batch,
-    )
+    kw = dict(data_size=cfg.enc_data_size(), capacity=cfg.enc_capacity(),
+              ratios=cfg.enc_ratios(), latent_size=cfg.latent_size, n_out=cfg.num_latent_out(),
+              n_channels=n_channels, mode=cfg.mode,
+              recurrent_layers=cfg.encoder.recurrent_layers, in_delay=pqmf_analysis_delay(cfg),
+              stream_batch=stream_batch)
+    if cfg.encoder.kind == "v2":
+        inner = blocks.EncoderV2(
+            kernel_size=cfg.encoder.kernel_size or cfg.kernel_size,
+            dilations=tuple(cfg.encoder.dilations or cfg.dilations),
+            keep_dim=cfg.encoder.keep_dim,
+            weight_norm=cfg.weight_norm,
+            activation=cfg.activation,
+            use_adain=cfg.encoder.use_adain,
+            **kw,
+        )
+    elif cfg.encoder.kind == "v1":
+        inner = blocks.EncoderV1(sample_norm=cfg.encoder.sample_norm,
+                                 repeat_layers=cfg.encoder.repeat_layers, **kw)
+    else:
+        raise ValueError(f"unknown encoder kind {cfg.encoder.kind!r}")
     lat = cfg.latent
     if lat.family == "variational":
         return blocks.VariationalEncoder(inner)
@@ -88,9 +87,28 @@ def build_encoder(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1):
 
 
 def build_decoder(cfg: RaveConfig, n_channels: int = 1, stream_batch: int = 1):
+    if cfg.decoder.kind == "v1":
+        d = cfg.decoder
+        return blocks.GeneratorV1(
+            latent_size=cfg.augmented_latent_size(),
+            capacity=cfg.dec_capacity(),
+            data_size=cfg.dec_data_size(),
+            ratios=cfg.dec_ratios(),
+            loud_stride=d.loud_stride,
+            use_noise=d.use_noise_v1,
+            noise_ratios=d.v1_noise_ratios,
+            noise_bands=d.v1_noise_bands,
+            res_kernel_sizes=d.res_kernel_sizes,
+            res_dilations=d.res_dilations,
+            n_channels=n_channels,
+            recurrent_layers=d.recurrent_layers,
+            mode=cfg.mode,
+            weight_norm=cfg.weight_norm,
+            activation=cfg.activation,
+            stream_batch=stream_batch,
+        )
     if cfg.decoder.kind != "v2":
-        raise NotImplementedError(f"decoder kind {cfg.decoder.kind!r} is not ported yet "
-                                  "(ROADMAP A11, v1)")
+        raise ValueError(f"unknown decoder kind {cfg.decoder.kind!r}")
     return blocks.GeneratorV2(
         latent_size=cfg.augmented_latent_size(),
         capacity=cfg.dec_capacity(),

@@ -1,23 +1,30 @@
-"""v2 encoder/generator building blocks (dual-mode, delay-tracked).
+"""Encoder/generator building blocks (dual-mode, delay-tracked).
 
-PyTorch port of the v2 / v3 subset of rave_tpu/models/blocks.py,
-channels-first `[B, C, T]`: the pure delay algebra, the activations
-(leaky ReLU, Snake), AdaIN, the DilatedUnit residual stacks (whose offline
-path is the fused CUDA kernel on a GPU when the activation is leaky ReLU),
-EncoderV2 and GeneratorV2 (amplitude modulation, the filtered-noise synth
-`NoiseGeneratorV2` beside the waveform conv, and an optional GRU: at the
-encoder's output, at the generator's input), and the latent families
-(variational, wasserstein, discrete over models/quantization.py, spherical
-with its angle codecs), each taking its draws explicitly (`LatentDraws`).
-The noise synth's uniform noise is an input too (`LatentDraws.uniform`,
-`GeneratorV2(z, uniform)`), never drawn inside the module.
+PyTorch port of rave_tpu/models/blocks.py, channels-first `[B, C, T]`:
+the pure delay algebra, the activations (leaky ReLU, Snake), SampleNorm,
+BatchNorm1d and AdaIN; the v2 family: the DilatedUnit residual stacks
+(whose offline path is the fused CUDA kernel on a GPU when the activation
+is leaky ReLU), EncoderV2 and GeneratorV2 (amplitude modulation, the
+filtered-noise synth `NoiseGeneratorV2` beside the waveform conv, and an
+optional GRU: at the encoder's output, at the generator's input); the v1
+family: EncoderV1 (strided convs with BatchNorm or SampleNorm, an optional
+GRU, a grouped final conv) and GeneratorV1 (upsampling with multi-kernel
+`ResidualStack`s, then a waveform, a loudness and a filtered-noise branch,
+`NoiseGenerator`); and the latent families (variational, wasserstein,
+discrete over models/quantization.py, spherical with its angle codecs),
+each taking its draws explicitly (`LatentDraws`). The noise synths'
+uniform noise is an input too (`LatentDraws.uniform`, `GeneratorV2(z,
+uniform)`, `GeneratorV1(z, uniform, warmed_up)`), never drawn inside the
+module.
 Attribute names (`net.layers.N`, `inner`, `waveform`, `synth.branches.N`,
-`encoder`) mirror the flax module paths, so utils/convert.py maps weights
-by rename.
+`aligned`, `bn`, `encoder`) mirror the flax module paths, so
+utils/convert.py maps weights by rename.
 
-Train and eval mode are PyTorch's (`model.train()` / `model.eval()`); only
-AdaIN reads them, as the JAX modules' `train` field: the identity in
-training, its transfer in eval mode.
+Train and eval mode are PyTorch's (`model.train()` / `model.eval()`);
+AdaIN and BatchNorm1d read them, as the JAX modules' `train` field: AdaIN
+is the identity in training and transfers in eval mode; BatchNorm1d
+normalizes by the batch's statistics in training (and folds them into its
+running averages) and by the running averages in eval mode and streaming.
 """
 from __future__ import annotations
 
@@ -34,16 +41,61 @@ from rave_tpu_torch.nn.combinators import AlignBranches, Lambda, Residual, Seque
 from rave_tpu_torch.nn.conv import Conv1d, ConvTranspose1d, conv_delay, get_padding, tconv_delay
 from rave_tpu_torch.nn.gru import GRU
 from rave_tpu_torch.nn.streaming import as_dtype
-from rave_tpu_torch.ops.dsp import amp_to_impulse_response, fft_convolve, mod_sigmoid
+from rave_tpu_torch.ops.dsp import (
+    amp_to_impulse_response, at_least_float32, fft_convolve, mod_sigmoid,
+)
 from rave_tpu_torch.ops.kernels.dilated_unit import fused_dilated_unit
 
 # --------------------------------------------------------------------------
-# pure delay algebra (rave_tpu/models/blocks.py:44-106, v2 part)
+# pure delay algebra (rave_tpu/models/blocks.py:44-135)
 # --------------------------------------------------------------------------
 
 
 def dilated_unit_delay(kernel_size: int, dilation: int, mode: str) -> int:
     return get_padding(kernel_size, 1, dilation, mode)[1]
+
+
+def residual_layer_delay(kernel_size: int, dilations, mode: str) -> int:
+    d = 0
+    for dil in dilations:
+        d = conv_delay(d, kernel_size, 1, dil, mode)
+    return d
+
+
+def residual_stack_delay(kernel_sizes, dilations_list, mode: str) -> int:
+    return max(sum(residual_layer_delay(k, dils, mode) for dils in dilations_list)
+               for k in kernel_sizes)
+
+
+def noise_generator_delay(in_delay: int, ratios, mode: str) -> int:
+    d = in_delay
+    for r in ratios:
+        d = conv_delay(d, 3, r, 1, mode)
+    return d * math.prod(ratios)
+
+
+def encoder_v1_delay(in_delay: int, ratios, repeat_layers: int, mode: str) -> int:
+    d = conv_delay(in_delay, 7, 1, 1, mode)
+    for r in ratios:
+        d = conv_delay(d, 2 * r + 1, r, 1, mode)
+        for _ in range(repeat_layers - 1):
+            d = conv_delay(d, 3, 1, 1, mode)
+    return conv_delay(d, 5, 1, 1, mode)
+
+
+def generator_v1_delay(ratios, res_kernel_sizes, res_dilations, loud_stride: int,
+                       use_noise: bool, noise_ratios, mode: str) -> int:
+    """The hidden stream's delay, then the latest of the waveform, loudness
+    and noise branches (AlignBranches delays the others to it)."""
+    d = conv_delay(0, 7, 1, 1, mode)
+    for r in ratios:
+        d = tconv_delay(d, r, mode) if r > 1 else conv_delay(d, 3, 1, 1, mode)
+        d += residual_stack_delay(res_kernel_sizes, res_dilations, mode)
+    branch = [conv_delay(d, 7, 1, 1, mode) - d,
+              conv_delay(d, 2 * loud_stride + 1, loud_stride, 1, mode) * loud_stride - d]
+    if use_noise:
+        branch.append(noise_generator_delay(d, noise_ratios, mode) - d)
+    return d + max(branch)
 
 
 def noise_generator_v2_delay(in_delay: int, ratios) -> int:
@@ -116,6 +168,71 @@ def make_activation(name: str, dim: int) -> nn.Module:
     if name == "snake":
         return Snake(dim)
     raise ValueError(f"unknown activation {name}")
+
+
+class SampleNorm(nn.Module):
+    """x over its L2 norm across channels (reference rave/blocks.py:25-28)."""
+
+    def forward(self, x):
+        return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+    def step(self, x):
+        return self(x)
+
+
+class BatchStats(nn.Module):
+    """The tensors of flax's `nn.BatchNorm`, by its names: the learned
+    `scale` and `bias`, and the running `mean` and `var` (persistent
+    buffers: the JAX package's `batch_stats` collection)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+
+class BatchNorm1d(nn.Module):
+    """BatchNorm over [B, C, T] as flax's `nn.BatchNorm(momentum=0.9,
+    epsilon=1e-5)` computes it (rave_tpu/models/blocks.py:207-221).
+
+    In training mode it normalizes by the batch's statistics over (B, T),
+    taken in float32 (float64 for a float64 input) with the biased
+    variance mean(x^2) - mean(x)^2 (clipped at 0), and folds them into the
+    running averages, 0.9 old + 0.1 new: not torch's unbiased variance. In
+    eval mode, and always when streaming, it normalizes by the running
+    averages. A bfloat16 input gives a float32 output (flax promotes the
+    input to its float32 statistics and parameters). Nothing is folded in while `frozen`, which the training
+    step sets for `train.remat`'s recompute of a pass whose statistics
+    were folded in already."""
+
+    MOMENTUM, EPSILON = 0.9, 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.bn = BatchStats(features)
+        self.frozen = False
+
+    def _normalize(self, x, mean, var):
+        mul = torch.rsqrt(var + self.EPSILON) * self.bn.scale
+        return (x - mean[:, None]) * mul[:, None] + self.bn.bias[:, None]
+
+    def forward(self, x):
+        if not self.training:
+            return self.step(x)
+        xf = at_least_float32(x)
+        mean = xf.mean((0, 2))
+        var = torch.clamp((xf * xf).mean((0, 2)) - mean * mean, min=0.0)
+        if not self.frozen:
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.bn.mean.copy_(m * self.bn.mean + (1 - m) * mean)
+                self.bn.var.copy_(m * self.bn.var + (1 - m) * var)
+        return self._normalize(x, mean, var)
+
+    def step(self, x):
+        return self._normalize(x, self.bn.mean, self.bn.var)
 
 
 ADAIN_MAX_BATCH = 8  # the JAX modules' `adain_max_batch`
@@ -295,15 +412,41 @@ class EncoderV2(nn.Module):
         return self.net.step(x)
 
 
-class NoiseGeneratorV2(nn.Module):
+class FilteredNoise(nn.Module):
+    """The synthesis both noise synths share: band amplitudes [B,
+    data_size*noise_bands, n] (from `net`) through mod_sigmoid(amp - 5),
+    each frame's turned into a windowed impulse response of prod(ratios)
+    taps that filters that frame's uniform noise (FFT convolution,
+    frame-local): [B, data_size, n * prod(ratios)], float32 (float64 for a
+    float64 pass). `uniform` [B,
+    n, data_size, prod(ratios)] holds the frames' draws in [0, 1).
+    Subclasses set `net`, `out_channels` (data_size), `noise_bands` and
+    `target_size` (prod(ratios))."""
+
+    def _synth(self, amp: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
+        B, _, n = amp.shape
+        d = self.out_channels
+        amp = mod_sigmoid(amp - 5.0).transpose(1, 2).reshape(B, n, d, self.noise_bands)
+        ir = amp_to_impulse_response(amp, self.target_size)  # [B, n, d, target]
+        if tuple(uniform.shape) != tuple(ir.shape):
+            raise ValueError(f"the noise synth takes uniform draws {tuple(ir.shape)}; got "
+                             f"{tuple(uniform.shape)}")
+        out = fft_convolve(uniform.to(ir.dtype) * 2 - 1, ir)
+        return out.permute(0, 2, 1, 3).reshape(B, d, n * self.target_size)
+
+    def forward(self, x: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
+        return self._synth(self.net(x), uniform)
+
+    def step(self, x: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
+        return self._synth(self.net.step(x), uniform)
+
+
+class NoiseGeneratorV2(FilteredNoise):
     """Causal filtered-noise synth (reference rave/blocks.py:243-292,
     rave_tpu/models/blocks.py:534-603): strided causal convs (kernel 2r,
     stride r) from the hidden stream [B, in_size, T] to band amplitudes
-    [B, data_size*noise_bands*n_channels, T / prod(ratios)], each frame's
-    turned into a windowed impulse response of prod(ratios) taps that
-    filters that frame's uniform noise (FFT convolution, frame-local):
-    [B, data_size*n_channels, T], float32. `uniform` [B, frames,
-    data_size*n_channels, prod(ratios)] holds the frames' draws in [0, 1)."""
+    [B, data_size*noise_bands*n_channels, T / prod(ratios)], then
+    `FilteredNoise`'s synthesis: [B, data_size*n_channels, T]."""
 
     def __init__(self, in_size: int, hidden_size: int, data_size: int, ratios: Sequence[int],
                  noise_bands: int, n_channels: int = 1, activation: str = "leaky_relu",
@@ -327,23 +470,6 @@ class NoiseGeneratorV2(nn.Module):
     @property
     def delay(self) -> int:
         return noise_generator_v2_delay(self.in_delay, self.ratios)
-
-    def _synth(self, amp: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
-        B, _, n = amp.shape
-        d = self.out_channels
-        amp = mod_sigmoid(amp - 5.0).transpose(1, 2).reshape(B, n, d, self.noise_bands)
-        ir = amp_to_impulse_response(amp, self.target_size)  # [B, n, d, target]
-        if tuple(uniform.shape) != tuple(ir.shape):
-            raise ValueError(f"the noise synth takes uniform draws {tuple(ir.shape)}; got "
-                             f"{tuple(uniform.shape)}")
-        out = fft_convolve(uniform.float() * 2 - 1, ir)
-        return out.permute(0, 2, 1, 3).reshape(B, d, n * self.target_size)
-
-    def forward(self, x: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
-        return self._synth(self.net(x), uniform)
-
-    def step(self, x: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
-        return self._synth(self.net.step(x), uniform)
 
 
 class GeneratorV2(nn.Module):
@@ -428,6 +554,241 @@ class GeneratorV2(nn.Module):
 
     def step(self, z, uniform: Optional[torch.Tensor] = None):
         return self._mix(*self._branches(self.net.step(z), uniform, True))
+
+
+# --------------------------------------------------------------------------
+# v1 family (reference rave/blocks.py:48-240, 322-503)
+# --------------------------------------------------------------------------
+
+
+class ResidualLayer(nn.Module):
+    """x + a chain of (act, dilated conv k) pairs (reference rave/blocks.py:48-80)."""
+
+    def __init__(self, dim: int, kernel_size: int, dilations, mode: str = "centered",
+                 weight_norm: bool = True, activation: str = "leaky_relu",
+                 stream_batch: int = 1):
+        super().__init__()
+        self.inner_delay = residual_layer_delay(kernel_size, dilations, mode)
+        layers, d = [], 0
+        for dil in dilations:
+            conv = Conv1d(dim, dim, kernel_size, dilation=dil, mode=mode,
+                          weight_norm=weight_norm, use_bias=False, in_delay=d,
+                          stream_batch=stream_batch)
+            layers += [make_activation(activation, dim), conv]
+            d = conv.delay
+        self.net = Residual(Sequential(layers), d, dim, stream_batch)
+
+    def forward(self, x):
+        return self.net(x)
+
+    def step(self, x):
+        return self.net.step(x)
+
+
+class ResidualStack(nn.Module):
+    """The sum of one chain of ResidualLayers per kernel size, delay-aligned
+    when streaming (reference rave/blocks.py:115-164)."""
+
+    def __init__(self, dim: int, kernel_sizes, dilations_list, mode: str = "centered",
+                 weight_norm: bool = True, activation: str = "leaky_relu",
+                 stream_batch: int = 1):
+        super().__init__()
+        blocks_, delays = [], []
+        for k in kernel_sizes:
+            chain = [ResidualLayer(dim, k, tuple(dils), mode, weight_norm, activation,
+                                   stream_batch) for dils in dilations_list]
+            blocks_.append(Sequential(chain))
+            delays.append(sum(layer.inner_delay for layer in chain))
+        self.inner_delay = max(delays)
+        self.aligned = AlignBranches(blocks_, delays, [dim] * len(blocks_), stream_batch)
+
+    def forward(self, x):
+        return sum(self.aligned(x))
+
+    def step(self, x):
+        return sum(self.aligned.step(x))
+
+
+class UpsampleLayer(nn.Module):
+    """act, then a transposed conv (kernel 2r, stride r) when r > 1, else a
+    conv of kernel 3 (reference rave/blocks.py:167-195)."""
+
+    def __init__(self, in_dim: int, out_dim: int, ratio: int, mode: str = "centered",
+                 weight_norm: bool = True, activation: str = "leaky_relu", in_delay: int = 0,
+                 stream_batch: int = 1):
+        super().__init__()
+        conv = dict(mode=mode, weight_norm=weight_norm, use_bias=False, in_delay=in_delay,
+                    stream_batch=stream_batch)
+        up = (ConvTranspose1d(in_dim, out_dim, ratio, **conv) if ratio > 1
+              else Conv1d(in_dim, out_dim, 3, **conv))
+        self.delay = up.delay
+        self.net = Sequential([make_activation(activation, in_dim), up])
+
+    def forward(self, x):
+        return self.net(x)
+
+    def step(self, x):
+        return self.net.step(x)
+
+
+class NoiseGenerator(FilteredNoise):
+    """v1's filtered-noise synth (reference rave/blocks.py:198-240,
+    rave_tpu/models/blocks.py:946-999): strided convs (kernel 3, stride r,
+    the model's padding mode) at the hidden width, leaky ReLU between,
+    to band amplitudes [B, data_size*noise_bands, T / prod(ratios)], then
+    `FilteredNoise`'s synthesis: [B, data_size, T]. `data_size` counts the
+    channels in (dec_data_size * n_channels)."""
+
+    def __init__(self, in_size: int, data_size: int, ratios: Sequence[int] = (4, 4, 4),
+                 noise_bands: int = 5, mode: str = "centered", in_delay: int = 0,
+                 stream_batch: int = 1):
+        super().__init__()
+        self.ratios, self.noise_bands, self.in_delay = tuple(ratios), noise_bands, in_delay
+        self.mode, self.out_channels = mode, data_size
+        self.target_size = math.prod(self.ratios)
+        chans = [in_size] * len(self.ratios) + [data_size * noise_bands]
+        layers, d = [], in_delay
+        for i, r in enumerate(self.ratios):
+            conv = Conv1d(chans[i], chans[i + 1], 3, stride=r, mode=mode, use_bias=False,
+                          in_delay=d, stream_batch=stream_batch)
+            layers.append(conv)
+            d = conv.delay
+            if i != len(self.ratios) - 1:
+                layers.append(Lambda(leaky_relu))
+        self.net = Sequential(layers)
+
+    @property
+    def delay(self) -> int:
+        return noise_generator_delay(self.in_delay, self.ratios, self.mode)
+
+
+class EncoderV1(nn.Module):
+    """Strided conv encoder with BatchNorm, or SampleNorm (reference
+    rave/blocks.py:424-503, rave_tpu/models/blocks.py:1002-1106): conv 7,
+    then per ratio r (norm, act, conv 2r+1 stride r doubling the width),
+    `repeat_layers - 1` times more (norm, act, conv 3) per ratio, act, an
+    optional GRU and act, and a final conv 5 in `n_out` groups. Input [B,
+    data_size*n_channels, T], output [B, latent_size*n_out, T/prod(ratios)]."""
+
+    def __init__(self, data_size: int, capacity: int, latent_size: int, ratios: Sequence[int],
+                 n_out: int, sample_norm: bool = False, repeat_layers: int = 1,
+                 n_channels: int = 1, recurrent_layers: int = 0, mode: str = "centered",
+                 in_delay: int = 0, stream_batch: int = 1):
+        super().__init__()
+        self.ratios, self.repeat_layers = tuple(ratios), repeat_layers
+        self.mode, self.in_delay = mode, in_delay
+        conv = dict(mode=mode, use_bias=False, stream_batch=stream_batch)
+
+        def norm(dim):
+            return SampleNorm() if sample_norm else BatchNorm1d(dim)
+
+        conv0 = Conv1d(data_size * n_channels, capacity, 7, in_delay=in_delay, **conv)
+        layers, d, dim = [conv0], conv0.delay, capacity
+        for r in self.ratios:
+            out_dim = 2 * dim
+            down = Conv1d(dim, out_dim, 2 * r + 1, stride=r, in_delay=d, **conv)
+            layers += [norm(dim), Lambda(leaky_relu), down]
+            d = down.delay
+            for _ in range(repeat_layers - 1):
+                same = Conv1d(out_dim, out_dim, 3, in_delay=d, **conv)
+                layers += [norm(out_dim), Lambda(leaky_relu), same]
+                d = same.delay
+            dim = out_dim
+        layers.append(Lambda(leaky_relu))
+        if recurrent_layers:
+            layers += [GRU(dim, recurrent_layers, stream_batch), Lambda(leaky_relu)]
+        layers.append(Conv1d(dim, latent_size * n_out, 5, groups=n_out, in_delay=d, **conv))
+        self.net = Sequential(layers)
+
+    @property
+    def delay(self) -> int:
+        return encoder_v1_delay(self.in_delay, self.ratios, self.repeat_layers, self.mode)
+
+    def forward(self, x):
+        return self.net(x)
+
+    def step(self, x):
+        return self.net.step(x)
+
+
+class GeneratorV1(nn.Module):
+    """The v1 synth (reference rave/blocks.py:322-421,
+    rave_tpu/models/blocks.py:1109-1248): conv 7 from the latent (then an
+    optional GRU), per ratio an UpsampleLayer halving the width and a
+    ResidualStack, then three branches side by side (`synth`, an
+    AlignBranches): the waveform conv 7, the loudness conv (kernel
+    2 loud_stride + 1, stride loud_stride; its frames repeated
+    loud_stride times) and, with `use_noise`, the NoiseGenerator. The
+    output [B, data_size*n_channels, T] is tanh(wave) mod_sigmoid(loud),
+    plus the noise once warmed up (`warmed_up`; the noise branch runs and
+    takes its `uniform` draws either way); `step` always adds it."""
+
+    def __init__(self, latent_size: int, capacity: int, data_size: int, ratios: Sequence[int],
+                 loud_stride: int = 1, use_noise: bool = True, noise_ratios=(4, 4, 4),
+                 noise_bands: int = 5, res_kernel_sizes=(3,),
+                 res_dilations=((1, 1), (3, 1), (5, 1)), n_channels: int = 1,
+                 recurrent_layers: int = 0, mode: str = "centered", weight_norm: bool = True,
+                 activation: str = "leaky_relu", stream_batch: int = 1):
+        super().__init__()
+        self.ratios, self.loud_stride, self.use_noise = tuple(ratios), loud_stride, use_noise
+        self.noise_ratios, self.mode = tuple(noise_ratios), mode
+        self.res_kernel_sizes = tuple(res_kernel_sizes)
+        self.res_dilations = tuple(tuple(d) for d in res_dilations)
+        conv = dict(mode=mode, weight_norm=weight_norm, use_bias=False, stream_batch=stream_batch)
+        ch = 2 ** len(self.ratios) * capacity
+        conv0 = Conv1d(latent_size, ch, 7, **conv)
+        layers, d = [conv0], conv0.delay
+        if recurrent_layers:
+            layers.append(GRU(ch, recurrent_layers, stream_batch))
+        for r in self.ratios:
+            up = UpsampleLayer(ch, ch // 2, r, mode, weight_norm, activation, d, stream_batch)
+            stack = ResidualStack(ch // 2, self.res_kernel_sizes, self.res_dilations, mode,
+                                  weight_norm, activation, stream_batch)
+            layers += [up, stack]
+            d, ch = up.delay + stack.inner_delay, ch // 2
+        self.net = Sequential(layers)
+        out = data_size * n_channels
+        wave = Conv1d(ch, out, 7, in_delay=d, **conv)
+        loud = Conv1d(ch, 1, 2 * loud_stride + 1, stride=loud_stride, in_delay=d, **conv)
+        branches, delays = [wave, loud], [wave.delay - d, loud.delay * loud_stride - d]
+        features = [out, 1]
+        if use_noise:
+            noise = NoiseGenerator(ch, out, noise_ratios, noise_bands, mode, d, stream_batch)
+            branches.append(noise)
+            delays.append(noise.delay - d)
+            features.append(out)
+        self.synth = AlignBranches(branches, delays, features, stream_batch)
+
+    @property
+    def delay(self) -> int:
+        return generator_v1_delay(self.ratios, self.res_kernel_sizes, self.res_dilations,
+                                  self.loud_stride, self.use_noise, self.noise_ratios, self.mode)
+
+    def _draws(self, uniform: Optional[torch.Tensor]) -> tuple:
+        if not self.use_noise:
+            return ()
+        if uniform is None:
+            raise ValueError("the noise branch takes its uniform draws as an input "
+                             "(LatentDraws.uniform, train/steps.py::draw_noise)")
+        return (uniform,)
+
+    def _mix(self, outs, warmed_up: bool) -> torch.Tensor:
+        """tanh(wave) mod_sigmoid(loud), computed in float32 (float64 for a
+        float64 pass) and rounded to the waveform's dtype once (XLA fuses
+        these elementwise ops of the JAX package's bf16 step), plus the
+        float32 noise once warmed up."""
+        wave, loud = outs[0], outs[1]
+        if self.loud_stride != 1:
+            loud = torch.repeat_interleave(loud, self.loud_stride, dim=-1)
+        y = (torch.tanh(at_least_float32(wave)) * mod_sigmoid(at_least_float32(loud))
+             ).to(wave.dtype)
+        return y + outs[2] if warmed_up and self.use_noise else y
+
+    def forward(self, z, uniform: Optional[torch.Tensor] = None, warmed_up: bool = True):
+        return self._mix(self.synth(self.net(z), *self._draws(uniform)), warmed_up)
+
+    def step(self, z, uniform: Optional[torch.Tensor] = None):
+        return self._mix(self.synth.step(self.net.step(z), *self._draws(uniform)), True)
 
 
 @dataclass

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rave_tpu_torch.models.blocks import LatentDraws
+from rave_tpu_torch.models.blocks import GeneratorV1, LatentDraws
 from rave_tpu_torch.models.pqmf_module import PQMFAnalysis, PQMFSynthesis
 from rave_tpu_torch.nn.streaming import StreamingModule, as_dtype
 from rave_tpu_torch.ops.pqmf import PQMFBank
@@ -145,9 +145,13 @@ class RAVE(nn.Module):
         """PQMF analysis whatever the input mode (the multiband loss's target)."""
         return self.pqmf_analysis(x)
 
-    def decode_multiband(self, z: torch.Tensor, uniform: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
-        """The decoder's output, before synthesis (band frames under pqmf output)."""
+    def decode_multiband(self, z: torch.Tensor, uniform: Optional[torch.Tensor] = None,
+                         warmed_up: bool = True) -> torch.Tensor:
+        """The decoder's output, before synthesis (band frames under pqmf
+        output). `warmed_up` reaches GeneratorV1 alone, whose noise branch
+        is added only after the warmup (rave_tpu/models/rave.py:194-200)."""
+        if isinstance(self.decoder, GeneratorV1):
+            return self.decoder(z, uniform, warmed_up)
         return self.decoder(z, uniform)
 
     def synthesize(self, y: torch.Tensor) -> torch.Tensor:
@@ -168,10 +172,11 @@ class RAVE(nn.Module):
         zs, reg, _ = self.encoder.reparametrize(z, draws)
         return zs, reg
 
-    def decode(self, z: torch.Tensor, uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, uniform: Optional[torch.Tensor] = None,
+               warmed_up: bool = True) -> torch.Tensor:
         """[B, augmented latent, T_lat] -> [B, n_channels, T_lat * decimation];
         `uniform` feeds the noise branch (`RaveConfig.noise_shape`)."""
-        return self.synthesize(self.decode_multiband(z, uniform))
+        return self.synthesize(self.decode_multiband(z, uniform, warmed_up))
 
     def forward(self, x: torch.Tensor, draws: LatentDraws) -> torch.Tensor:
         zs, _ = self.reparametrize(self.encode(x), draws)

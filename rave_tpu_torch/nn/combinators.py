@@ -105,9 +105,12 @@ class AlignBranches(nn.Module):
             StreamDelay(m - d, f, stream_batch) for d, f in zip(self.delays, features))
 
     def forward(self, x, *args):
-        """Each branch on x; `args` go to every branch after the first."""
-        return tuple(b(x, *args) if i else b(x) for i, b in enumerate(self.branches))
+        """Each branch on x; `args` go to the last branch only (a noise
+        synth's draws)."""
+        last = len(self.branches) - 1
+        return tuple(b(x, *args) if i == last else b(x) for i, b in enumerate(self.branches))
 
     def step(self, x, *args):
-        return tuple(c.step(b.step(x, *args) if i else b.step(x))
+        last = len(self.branches) - 1
+        return tuple(c.step(b.step(x, *args) if i == last else b.step(x))
                      for i, (b, c) in enumerate(zip(self.branches, self.compensation)))

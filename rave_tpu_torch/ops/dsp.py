@@ -18,17 +18,22 @@ def mod_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 2 * torch.sigmoid(x) ** 2.3 + 1e-7
 
 
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """`x` in float32, or as it is when it is float64 (a float64 twin's pass)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def amp_to_impulse_response(amp: torch.Tensor, target_size: int) -> torch.Tensor:
     """Real zero-phase amplitudes [..., F] -> a causal FIR kernel [..., target_size]
-    in float32: the symmetric impulse response, rolled to its centre,
-    windowed by a periodic Hann, zero-padded (or cropped from its end, when
-    it is longer than `target_size`, as torch's negative pad does in the
-    reference) and rolled back."""
-    ir = torch.fft.irfft(amp.float(), dim=-1)
+    in float32 (float64 for float64 amplitudes): the symmetric impulse
+    response, rolled to its centre, windowed by a periodic Hann, zero-padded
+    (or cropped from its end, when it is longer than `target_size`, as
+    torch's negative pad does in the reference) and rolled back."""
+    ir = torch.fft.irfft(at_least_float32(amp), dim=-1)
     filter_size = ir.shape[-1]
     ir = torch.roll(ir, filter_size // 2, dims=-1)
     n = torch.arange(filter_size, dtype=torch.float64, device=ir.device)
-    win = (0.5 - 0.5 * torch.cos(2 * torch.pi * n / filter_size)).float()  # hanning(n+1)[:-1]
+    win = (0.5 - 0.5 * torch.cos(2 * torch.pi * n / filter_size)).to(ir.dtype)  # hanning(n+1)[:-1]
     ir = ir * win
     extra = int(target_size) - filter_size
     ir = F.pad(ir, (0, extra)) if extra >= 0 else ir[..., : int(target_size)]

@@ -33,8 +33,14 @@ cast per op by the modules, so their gradients and the Adams are fp32.
 backward, as `jax.checkpoint` does (rave_tpu/train/steps.py:212-213).
 
 The steps put the model in training mode (`model.train()`, the JAX
-package's `train=True` model): AdaIN is the identity there. Validation,
-eval and export run it in eval mode.
+package's `train=True` model): AdaIN is the identity there, and v1's
+BatchNorm normalizes by the batch and folds its statistics into the
+running averages, in all three programs (the JAX steps make every
+non-`params` collection mutable, :45), the critic's and the frozen
+encoder's passes too; `train.remat`'s recompute folds nothing in again.
+GeneratorV1 adds its noise branch only once warmed up (the branch's
+parameters then get a zero gradient before, as JAX's). Validation, eval
+and export run the model in eval mode.
 
 Kept exactly as in the JAX package: the feature-matching weight is applied
 twice (once into the term, once in the weighted sum: the reference does);
@@ -46,6 +52,7 @@ back in halves; critic steps skip the reconstruction distances unless
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -53,7 +60,7 @@ from torch.utils.checkpoint import checkpoint
 
 from rave_tpu_torch.config import RaveConfig
 from rave_tpu_torch.factory import build_audio_distance, build_gan_loss
-from rave_tpu_torch.models.blocks import LatentDraws
+from rave_tpu_torch.models.blocks import BatchNorm1d, LatentDraws
 from rave_tpu_torch.ops.dsp import mean_difference
 from rave_tpu_torch.train.schedules import (
     beta_factor, gen_lr_schedule, quantize_enabled, warmed_up,
@@ -79,7 +86,7 @@ def autoencode(model, x: torch.Tensor, draws: LatentDraws, warmed: bool, bf16: b
     z = model.encoder(x_enc, warmed_up=warmed)
     zs, reg, updates = model.encoder.reparametrize(z.float() if bf16 else z, draws,
                                                    quantize=quantize, train=True)
-    y_mb = model.decode_multiband(zs.to(torch.bfloat16) if bf16 else zs, draws.uniform)
+    y_mb = model.decode_multiband(zs.to(torch.bfloat16) if bf16 else zs, draws.uniform, warmed)
     if bf16:
         y_mb = y_mb.float()
     y_raw = model.synthesize(y_mb)[..., : x.shape[-1]]
@@ -87,6 +94,20 @@ def autoencode(model, x: torch.Tensor, draws: LatentDraws, warmed: bool, bf16: b
     x_bands = x_enc if model.input_mode == "pqmf" and not bf16 else model.multiband(x)
     return {"x_bands": x_bands, "y_bands": y_bands[..., : x_bands.shape[-1]], "y_raw": y_raw,
             "reg": reg, "updates": updates}
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(model):
+    """`model`'s BatchNorm1d layers fold nothing into their running
+    statistics inside the block."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm1d)]
+    for m in norms:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.frozen = False
 
 
 def draw_noise(cfg: RaveConfig, x: torch.Tensor,
@@ -214,9 +235,11 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
         state.gen_opt.zero_grad(set_to_none=True)
         if draws is None:
             draws = draw_noise(cfg, x, generator)
-        if t.remat:
+        if t.remat:  # the recompute folds no batch statistics in a second time
             out = checkpoint(autoencode, state.model, x, draws, warmed, t.bf16, quantize,
-                             use_reentrant=False)
+                             use_reentrant=False,
+                             context_fn=lambda: (contextlib.nullcontext(),
+                                                 frozen_batch_stats(state.model)))
         else:
             out = autoencode(state.model, x, draws, warmed, t.bf16, quantize)
         total, _, metrics = losses_and_metrics(out, state.discriminator, x, warmed, state.step)

@@ -1,7 +1,7 @@
 """Load a rave_tpu (JAX) model's or critic's variables into the port.
 
 `from_jax_variables(model, variables)` takes the JAX `params`, `buffers`,
-`codebook` and `adain` trees (nested dicts of numpy arrays; jax arrays pass
+`batch_stats`, `codebook` and `adain` trees (nested dicts of numpy arrays; jax arrays pass
 through `np.asarray`)
 and copies them into a port model (a RAVE, or a critic of
 models/discriminators.py) built from the same config. The port's
@@ -26,7 +26,9 @@ and each leaf changes layout:
   * the GRU's `rnn_<i>/cell/<gate>/kernel` [in, out] and `bias` keep
     flax's layout (nn/gru.py assembles torch's weights from them); its
     gate `in` is the port's `in_`;
-  * biases, Snake's `alpha`, the RAVE buffers, AdaIN's counters and flags
+  * biases, Snake's `alpha`, BatchNorm's `bn/scale` and `bn/bias`
+    (params) and its running `bn/mean` and `bn/var` (`batch_stats`, the
+    port's buffers), the RAVE buffers, AdaIN's counters and flags
     and the discrete codebooks' state (`embed`, `embed_avg`,
     `cluster_size`, `inited`) are copied as they are.
 
@@ -110,16 +112,17 @@ def convert_tree(model: torch.nn.Module, tree: Mapping[str, Any]) -> Dict[str, n
 
 
 def from_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> None:
-    """Copy JAX `{'params': ..., 'buffers': ..., 'codebook': ..., 'adain':
-    ...}` into `model`, strictly."""
-    unknown = set(variables) - {"params", "buffers", "codebook", "adain", "cache"}
+    """Copy JAX `{'params': ..., 'buffers': ..., 'batch_stats': ...,
+    'codebook': ..., 'adain': ...}` into `model`, strictly."""
+    unknown = set(variables) - {"params", "buffers", "batch_stats", "codebook", "adain",
+                                "cache"}
     if unknown:
         raise ValueError(f"unexpected variable collections {sorted(unknown)}")
     targets = dict(model.named_parameters())
     persistent = set(model.state_dict())
     targets.update({n: b for n, b in model.named_buffers() if n in persistent})
     loaded = set()
-    for collection in ("params", "buffers", "codebook", "adain"):
+    for collection in ("params", "buffers", "batch_stats", "codebook", "adain"):
         for name, value in convert_tree(model, variables.get(collection, {})).items():
             if name not in targets:
                 raise KeyError(f"{collection}: the port has no tensor {name}")

@@ -1,7 +1,7 @@
 """The port's own model configuration against the JAX package's.
 
 rave_tpu_torch.config carries the fields of rave_tpu.config that the
-serving path and training step of v2, v3 and their latent families read (model, critic, distance, train and
+serving path and training step of v1, v2, v3 and their latent families read (model, critic, distance, train and
 data fields), so that the port needs nothing of the JAX package. Every
 field it has, and every resolved accessor, must equal the JAX package's
 for the same presets and overrides (exact: these are ints, floats, tuples,
@@ -64,6 +64,31 @@ VARIANT_TINY = {
 }
 
 
+V1_TINY = ["capacity=4", "latent_size=4", "n_band=4", "ratios=[4,2]"]
+V1_PRESETS = {"v1": ["v1"], "onnx": ["onnx"], "raspberry": ["raspberry"],
+              "normalize_ambient": ["normalize_ambient"], "v1-causal": ["v1", "causal"],
+              "v2-normalize_ambient": ["v2", "normalize_ambient"]}
+V1_OPTIONS = ["encoder.sample_norm=true", "encoder.repeat_layers=2",
+              "encoder.recurrent_layers=1", "decoder.loud_stride=2",
+              "decoder.v1_noise_ratios=[4,2]", "decoder.v1_noise_bands=8",
+              "decoder.res_kernel_sizes=[3,5]", "decoder.res_dilations=[[1],[3]]"]
+
+
+@pytest.mark.parametrize("overrides", [[], V1_TINY, V1_TINY + V1_OPTIONS],
+                         ids=["default", "tiny", "options"])
+@pytest.mark.parametrize("name", list(V1_PRESETS))
+def test_v1_presets_match_jax(name, overrides):
+    """The v1 family's presets and `normalize_ambient`: every field (the v1
+    encoder and decoder fields, the Compress augmentation) and accessor (the
+    noise synth's and the loudness stride's share of the block) as the JAX
+    package's."""
+    names = V1_PRESETS[name]
+    port, ref = config.compose(names, overrides), jax_config.compose(names, overrides)
+    assert_fields_equal(port, ref)
+    for accessor in ACCESSORS:
+        assert getattr(port, accessor)() == getattr(ref, accessor)(), accessor
+
+
 @pytest.mark.parametrize("tiny", [False, True], ids=["default", "tiny"])
 @pytest.mark.parametrize("name", list(VARIANT_TINY))
 def test_variant_presets_match_jax(name, tiny):
@@ -106,17 +131,20 @@ def test_unported_train_options_raise(flag):
 
 
 def test_refusals():
-    """Presets of later items raise naming them; `discrete_v3` (A10) and
-    `hybrid` (A11's mel input and GRU) were refused too and now compose as
-    the JAX package's. The v1 family's presets and fields are still refused
-    (A11)."""
+    """Presets of later items raise naming them: the spectral critic's (A11).
+    `discrete_v3` (A10), `hybrid` (A11's mel input and GRU) and the v1
+    family's presets and fields were refused too and now compose as the JAX
+    package's. A field the port does not have raises."""
     assert_fields_equal(config.compose(["discrete_v3"]), jax_config.compose(["discrete_v3"]))
     assert_fields_equal(config.compose(["hybrid"]), jax_config.compose(["hybrid"]))
     for name in ("v1", "onnx", "raspberry"):
-        with pytest.raises(KeyError, match="A11"):
-            config.compose([name])
-    with pytest.raises(AttributeError, match="loud_stride"):
-        config.compose(["v2"], ["decoder.loud_stride=2"])
+        assert_fields_equal(config.compose([name]), jax_config.compose([name]))
+    with pytest.raises(KeyError, match="A11"):
+        config.compose(["spectral_discriminator"])
+    assert_fields_equal(config.compose(["v2"], ["decoder.loud_stride=2"]),
+                        jax_config.compose(["v2"], ["decoder.loud_stride=2"]))
+    with pytest.raises(AttributeError, match="encodec_capacity"):
+        config.compose(["v2"], ["discriminator.encodec_capacity=8"])
     for compose in (config.compose, jax_config.compose):
         with pytest.raises(ValueError, match="rate-preserving"):
             compose(["v2"], ["decoder.ratios=[4,4,2]"])

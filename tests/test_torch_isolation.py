@@ -18,7 +18,9 @@ reports whether jax, flax or any module of the JAX package was ever
 imported. A second interpreter does the same for the latent prior:
 `preprocess`, a tiny v2 run saved by the port's checkpoint module,
 `train_prior --smoke_test`, `export --prior` and `generate
---prior_seconds`.
+--prior_seconds`; a third for the v1 family (`train --config v1`, `export
+--streaming`, `generate --streaming`) and `export_onnx --verify` of an
+`onnx` run.
 Every module of the port is also read (`ast`): none imports yaml, orbax or
 tensorboard at module level (the machine with the GPU has none of them),
 nor jax, flax or the JAX package.
@@ -251,6 +253,69 @@ def test_prior_never_imports_jax():
     assert out["prior"] == 2  # fidelity 0.95 passes at index 2: 2 dimensions
     assert out["aot"] == ["decode_step", "encode_step", "forward_step", "prior_step"]
     assert out["wav"] == [round(0.25 * 44100 / 512) * 512]
+
+
+V1_SCRIPT = """
+import contextlib, io, json, pathlib, sys, tempfile
+import numpy as np
+import torch
+from scipy.io import wavfile
+torch.set_num_threads(2)
+from rave_tpu_torch import cli, config
+from rave_tpu_torch.train.state import create_train_state
+from rave_tpu_torch.utils.checkpoint import save_checkpoint
+root = pathlib.Path(tempfile.mkdtemp())
+(root / "corpus").mkdir()
+wav = 0.3 * np.sin(2 * np.pi * 220 * np.arange(20 * 8192) / 44100)
+wavfile.write(root / "corpus" / "a.wav", 44100, (wav * 32767).astype(np.int16))
+tiny = ["capacity=4", "latent_size=4", "n_band=4", "ratios=[4,2]"]
+cfg = config.compose(["onnx"], tiny)
+(root / "onnx_run").mkdir()
+(root / "onnx_run" / "config.json").write_text(config.snapshot(cfg))
+save_checkpoint(str(root / "onnx_run"), create_train_state(cfg, device="cpu"))
+overrides = [a for o in tiny + ["discriminator.capacity=2", "distance.scales=[512,256]",
+                                "train.phase_1_duration=1"] for a in ("--override", o)]
+codes, out = [], io.StringIO()
+with contextlib.redirect_stdout(out):
+    codes.append(cli.main(["preprocess", "--input_path", str(root / "corpus"), "--output_path",
+                           str(root / "db"), "--num_signal", "8192", "--workers", "2"]))
+    codes.append(cli.main(["train", "--device", "cpu", "--config", "v1", "--name", "v1",
+                           "--db_path", str(root / "db"), "--out_path", str(root / "runs"),
+                           "--batch", "2", "--n_signal", "8192", "--workers", "2",
+                           "--max_steps", "2", "--val_every", "100", "--no_progress",
+                           *overrides]))
+    run = next((root / "runs").iterdir())
+    codes.append(cli.main(["export", "--device", "cpu", "--run", str(run), "--streaming",
+                           "--output", str(root / "art")]))
+    codes.append(cli.main(["generate", "--device", "cpu", "--model",
+                           str(root / "art" / "v1_streaming.rtpu"), "--input",
+                           str(root / "corpus" / "a.wav"), "--out_path", str(root / "gen"),
+                           "--streaming"]))
+    codes.append(cli.main(["export_onnx", "--device", "cpu", "--run", str(root / "onnx_run"),
+                           "--output", str(root / "onnx"), "--verify"]))
+print(json.dumps({
+    "codes": codes, "onnx": (root / "onnx" / "onnx.onnx").stat().st_size > 0,
+    "verified": "verify: max" in out.getvalue(),
+    "wav": list(wavfile.read(root / "gen" / "a_reconstructed.wav")[1].shape),
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "rave_tpu")),
+}))
+"""
+
+
+def test_v1_and_onnx_never_import_jax():
+    """`train --config v1 -> export --streaming -> generate --streaming` and
+    `export_onnx --verify` of an `onnx` run in a fresh interpreter."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH", "")) if p)}
+    proc = subprocess.run([sys.executable, "-c", V1_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == [], out["loaded"]
+    assert out["codes"] == [0] * 5
+    assert out["onnx"] and out["verified"]
+    assert out["wav"] == [20 * 8192]
 
 
 FOREIGN = {"yaml", "orbax", "tensorboard", "jax", "jaxlib", "flax", "rave_tpu"}

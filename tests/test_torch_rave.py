@@ -183,13 +183,15 @@ def test_unported_options_raise(override, item):
     the noise synth and the GRU (A11) were refused too and are ported: each
     now builds and its encode and decode match the JAX model's (eval mode,
     AdaIN's statistics as initialized, the noise synth on the JAX draws),
-    with the same test ids; for A11, the v1 family and the spectral critic
-    still raise naming it (its `export_onnx` command:
-    tests/test_torch_cli.py)."""
+    with the same test ids; for A11, the spectral critic still raises naming
+    it, and the v1 kinds, refused here too once, build (their parity:
+    tests/test_torch_v1.py)."""
     cfg = compose(["v2"], TINY + [override])
     if item == "A11":
-        with pytest.raises(NotImplementedError, match="A11"):
-            build_rave(compose(["v2"], TINY + ['encoder.kind="v1"']), device="cpu")
+        v1 = build_rave(compose(["v2"], TINY + ['encoder.kind="v1"', 'decoder.kind="v1"']),
+                        device="cpu")
+        assert type(v1.encoder.encoder).__name__ == "EncoderV1"
+        assert type(v1.decoder).__name__ == "GeneratorV1"
         with pytest.raises(NotImplementedError, match="A11"):
             build_discriminator(compose(["v2"], TINY + ['discriminator.kind="spectral"']),
                                 device="cpu")

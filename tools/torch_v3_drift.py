@@ -27,6 +27,12 @@ runs launch the fused unit). On the smoke's seeded corpus, preprocessed:
     calls.
 
 About four minutes of command time. Work in build/v3_drift, deleted at the end.
+`--smoke_loop` runs only the stream study, on the weights phase `v3`
+itself trains (`chip_smoke._v3_loop`, deterministic, so one tree gives
+one set), with the transfer's absolute error and float64 peak by block,
+and its error by block when its blocks are fed in reverse order, with
+their seeds in stream order and with each block's own seed (about four
+minutes).
 """
 import argparse
 import contextlib
@@ -165,6 +171,42 @@ def stream_study(cs, run_dir: Path, work: Path) -> dict:
         y, want = y.reshape(n_blocks, -1), want.reshape(n_blocks, -1)
         return [cs.rel_err(a, b) for a, b in zip(y, want)]
 
+    def abs_by_block(y, want):
+        y, want = y.reshape(n_blocks, -1), want.reshape(n_blocks, -1)
+        return [float((a - b).abs().max()) for a, b in zip(y, want)]
+
+    ref_peak = [float(b.abs().max()) for b in refs["card"]["transfer"].reshape(n_blocks, -1)]
+
+    # the transfer's blocks fed in reverse order: an error that follows the
+    # content reverses its profile, one that compounds over the stream keeps it
+    def reversed_blocks(signal):
+        return torch.cat(list(signal.split(B, dim=-1))[::-1], dim=-1)
+
+    rev = {**segments, "transfer": reversed_blocks(segments["transfer"])}
+    rev_f64 = {n: v.cpu().double() for n, v in rev.items()}
+    reversed_order = {
+        "card vs card kernels": per_block(cs.adain_stream(art, rev)["transfer"],
+                                          cs.adain_stream(cs.float64_twin(art), rev_f64)
+                                          ["transfer"]),
+        "cpu vs cpu kernels": per_block(
+            cs.adain_stream(cpu, {n: v.cpu() for n, v in rev.items()})["transfer"],
+            cs.adain_stream(twin, rev_f64)["transfer"])}
+
+    # and with each transfer block keeping its own seed (the seeds reversed
+    # with the blocks): an error that follows the seeds' latent noise then
+    # reverses its profile too, one that compounds keeps it
+    n_learn = sum(segments[n].shape[-1] // B for n in ("learn_target", "learn_source"))
+    seeds = list(range(500, 500 + n_learn)) + [500 + n_learn + j
+                                                for j in range(n_blocks)][::-1]
+
+    def seeded(a, segs):
+        return cs.adain_stream(a, segs, seeds=seeds)["transfer"]
+
+    reversed_order["card vs card kernels, seeds reversed too"] = per_block(
+        seeded(art, rev), seeded(cs.float64_twin(art), rev_f64))
+    reversed_order["cpu vs cpu kernels, seeds reversed too"] = per_block(
+        seeded(cpu, {n: v.cpu() for n, v in rev.items()}), seeded(twin, rev_f64))
+
     return {"vs_float64": {f"{r} vs {ref} kernels": {
                 seg: cs.rel_err(v, refs[ref][seg]) for seg, v in out.items()}
                 for (r, ref), out in runs.items()},
@@ -172,6 +214,11 @@ def stream_study(cs, run_dir: Path, work: Path) -> dict:
                                                                      refs[ref]["transfer"])
                                   for r, ref in (("card", "card"), ("card", "cpu"),
                                                  ("cpu", "cpu"))},
+            "transfer_abs_by_block": {f"{r} vs {ref} kernels": abs_by_block(
+                runs[(r, ref)]["transfer"], refs[ref]["transfer"])
+                for r, ref in (("card", "card"), ("card_cudnn_off", "card"), ("cpu", "cpu"))},
+            "transfer_float64_peak_by_block": ref_peak,
+            "transfer_by_block_fed_in_reverse": reversed_order,
             "float64_card_kernels_vs_cpu_kernels": {
                 seg: cs.rel_err(refs["card"][seg], refs["cpu"][seg]) for seg in refs["cpu"]},
             "fixed_kernels_card_vs_cpu": {"max": max(kernels.values()),
@@ -188,6 +235,9 @@ def stream_study(cs, run_dir: Path, work: Path) -> dict:
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--out", default=None, help="write the readings here as JSON")
+    p.add_argument("--smoke_loop", action="store_true",
+                   help="only the stream study, on the weights of phase v3's own loop "
+                   "(chip_smoke._v3_loop: deterministic cuDNN, 4 steps resumed to 6)")
     a = p.parse_args()
 
     import torch
@@ -202,6 +252,16 @@ def main() -> None:
     db, runs = work / "db", work / "runs"
     cs._cli(["preprocess", "--input_path", work / "corpus", "--output_path", db,
              "--num_signal", cs.N_SIGNAL, "--sampling_rate", cs.SAMPLE_RATE])
+    if a.smoke_loop:
+        loop = cs._v3_loop(work / "smoke", db)
+        out = {"device": card, "stream": stream_study(cs, loop["run_dir"], work)}
+        shutil.rmtree(work, ignore_errors=True)
+        text = json.dumps(out, indent=1, default=str)
+        print(text)
+        if a.out:
+            Path(a.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(a.out).write_text(text)
+        return
     done = {}
     for label, config, det in (("v3", "v3", False), ("v3_cudnn_deterministic", "v3", True),
                                ("v2", "v2", False)):
