@@ -14,7 +14,7 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                (T - 21: no whole 128-frame tile, padded for TMA's 16-byte
                rows) and B=1 (a grid that fills few SMs), and the centered
                shapes at B=2 (phase 11's validation and eval batches); then
-               the unit shapes of phase 15's forwards that v2's do not
+               the unit shapes of phase 18's forwards that v2's do not
                cover (`variant_unit_cases`: C = 48, 64, 128, 256, 512, whose
                output passes and, in bf16, input chunks are partial, up to
                C=64 at T=131072), centered at B=16, with a ragged length and
@@ -165,7 +165,36 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                forward's 22 launches exactly, the kernel held against its
                plain version at each shape they gave it, 1e-4), each
                verify within 1e-4. Work in build/v1, deleted at the end;
- 15. discrete : compose(["discrete"]) at full width (capacity 96, latent 128,
+ 15. spectral : compose(["v2", "spectral_discriminator"]) at full width (the
+               multiscale critic beside EncodecConvNets on the complex STFTs at
+               4096..256, capacity 32), TF32 off: at B=8 x 131072 a warm and
+               a timed step of each program in fp32 and under `train.bf16` +
+               `bf16_dis` (22 launches of the step's variant each, ms, peak
+               memory), and one warm and one timed adversarial generator step
+               of v2 with `distance.kind` `encodec`, `instantaneous` and
+               `distance.num_mels=64` (22 each; 396 launches in all, 132 bf16);
+               then the first step of each fp32 program and of each distance
+               at B=1 x 65536 on the card against the CPU (every loss term
+               within 1e-4, the instantaneous distance's phase terms too: the
+               weighted form damps the near-silent bins whose phase cuFFT and
+               the CPU could wrap apart), and the critic alone, forward and backward on the 16-row
+               real+fake batch (device ms: whole, its multiscale and its
+               spectral part; fp32 and bf16) beside its forward FLOP;
+ 16. import : a reference checkpoint at full width: v2's seeded weights (an
+               orthogonal latent PCA, a mean, a fidelity curve) written under
+               the reference's names as a `.ckpt` by tools/torch_reference_ckpt.py
+               beside a `config.gin` that includes configs/v2.gin; `cli
+               import_torch --config config.gin` (0 launches), `cli export
+               --streaming` (11: its smoke decode) and `cli generate` of a 30 s
+               file (22: one forward, at v2's B=1 shapes), counted from 0
+               before the import; the imported model's encode-decode and its
+               artifact's forward against the source weights' (the same
+               weights saved as a port run and exported alike) within 1e-5
+               (the weight norm re-decomposed in float32); the artifact's
+               streaming p50 per 2048-sample block, eager and `.pt2`, under its
+               46.44 ms; the unit against its plain version at each shape the
+               path gave it (1e-4). Work in build/import, deleted at the end;
+ 17. discrete : compose(["discrete"]) at full width (capacity 96, latent 128,
                16 x 1024 codes, 128 noise channels, ratios 4.4.2.2), TF32
                off: the unit at the shapes only it reaches (C=768, T=256,
                d 1 and 3, at B=16 and B=8) against its plain version
@@ -191,7 +220,7 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                launches), the first step at B=1 and the artifact's codec
                halves (`EncodeSide`, `DecodeSide`) of the stepped model on
                the card against the CPU (1e-3); the phase aims at ~60 s;
- 16. variants : v2_small (capacity 48, ratios 4.2.2.2, the noise synth with
+ 18. variants : v2_small (capacity 48, ratios 4.2.2.2, the noise synth with
                32 bands), v2_nopqmf (capacity 64, raw-waveform output,
                decoder ratios 8.8.8.4) and hybrid (mel input, hop 256,
                encoder ratios 2.2.2, a 2-layer GRU at the decoder's input)
@@ -217,7 +246,7 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                against the eager steps over 32 blocks (1e-5), the streaming
                p50 eager and .pt2. hybrid trains without the valid-signal
                crop (ROADMAP C12). Work in build/variants, deleted at the end;
- 17. v3     : compose(["v3"]) at full width (capacity 96, latent 128, ratios
+ 19. v3     : compose(["v3"]) at full width (capacity 96, latent 128, ratios
                4.4.4.2, Snake, AdaIN before each residual unit, the descript
                critic with periods 2, 3, 5, 7, 11 and FFT sizes 2048, 1024,
                512), TF32 off. Its Snake units bypass the kernel, as the JAX
@@ -253,14 +282,14 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                B=16 forward, the k-means step apart, one step of each program
                at B=8, B=1 losses card vs CPU (1e-3) and `check_codes`;
                work in build/v3, deleted at the end;
- 18. the kernels' JSON line, then the last line
+ 20. the kernels' JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Per-shape details go to build/chip_smoke.json; the loop and export phases
 work in build/loop (corpus, db, run dirs, artifacts, generated wavs), the
-prior phase in build/prior, the v1 phase in build/v1, the discrete phase
-in build/discrete, the variants phase in build/variants and the v3 phase
-in build/v3 (each deleted at its end).
+prior phase in build/prior, the v1 phase in build/v1, the import phase in
+build/import, the discrete phase in build/discrete, the variants phase in
+build/variants and the v3 phase in build/v3 (each deleted at its end).
 """
 from __future__ import annotations
 
@@ -3197,7 +3226,6 @@ def _variant_steps(preset: str, cfg, want: int = None) -> dict:
     the CPU (losses, and BatchNorm's running statistics after the step)."""
     import torch
 
-    from rave_tpu_torch.ops.kernels import dilated_unit
     from rave_tpu_torch.train.analysis import crop_frames, receptive_field
     from rave_tpu_torch.train.steps import build_train_steps, draw_noise
 
@@ -3207,32 +3235,8 @@ def _variant_steps(preset: str, cfg, want: int = None) -> dict:
     t1 = cfg.train.phase_1_duration
     programs = {"gen_prewarmup": ("gen", False, 0), "gen_adversarial": ("gen", True, t1 + 1),
                 "dis": ("dis", True, t1)}
-    want = VARIANT_LAUNCHES[preset] if want is None else want
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    x = torch.randn(TRAIN_BATCH, 1, N_SIGNAL, device="cuda", generator=gen) * 0.1
-    st = _variant_state(cfg, "cuda", 0)
-    ms = {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for name, (which, warmed, step) in programs.items():
-        times = []
-        for _ in range(2):  # a warm step, then the timed one
-            st.step = step
-            draws = draw_noise(cfg, x, gen)
-            torch.cuda.synchronize()
-            before = (dilated_unit.launches, dilated_unit.launches_bf16)
-            t0 = time.perf_counter()
-            m = (steps["gen"](st, x, warmed, draws=draws) if which == "gen"
-                 else steps["dis"](st, x, draws=draws))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            n = dilated_unit.launches - before[0]
-            check(n == want and dilated_unit.launches_bf16 == before[1],
-                  f"{preset} {name}: {n} launches, expected {want} fp32")
-            bad = [k for k, v in m.items() if not math.isfinite(float(v))]
-            check(not bad, f"{preset} {name}: non-finite {bad}")
-        ms[name] = times[-1] * 1e3
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    timed = _timed_steps(cfg, crop, False, programs,
+                         VARIANT_LAUNCHES[preset] if want is None else want)
 
     xb = torch.randn(1, 1, VARIANT_B1_SIGNAL, generator=torch.Generator().manual_seed(8)) * 0.1
     db = draw_noise(cfg, xb, torch.Generator().manual_seed(9))
@@ -3253,8 +3257,8 @@ def _variant_steps(preset: str, cfg, want: int = None) -> dict:
             stats_errs[name] = max(rel_err(v, stats["cpu"][k]) for k, v in stats["cuda"].items())
             check(stats_errs[name] <= LOSS_TOL, f"{preset} {name} B=1 card vs CPU running "
                                                 f"statistics {stats_errs[name]:.3e} > {LOSS_TOL}")
-    return {"receptive_field": list(rf), "crop_frames": list(crop), "ms_per_step": ms,
-            "peak_gb": peak, "b1_loss_rel_err": errs, "b1_stats_rel_err": stats_errs}
+    return {"receptive_field": list(rf), "crop_frames": list(crop), **timed,
+            "b1_loss_rel_err": errs, "b1_stats_rel_err": stats_errs}
 
 
 def _variant_loop_export(preset: str, cfg, work: Path, db: Path) -> dict:
@@ -3673,6 +3677,353 @@ def phase_v1(v2_run: Path, db: Path) -> dict:
     return out
 
 
+SPECTRAL = ["v2", "spectral_discriminator"]
+SPECTRAL_BF16 = ["train.bf16=true", "train.bf16_dis=true"]
+# the other distances, each in one adversarial generator step of v2
+DISTANCE_KINDS = {"encodec": ['distance.kind="encodec"'],
+                  "instantaneous": ['distance.kind="instantaneous"'],
+                  "mel64": ["distance.num_mels=64"]}
+SPECTRAL_CRITIC_ITERS = 5
+
+
+def _timed_steps(cfg, crop, bf16: bool, programs: dict, want: int = 22) -> dict:
+    """Each of `programs` ({name: (which, warmed, step)}) at B=8 x 131072 from
+    the seed-0 state: a warm step, then a timed one, each with exactly `want`
+    launches of the step's variant (fp32, or bf16 under `train.bf16`), finite
+    metrics; ms per step and the peak memory."""
+    import torch
+
+    from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.train.steps import build_train_steps, draw_noise
+
+    steps = build_train_steps(cfg, crop)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(TRAIN_BATCH, 1, N_SIGNAL, device="cuda", generator=gen) * 0.1
+    st = _variant_state(cfg, "cuda", 0)
+    kind = "bf16" if bf16 else "fp32"
+    ms = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name, (which, warmed, step) in programs.items():
+        times = []
+        for _ in range(2):  # a warm step, then the timed one
+            st.step = step
+            draws = draw_noise(cfg, x, gen)
+            torch.cuda.synchronize()
+            before = (dilated_unit.launches, dilated_unit.launches_bf16)
+            t0 = time.perf_counter()
+            m = (steps["gen"](st, x, warmed, draws=draws) if which == "gen"
+                 else steps["dis"](st, x, draws=draws))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            n, n_bf16 = (dilated_unit.launches - before[0],
+                         dilated_unit.launches_bf16 - before[1])
+            check(n == want and n_bf16 == (want if bf16 else 0),
+                  f"{cfg.name} {kind} {name}: {n} launches ({n_bf16} bf16), expected {want} "
+                  f"{kind}")
+            bad = [k for k, v in m.items() if not math.isfinite(float(v))]
+            check(not bad, f"{cfg.name} {kind} {name}: non-finite {bad}")
+        ms[name] = times[-1] * 1e3
+    return {"ms_per_step": ms, "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _b1_losses(cfg, programs: dict) -> dict:
+    """The first step of each of `programs` at B=1 x 65536 from the seed-0
+    state on the card and on the CPU, the same draws: each loss term's
+    relative difference (as `_loss_err`, term by term)."""
+    import torch
+
+    from rave_tpu_torch.train.steps import build_train_steps, draw_noise
+
+    steps = build_train_steps(cfg)  # no crop: the same on both devices
+    xb = torch.randn(1, 1, VARIANT_B1_SIGNAL, generator=torch.Generator().manual_seed(8)) * 0.1
+    db = draw_noise(cfg, xb, torch.Generator().manual_seed(9))
+    errs = {}
+    for name, (which, warmed, step) in programs.items():
+        losses = {}
+        for device in ("cuda", "cpu"):
+            s = _variant_state(cfg, device, step)
+            d = db.to(device)
+            m = (steps["gen"](s, xb.to(device), warmed, draws=d) if which == "gen"
+                 else steps["dis"](s, xb.to(device), draws=d))
+            losses[device] = {k: float(v) for k, v in m.items() if _is_loss(k)}
+        errs[name] = {k: abs(losses["cuda"][k] - v) / max(abs(v), 1e-2)
+                      for k, v in losses["cpu"].items()}
+    return errs
+
+
+def _spectral_critic_ms(cfg, bf16: bool) -> dict:
+    """The critic of `spectral` alone, forward and backward on the 16-row
+    real+fake batch of a B=8 step, device ms by `cuda_ms`: whole, its
+    multiscale part and its spectral part (EncodecConvNets on 5 STFTs)."""
+    import torch
+
+    from rave_tpu_torch.factory import build_discriminator
+
+    critic = build_discriminator(cfg, seed=1, device="cuda")
+    xy = torch.randn(2 * TRAIN_BATCH, 1, N_SIGNAL, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(4)) * 0.1
+    if bf16:
+        xy = xy.to(torch.bfloat16)
+    parts = {"all": critic, "multiscale": critic.discriminators_0,
+             "spectral": critic.discriminators_1}
+
+    def fwd_bwd(module):
+        def run():
+            critic.zero_grad(set_to_none=True)
+            sum(fm[-1].float().mean() for fm in module(xy)).backward()
+        return run
+
+    return {k: cuda_ms(fwd_bwd(m), SPECTRAL_CRITIC_ITERS) for k, m in parts.items()}
+
+
+def spectral_flop(cfg, rows: int, n_signal: int) -> float:
+    """Multiply-adds x 2 of the spectral critic's convs, forward, over `rows`
+    signals: each scale's image [2, bins, frames] through ENCODEC_LAYERS and
+    conv_out (the count PERF.md's prediction rests on)."""
+    from rave_tpu_torch.models.discriminators import ENCODEC_LAYERS
+
+    cap, total = cfg.discriminator.encodec_capacity, 0.0
+    for scale in cfg.discriminator.spectral_scales:
+        h, w, ch = scale // 2 + 1, (n_signal - scale) // (scale // 4) + 1, 2
+        for (kh, kw), (sh, _), _ in ENCODEC_LAYERS:
+            h = (h - 1) // sh + 1
+            total += 2 * h * w * ch * cap * kh * kw
+            ch = cap
+        total += 2 * h * w * ch * 9
+    return total * rows
+
+
+def phase_spectral(crop) -> dict:
+    """compose(["v2", "spectral_discriminator"]) and the other distances at
+    full width; see the module docstring."""
+    import torch
+
+    from rave_tpu_torch.config import compose
+    from rave_tpu_torch.ops.kernels import dilated_unit
+
+    t_phase = time.perf_counter()
+    t1 = compose(SPECTRAL).train.phase_1_duration
+    programs = {"gen_prewarmup": ("gen", False, 0), "gen_adversarial": ("gen", True, t1 + 1),
+                "dis": ("dis", True, t1)}
+    adversarial = {"gen_adversarial": programs["gen_adversarial"]}
+    cfgs = {"fp32": compose(SPECTRAL), "bf16": compose(SPECTRAL, SPECTRAL_BF16),
+            **{k: compose(["v2"], o) for k, o in DISTANCE_KINDS.items()}}
+    # the main path: 2 steps of each program (a warm one, a timed one), 22 launches each
+    torch.cuda.synchronize()
+    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    out = {k: _timed_steps(c, crop, k == "bf16", programs if k in ("fp32", "bf16")
+                           else adversarial) for k, c in cfgs.items()}
+    launches, launches_bf16 = dilated_unit.launches, dilated_unit.launches_bf16
+    n_steps = 2 * (2 * len(programs) + len(DISTANCE_KINDS))
+    check(launches == 22 * n_steps and launches_bf16 == 22 * 2 * len(programs),
+          f"phase spectral: {launches} launches ({launches_bf16} bf16), expected "
+          f"{22 * n_steps} ({22 * 2 * len(programs)} bf16)")
+    b1 = {"fp32": _b1_losses(cfgs["fp32"], programs),
+          **{k: _b1_losses(cfgs[k], adversarial) for k in DISTANCE_KINDS}}
+    critic = {k: _spectral_critic_ms(cfgs["fp32"], k == "bf16") for k in ("fp32", "bf16")}
+    out.update({"launches": launches, "launches_bf16": launches_bf16, "b1_loss_rel_err": b1,
+                "critic_fwd_bwd_ms": critic, "spectral_critic_tflop_fwd":
+                spectral_flop(cfgs["fp32"], 2 * TRAIN_BATCH, N_SIGNAL) / 1e12,
+                "seconds": time.perf_counter() - t_phase})
+    f, b = out["fp32"], out["bf16"]
+    print(f"spectral: v2 + spectral_discriminator B={TRAIN_BATCH} x {N_SIGNAL}, ms per step "
+          f"fp32 " + ", ".join(f"{k} {v:.1f}" for k, v in f["ms_per_step"].items())
+          + f" (peak {f['peak_gb']:.2f} GiB), bf16 " + ", ".join(
+              f"{k} {v:.1f}" for k, v in b["ms_per_step"].items())
+          + f" (peak {b['peak_gb']:.2f} GiB); critic fwd+bwd on {2 * TRAIN_BATCH} rows ms fp32 "
+          + ", ".join(f"{k} {v:.1f}" for k, v in critic["fp32"].items()) + ", bf16 "
+          + ", ".join(f"{k} {v:.1f}" for k, v in critic["bf16"].items())
+          + f" (spectral forward {out['spectral_critic_tflop_fwd']:.3f} TFLOP); adversarial "
+          "generator steps " + ", ".join(
+              f"{k} {out[k]['ms_per_step']['gen_adversarial']:.1f} ms "
+              f"({out[k]['peak_gb']:.2f} GiB)" for k in DISTANCE_KINDS)
+          + "; B=1 card vs CPU, the largest loss term's error: " + "; ".join(
+              f"{k} {name} {max(e for t, e in terms.items() if 'phase' not in t):.1e}"
+              + "".join(f", {t} {e:.1e}" for t, e in terms.items() if "phase" in t)
+              for k, errs in b1.items() for name, terms in errs.items())
+          + f"; {launches} launches ({launches_bf16} bf16, 22 per step); "
+          f"{out['seconds']:.1f} s", flush=True)
+    for k, errs in b1.items():  # the phase terms too: their weighted form damps the
+        for name, terms in errs.items():  # near-silent bins that cuFFT and the CPU round apart
+            for t, e in terms.items():
+                check(e <= LOSS_TOL, f"spectral {k} {name} B=1 card vs CPU {t}: {e:.3e} > "
+                                     f"{LOSS_TOL}")
+    return out
+
+
+IMPORT_GIN = 'include "configs/v2.gin"\n'  # the reference's v2, as a run's config.gin names it
+IMPORT_TOL = 1e-5  # imported vs source forward: the weight norm re-decomposed in float32
+
+
+def _source_model(cfg):
+    """v2 at full width with seeded weights and latent buffers (an orthogonal
+    PCA, a mean, a rising fidelity curve), as a trained reference run has."""
+    import torch
+
+    from rave_tpu_torch.factory import build_rave
+
+    model = build_rave(cfg, seed=21, device="cpu")
+    D, gen = cfg.latent_size, torch.Generator().manual_seed(22)
+    q, _ = torch.linalg.qr(torch.randn(D, D, generator=gen, dtype=torch.float64))
+    with torch.no_grad():
+        model.latent_pca.copy_(q.float())
+        model.latent_mean.copy_(torch.randn(D, generator=gen) * 0.1)
+        model.fidelity.copy_(torch.linspace(0.5, 1.0, D))
+    return model
+
+
+def _block_p50(art, x) -> dict:
+    """The streaming p50 per block, eager and `forward_step.pt2`, over
+    PROGRAM_BLOCKS blocks of x, after 4 warm blocks each."""
+    import torch
+
+    program, B = art.load_program("forward"), art.block_size
+    art.reset_stream()
+    state = [s.clone() for s in art.state]
+    eager, prog = [], []
+    for i in range(PROGRAM_BLOCKS + 4):
+        xb = x[..., i * B:(i + 1) * B]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        art.forward(xb, streaming=True, seed=4000 + i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, state = program(state, xb, torch.tensor(4000 + i, device="cuda"))
+        torch.cuda.synchronize()
+        eager.append((t1 - t0) * 1e3)
+        prog.append((time.perf_counter() - t1) * 1e3)
+    return {"eager": statistics.median(eager[4:]), "program": statistics.median(prog[4:])}
+
+
+def phase_import() -> dict:
+    """A reference checkpoint of v2 into the port; see the module docstring."""
+    import torch
+    from scipy.io import wavfile
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from torch_reference_ckpt import reference_state_dict, save_reference_ckpt
+
+    from rave_tpu_torch import config as config_lib
+    from rave_tpu_torch.data.audio_io import decode_file
+    from rave_tpu_torch.export.artifact import ExportedRAVE
+    from rave_tpu_torch.export.generate import load_signal
+    from rave_tpu_torch.nn.conv import ConvTranspose1d
+    from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.train.loop import fp32_exact
+    from rave_tpu_torch.train.state import create_train_state
+    from rave_tpu_torch.utils.checkpoint import load_run, save_checkpoint
+    from rave_tpu_torch.utils.convert import jax_path, to_jax_variables
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "import"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    gin = work / "config.gin"
+    gin.write_text(IMPORT_GIN)
+    cfg = config_lib.compose([str(gin)])
+    source = _source_model(cfg)
+    t0 = time.perf_counter()
+    sd = reference_state_dict(to_jax_variables(source), transposed={
+        jax_path(n) for n, m in source.named_modules() if isinstance(m, ConvTranspose1d)})
+    save_reference_ckpt(work / "run.ckpt", sd)
+    ckpt_s, ckpt_mb = time.perf_counter() - t0, (work / "run.ckpt").stat().st_size / 2**20
+    # the same weights as a port run, exported alike: the referee of the imported artifact
+    (work / "source").mkdir()
+    (work / "source" / "config.json").write_text(config_lib.snapshot(cfg))
+    state = create_train_state(cfg, device="cpu")
+    state.model.load_state_dict(source.state_dict())
+    save_checkpoint(str(work / "source"), state)
+    del state
+
+    # the main path: import_torch -> export --streaming -> generate of a 30 s file
+    wav = work / "in.wav"
+    n = write_signal(wav, EXPORT_SECONDS, seed=25)
+    seconds, counts = {}, {}
+
+    def cli_step(step: str, args) -> str:
+        before = dilated_unit.launches
+        t0 = time.perf_counter()
+        text = _cli([*args, "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds[step], counts[step] = time.perf_counter() - t0, dilated_unit.launches - before
+        return text.strip().splitlines()[-1]
+
+    torch.cuda.synchronize()
+    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    with UnitShapes() as shapes:
+        run_dir = Path(cli_step("import_torch", [
+            "import_torch", "--ckpt", work / "run.ckpt", "--config", gin, "--name", "imported",
+            "--out_path", work / "runs"]).removeprefix("imported into: "))
+        art_path = Path(cli_step("export", ["export", "--streaming", "--run", run_dir,
+                                            "--output", work / "art"]).removeprefix("exported: "))
+        cli_step("generate", ["generate", "--model", art_path, "--input", wav, "--out_path",
+                              work / "gen"])
+    launches = dilated_unit.launches
+    check(counts == {"import_torch": 0, "export": UNITS_PER_HALF, "generate": 22}
+          and dilated_unit.launches_bf16 == 0 and len(shapes.seen) == launches,
+          f"import path launches {counts} ({len(shapes.seen)} unit calls seen); expected "
+          f"import_torch 0, export {UNITS_PER_HALF} (its smoke decode), generate 22")
+    gen_units = sorted(shapes.seen[-counts["generate"]:])
+    check(gen_units == sorted(v2_unit_shapes(1, -(-n // 2048) * 2048) * 2),
+          f"generate's unit shapes {gen_units}")
+
+    # the imported model and artifact against the source's
+    _cli(["export", "--streaming", "--run", work / "source", "--output", work / "src_art",
+          "--device", "cuda"])
+    x = load_signal(decode_file(str(wav), SAMPLE_RATE, 1), 1, 1, 2048).cuda()
+    clip = x[..., : 64 * 2048]
+    _, imported, _, _ = load_run(str(run_dir), device="cuda")
+    src = source.cuda().eval()
+    with torch.inference_mode(), fp32_exact():
+        y = {}
+        for key, m in (("imported", imported), ("source", src)):
+            z = m.encode(clip)
+            y[key] = m.decode(z[:, : cfg.latent_size])
+        model_err = rel_err(y["imported"], y["source"])
+    art = ExportedRAVE(str(art_path), device="cuda")
+    src_art = ExportedRAVE(str(work / "src_art" / art_path.name), device="cuda")
+    with fp32_exact():
+        art_err = rel_err(art.forward(clip, seed=5), src_art.forward(clip, seed=5))
+    check(model_err <= IMPORT_TOL and art_err <= IMPORT_TOL,
+          f"imported vs source: model forward {model_err:.3e}, artifact {art_err:.3e} > "
+          f"{IMPORT_TOL}")
+    p50 = _block_p50(art, x)
+    budget = art.block_size / SAMPLE_RATE * 1e3
+    check(max(p50.values()) < budget, f"imported artifact's streaming p50 {p50} over the "
+                                      f"{budget:.2f} ms budget")
+    sr, y_wav = wavfile.read(work / "gen" / "in_reconstructed.wav")
+    check(sr == SAMPLE_RATE and y_wav.shape == (n,) and abs(y_wav).max() > 0,
+          f"generated wav {sr} Hz {y_wav.shape}")
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    rows = {shape: kernel_row(gen, "import", *shape) for shape in sorted(set(shapes.seen))}
+    path = [rows[shape] for shape in shapes.seen]  # one per launch
+    unit_path = {"shapes": len(rows), "ms": sum(r["ms"] for r in path),
+                 "plain_ms": sum(r["plain_ms"] for r in path),
+                 "bound_ms": sum(unit_bound([r], r["B"], "fp32")["bound_ms"] for r in path),
+                 "max_abs_err": max(r["max_abs_err"] for r in path),
+                 "max_rel_err": max(r["rel_err"] for r in path)}
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"launches": launches, "launches_by_step": counts, "seconds_by_step": seconds,
+           "ckpt_s": ckpt_s, "ckpt_mb": ckpt_mb, "reference_tensors": len(sd),
+           "model_rel_err": model_err, "artifact_rel_err": art_err, "block_ms_p50": p50,
+           "block_budget_ms": budget, "realtime_factor_generate": n / SAMPLE_RATE
+           / seconds["generate"], "unit_rows": list(rows.values()), "unit_path": unit_path,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"import: v2 at full width ({len(sd)} reference tensors, {ckpt_mb:.1f} MiB .ckpt in "
+          f"{ckpt_s:.1f} s) -> cli import_torch --config {gin.name} {seconds['import_torch']:.1f} s"
+          f", export --streaming {seconds['export']:.1f} s, generate {EXPORT_SECONDS:g} s "
+          f"{seconds['generate']:.2f} s ({out['realtime_factor_generate']:.1f}x); launches "
+          f"{counts}; imported vs source forward {model_err:.2e}, artifact {art_err:.2e} <= "
+          f"{IMPORT_TOL}; streaming p50 eager {p50['eager']:.3f} ms, .pt2 {p50['program']:.3f} "
+          f"ms (budget {budget:.2f}); unit at {len(rows)} shapes: max rel err "
+          f"{unit_path['max_rel_err']:.1e}, its {launches} launches {unit_path['ms']:.3f} ms "
+          f"(plain {unit_path['plain_ms']:.3f}, bound {unit_path['bound_ms']:.3f}); "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     if not (ROOT / KERNEL_SOURCE).is_file():
         raise SystemExit(f"chip_smoke: {KERNEL_SOURCE} not found; run from a checkout")
@@ -3695,6 +4046,8 @@ def main() -> None:
     v1 = phase_v1(ROOT / loop["run_dir"], ROOT / "build" / "loop" / "db")
     shutil.rmtree(ROOT / "build" / "loop" / "runs", ignore_errors=True)  # ~0.7 GB per checkpoint
     shutil.rmtree(ROOT / "build" / "loop" / "export", ignore_errors=True)
+    spectral = phase_spectral(tuple(train["crop_frames"]))
+    imported = phase_import()
     discrete = phase_discrete()
     variants = phase_variants()
     v3 = phase_v3()
@@ -3741,6 +4094,12 @@ def main() -> None:
         "launches_variants": variants["launches"],
         "launches_v1": v1["launches"],  # v1 has no DilatedUnit, as in rave_tpu
         "launches_onnx_verify": v1["launches_onnx_verify"],  # the v2 run's live forward
+        # v2 + spectral_discriminator and the other distances: 22 per step
+        "launches_spectral": spectral["launches"] - spectral["launches_bf16"],
+        # import_torch 0, export's smoke decode 11, generate's forward 22
+        "launches_import": imported["launches"],
+        **{f"{k}_import": imported["unit_path"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                            "max_abs_err")},
         **{f"{k}_onnx_verify": v1["onnx"]["v2"]["unit_path"][k]
            for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
         "launches_prior": prior["launches"],  # train_prior, export --prior, generate
@@ -3760,6 +4119,7 @@ def main() -> None:
         "name": "fused_dilated_unit_bf16", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": train_bf16["launches"],
         "launches_loop": loop["launches"]["bf16"],
+        "launches_spectral": spectral["launches_bf16"],  # the bf16 steps of phase spectral
         **{f"{k}_variants_b8": v for k, v in per_variant("bf16_b8").items()},
         "max_abs_err": max(r["max_abs_err"] for r in rows_bf16),
         "ms": sum(r["ms"] for r in main_bf16), "plain_ms": sum(r["plain_ms"] for r in main_bf16),
@@ -3773,6 +4133,7 @@ def main() -> None:
          "offline": offline, "stream": stream, "grad_shapes": grad, "train": train,
          "train_bf16": train_bf16, "remat": remat, "loop": loop, "export": export,
          "prior": prior, "discrete": discrete, "v3": v3, "variants": variants, "v1": v1,
+         "spectral": spectral, "import": imported,
          **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)

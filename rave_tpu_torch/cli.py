@@ -6,7 +6,12 @@ The ported commands of rave_tpu/cli.py, with the same flags plus
   preprocess : corpus -> ARS store (data/preprocess.py)
   train      : the training driver (train/loop.py); `--bf16` sets
                train.bf16 and train.bf16_dis, as the JAX CLI's does
-  train_prior: the latent prior on a variational run (prior/train.py)
+  train_prior: the latent prior on a variational run (prior/train.py);
+               `--config prior_v1.gin` reads a reference prior gin
+  import_torch: a reference `.ckpt` (acids-ircam/RAVE) -> a port run
+               directory with a step-0 checkpoint that `export`,
+               `generate`, `eval` and `train` (resuming) take
+               (utils/import_torch.py)
   eval       : reconstruction metrics of a run (train/evaluate.py)
   export     : run -> `.rtpu` artifact with its `torch.export` step
                programs, `--prior` bundling a prior run (export/export.py)
@@ -19,9 +24,9 @@ The ported commands of rave_tpu/cli.py, with the same flags plus
                `.onnx` is written: the JAX command's StableHLO graph is not
                ported (`--skip_stablehlo` is accepted and changes nothing)
 
-The other commands of the JAX CLI, and the options of these that need a
-module the port does not have yet, exit 2 and name the ROADMAP item that
-ports them.
+Every `--config` takes preset names and reference `.gin` files
+(config_gin.py). The JAX CLI's `remote_dataset` is not ported: it exits 2
+and names the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -29,14 +34,7 @@ import argparse
 import sys
 
 NOT_PORTED = {
-    "import_torch": "A15 (reference checkpoints into the port)",
     "remote_dataset": "A18 (the remote dataset)",
-}
-
-
-# (command, option) -> the ROADMAP item that ports what the option needs
-NOT_PORTED_OPTIONS = {
-    ("train_prior", "--config"): "A19 (the gin reader)",
 }
 
 
@@ -47,7 +45,8 @@ def refuse(what: str, item: str) -> int:
 
 def _add_config_flags(p: argparse.ArgumentParser):
     p.add_argument("--config", action="append", default=[],
-                   help="config preset (stackable, e.g. --config v2 --config causal)")
+                   help="config preset or reference .gin file (stackable, e.g. --config v2 "
+                   "--config causal, --config run/config.gin)")
     p.add_argument("--override", action="append", default=[],
                    help="dotted config override, e.g. train.beta_target=0.2")
     p.add_argument("--augment", action="append", default=[],
@@ -144,7 +143,8 @@ def cmd_train_prior(argv):
     p.add_argument("--val_every", type=int, default=10000)
     p.add_argument("--fidelity", type=float, default=0.95)
     p.add_argument("--config", default=None,
-                   help="reference prior gin file (configs/prior/prior_v1.gin); not ported")
+                   help="reference prior gin file (configs/prior/prior_v1.gin): its "
+                   "VariationalPrior bindings become the architecture; flags override them")
     # the prior's architecture: the reference's prior_v1.gin bindings
     # (rave/configs/prior/prior_v1.gin:1-8) unless a flag overrides them
     for flag in ("resolution", "res_size", "skp_size", "kernel_size", "cycle_size", "n_layers"):
@@ -152,18 +152,51 @@ def cmd_train_prior(argv):
     p.add_argument("--smoke_test", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     a = p.parse_args(argv)
-    if a.config:
-        return refuse("train_prior --config", NOT_PORTED_OPTIONS[("train_prior", "--config")])
     from rave_tpu_torch.prior.train import train_prior
 
     arch = dict(resolution=32, res_size=512, skp_size=256, kernel_size=3, cycle_size=4,
                 n_layers=10)
+    if a.config:
+        from rave_tpu_torch.config_gin import prior_kwargs_from_gin
+
+        arch.update(prior_kwargs_from_gin(a.config))
     arch.update({k: getattr(a, k) for k in arch if getattr(a, k) is not None})
     run_dir = train_prior(run=a.run, db_path=a.db_path, name=a.name, out_path=a.out_path,
                           batch=a.batch, n_signal=a.n_signal, max_steps=a.max_steps,
                           val_every=a.val_every, fidelity=a.fidelity,
                           smoke_test=a.smoke_test, device=a.device, **arch)
     print(f"prior run dir: {run_dir}")
+
+
+def cmd_import_torch(argv):
+    """A reference checkpoint into a port run directory (rave_tpu/cli.py:323-379)."""
+    p = argparse.ArgumentParser("rave_tpu_torch import_torch")
+    _add_config_flags(p)
+    p.add_argument("--ckpt", required=True, help="reference .ckpt file")
+    p.add_argument("--name", required=True)
+    p.add_argument("--out_path", default="runs")
+    p.add_argument("--channels", type=int, default=1)
+    p.add_argument("--ema_weights", action="store_true",
+                   help="import the EMA shadow (ckpt['callbacks']['EMA']) instead of the live "
+                   "weights (reference scripts/export.py:507-511)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    a = p.parse_args(argv)
+    from rave_tpu_torch import config as config_lib
+    from rave_tpu_torch.train.loop import make_run_dir
+    from rave_tpu_torch.train.state import create_train_state
+    from rave_tpu_torch.utils.checkpoint import save_checkpoint
+    from rave_tpu_torch.utils.import_torch import load_reference_state, read_reference_checkpoint
+
+    sd = read_reference_checkpoint(a.ckpt, a.ema_weights)
+    cfg = config_lib.compose(a.config or ["v2"], a.override)
+    cfg.data.n_channels = a.channels
+    state = create_train_state(cfg, n_channels=a.channels, device=a.device)
+    load_reference_state(state.model, sd)
+    if state.ema is not None:  # the EMA starts from the imported weights
+        state.ema = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    run_dir = make_run_dir(a.out_path, a.name, cfg)
+    save_checkpoint(str(run_dir), state)
+    print(f"imported into: {run_dir}")
 
 
 def cmd_eval(argv):
@@ -279,7 +312,7 @@ def verify_onnx(cfg, model):
 
 COMMANDS = {"preprocess": cmd_preprocess, "train": cmd_train, "train_prior": cmd_train_prior,
             "eval": cmd_eval, "export": cmd_export, "generate": cmd_generate,
-            "export_onnx": cmd_export_onnx}
+            "export_onnx": cmd_export_onnx, "import_torch": cmd_import_torch}
 
 
 def main(argv=None) -> int:

@@ -14,13 +14,18 @@ compressor appended to the augmentations), the latent families `discrete`,
 noise synth (`noise`, `v2_small`), raw-waveform output (`v2_nopqmf`,
 `v2_nopqmf_small`) and mel input (`v2_with_augs`, `hybrid`, whose decoder
 has a 2-layer GRU).
+The option preset `spectral_discriminator` (the multiscale critic beside
+the Encodec-style spectral one) completes the JAX package's presets.
 `compose(names, overrides)` stacks presets and applies dotted overrides as
 the reference does (`compose(["v2", "causal"], ["capacity=2",
-"ratios=[4,4,2]"])`). `snapshot` / `config_hash` / `from_dict` write and
+"ratios=[4,4,2]"])`); a name that is the path of a `.gin` file is read by
+the port's gin reader (config_gin.py) in its place in the stack, as
+`rave_tpu.config.compose` reads it. `snapshot` / `config_hash` / `from_dict` write and
 read a run's `config.json` as the JAX package's do; the hash covers the
 port's fields only, so a port run dir is named differently from a JAX run
 dir of the same settings. tests/test_torch_config.py holds every field and
-accessor equal to the JAX package's for these presets.
+accessor equal to the JAX package's for these presets, and
+tests/test_torch_config_gin.py the gin reader's configs.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -80,7 +86,7 @@ class DecoderConfig:
 
 @dataclass
 class DiscriminatorConfig:
-    kind: str = "multiscale"  # multiscale | combined | descript (ported); spectral
+    kind: str = "multiscale"  # multiscale | combined | spectral | descript
     capacity: Optional[int] = None  # None -> cfg.capacity
     n_layers: int = 4
     kernel_size: int = 15
@@ -88,6 +94,8 @@ class DiscriminatorConfig:
     n_scales: int = 3
     periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
     period_kernel: Tuple[int, int] = (5, 1)
+    spectral_scales: Tuple[int, ...] = (4096, 2048, 1024, 512, 256)
+    encodec_capacity: int = 32
     # descript
     descript_periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
     descript_fft_sizes: Tuple[int, ...] = (2048, 1024, 512)
@@ -95,7 +103,7 @@ class DiscriminatorConfig:
 
 @dataclass
 class DistanceConfig:
-    kind: str = "v1"  # v1 (ported) | encodec | instantaneous
+    kind: str = "v1"  # v1 (AudioDistanceV1) | encodec | instantaneous
     scales: Tuple[int, ...] = (2048, 1024, 512, 256, 128)
     log_epsilon: float = 1e-7
     num_mels: Optional[int] = None
@@ -525,19 +533,34 @@ def _adain(c: RaveConfig):
     c.decoder.use_adain = True
 
 
+@preset("spectral_discriminator")
+def _spectral(c: RaveConfig):
+    """rave/configs/spectral_discriminator.gin: the multiscale critic and the
+    Encodec-style spectral one at capacity 32."""
+    c.discriminator.kind = "spectral"
+    c.discriminator.encodec_capacity = 32
+
+
 @preset("descript_discriminator")
 def _descript(c: RaveConfig):
     c.discriminator.kind = "descript"
 
 
 def compose(names: List[str], overrides: Optional[List[str]] = None) -> RaveConfig:
-    """Stack presets in order, then apply dotted overrides."""
+    """Stack presets (a name may carry `.gin`) and reference `.gin` files (a
+    path to an existing file) in order, then apply dotted overrides."""
     cfg = RaveConfig()
     for n in names:
-        if n not in PRESETS:
-            raise KeyError(f"preset {n!r} is not ported (have {sorted(PRESETS)}; "
-                           "ROADMAP A11: the spectral critic)")
-        PRESETS[n](cfg)
+        n = str(n)
+        if n.endswith(".gin") and os.path.isfile(n):
+            from rave_tpu_torch.config_gin import apply_gin_file
+
+            apply_gin_file(cfg, n)
+            continue
+        key = n.replace(".gin", "")
+        if key not in PRESETS:
+            raise KeyError(f"unknown config preset {key!r}; have {sorted(PRESETS)}")
+        PRESETS[key](cfg)
     for ov in overrides or []:
         apply_override(cfg, ov)
     up = math.prod(cfg.dec_ratios()) * (cfg.n_band if cfg.output_mode == "pqmf" else 1)

@@ -2,10 +2,10 @@
 
 The port's copy of rave_tpu/data/transforms.py: the same numpy and scipy
 code, so that under the same `np.random.Generator` every transform gives
-exactly the JAX package's output. One difference: a user's augmentation
-`.gin` file needs the JAX package's gin reader, which the port does not
-carry (ROADMAP A19); the stock `mute.gin` / `compress.gin` / `gain.gin`
-names still resolve to their built-ins.
+exactly the JAX package's output. An augmentation `.gin` file goes through
+the port's gin reader (config_gin.augmentations_from_gin); the stock
+`mute.gin` / `compress.gin` / `gain.gin` names without a file resolve to
+their built-ins.
 
 Capability parity with rave/transforms.py: RandomCrop, phase mangling,
 Dequantize, RandomPitch, Resample, Compose, RandomApply, RandomGain,
@@ -472,10 +472,10 @@ def get_augmentations(names: Sequence[str], sr: int) -> List[Transform]:
             if not Path(s).is_file() and stem in _AUGMENTATIONS:
                 out.append(_AUGMENTATIONS[stem](sr))
                 continue
-            raise NotImplementedError(
-                f"augmentation file {s}: reading gin files is not ported (ROADMAP "
-                "A19); give the augmentation as a registry name, a JSON spec or a "
-                ".py file")
+            from rave_tpu_torch.config_gin import augmentations_from_gin
+
+            for spec in augmentations_from_gin(s):
+                out.append(_from_spec(_json.loads(spec), sr))
         elif s.endswith(".py") or Path(s).is_file():
             out.extend(load_augmentation_file(s, sr))
         else:

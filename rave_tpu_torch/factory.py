@@ -4,8 +4,9 @@ PyTorch port of rave_tpu/factory.py: `build_rave` (:151-175) for the v1
 and v2 encoder and decoder kinds (with the noise synths and the GRUs), the three
 input and two output modes, and the four latent families (`build_encoder`
 picks the wrapper as :82-99 does);
-`build_discriminator` (:178-232) for the `multiscale`, `combined` and
-`descript` critics; `build_audio_distance` (:235-265) for `v1`; `build_gan_loss`
+`build_discriminator` (:178-232) for the `multiscale`, `combined`,
+`spectral` and `descript` critics; `build_audio_distance` (:235-265) for the
+`v1` (mel or not), `instantaneous` and `encodec` distances; `build_gan_loss`
 (:268-269). Configs come from the port's own `rave_tpu_torch.config.compose`.
 Weights are drawn here from a seeded CPU `torch.Generator` (lecun-normal
 `v`, `g = ||v||` per output channel, zero bias; a codebook's embed uniform
@@ -25,12 +26,15 @@ from rave_tpu_torch.models import blocks
 from rave_tpu_torch.models.descript import DescriptDiscriminator
 from rave_tpu_torch.models.discriminators import (
     CombineDiscriminators, MultiPeriodDiscriminator, MultiScaleDiscriminator,
+    MultiScaleSpectralDiscriminator,
 )
 from rave_tpu_torch.models.quantization import EuclideanCodebook
 from rave_tpu_torch.models.rave import RAVE
 from rave_tpu_torch.nn.conv import _WeightNormConv
 from rave_tpu_torch.nn.gru import GRU
-from rave_tpu_torch.ops.distances import AudioDistanceV1
+from rave_tpu_torch.ops.distances import (
+    AudioDistanceV1, EncodecAudioDistance, WeightedInstantaneousSpectralDistance,
+)
 from rave_tpu_torch.ops.dsp import GAN_LOSSES
 from rave_tpu_torch.ops.pqmf import PQMFBank
 from rave_tpu_torch.ops.stft import MultiScaleSTFT
@@ -190,24 +194,33 @@ def build_discriminator(cfg: RaveConfig, n_channels: int = 1, seed: int = 0,
                                      tuple(d.period_kernel), d.stride),
             MultiScaleDiscriminator(n_channels, **scales),
         ])
+    elif d.kind == "spectral":
+        critic = CombineDiscriminators([
+            MultiScaleDiscriminator(n_channels, **scales),
+            MultiScaleSpectralDiscriminator(n_channels, d.spectral_scales, d.encodec_capacity),
+        ])
     elif d.kind == "descript":  # no MSD rates, as rave_tpu/factory.py:223-231
         critic = DescriptDiscriminator(n_channels, d.descript_periods,
                                        fft_sizes=d.descript_fft_sizes)
     else:
-        raise NotImplementedError(f"discriminator kind {d.kind!r} is not ported yet "
-                                  "(ROADMAP A11, spectral)")
+        raise ValueError(f"unknown discriminator kind {d.kind}")
     init_weights(critic, torch.Generator().manual_seed(seed))
     return critic.to(device)
 
 
-def build_audio_distance(cfg: RaveConfig) -> AudioDistanceV1:
+def build_audio_distance(cfg: RaveConfig):
     dist = cfg.distance
-    if dist.kind != "v1":
-        raise NotImplementedError(f"distance kind {dist.kind!r} is not ported yet (ROADMAP A11)")
-    if dist.num_mels is not None:
-        raise NotImplementedError("distance.num_mels (mel spectrograms) is not ported yet "
-                                  "(ROADMAP A11)")
-    return AudioDistanceV1(MultiScaleSTFT(tuple(dist.scales)), log_epsilon=dist.log_epsilon)
+    if dist.kind == "v1":
+        return AudioDistanceV1(MultiScaleSTFT(tuple(dist.scales), cfg.sampling_rate,
+                                              num_mels=dist.num_mels),
+                               log_epsilon=dist.log_epsilon)
+    if dist.kind == "instantaneous":
+        return WeightedInstantaneousSpectralDistance(
+            MultiScaleSTFT(tuple(dist.scales), cfg.sampling_rate, magnitude=False),
+            weighted=True)
+    if dist.kind == "encodec":
+        return EncodecAudioDistance(tuple(dist.scales), cfg.sampling_rate)
+    raise ValueError(f"unknown distance kind {dist.kind}")
 
 
 def build_gan_loss(cfg: RaveConfig):

@@ -62,9 +62,10 @@ class MPD(nn.Module):
         self.period, self.fold = period, fold
         ch = n_channels
         for i, c in enumerate(MPD_CHANNELS):
-            self.add_module(f"conv_{i}", WNConv(ch, c, 5, 3 if i < 4 else 1, 2))
+            self.add_module(f"conv_{i}", WNConv(ch, c, 5, 3 if i < 4 else 1, 2,
+                                                period_kernel=True))
             ch = c
-        self.post = WNConv(ch, 1, 3, 1, 1)
+        self.post = WNConv(ch, 1, 3, 1, 1, period_kernel=True)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         B, C, T = x.shape

@@ -5,7 +5,9 @@ PyTorch port of rave_tpu/ops/dsp.py (reference rave/core.py:20-81,
 `fft_convolve` work on the last axis, as there. The losses reduce to a
 mean over all elements, so they are indifferent to layout: the port's
 channels-first and folded critic feature maps give the same values as the
-JAX package's channels-last ones.
+JAX package's channels-last ones. `get_beta_kl`, `get_beta_kl_cyclic` and
+`get_beta_kl_cyclic_annealed` are the reference's beta-KL schedules
+(rave_tpu/ops/dsp.py:113-128), which neither package's step calls.
 """
 from __future__ import annotations
 
@@ -84,3 +86,27 @@ def nonsaturating_gan(score_real: torch.Tensor, score_fake: torch.Tensor):
 
 
 GAN_LOSSES = {"hinge": hinge_gan, "ls": ls_gan, "nonsaturating": nonsaturating_gan}
+
+
+def _as_tensor(v) -> torch.Tensor:
+    """A float32 0-d tensor of a Python number (JAX's weak-typed float32)."""
+    return v if torch.is_tensor(v) else torch.tensor(float(v), dtype=torch.float32)
+
+
+def get_beta_kl(step, warmup, min_beta, max_beta) -> torch.Tensor:
+    """Log-space beta-KL warmup from `min_beta` to `max_beta` over `warmup`
+    steps, `max_beta` after (reference rave/core.py:129-135)."""
+    step, min_beta, max_beta = _as_tensor(step), _as_tensor(min_beta), _as_tensor(max_beta)
+    t = torch.clamp(step / warmup, 0.0, 1.0)
+    beta = torch.exp(t * (torch.log(max_beta) - torch.log(min_beta)) + torch.log(min_beta))
+    return torch.where(step > warmup, max_beta, beta)
+
+
+def get_beta_kl_cyclic(step, cycle_size, min_beta, max_beta) -> torch.Tensor:
+    return get_beta_kl(torch.remainder(_as_tensor(step), cycle_size), cycle_size // 2,
+                       min_beta, max_beta)
+
+
+def get_beta_kl_cyclic_annealed(step, cycle_size, warmup, min_beta, max_beta) -> torch.Tensor:
+    return get_beta_kl_cyclic(step, cycle_size, get_beta_kl(step, warmup, min_beta, max_beta),
+                              max_beta)

@@ -8,14 +8,14 @@ and an optional division by the window's L2 norm. `torch.stft` is not used
 because its `normalized` divides by sqrt(n_fft), not by the window's norm.
 `frame_signal` is rave_tpu/ops/stft.py:28 (overlapping frames, no
 padding). `mel_filterbank` (numpy, the same as rave_tpu/ops/stft.py:158)
-serves the Fréchet mel distance of train/evaluate.py and the mel input
-front-end (models/rave.py::MelAnalysis); the loss's mel projection is not
-ported (v2 has `distance.num_mels = None`).
+serves the losses' mel projections (`MultiScaleSTFT.num_mels`,
+ops/distances.py), the Fréchet mel distance of train/evaluate.py and the
+mel input front-end (models/rave.py::MelAnalysis).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,12 +103,29 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int) -> np.ndarray:
 
 @dataclass(frozen=True)
 class MultiScaleSTFT:
-    """Magnitude spectrograms [B*C, bins, frames] at each of `scales`
-    (hop = scale // 4, centered, not normalized) of a [B, C, T] signal (or
-    [B, T])."""
+    """Spectrograms at each of `scales` (hop = scale // 4, centered) of a
+    [B, C, T] signal (or [B, T]), rows b * C + c (rave_tpu/ops/stft.py:176-207,
+    reference rave/core.py:269-319): magnitudes [B*C, bins, frames], or
+    with `magnitude=False` the complex spectrum as [B*C, bins, frames, 2]
+    (real, imag). With `num_mels` the complex spectrum is projected on the
+    mel filterbank before the magnitude, the reference's order ([B*C,
+    num_mels, frames]); the real and imaginary parts are projected apart,
+    which is the same sum (`torch` matmuls take no complex by real)."""
 
     scales: Tuple[int, ...]
+    sample_rate: int
+    magnitude: bool = True
+    normalized: bool = False
+    num_mels: Optional[int] = None
 
     def __call__(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = x.reshape(-1, x.shape[-1])
-        return [stft(x, scale, scale // 4).abs().transpose(-1, -2) for scale in self.scales]
+        outs = []
+        for scale in self.scales:
+            s = stft(x, scale, scale // 4, normalized=self.normalized).transpose(-1, -2)
+            if self.num_mels is not None:
+                mel = torch.from_numpy(mel_filterbank(self.sample_rate, scale, self.num_mels))
+                mel = mel.to(device=s.device, dtype=s.real.dtype)
+                s = torch.complex(mel @ s.real, mel @ s.imag)
+            outs.append(s.abs() if self.magnitude else torch.stack([s.real, s.imag], -1))
+        return outs

@@ -40,6 +40,14 @@ its grouped convs' kernels [K, I/groups, O] -> [O, I/groups, K]).
 loading them (the tests compare gradients with it). Optimizer state is not
 converted: a port train state starts its Adam moments from zero.
 
+`to_jax_variables(model)` is the exact inverse of `from_jax_variables`: the
+port model's tensors as the flax-layout tree, by collection (`params`,
+`buffers`, `batch_stats` for BatchNorm's running statistics, `codebook` for
+the quantizers' state, `adain` for AdaIN's), the names by `jax_path` and
+the layouts transposed back (a `WNConv` with `period_kernel` to its 2D (K,
+1) kernel). It is the template that utils/import_torch.py places a
+reference checkpoint's tensors on.
+
 The load is strict: every JAX leaf lands on exactly one port tensor of the
 same shape, and every port parameter and persistent buffer is set. The
 `cache` collection (streaming state) is not a weight and is skipped.
@@ -52,10 +60,13 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from rave_tpu_torch.models.blocks import AdaIN
+from rave_tpu_torch.models.blocks import AdaIN, BatchStats
 from rave_tpu_torch.models.discriminators import WNConv
 from rave_tpu_torch.nn.conv import Conv1d, ConvTranspose1d
+from rave_tpu_torch.models.quantization import EuclideanCodebook
 from rave_tpu_torch.nn.gru import GATE_NAMES
+
+JAX_GATE_NAMES = {v: k for k, v in GATE_NAMES.items()}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -77,6 +88,20 @@ def port_name(jax_path: str) -> str:
                     for i, p in enumerate(parts))
 
 
+def jax_path(name: str) -> str:
+    """The inverse of `port_name`: 'a.layers.3.v' -> 'a/layers_3/v'."""
+    parts, out, i = name.split("."), [], 0
+    while i < len(parts):
+        p = parts[i]
+        if p in ("layers", "vq", "branches") and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"{p}_{parts[i + 1]}")
+            i += 2
+            continue
+        out.append(JAX_GATE_NAMES.get(p, p) if out and out[-1] == "cell" else p)
+        i += 1
+    return "/".join(out)
+
+
 def _convert(owner: torch.nn.Module, leaf: str, value: np.ndarray) -> np.ndarray:
     if leaf in ("v", "w"):
         if isinstance(owner, WNConv):
@@ -94,6 +119,55 @@ def _convert(owner: torch.nn.Module, leaf: str, value: np.ndarray) -> np.ndarray
     if isinstance(owner, AdaIN) and leaf.startswith(("mean_", "std_")):
         return value.transpose(0, 2, 1)
     return value
+
+
+def _unconvert(owner: torch.nn.Module, leaf: str, value: np.ndarray) -> np.ndarray:
+    """The inverse of `_convert`: a port tensor in the JAX package's layout."""
+    two_d = isinstance(owner, WNConv) and (
+        owner.period_kernel or (owner.v if owner.weight_norm else owner.w).ndim == 4)
+    if leaf in ("v", "w"):
+        if isinstance(owner, WNConv):
+            if owner.period_kernel:
+                return value.transpose(2, 1, 0)[:, None]
+            return value.transpose(2, 3, 1, 0) if value.ndim == 4 else value.transpose(2, 1, 0)
+        if isinstance(owner, Conv1d):
+            return value.transpose(2, 1, 0)
+        if isinstance(owner, ConvTranspose1d):
+            return value.transpose(2, 0, 1)
+    if leaf == "g" and isinstance(owner, (Conv1d, ConvTranspose1d, WNConv)):
+        return value.reshape((1,) * (3 if two_d else 2) + (-1,))
+    if isinstance(owner, AdaIN) and leaf.startswith(("mean_", "std_")):
+        return value.transpose(0, 2, 1)
+    return value
+
+
+def _collection(owner: torch.nn.Module, is_param: bool) -> str:
+    if is_param:
+        return "params"
+    if isinstance(owner, BatchStats):
+        return "batch_stats"
+    if isinstance(owner, EuclideanCodebook):
+        return "codebook"
+    return "adain" if isinstance(owner, AdaIN) else "buffers"
+
+
+def to_jax_variables(model: torch.nn.Module) -> Dict[str, Dict[str, Any]]:
+    """`model`'s parameters and persistent buffers as the JAX package's
+    variables: {collection: nested dict of numpy arrays}, the inverse of
+    `from_jax_variables` (which loads the result back unchanged)."""
+    persistent = set(model.state_dict())
+    tensors = [(n, p, True) for n, p in model.named_parameters()]
+    tensors += [(n, b, False) for n, b in model.named_buffers() if n in persistent]
+    out: Dict[str, Dict[str, Any]] = {}
+    for name, tensor, is_param in tensors:
+        owner_name, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(owner_name)
+        node = out.setdefault(_collection(owner, is_param), {})
+        path = jax_path(name).split("/")
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = _unconvert(owner, leaf, tensor.detach().cpu().numpy().copy())
+    return out
 
 
 def convert_tree(model: torch.nn.Module, tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:

@@ -5,8 +5,10 @@ preprocess -> train -> resume -> eval through `main(argv)` with
 (n_signal 16384 leaves frames after it); then a two-step `--bf16`
 `--smoke_test` run and a run with a profiler window; a run's `export`
 and `generate`, offline and streaming, against the artifact's own forward.
-The commands not ported, and the options that need what is not ported,
-exit non-zero and name their ROADMAP item.
+Every `--config` takes a reference `.gin` file stacked with presets and
+overrides: `train` on one (and with the spectral critic), as the JAX
+package composes it. The command not ported exits non-zero and names its
+ROADMAP item.
 """
 import io
 import json
@@ -166,16 +168,59 @@ def test_export_generate(db, tmp_path):
 
 
 REFUSED = [([command, "--run", "x"], item) for command, item in sorted(cli.NOT_PORTED.items())]
-REFUSED += [(["train_prior", "--run", "x", "--db_path", "d", "--name", "n", "--config",
-              "prior_v1.gin"], cli.NOT_PORTED_OPTIONS[("train_prior", "--config")])]
 
 
-@pytest.mark.parametrize("argv, item", REFUSED,
-                         ids=[*sorted(cli.NOT_PORTED), "train_prior--config"])
+@pytest.mark.parametrize("argv, item", REFUSED, ids=sorted(cli.NOT_PORTED))
 def test_unported_commands_name_their_item(argv, item):
     code, _, err = run(argv)
     assert code == 2
     assert f"ROADMAP {item}" in err and "A1" in err
+
+
+RUN_GIN = """include "configs/v2.gin"
+SAMPLING_RATE = 22050
+CAPACITY = 2
+LATENT_SIZE = 4
+RATIOS = [4, 4, 2]
+DILATIONS = [[1], [1], [1]]
+MultiScaleSTFT.scales = [512, 256]
+"""
+GIN_STACKS = {"train": [], "train-spectral": ["spectral_discriminator"]}
+
+
+@pytest.mark.parametrize("stack", list(GIN_STACKS))
+def test_train_takes_a_gin_config(db, tmp_path, stack):
+    """`train --config run.gin [--config spectral_discriminator]` with the
+    schedule's overrides: the run's config is the JAX package's compose of
+    the same stack (model, critic and distance fields), its name the gin
+    file's, and two steps train (the second adversarial, through the critic)."""
+    from rave_tpu.config import compose as jax_compose
+
+    gin = tmp_path / "run.gin"
+    gin.write_text(RUN_GIN)
+    names = [str(gin)] + GIN_STACKS[stack]
+    overrides = ["discriminator.encodec_capacity=2", "discriminator.spectral_scales=[512,256]",
+                 "train.phase_1_duration=1", "train.update_discriminator_every=2",
+                 "train.valid_signal_crop=false"]
+    args = ["train", "--device", "cpu", "--name", "gin", "--db_path", db / "db", "--out_path",
+            tmp_path / "runs", "--batch", 2, "--n_signal", N_SIGNAL, "--workers", 2,
+            "--max_steps", 2, "--val_every", 100, "--no_progress", "--device_data", "off"]
+    for name in names:
+        args += ["--config", name]
+    for o in overrides:
+        args += ["--override", o]
+    code, out, err = run(args)
+    assert code == 0, err
+    run_dir = Path(out.strip().splitlines()[-1].removeprefix("run dir: "))
+    cfg = config.from_dict(json.loads((run_dir / "config.json").read_text()))
+    want = jax_compose(names, overrides)
+    for section in ("encoder", "decoder", "latent", "discriminator", "distance"):
+        assert vars(getattr(cfg, section)) == vars(getattr(want, section)), section
+    assert (cfg.name, cfg.sampling_rate, cfg.capacity, cfg.ratios) == (
+        want.name, want.sampling_rate, want.capacity, want.ratios) == ("run", SR, 2, (4, 4, 2))
+    assert cfg.discriminator.kind == ("spectral" if GIN_STACKS[stack] else "combined")
+    rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows if "loss_dis" in r] == [1, 2]
 
 
 def test_usage_and_unknown_command():

@@ -131,20 +131,25 @@ def test_unported_train_options_raise(flag):
 
 
 def test_refusals():
-    """Presets of later items raise naming them: the spectral critic's (A11).
-    `discrete_v3` (A10), `hybrid` (A11's mel input and GRU) and the v1
-    family's presets and fields were refused too and now compose as the JAX
-    package's. A field the port does not have raises."""
+    """Presets and fields once refused compose as the JAX package's: the
+    spectral critic's `spectral_discriminator` and its `encodec_capacity`
+    and `spectral_scales` (A11, refused here until ported), `discrete_v3`
+    (A10), `hybrid` (A11's mel input and GRU) and the v1 family's presets
+    and fields. A field the port does not have raises."""
     assert_fields_equal(config.compose(["discrete_v3"]), jax_config.compose(["discrete_v3"]))
     assert_fields_equal(config.compose(["hybrid"]), jax_config.compose(["hybrid"]))
     for name in ("v1", "onnx", "raspberry"):
         assert_fields_equal(config.compose([name]), jax_config.compose([name]))
-    with pytest.raises(KeyError, match="A11"):
-        config.compose(["spectral_discriminator"])
+    for names in (["spectral_discriminator"], ["v2", "spectral_discriminator"]):
+        assert_fields_equal(config.compose(names), jax_config.compose(names))
+    assert config.compose(["v2", "spectral_discriminator"]).discriminator.kind == "spectral"
+    spectral = ["discriminator.encodec_capacity=8", "discriminator.spectral_scales=[1024,512]"]
+    assert_fields_equal(config.compose(["v2"], spectral), jax_config.compose(["v2"], spectral))
+    assert set(config.PRESETS) == set(jax_config.PRESETS)
     assert_fields_equal(config.compose(["v2"], ["decoder.loud_stride=2"]),
                         jax_config.compose(["v2"], ["decoder.loud_stride=2"]))
-    with pytest.raises(AttributeError, match="encodec_capacity"):
-        config.compose(["v2"], ["discriminator.encodec_capacity=8"])
+    with pytest.raises(AttributeError, match="frobnicate"):
+        config.compose(["v2"], ["discriminator.frobnicate=8"])
     for compose in (config.compose, jax_config.compose):
         with pytest.raises(ValueError, match="rate-preserving"):
             compose(["v2"], ["decoder.ratios=[4,4,2]"])

@@ -170,10 +170,21 @@ def test_derivator_integrator_exact():
 
 
 def test_unported_augmentation_file_raises(tmp_path):
+    """An augmentation gin file, refused until the gin reader was ported
+    (A19), gives the JAX package's specs and transforms (the reader's own
+    corpus: tests/test_torch_config_gin.py)."""
+    from rave_tpu.config_gin import augmentations_from_gin as jax_specs
+    from rave_tpu_torch.config_gin import augmentations_from_gin
+
     gin = tmp_path / "my_aug.gin"
-    gin.write_text("add_augmentation.aug = @RandomMute()\n")
-    with pytest.raises(NotImplementedError, match="A19"):
-        T.get_augmentations([str(gin)], SR)
+    gin.write_text("add_augmentation.aug = @RandomMute()\nRandomMute.prob = 0.9\n")
+    assert augmentations_from_gin(str(gin)) == jax_specs(str(gin))
+    got, want = T.get_augmentations([str(gin)], SR), jax_T.get_augmentations([str(gin)], SR)
+    assert [type(a).__name__ for a in got] == [type(a).__name__ for a in want] == ["RandomMute"]
+    x = np.random.default_rng(4).standard_normal((4096, 1)).astype(np.float32)
+    for seed in range(4):
+        np.testing.assert_array_equal(got[0](np.random.default_rng(seed), x.copy()),
+                                      want[0](np.random.default_rng(seed), x.copy()))
 
 
 def test_dataset_and_split_match(dbs):

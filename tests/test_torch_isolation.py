@@ -20,10 +20,15 @@ imported. A second interpreter does the same for the latent prior:
 `train_prior --smoke_test`, `export --prior` and `generate
 --prior_seconds`; a third for the v1 family (`train --config v1`, `export
 --streaming`, `generate --streaming`) and `export_onnx --verify` of an
-`onnx` run.
-Every module of the port is also read (`ast`): none imports yaml, orbax or
-tensorboard at module level (the machine with the GPU has none of them),
-nor jax, flax or the JAX package.
+`onnx` run; a fourth for the reference user's way in: `compose` of a
+`.gin` file (the gin reader), a reference-named `.ckpt` written by
+tools/torch_reference_ckpt.py from a port model's weights, `import_torch
+--config <gin>`, `export` and `generate` of the imported run, and one
+critic step of v2 with the spectral critic and one generator step with the
+`encodec` and the `instantaneous` distances.
+Every module of the port, and tools/torch_reference_ckpt.py, is also read
+(`ast`): none imports yaml, orbax or tensorboard at module level (the
+machine with the GPU has none of them), nor jax, flax or the JAX package.
 """
 import ast
 import json
@@ -318,6 +323,83 @@ def test_v1_and_onnx_never_import_jax():
     assert out["wav"] == [20 * 8192]
 
 
+IMPORT_SCRIPT = """
+import contextlib, io, json, pathlib, sys, tempfile
+import numpy as np
+import torch
+from scipy.io import wavfile
+torch.set_num_threads(2)
+sys.path.insert(0, "tools")
+from torch_reference_ckpt import reference_state_dict, save_reference_ckpt
+from rave_tpu_torch import cli
+from rave_tpu_torch.config import compose
+from rave_tpu_torch.factory import build_rave
+from rave_tpu_torch.nn.conv import ConvTranspose1d
+from rave_tpu_torch.train.state import create_train_state
+from rave_tpu_torch.train.steps import build_train_steps
+from rave_tpu_torch.utils.convert import jax_path, to_jax_variables
+root = pathlib.Path(tempfile.mkdtemp())
+gin = root / "run.gin"
+gin.write_text('include "configs/v2.gin"\\nCAPACITY = 2\\nLATENT_SIZE = 4\\nRATIOS = [4, 4, 2]\\n'
+               'DILATIONS = [[1], [1], [1]]\\n')
+cfg = compose([str(gin)])
+model = build_rave(cfg, seed=4, device="cpu")
+sd = reference_state_dict(to_jax_variables(model), transposed={
+    jax_path(n) for n, m in model.named_modules() if isinstance(m, ConvTranspose1d)})
+save_reference_ckpt(root / "run.ckpt", sd)
+wav = 0.3 * np.sin(2 * np.pi * 220 * np.arange(4 * 8192) / 44100)
+wavfile.write(root / "a.wav", 44100, (wav * 32767).astype(np.int16))
+codes = []
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    codes.append(cli.main(["import_torch", "--device", "cpu", "--ckpt", str(root / "run.ckpt"),
+                           "--config", str(gin), "--name", "imp", "--out_path",
+                           str(root / "runs")]))
+    run = next((root / "runs").iterdir())
+    codes.append(cli.main(["export", "--device", "cpu", "--run", str(run), "--output",
+                           str(root / "art")]))
+    codes.append(cli.main(["generate", "--device", "cpu", "--model", str(root / "art" / "run.rtpu"),
+                           "--input", str(root / "a.wav"), "--out_path", str(root / "gen")]))
+tiny = ["discriminator.capacity=2", "distance.scales=[512,256]", "train.phase_1_duration=1",
+        "discriminator.spectral_scales=[512,256]", "discriminator.encodec_capacity=2"]
+x = torch.randn(2, 1, 8192, generator=torch.Generator().manual_seed(2)) * 0.1
+losses = []
+for names, extra, which in (([str(gin), "spectral_discriminator"], [], "dis"),
+                            ([str(gin)], ['distance.kind="encodec"', "distance.scales=[256,128]"],
+                             "gen"),
+                            ([str(gin)], ['distance.kind="instantaneous"'], "gen")):
+    c = compose(names, tiny + extra + ["train.valid_signal_crop=false"])
+    state = create_train_state(c, device="cpu")
+    state.step = 1
+    steps = build_train_steps(c)
+    g = torch.Generator().manual_seed(3)
+    m = steps["dis"](state, x, generator=g) if which == "dis" else steps["gen"](
+        state, x, True, generator=g)
+    losses.append(float(m["loss_dis"] if which == "dis" else m["loss_gen"]))
+print(json.dumps({
+    "codes": codes, "name": cfg.name, "losses": losses,
+    "wav": list(wavfile.read(root / "gen" / "a_reconstructed.wav")[1].shape),
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "rave_tpu")),
+}))
+"""
+
+
+def test_import_and_gin_never_import_jax():
+    """`compose` of a gin, `import_torch` of a reference-named `.ckpt`,
+    `export`, `generate`, and steps with the spectral critic and the other
+    distances, in a fresh interpreter."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH", "")) if p)}
+    proc = subprocess.run([sys.executable, "-c", IMPORT_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == [], out["loaded"]
+    assert out["codes"] == [0] * 3 and out["name"] == "run"
+    assert out["wav"] == [4 * 8192]
+    assert len(out["losses"]) == 3 and all(math.isfinite(v) for v in out["losses"])
+
+
 FOREIGN = {"yaml", "orbax", "tensorboard", "jax", "jaxlib", "flax", "rave_tpu"}
 
 
@@ -344,6 +426,7 @@ def module_level_imports(tree):
 def test_no_foreign_module_level_imports():
     sources = sorted((ROOT / "rave_tpu_torch").rglob("*.py"))
     assert len(sources) > 30
+    sources.append(ROOT / "tools" / "torch_reference_ckpt.py")  # the smoke's import phase
     for path in sources:
         imported = set(module_level_imports(ast.parse(path.read_text())))
         assert not imported & FOREIGN, (path, imported & FOREIGN)

@@ -102,10 +102,19 @@ def test_gan_losses_match_jax(kind):
 
 
 def test_unported_losses_raise():
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_audio_distance(compose(["v2"], ['distance.kind="encodec"']))
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_audio_distance(compose(["v2"], ["distance.num_mels=64"]))
+    """The `encodec` distance and `distance.num_mels`, once refused (A11),
+    build as the JAX factory's and give its value on one pair
+    (tests/test_torch_spectral.py holds every distance and its gradient)."""
+    x = signal((2, 4096, 1), seed=12)
+    y = x + signal((2, 4096, 1), seed=13, scale=0.05)
+    for overrides in (['distance.kind="encodec"'], ["distance.num_mels=64"]):
+        want = jax_build_audio_distance(jax_compose(["v2"], TINY + overrides))(
+            jnp.asarray(x), jnp.asarray(y))
+        got = build_audio_distance(compose(["v2"], TINY + overrides))(
+            t(x.transpose(0, 2, 1)), t(y.transpose(0, 2, 1)))
+        assert set(got) == set(want)
+        for k in want:
+            assert rel_err(float(got[k]), float(want[k])) < TOL, (overrides, k)
     # the descript critic (A10) was refused too and is ported: it builds as
     # the JAX factory's, parameter for parameter (tests/test_torch_descript.py
     # holds its maps to the JAX critic's)

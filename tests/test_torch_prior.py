@@ -452,6 +452,30 @@ def test_train_prior_checkpoint_restores(prior_run):
                for k, v in ckpt["prior"].items() if k.endswith(".w"))
 
 
-def test_train_prior_gin_config_refused(prior_run):
-    code, _, err = run_cli(prior_run["args"] + ["--config", "prior_v1.gin"])
-    assert code == 2 and "ROADMAP A19" in err
+def test_train_prior_gin_config_refused(prior_run, tmp_path):
+    """`train_prior --config prior.gin`, refused until the gin reader was
+    ported (A19), runs: the file's VariationalPrior bindings (the grammar
+    of the reference's configs/prior/prior_v1.gin, read as the JAX
+    package's reader reads it) become the architecture, and a flag
+    overrides the file."""
+    from rave_tpu.config_gin import prior_kwargs_from_gin as jax_prior_kwargs
+    from rave_tpu_torch.config_gin import prior_kwargs_from_gin
+
+    gin = tmp_path / "prior_tiny.gin"
+    gin.write_text("from __gin__ import dynamic_registration\n"
+                   "VariationalPrior.resolution = 8\nVariationalPrior.res_size = 16\n"
+                   "VariationalPrior.skp_size = 8\nVariationalPrior.kernel_size = 3\n"
+                   "VariationalPrior.cycle_size = 4\nVariationalPrior.n_layers = 4\n"
+                   "VariationalPrior.sr = @get_model_sr()\n")
+    assert prior_kwargs_from_gin(str(gin)) == jax_prior_kwargs(str(gin))
+    base = prior_run["args"][:prior_run["args"].index("--resolution")]
+    base[base.index("--name") + 1] = "gin"
+    code, out, err = run_cli(base + ["--config", gin, "--n_layers", 3])
+    assert code == 0, err
+    run_dir = Path(out.strip().splitlines()[-1].removeprefix("prior run dir: "))
+    arch = json.loads((run_dir / "prior_config.json").read_text())
+    assert {k: arch[k] for k in ("resolution", "res_size", "skp_size", "kernel_size",
+                                 "cycle_size", "n_layers")} == {
+        "resolution": 8, "res_size": 16, "skp_size": 8, "kernel_size": 3, "cycle_size": 4,
+        "n_layers": 3}
+    assert len(list((run_dir / "checkpoints").iterdir())) == 2

@@ -39,6 +39,10 @@ default):
             variants (the noise synth; raw-waveform output; mel input and a
             GRU); hybrid's train cell without the valid-signal crop, which
             empties its multiband loss (ROADMAP C12);
+  train_spectral, train_spectral_bf16 : the `train` and `train_bf16` cells
+            for compose(["v2", "spectral_discriminator"]) (the multiscale
+            critic beside EncodecConvNets on the complex STFTs), the critic's
+            forward range splitting its share;
   prior_step : one autoregressive step of the stock prior (prior_v1.gin) at
             latent_size 128 (4096 channels, the latent size of the v2 run
             in chip_smoke.py's phase `prior`), `PriorStep` as the
@@ -346,6 +350,10 @@ CELLS = {
     "train_discrete": lambda act, top: train_cell(act, top, names=["discrete"]),
     "train_v3": lambda act, top: train_cell(act, top, names=["v3"]),
     "artifact_v3": lambda act, top: artifact_cell(act, top, ["v3"]),
+    "train_spectral": lambda act, top: train_cell(act, top,
+                                                  names=["v2", "spectral_discriminator"]),
+    "train_spectral_bf16": lambda act, top: train_cell(
+        act, top, ["train.bf16=true", "train.bf16_dis=true"], ["v2", "spectral_discriminator"]),
 }
 for _p in ("v2_small", "v2_nopqmf", "hybrid"):
     _crop = ["train.valid_signal_crop=false"] if _p == "hybrid" else []
