@@ -14,7 +14,7 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                (T - 21: no whole 128-frame tile, padded for TMA's 16-byte
                rows) and B=1 (a grid that fills few SMs), and the centered
                shapes at B=2 (phase 11's validation and eval batches); then
-               the unit shapes of phase 18's forwards that v2's do not
+               the unit shapes of phase 21's forwards that v2's do not
                cover (`variant_unit_cases`: C = 48, 64, 128, 256, 512, whose
                output passes and, in bf16, input chunks are partial, up to
                C=64 at T=131072), centered at B=16, with a ragged length and
@@ -85,8 +85,9 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                pre-warmup, adversarial and critic steps, validation before
                and after the warmup, periodic and final checkpoints -> a
                second `train` with more steps that resumes -> a `--bf16
-               --device_data off` run of all three programs through the host
-               loader -> `eval`
+               --device_data off` run of all three programs through the
+               threaded host loader (`threaded_loader`: the loop's rule
+               takes the C++ sampler there, which phase 17 runs) -> `eval`
                twice. Each step, validation and checkpoint save of the
                training loop is observed in process (it ends in a synchronize and
                records its time and its launches of each variant): exactly
@@ -194,7 +195,44 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                streaming p50 per 2048-sample block, eager and `.pt2`, under its
                46.44 ms; the unit against its plain version at each shape the
                path gave it (1e-4). Work in build/import, deleted at the end;
- 17. discrete : compose(["discrete"]) at full width (capacity 96, latent 128,
+ 17. native : the C++ sampler (csrc/ars_pipeline.cc, built by g++ into
+               build/kernels/) on phase 11's store: B=8 x 131072 with the
+               phase mangle and the dither against its numpy twin
+               `sample_plain` (max abs err <= 1e-6) and its host ms per
+               batch; then `cli train --device_data off` in process, fp32
+               and `--bf16`, 8 steps each (the three programs), fed by the
+               native loader (its batches counted), observed as phase 11's
+               runs: exactly 22 launches of the step's variant per step and
+               per validation batch; loop ms per step against the bare step,
+               printed beside phase 11's threaded host-loader figures. Work in
+               build/native, deleted at the end;
+ 18. remote : `cli remote_dataset` on a free localhost port, a process of
+               its own, killed on the way out: `get_dataset("http://...")`
+               through `Loader` gives 3 batches of B=8 x 131072 bit-equal to
+               the same `Loader` over the local store (ms per batch over
+               HTTP and locally), 3 v2 steps on them (22 launches each,
+               finite losses), and `train` on the URL raises
+               FileNotFoundError (ROADMAP C20);
+ 19. parallel : `python -m torch.distributed.run --nproc_per_node 2 -m
+               rave_tpu_torch.parallel.mpworker --full`: v2 at full width
+               (at `distance.log_epsilon=1e-3`: at v2's 1e-7 the float32
+               pre-warmup gradient is rounding noise in many elements,
+               ROADMAP C4, and Adam's first update, lr * sign(g), parts two
+               summation orders by 5% in the next loss), two ranks of B=4 x
+               131072 on one card with gloo, pre-warmup, adversarial and
+               critic steps under cuDNN's deterministic algorithms; the
+               ranks' parameters and buffers bit-equal (a digest) and their
+               losses within 1e-4 of one process running the same steps on
+               the global batch of 8 from the same seeded weights and
+               draws; exactly 22 launches per step on every
+               rank; the unit against its plain version at the 11 centered
+               B=4 shapes of those steps (1e-4); then a 2-rank `cli train
+               --device_data off` (B=1 per rank: one validation record each)
+               for 4 steps and resumed to 6: the native loader, validation in
+               lockstep every 2 steps, one checkpoint per validation written
+               by rank 0. A dead rank fails the phase. Work in
+               build/parallel, deleted at the end;
+ 20. discrete : compose(["discrete"]) at full width (capacity 96, latent 128,
                16 x 1024 codes, 128 noise channels, ratios 4.4.2.2), TF32
                off: the unit at the shapes only it reaches (C=768, T=256,
                d 1 and 3, at B=16 and B=8) against its plain version
@@ -220,7 +258,7 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                launches), the first step at B=1 and the artifact's codec
                halves (`EncodeSide`, `DecodeSide`) of the stepped model on
                the card against the CPU (1e-3); the phase aims at ~60 s;
- 18. variants : v2_small (capacity 48, ratios 4.2.2.2, the noise synth with
+ 21. variants : v2_small (capacity 48, ratios 4.2.2.2, the noise synth with
                32 bands), v2_nopqmf (capacity 64, raw-waveform output,
                decoder ratios 8.8.8.4) and hybrid (mel input, hop 256,
                encoder ratios 2.2.2, a 2-layer GRU at the decoder's input)
@@ -246,7 +284,7 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                against the eager steps over 32 blocks (1e-5), the streaming
                p50 eager and .pt2. hybrid trains without the valid-signal
                crop (ROADMAP C12). Work in build/variants, deleted at the end;
- 19. v3     : compose(["v3"]) at full width (capacity 96, latent 128, ratios
+ 22. v3     : compose(["v3"]) at full width (capacity 96, latent 128, ratios
                4.4.4.2, Snake, AdaIN before each residual unit, the descript
                critic with periods 2, 3, 5, 7, 11 and FFT sizes 2048, 1024,
                512), TF32 off. Its Snake units bypass the kernel, as the JAX
@@ -282,13 +320,15 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                B=16 forward, the k-means step apart, one step of each program
                at B=8, B=1 losses card vs CPU (1e-3) and `check_codes`;
                work in build/v3, deleted at the end;
- 20. the kernels' JSON line, then the last line
+ 23. the kernels' JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Per-shape details go to build/chip_smoke.json; the loop and export phases
 work in build/loop (corpus, db, run dirs, artifacts, generated wavs), the
 prior phase in build/prior, the v1 phase in build/v1, the import phase in
-build/import, the discrete phase in build/discrete, the variants phase in
+build/import, the native phase in build/native, the remote phase in
+build/remote, the parallel phase in build/parallel, the discrete phase in
+build/discrete, the variants phase in
 build/variants and the v3 phase in build/v3 (each deleted at its end).
 """
 from __future__ import annotations
@@ -1170,6 +1210,20 @@ class LoopProbe:
         return events
 
 
+@contextlib.contextmanager
+def threaded_loader():
+    """The training driver's host batches from the threaded `Loader` where its
+    rule would take the C++ sampler, for the run inside."""
+    from rave_tpu_torch.train import loop
+
+    rule = loop.input_pipeline
+    loop.input_pipeline = lambda *a, **k: "threads" if rule(*a, **k) == "native" else rule(*a, **k)
+    try:
+        yield
+    finally:
+        loop.input_pipeline = rule
+
+
 def loop_ms(events) -> dict:
     """Mean loop ms per step by phase: from the end of one step to the end of
     the next (the loop's own work, data and logging included), over steps
@@ -1294,11 +1348,13 @@ def phase_loop(train_ms: dict, train_bf16_ms: dict) -> dict:
                      *common])
         resumed = probe.take()
         probe.keep_x_at = None
-        # bf16 through the host loader and the pinned, non-blocking prefetch
-        out3 = _cli(["train", "--name", "loop_bf16", "--bf16", "--max_steps", LOOP_BF16_STEPS,
-                     "--val_every", 1000, "--save_every", 1000, "--device_data", "off",
-                     "--no_resume", *common, "--override",
-                     f"train.phase_1_duration={LOOP_BF16_WARMUP}"])
+        # bf16 through the threaded host loader and the pinned, non-blocking prefetch
+        # (the loop's rule takes the C++ sampler here: phase native runs that)
+        with threaded_loader():
+            out3 = _cli(["train", "--name", "loop_bf16", "--bf16", "--max_steps",
+                         LOOP_BF16_STEPS, "--val_every", 1000, "--save_every", 1000,
+                         "--device_data", "off", "--no_resume", *common, "--override",
+                         f"train.phase_1_duration={LOOP_BF16_WARMUP}"])
         run_bf16 = Path(out3.strip().splitlines()[-1].removeprefix("run dir: "))
         bf16_events = probe.take()
     evals = []
@@ -1318,7 +1374,7 @@ def phase_loop(train_ms: dict, train_bf16_ms: dict) -> dict:
     _check_steps(first, "fp32", 0, LOOP_STEPS)
     _check_steps(resumed, "fp32", LOOP_STEPS, LOOP_RESUME_STEPS)
     _check_steps(bf16_events, "bf16", 0, LOOP_BF16_STEPS)
-    check("native (C++) input pipeline is not ported" in out3, "bf16 run did not use the Loader")
+    check("using the threaded host loader" in out3, "bf16 run did not use the Loader")
     check([checkpoint.checkpoint_step(p) for p in checkpoint.list_checkpoints(str(run_bf16))]
           == [LOOP_BF16_STEPS], "the bf16 run's final checkpoint")
     check(f"resumed at step {LOOP_STEPS}" in out2, "the second run did not resume")
@@ -4024,6 +4080,316 @@ def phase_import() -> dict:
     return out
 
 
+# ---- the native sampler, the remote dataset and data parallelism (A17, A18, A14) ----------
+
+NATIVE_STEPS, NATIVE_WARMUP = 10, 4  # each `cli train --device_data off` run: all three programs
+NATIVE_TOL, NATIVE_SEED = 1e-6, 3  # the sampler against its numpy twin
+REMOTE_BATCHES = 3
+DP_RANKS, DP_BATCH = 2, 4  # the worker's ranks and rows per rank: the global batch of TRAIN_BATCH
+DP_LOSS_TOL = 1e-4  # two ranks against one process over the global batch
+# the worker at v2's widths and n_signal, at log_epsilon 1e-3 (ROADMAP C4): at v2's 1e-7 the
+# float32 pre-warmup gradient is rounding noise in many elements (~3% from float64), Adam's
+# first update is lr * sign(g), and two summation orders of one step part after it (PERF.md)
+DP_WORKER_ARGS = ["--full", "--override", "distance.log_epsilon=1e-3"]
+DP_LOOP_BATCH, DP_LOOP_STEPS, DP_LOOP_RESUME = 1, 4, 6  # one validation record per rank
+DP_TIMEOUT = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run(cmd, what: str) -> str:
+    """Run `cmd` from the checkout's root in its own session; its standard output.
+    A non-zero exit (a dead rank) or the time limit fails the phase, and the
+    whole session is killed on the way out."""
+    import os
+    import signal
+
+    proc = subprocess.Popen([str(c) for c in cmd], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=DP_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}: {err[-3000:]}")
+    return out
+
+
+def torchrun(ranks: int):
+    return [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", ranks,
+            "--master_addr", "127.0.0.1", "--master_port", free_port(), "-m"]
+
+
+def phase_native(loop: dict) -> dict:
+    """The C++ sampler and the training driver on it; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from rave_tpu_torch.data import native
+    from rave_tpu_torch.data.store import ArsReader, read_metadata
+    from rave_tpu_torch.ops.kernels import build, dilated_unit
+    from rave_tpu_torch.train import loop as loop_module
+
+    t_phase = time.perf_counter()
+    db, work = ROOT / "build" / "loop" / "db", ROOT / "build" / "native"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    lib = build.build_host(native.SOURCE)
+    build_s = time.perf_counter() - t0
+    meta = read_metadata(str(db))
+    records = ArsReader(str(db)).records()
+    sampler = native.NativeSampler(str(db), meta["num_signal"], meta["channels"], N_SIGNAL,
+                                   SAMPLE_RATE, seed=NATIVE_SEED)
+    idx = np.arange(TRAIN_BATCH) * 13 % len(records)
+    got = sampler.sample(idx, epoch_tag=1)
+    t0 = time.perf_counter()
+    plain = native.sample_plain(records, idx, N_SIGNAL, SAMPLE_RATE, seed=NATIVE_SEED,
+                                epoch_tag=1)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(got - plain).max())
+    check(got.shape == (TRAIN_BATCH, N_SIGNAL, meta["channels"]) and bool(np.isfinite(got).all())
+          and err <= NATIVE_TOL, f"native sampler vs sample_plain: {err:.2e} > {NATIVE_TOL}")
+    check(not np.array_equal(got, records[idx].astype(np.float32) / 32767),
+          "the sampler mangled and dithered nothing")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        sampler.sample(idx, epoch_tag=1)
+    sample_ms = (time.perf_counter() - t0) * 1e3 / 5
+
+    fed = {"batches": 0}
+    real = loop_module.NativeLoader
+
+    class CountedLoader(real):
+        def _make_batch(self, *args):
+            fed["batches"] += 1
+            return super()._make_batch(*args)
+
+    common = ["--config", "v2", "--db_path", db, "--out_path", work / "runs", "--batch",
+              TRAIN_BATCH, "--n_signal", N_SIGNAL, "--device", "cuda", "--max_steps",
+              NATIVE_STEPS, "--val_every", 1000, "--save_every", 1000, "--device_data", "off",
+              "--no_resume"]
+    for o in LOOP_SCHEDULE + [f"train.phase_1_duration={NATIVE_WARMUP}"]:
+        common += ["--override", o]
+    runs, by_step = {}, {}
+    torch.cuda.synchronize()
+    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    loop_module.NativeLoader = CountedLoader
+    try:
+        with LoopProbe() as probe:
+            for kind, flags in (("fp32", []), ("bf16", ["--bf16"])):
+                before = fed["batches"]
+                out = _cli(["train", "--name", f"native_{kind}", *flags, *common])
+                events = probe.take()
+                check("using the native (C++) input pipeline" in out,
+                      f"the {kind} run did not take the native loader")
+                check(fed["batches"] - before >= NATIVE_STEPS,
+                      f"the native loader made {fed['batches'] - before} batches")
+                _check_steps(events, kind, 0, NATIVE_STEPS, per_step=2 * UNITS_PER_HALF)
+                runs[kind] = loop_ms(events)
+                by_step[kind] = [e[kind] for e in events if e["kind"] == "step"]
+    finally:
+        loop_module.NativeLoader = real
+    torch.cuda.synchronize()
+    launches = {"fp32": dilated_unit.launches - dilated_unit.launches_bf16,
+                "bf16": dilated_unit.launches_bf16}
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"library": str(lib.relative_to(ROOT)), "build_s": build_s, "sample_rows": len(idx),
+           "max_abs_err": err, "sample_ms": sample_ms, "plain_sample_ms": plain_ms,
+           "loop_ms": runs, "host_loader_loop_ms": loop["loop_ms"], "launches": launches,
+           "launches_by_step": by_step,
+           "batches_fed": fed["batches"], "seconds": time.perf_counter() - t_phase}
+    summary = "; ".join(f"{kind} {ph} {v['loop_ms']:.1f} (step {v['step_ms']:.1f}, x{v['n']})"
+                        for kind, t in runs.items() for ph, v in sorted(t.items()))
+    host = "; ".join(f"{ph} {v['loop_ms']:.1f} (step {v['step_ms']:.1f})"
+                     for ph, v in sorted(loop["loop_ms"]["bf16"].items()))
+    print(f"native: {out['library']} by g++ in {build_s:.2f} s; B={len(idx)} x {N_SIGNAL} "
+          f"(mangle, dither) vs sample_plain max abs err {err:.2e} <= {NATIVE_TOL}; sampler "
+          f"{sample_ms:.2f} ms per batch (host; numpy twin {plain_ms:.0f} ms); cli train "
+          f"--device_data off {NATIVE_STEPS} steps fp32 and bf16 on the native loader "
+          f"({fed['batches']} batches), {2 * UNITS_PER_HALF} launches per step, {launches['fp32']} fp32 + "
+          f"{launches['bf16']} bf16; loop ms per step (bare step): {summary}; phase loop's "
+          f"threaded host loader, bf16: {host}; {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def phase_remote(crop) -> dict:
+    """`cli remote_dataset` and the HTTP dataset; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from rave_tpu_torch import config as config_lib
+    from rave_tpu_torch.data.dataset import HTTPAudioDataset, get_dataset, split_dataset
+    from rave_tpu_torch.data.loader import Loader
+    from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.train.loop import fp32_exact
+    from rave_tpu_torch.train.loop import train as train_loop
+    from rave_tpu_torch.train.state import create_train_state
+    from rave_tpu_torch.train.steps import build_train_steps, draw_noise, pick_phase
+    from rave_tpu_torch.utils.rng import step_generator
+
+    t_phase = time.perf_counter()
+    db, work = ROOT / "build" / "loop" / "db", ROOT / "build" / "remote"
+    shutil.rmtree(work, ignore_errors=True)
+    port = free_port()
+    server = subprocess.Popen(
+        [sys.executable, "-m", "rave_tpu_torch.cli", "remote_dataset", "--db_path", str(db),
+         "--port", str(port)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        line = server.stdout.readline()
+        check("serving" in line, f"remote_dataset did not start: {line!r} "
+                                 f"{server.stderr.read()[-2000:] if server.poll() else ''}")
+        url = f"http://127.0.0.1:{port}"
+        local, remote = (get_dataset(p, SAMPLE_RATE, N_SIGNAL) for p in (str(db), url))
+        check(isinstance(remote, HTTPAudioDataset) and len(remote) == len(local),
+              f"remote dataset of {len(remote)} records")
+        idx = split_dataset(local)[0][: REMOTE_BATCHES * TRAIN_BATCH]
+
+        def batches(dataset):
+            t0 = time.perf_counter()
+            xs = list(Loader(dataset, idx, TRAIN_BATCH, seed=0, workers=8).epoch(0))
+            return xs, (time.perf_counter() - t0) * 1e3 / len(xs)
+
+        got, http_ms = batches(remote)
+        want, local_ms = batches(local)
+        check(len(got) == REMOTE_BATCHES and all(np.array_equal(g, w) for g, w in zip(got, want)),
+              "the remote Loader's batches are not the local Loader's")
+        cfg = config_lib.compose(["v2"])
+        state = create_train_state(cfg, device="cuda")
+        steps = build_train_steps(cfg, crop)
+        counts, losses, ms = [], [], []
+        torch.cuda.synchronize()
+        dilated_unit.launches = dilated_unit.launches_bf16 = 0
+        with fp32_exact():
+            for xb in got:
+                x = torch.from_numpy(xb).cuda()
+                which, warmed, quantize = pick_phase(cfg, state.step)
+                draws = draw_noise(cfg, x, step_generator(1, state.step, "cuda"))
+                torch.cuda.synchronize()
+                n0, t0 = dilated_unit.launches, time.perf_counter()
+                m = (steps["gen"](state, x, warmed, draws=draws, quantize=quantize)
+                     if which == "gen" else steps["dis"](state, x, draws=draws,
+                                                         quantize=quantize))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                counts.append(dilated_unit.launches - n0)
+                losses.append(float(m["loss_gen" if which == "gen" else "loss_dis"]))
+        check(counts == [2 * UNITS_PER_HALF] * REMOTE_BATCHES and dilated_unit.launches_bf16 == 0,
+              f"remote steps' launches {counts}")
+        check(all(math.isfinite(v) for v in losses), f"remote steps' losses {losses}")
+        # C20: the JAX package's train cannot take a URL, nor can the port's
+        check(refuses(lambda: train_loop(copy.deepcopy(cfg), url, out_path=str(work),
+                                         device="cuda"), FileNotFoundError),
+              "train on a URL did not raise FileNotFoundError (ROADMAP C20)")
+        check(not work.exists(), "train on a URL wrote a run directory")
+    finally:
+        server.kill()
+        server.wait()
+    out = {"url": url, "records": len(remote), "batches": REMOTE_BATCHES, "http_batch_ms": http_ms,
+           "local_batch_ms": local_ms, "launches": sum(counts), "launches_by_step": counts,
+           "losses": losses, "step_ms": ms, "seconds": time.perf_counter() - t_phase}
+    print(f"remote: cli remote_dataset on :{port} ({len(remote)} records) -> get_dataset(url) "
+          f"through Loader: {REMOTE_BATCHES} batches of B={TRAIN_BATCH} x {N_SIGNAL} bit-equal "
+          f"to the local store's; {http_ms:.1f} ms per batch over HTTP, {local_ms:.1f} locally; "
+          f"v2 steps on them: launches {counts}, ms {', '.join(f'{v:.1f}' for v in ms)}, losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; train on the URL raises "
+          f"FileNotFoundError (C20); {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def phase_parallel() -> dict:
+    """Two ranks on one card with gloo; see the module docstring."""
+    import torch
+
+    from rave_tpu_torch.utils.checkpoint import checkpoint_step, list_checkpoints
+
+    t_phase = time.perf_counter()
+    work, db = ROOT / "build" / "parallel", ROOT / "build" / "loop" / "db"
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks are processes of their own on this card
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = [kernel_row(gen, "dp_b4", DP_BATCH, C, T, d, "centered") for C, T, dils in UNIT_SHAPES
+            for d in dils]
+    worker = ["rave_tpu_torch.parallel.mpworker", "--device", "cuda", "--deterministic",
+              *DP_WORKER_ARGS]
+    t0 = time.perf_counter()
+    out_two = _run(torchrun(DP_RANKS) + worker + ["--batch", DP_BATCH, "--out_dir", work / "two"],
+                   "the 2-rank worker")
+    two_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _run([sys.executable, "-m", *worker, "--batch", DP_RANKS * DP_BATCH, "--out_dir",
+          work / "one"], "the one-process worker")
+    one_s = time.perf_counter() - t0
+    ranks = [json.loads((work / "two" / f"rank{r}.json").read_text()) for r in range(DP_RANKS)]
+    single = json.loads((work / "one" / "rank0.json").read_text())
+    check("backend gloo" in out_two, f"the ranks' backend: {out_two[:300]}")
+    losses = [k for k in single if k.startswith("step") and "_loss_" in k]
+    check(len(losses) == 3, f"worker losses {losses}")
+    for r in ranks:
+        check(r["world_size"] == DP_RANKS and r["global_batch"] == DP_RANKS * DP_BATCH,
+              f"rank {r['rank']}: world {r['world_size']}, global batch {r['global_batch']}")
+        check(r["digest"] == ranks[0]["digest"] and all(r[k] == ranks[0][k] for k in losses),
+              f"rank {r['rank']} is not bit-equal to rank 0")
+        check(r["launches"] == [22, 22, 22], f"rank {r['rank']} launches {r['launches']}")
+    check(single["launches"] == [22, 22, 22], f"one-process launches {single['launches']}")
+    errs = {k: abs(ranks[0][k] - single[k]) / max(abs(single[k]), 1e-12) for k in losses}
+    check(all(math.isfinite(ranks[0][k]) for k in losses) and max(errs.values()) <= DP_LOSS_TOL,
+          f"2 ranks vs one process: {errs} > {DP_LOSS_TOL}")
+
+    # the training driver in two ranks: native loader, lockstep validation, rank 0 saves
+    common = ["rave_tpu_torch.cli", "train", "--name", "dp", "--config", "v2", "--db_path", db,
+              "--out_path", work / "runs", "--batch", DP_LOOP_BATCH, "--n_signal", N_SIGNAL,
+              "--device", "cuda", "--device_data", "off", "--val_every", 2, "--save_every", 1000]
+    for o in LOOP_SCHEDULE:
+        common += ["--override", o]
+    t0 = time.perf_counter()
+    out1 = _run(torchrun(DP_RANKS) + common + ["--max_steps", DP_LOOP_STEPS], "2-rank cli train")
+    out2 = _run(torchrun(DP_RANKS) + common + ["--max_steps", DP_LOOP_RESUME],
+                "2-rank cli train (resume)")
+    loop_s = time.perf_counter() - t0
+    check(out1.count("using the native (C++) input pipeline") == 1
+          and "data parallel: 2 ranks, backend gloo" in out1, f"2-rank train: {out1[-1500:]}")
+    check(out2.count(f"resumed at step {DP_LOOP_STEPS}") == 1, f"2-rank resume: {out2[-1500:]}")
+    run_dir = Path(out1.strip().splitlines()[-1].removeprefix("run dir: "))
+    vals = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    val_steps = [r["step"] for r in vals if "validation" in r]
+    check(val_steps == list(range(2, DP_LOOP_RESUME + 1, 2)), f"validation rows at {val_steps}")
+    check([r["step"] for r in vals if "loss_gen" in r] == [1, 2], "loss rows not once per step")
+    check(all(math.isfinite(v) for r in vals for v in r.values()), "non-finite metrics row")
+    ckpts = [checkpoint_step(p) for p in list_checkpoints(str(run_dir))]
+    check(ckpts == val_steps, f"checkpoints at {ckpts}")
+    shutil.rmtree(work, ignore_errors=True)
+    by_step = lambda r: [f"{v:.1f}" for v in r["ms"]]  # noqa: E731
+    out = {"ranks": DP_RANKS, "batch_per_rank": DP_BATCH, "backend": "gloo",
+           "losses": {k: ranks[0][k] for k in losses}, "one_process_losses":
+           {k: single[k] for k in losses}, "loss_rel_err": errs, "digest": ranks[0]["digest"],
+           "ms_by_rank": [r["ms"] for r in ranks], "one_process_ms": single["ms"],
+           "launches": sum(sum(r["launches"]) for r in ranks),
+           "launches_by_step": [r["launches"] for r in ranks], "worker_s": two_s,
+           "one_process_s": one_s, "loop_s": loop_s, "validations": val_steps,
+           "checkpoints": ckpts, "unit_rows": rows, "seconds": time.perf_counter() - t_phase}
+    print(f"parallel: mpworker at v2's widths, {DP_RANKS} ranks x B={DP_BATCH} x {N_SIGNAL} on one "
+          f"card (gloo), cuDNN deterministic: ranks bit-equal, losses "
+          f"{', '.join(f'{ranks[0][k]:.6f}' for k in losses)} vs one process B="
+          f"{DP_RANKS * DP_BATCH} {', '.join(f'{single[k]:.6f}' for k in losses)} (max rel "
+          f"{max(errs.values()):.1e} <= {DP_LOSS_TOL}); 22 launches per step per rank; step ms "
+          f"rank 0 {by_step(ranks[0])}, one process {by_step(single)}; worker {two_s:.1f} s, one "
+          f"process {one_s:.1f} s; 2-rank cli train (native loader, B={DP_LOOP_BATCH} per rank) "
+          f"validated at {val_steps}, rank 0 saved {ckpts}, resumed at {DP_LOOP_STEPS}, "
+          f"{loop_s:.1f} s; unit at the 11 centered B={DP_BATCH} shapes: max rel err "
+          f"{max(r['rel_err'] for r in rows):.1e}, kernel/plain ms: {shape_summary(rows)}; "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     if not (ROOT / KERNEL_SOURCE).is_file():
         raise SystemExit(f"chip_smoke: {KERNEL_SOURCE} not found; run from a checkout")
@@ -4048,6 +4414,9 @@ def main() -> None:
     shutil.rmtree(ROOT / "build" / "loop" / "export", ignore_errors=True)
     spectral = phase_spectral(tuple(train["crop_frames"]))
     imported = phase_import()
+    native = phase_native(loop)
+    remote = phase_remote(tuple(train["crop_frames"]))
+    parallel = phase_parallel()
     discrete = phase_discrete()
     variants = phase_variants()
     v3 = phase_v3()
@@ -4061,12 +4430,14 @@ def main() -> None:
     bound32 = unit_bound(main_rows, BATCH, "fp32")
     bound16 = unit_bound(main_bf16, TRAIN_BATCH, "bf16")
     export_rows = export["unit_b1"] * 2  # generate's forward: each shape in encoder and decoder
+    parallel_rows = parallel["unit_rows"] * 2  # a rank's forward at B=4: encoder and decoder
     # the discrete forward's 22 units at B=16: v2's shapes but C=768 at T=256
     discrete_rows = [r for r in main_rows if r["C"] != 768] + [
         r for r in discrete["kernel_rows"] if r["B"] == BATCH] * 2
     bounds = {"fp32_b16_forward": bound32, "bf16_b8_forward": bound16,
               "fp32_b1_generate_forward": unit_bound(export_rows, 1, "fp32"),
               "fp32_b16_discrete_forward": unit_bound(discrete_rows, BATCH, "fp32"),
+              "fp32_b4_dp_forward": unit_bound(parallel_rows, DP_BATCH, "fp32"),
               **{f"{k}_b8_fwd_bwd": unit_bound(grad[k] * 2, TRAIN_BATCH, k, backward=True)
                  for k in ("fp32", "bf16")}}
     # each variant's forward: its units at B=16 (fp32, its path) and B=8 (bf16)
@@ -4103,6 +4474,18 @@ def main() -> None:
         **{f"{k}_onnx_verify": v1["onnx"]["v2"]["unit_path"][k]
            for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
         "launches_prior": prior["launches"],  # train_prior, export --prior, generate
+        # cli train --device_data off on the C++ sampler, fp32 and bf16: 22 per step and
+        # per validation batch (fp32); 3 v2 steps on HTTP batches; the 2 ranks' 3 steps each
+        "launches_native": native["launches"]["fp32"],
+        "launches_native_bf16": native["launches"]["bf16"],
+        "launches_remote": remote["launches"], "launches_parallel": parallel["launches"],
+        "launches_by_step_native": native["launches_by_step"],
+        "launches_by_step_remote": remote["launches_by_step"],
+        "launches_by_step_parallel": parallel["launches_by_step"],  # per rank
+        "ms_parallel_b4": sum(r["ms"] for r in parallel_rows),
+        "plain_ms_parallel_b4": sum(r["plain_ms"] for r in parallel_rows),
+        "bound_ms_parallel_b4": bounds["fp32_b4_dp_forward"]["bound_ms"],
+        "max_abs_err_parallel_b4": max(r["max_abs_err"] for r in parallel["unit_rows"]),
         **{f"{k}_prior": prior["unit_path"][k] for k in ("ms", "plain_ms", "bound_ms",
                                                           "max_abs_err")},
         **{f"{k}_variants_b16": v for k, v in per_variant("fp32_b16").items()},
@@ -4133,7 +4516,8 @@ def main() -> None:
          "offline": offline, "stream": stream, "grad_shapes": grad, "train": train,
          "train_bf16": train_bf16, "remat": remat, "loop": loop, "export": export,
          "prior": prior, "discrete": discrete, "v3": v3, "variants": variants, "v1": v1,
-         "spectral": spectral, "import": imported,
+         "spectral": spectral, "import": imported, "native": native, "remote": remote,
+         "parallel": parallel,
          **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)

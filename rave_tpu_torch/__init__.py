@@ -28,8 +28,12 @@ points build on the GPU unless the caller passes `device="cpu"`.
                              and PCA, the training driver (loop.train) and
                              evaluation
   - rave_tpu_torch.data    : the ARS store, preprocess, transforms,
-                             datasets, the host loader and the
-                             device-resident pipeline
+                             datasets (the HTTP one and its server), the
+                             threaded host loader, the C++ sampler and
+                             its loader, and the device-resident pipeline
+  - rave_tpu_torch.parallel: data parallelism over torchrun's processes
+                             (the process group, the global batch's
+                             collectives) and the multi-process worker
   - rave_tpu_torch.export  : the `.rtpu` artifact (manifest, weights,
                              `torch.export` step programs), ExportedRAVE,
                              export_model and generate
@@ -37,5 +41,10 @@ points build on the GPU unless the caller passes `device="cpu"`.
                              checkpoints, metrics logging, per-step seeds
                              and normal and uniform draws from a seed tensor
   - rave_tpu_torch.cli     : `python -m rave_tpu_torch.cli preprocess |
-                             train | eval | export | generate`
+                             train | train_prior | import_torch | eval |
+                             export | generate | export_onnx |
+                             remote_dataset`
 """
+from rave_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

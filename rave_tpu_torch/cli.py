@@ -24,23 +24,18 @@ The ported commands of rave_tpu/cli.py, with the same flags plus
                `.onnx` is written: the JAX command's StableHLO graph is not
                ported (`--skip_stablehlo` is accepted and changes nothing)
 
+  remote_dataset: serve an ARS store over HTTP (/len, /get/<i>) to
+               `get_dataset("http://host:port")` (data/server.py)
+
 Every `--config` takes preset names and reference `.gin` files
-(config_gin.py). The JAX CLI's `remote_dataset` is not ported: it exits 2
-and names the ROADMAP item that ports it.
+(config_gin.py). `train` runs data-parallel under `torchrun`
+(`python -m torch.distributed.run --nproc_per_node N -m rave_tpu_torch.cli
+train ...`): one process per rank, `--batch` per rank (parallel/mesh.py).
 """
 from __future__ import annotations
 
 import argparse
 import sys
-
-NOT_PORTED = {
-    "remote_dataset": "A18 (the remote dataset)",
-}
-
-
-def refuse(what: str, item: str) -> int:
-    print(f"{what} is not ported to rave_tpu_torch yet: ROADMAP {item}", file=sys.stderr)
-    return 2
 
 
 def _add_config_flags(p: argparse.ArgumentParser):
@@ -128,7 +123,11 @@ def cmd_train(argv):
         progress=not a.no_progress, trace_steps=a.trace_steps, device_data=a.device_data,
         device=a.device,
     )
-    print(f"run dir: {run_dir}")
+    from rave_tpu_torch.parallel import mesh
+
+    if mesh.is_main():
+        print(f"run dir: {run_dir}")
+    mesh.shutdown()
 
 
 def cmd_train_prior(argv):
@@ -310,9 +309,20 @@ def verify_onnx(cfg, model):
     return float(np.abs(got["audio_out"] - want).max()), T
 
 
+def cmd_remote_dataset(argv):
+    p = argparse.ArgumentParser("rave_tpu_torch remote_dataset")
+    p.add_argument("--db_path", required=True)
+    p.add_argument("--port", type=int, default=5000)
+    a = p.parse_args(argv)
+    from rave_tpu_torch.data.server import serve
+
+    serve(a.db_path, a.port)
+
+
 COMMANDS = {"preprocess": cmd_preprocess, "train": cmd_train, "train_prior": cmd_train_prior,
             "eval": cmd_eval, "export": cmd_export, "generate": cmd_generate,
-            "export_onnx": cmd_export_onnx, "import_torch": cmd_import_torch}
+            "export_onnx": cmd_export_onnx, "import_torch": cmd_import_torch,
+            "remote_dataset": cmd_remote_dataset}
 
 
 def main(argv=None) -> int:
@@ -321,8 +331,6 @@ def main(argv=None) -> int:
         print("usage: python -m rave_tpu_torch.cli {" + ",".join(COMMANDS) + "} ...")
         return 0
     cmd = argv[0]
-    if cmd in NOT_PORTED:
-        return refuse(cmd, NOT_PORTED[cmd])
     if cmd not in COMMANDS:
         print(f"unknown command {cmd}; available: {sorted(COMMANDS)}", file=sys.stderr)
         return 1

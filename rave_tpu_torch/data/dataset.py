@@ -4,13 +4,21 @@ The port's counterpart of rave_tpu/data/dataset.py (numpy and scipy, the
 same code): AudioDataset (preprocessed chunks), LazyAudioDataset
 (path+length index, seek decode), the transform composition of
 `get_dataset` (rave/dataset.py:206-261) and the seeded 98/2 split
-(rave/dataset.py:264-278). The remote dataset (HTTPAudioDataset, served by
-`remote_dataset`) is not ported (ROADMAP A18).
+(rave/dataset.py:264-278), and HTTPAudioDataset, the client of the REST
+server of data/server.py (`cli remote_dataset`), over stdlib `urllib`.
+
+As in the JAX package, an `http` store has no metadata to read: its
+pipeline takes the caller's rate and is not lazy (rave_tpu/data/dataset.py:
+123-124), and `store.get_training_channels` raises FileNotFoundError on
+it, so `train` cannot take one (ROADMAP C20): a remote store reaches a
+`Loader` through `get_dataset`.
 """
 from __future__ import annotations
 
+import base64
 import json
 from pathlib import Path
+from urllib.request import urlopen
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -71,6 +79,36 @@ class LazyAudioDataset:
         return x
 
 
+class HTTPAudioDataset:
+    """A store served over HTTP (routes /len and /get/<i>, data/server.py):
+    float32 [T, C] records (reference rave/dataset.py:174-193)."""
+
+    def __init__(self, host: str, transform: Optional[T.Transform] = None):
+        self.host = host.rstrip("/")
+        self.length = int(json.loads(self._get("/len"))["length"])
+        self.transform = transform
+
+    def _get(self, route: str) -> bytes:
+        with urlopen(self.host + route) as r:
+            return r.read()
+
+    def __len__(self):
+        return self.length
+
+    def get(self, i: int, rng: np.random.Generator) -> np.ndarray:
+        payload = json.loads(self._get(f"/get/{i}"))
+        raw = base64.b64decode(payload["data"])
+        x = (np.frombuffer(raw, dtype="<i2").reshape(-1, payload["channels"])
+             .astype(np.float32) / 32767.0)
+        if self.transform is not None:
+            x = self.transform(rng, x)
+        return x
+
+
+def is_remote(db_path) -> bool:
+    return str(db_path).startswith("http")
+
+
 def get_dataset(
     db_path: str,
     sr: int,
@@ -84,10 +122,7 @@ def get_dataset(
     RandomCrop -> RandomApply(phase mangle, .8) -> Dequantize(16)
     [-> RandomPitch] [-> Resample] [-> Normalize] [-> Derivator] [-> augs].
     """
-    if str(db_path).startswith("http"):
-        raise NotImplementedError("remote datasets (HTTPAudioDataset) are not ported "
-                                  "(ROADMAP A18)")
-    meta = read_metadata(db_path)
+    meta = {"sr": sr, "lazy": False} if is_remote(db_path) else read_metadata(db_path)
     pipeline: List[T.Transform] = [T.RandomCrop(n_signal)]
     if rand_pitch:
         max_factor = max(rand_pitch) if isinstance(rand_pitch, (list, tuple)) else rand_pitch
@@ -104,6 +139,8 @@ def get_dataset(
         pipeline.append(T.Derivator())
     pipeline += T.get_augmentations(augmentations, sr)
     transform = T.Compose(*pipeline)
+    if is_remote(db_path):
+        return HTTPAudioDataset(db_path, transform)
     if meta.get("lazy", False):
         return LazyAudioDataset(db_path, n_signal, transform)
     return AudioDataset(db_path, transform)

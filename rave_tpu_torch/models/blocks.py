@@ -41,6 +41,7 @@ from rave_tpu_torch.nn.combinators import AlignBranches, Lambda, Residual, Seque
 from rave_tpu_torch.nn.conv import Conv1d, ConvTranspose1d, conv_delay, get_padding, tconv_delay
 from rave_tpu_torch.nn.gru import GRU
 from rave_tpu_torch.nn.streaming import as_dtype
+from rave_tpu_torch.parallel import mesh
 from rave_tpu_torch.ops.dsp import (
     amp_to_impulse_response, at_least_float32, fft_convolve, mod_sigmoid,
 )
@@ -202,7 +203,8 @@ class BatchNorm1d(nn.Module):
     variance mean(x^2) - mean(x)^2 (clipped at 0), and folds them into the
     running averages, 0.9 old + 0.1 new: not torch's unbiased variance. In
     eval mode, and always when streaming, it normalizes by the running
-    averages. A bfloat16 input gives a float32 output (flax promotes the
+    averages. Under data parallelism the moments are the global batch's,
+    as flax's over a sharded batch. A bfloat16 input gives a float32 output (flax promotes the
     input to its float32 statistics and parameters). Nothing is folded in while `frozen`, which the training
     step sets for `train.remat`'s recompute of a pass whose statistics
     were folded in already."""
@@ -222,8 +224,14 @@ class BatchNorm1d(nn.Module):
         if not self.training:
             return self.step(x)
         xf = at_least_float32(x)
-        mean = xf.mean((0, 2))
-        var = torch.clamp((xf * xf).mean((0, 2)) - mean * mean, min=0.0)
+        shards = mesh.batch_shards()
+        if shards > 1:  # the global batch's moments (parallel/mesh.py)
+            sums = mesh.all_reduce_sum(torch.stack([xf.sum((0, 2)), (xf * xf).sum((0, 2))]))
+            n = xf.shape[0] * xf.shape[2] * shards
+            mean, mean_sq = sums[0] / n, sums[1] / n
+        else:
+            mean, mean_sq = xf.mean((0, 2)), (xf * xf).mean((0, 2))
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         if not self.frozen:
             with torch.no_grad():
                 m = self.MOMENTUM
@@ -907,10 +915,11 @@ class WassersteinEncoder(LatentFamily):
 
     def reparametrize(self, z: torch.Tensor, draws: LatentDraws, quantize: bool = True,
                       train: bool = False):
-        """(z with its noise channels, MMD of z's B*T vectors against eps, None)."""
+        """(z with its noise channels, MMD of z's B*T vectors against eps, None);
+        under data parallelism over the global batch's vectors, in rank order."""
         D = z.shape[1]
-        flat = z.transpose(1, 2).reshape(-1, D)
-        ref = draws.eps.to(z.dtype).transpose(1, 2).reshape(-1, D)
+        flat = mesh.gather_rows(z.transpose(1, 2).reshape(-1, D))
+        ref = mesh.gather_rows(draws.eps.to(z.dtype).transpose(1, 2).reshape(-1, D))
         mmd = (self._mean_kernel(flat, flat) + self._mean_kernel(ref, ref)
                - 2 * self._mean_kernel(flat, ref))
         return _augment(z, draws, self.noise_augmentation), mmd, None

@@ -25,6 +25,11 @@ The random sample indices of the init and of the expiry are inputs
 a test can hand both packages the same numbers. Whether to init is read on
 the host: once per buffer version (`needs_init`), not once per step.
 
+Under data parallelism (parallel/mesh.py::sharded_batch) a training call
+runs steps 1-4 on every rank's samples gathered in rank order, as JAX's
+step over the global batch does, so every rank commits the same state;
+each rank quantizes its own rows.
+
 The nearest code is the JAX formula, argmax(2 x e^T - |x|^2 - |e|^2), a
 `[P, D] x [D, N]` product: not `cdist` or an argmin of distances, which
 round differently and can break ties differently.
@@ -37,6 +42,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from rave_tpu_torch.parallel import mesh
 
 
 def nearest(samples: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -114,17 +121,21 @@ class EuclideanCodebook(nn.Module):
     def train_call(self, x: torch.Tensor, init_idx: torch.Tensor, expire_idx: torch.Tensor):
         """Training: (quantized [..., D], indices [...], new state {name: tensor})."""
         flat = x.reshape(-1, x.shape[-1]).float()
-        samples = flat.detach()  # the state is not differentiated
+        # the state is not differentiated; under data parallelism it trains on
+        # every rank's samples, in rank order (parallel/mesh.py)
+        samples = mesh.gather_rows(flat.detach())
         embed, embed_avg, cluster_size = self.embed, self.embed_avg, self.cluster_size
         if self.needs_init():
             embed, cluster_size = kmeans(samples, self.codebook_size, self.KMEANS_ITERS,
                                          init_idx)
             embed_avg = embed
-        idx = nearest(flat, embed.to(flat.dtype))
+        idx_all = nearest(samples, embed.to(samples.dtype))
+        start = mesh.rank() * flat.shape[0] if mesh.batch_shards() > 1 else 0
+        idx = idx_all[start:start + flat.shape[0]]
         quantized = embed[idx].reshape(x.shape).to(x.dtype)
 
         d, eps, n_codes = self.DECAY, self.EPSILON, self.codebook_size
-        onehot = F.one_hot(idx, n_codes).float()
+        onehot = F.one_hot(idx_all, n_codes).float()
         csize = cluster_size * d + onehot.sum(0) * (1 - d)
         eavg = embed_avg * d + (onehot.T @ samples) * (1 - d)
         n = torch.sum(csize)

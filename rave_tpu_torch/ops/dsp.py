@@ -8,11 +8,18 @@ channels-first and folded critic feature maps give the same values as the
 JAX package's channels-last ones. `get_beta_kl`, `get_beta_kl_cyclic` and
 `get_beta_kl_cyclic_annealed` are the reference's beta-KL schedules
 (rave_tpu/ops/dsp.py:113-128), which neither package's step calls.
+
+Under data parallelism (parallel/mesh.py::sharded_batch) a relative
+`mean_difference` divides the global batch's mean difference by the
+global batch's mean energy, as JAX's step over the global batch does: both
+sums are reduced over the ranks.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from rave_tpu_torch.parallel import mesh
 
 
 def mod_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -57,12 +64,19 @@ def mean_difference(target: torch.Tensor, value: torch.Tensor, norm: str = "L1",
     """Mean L1/L2 difference, optionally relative to the target's energy."""
     diff = target - value
     if norm == "L1":
-        d = diff.abs().mean()
-        return d / (target.abs().mean() + 1e-12) if relative else d
-    if norm == "L2":
-        d = (diff * diff).mean()
-        return d / ((target * target).mean() + 1e-12) if relative else d
-    raise ValueError(f"norm must be L1 or L2, got {norm}")
+        d, energy = diff.abs(), target.abs() if relative else None
+    elif norm == "L2":
+        d, energy = diff * diff, target * target if relative else None
+    else:
+        raise ValueError(f"norm must be L1 or L2, got {norm}")
+    if not relative:
+        return d.mean()
+    shards = mesh.batch_shards()
+    if shards > 1:  # both means over the global batch
+        sums = mesh.all_reduce_sum(torch.stack([d.sum(), energy.sum()]))
+        n = d.numel() * shards
+        return (sums[0] / n) / (sums[1] / n + 1e-12)
+    return d.mean() / (energy.mean() + 1e-12)
 
 
 def hinge_gan(score_real: torch.Tensor, score_fake: torch.Tensor):

@@ -36,13 +36,18 @@ def frame_signal(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
 def stft(x: torch.Tensor, n_fft: int, hop: int, *, center: bool = True,
          normalized: bool = False) -> torch.Tensor:
     """Complex STFT of [B, T] -> [B, frames, n_fft // 2 + 1]. Centering
-    reflect-pads, which needs T > n_fft // 2. Inputs other than float32
+    reflect-pads n_fft // 2 on each side; a pad as long as the signal or
+    longer reflects again from the ends, as `jnp.pad(mode="reflect")` does
+    (torch's reflect pad refuses it). Inputs other than float32
     and float64 (bf16 critic inputs under `train.bf16_dis`) are upcast to
     float32 first, as rave_tpu/ops/stft.py:100-103 does: the FFT takes
     neither bf16 nor fp16."""
     if x.dtype not in (torch.float32, torch.float64):
         x = x.float()
-    if center:
+    if center and n_fft // 2 >= x.shape[-1]:  # numpy's repeated reflection, by index
+        idx = np.pad(np.arange(x.shape[-1]), n_fft // 2, mode="reflect")
+        x = x[..., torch.from_numpy(idx).to(x.device)]
+    elif center:
         x = F.pad(x[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
     win = torch.from_numpy(hann_window(n_fft)).to(device=x.device, dtype=x.dtype)
     spec = torch.fft.rfft(frame_signal(x, n_fft, hop) * win, dim=-1)

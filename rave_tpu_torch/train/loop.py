@@ -1,11 +1,21 @@
 """The training driver (the Lightning Trainer equivalent).
 
 PyTorch port of rave_tpu/train/loop.py: channel inference, the dataset and
-its split, the input pipeline (the device-resident store, or the host
-loader with pinned, non-blocking transfers two batches ahead), the
-receptive field and valid-signal crop, the train state and its resume, the
-three step programs picked per global step, validation with the latent PCA,
+its split, the input pipeline (the device-resident store, the C++ sampler
+or the threaded host loader, the host loaders' batches moved with pinned,
+non-blocking transfers two batches ahead; `input_pipeline`), the receptive
+field and valid-signal crop, the train state and its resume, the three
+step programs picked per global step, validation with the latent PCA,
 EMA, checkpoints and logging, in the order the JAX loop runs them.
+
+Under `torchrun` the loop is one rank of a data-parallel run
+(parallel/mesh.py, rave_tpu/train/loop.py:85-150, 361-375, 401-440): each
+rank loads its shard of the indices in batches of `data.batch`, the steps
+run over the global batch, validation runs the same number of full
+batches on every rank (`all_processes_min`) with the latents and clips
+gathered in rank order, rank 0 computes the receptive field and shares
+it, writes the run directory (the others wait for it), logs and saves,
+and every rank restores the same checkpoint.
 
 As in the JAX package, a step's randomness depends on the global step only:
 its latent draws (the variational eps, the augmentation noise, the
@@ -21,9 +31,9 @@ Only the steps that log (1, 2 and every 100th) read a tensor back to the
 host; the others queue their work and go on. `train` runs with TF32 off for
 cuDNN convolutions and matmuls (restored on return): fp32 means fp32 here.
 
-Not ported: the C++ sampler (the port uses the host `Loader` where the JAX
-loop would pick it, ROADMAP A17), remote datasets (A18) and multi-host
-data parallelism (A14).
+As in the JAX package, `train` cannot take a remote (`http`) store: it
+reads the store's metadata first and raises FileNotFoundError (ROADMAP
+C20); a remote store feeds a `Loader` through `get_dataset`.
 """
 from __future__ import annotations
 
@@ -39,11 +49,12 @@ import torch
 
 from rave_tpu_torch import config as config_lib
 from rave_tpu_torch.config import RaveConfig
-from rave_tpu_torch.data.dataset import get_dataset, split_dataset
-from rave_tpu_torch.data.loader import Loader
+from rave_tpu_torch.data.dataset import get_dataset, is_remote, split_dataset
+from rave_tpu_torch.data.loader import Loader, NativeLoader
 from rave_tpu_torch.data.store import get_training_channels, read_metadata
 from rave_tpu_torch.data.transforms import get_derivator_integrator
 from rave_tpu_torch.factory import build_audio_distance, resolve_device
+from rave_tpu_torch.parallel import mesh
 from rave_tpu_torch.train.analysis import crop_dim, crop_frames, pca, receptive_field
 from rave_tpu_torch.train.state import TrainState, create_train_state
 from rave_tpu_torch.train.steps import build_train_steps, draw_noise, pick_phase
@@ -67,11 +78,21 @@ def fp32_exact():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def make_run_dir(root: str, name: str, cfg: RaveConfig) -> Path:
+def make_run_dir(root: str, name: str, cfg: RaveConfig, write: bool = True) -> Path:
     run_dir = Path(root) / f"{name}_{config_lib.config_hash(cfg)}"
     run_dir.mkdir(parents=True, exist_ok=True)
-    (run_dir / "config.json").write_text(config_lib.snapshot(cfg))
+    if write:  # rank 0 only under data parallelism
+        (run_dir / "config.json").write_text(config_lib.snapshot(cfg))
     return run_dir
+
+
+class NullLogger:
+    """The logger of ranks other than 0: writes nothing."""
+
+    def log(self, *a, **k):
+        pass
+
+    log_text = log_audio = update_status = close = log
 
 
 def standard_pipeline(cfg: RaveConfig) -> bool:
@@ -80,18 +101,29 @@ def standard_pipeline(cfg: RaveConfig) -> bool:
     return not (d.augmentations or d.derivative or d.normalize or d.rand_pitch)
 
 
-def use_device_data(cfg: RaveConfig, db_path: str, device_data: str) -> bool:
-    """The JAX loop's rule (rave_tpu/train/loop.py:112-126): the device pipeline unless
-    it is off, the pipeline is not the standard one, the store is lazy, or (on
-    'auto') the store is larger than $RAVE_TPU_DEVICE_DATA_MAX_GB."""
-    if device_data == "off" or not standard_pipeline(cfg):
-        return False
-    if read_metadata(db_path).get("lazy", False):
-        return False
-    from rave_tpu_torch.data.device_data import db_nbytes
+def input_pipeline(cfg: RaveConfig, db_path: str, device_data: str, processes: int = 1) -> str:
+    """The JAX loop's rule (rave_tpu/train/loop.py:112-150), stated: "device"
+    (the device-resident store) for the standard pipeline of a local,
+    non-lazy store in a single process, unless `device_data` is off or (on
+    'auto') the store is larger than $RAVE_TPU_DEVICE_DATA_MAX_GB; else
+    "native" (the C++ sampler) for the standard pipeline of a local,
+    non-lazy store; else "threads" (the threaded `Loader`)."""
+    remote = is_remote(db_path)
+    if not standard_pipeline(cfg) or remote or read_metadata(db_path).get("lazy", False):
+        return "threads"
+    if device_data != "off" and processes == 1:
+        from rave_tpu_torch.data.device_data import db_nbytes
 
-    budget = float(os.environ.get("RAVE_TPU_DEVICE_DATA_MAX_GB", DEVICE_DATA_BUDGET_GB)) * 1e9
-    return device_data == "on" or db_nbytes(db_path) <= budget
+        budget = float(os.environ.get("RAVE_TPU_DEVICE_DATA_MAX_GB",
+                                      DEVICE_DATA_BUDGET_GB)) * 1e9
+        if device_data == "on" or db_nbytes(db_path) <= budget:
+            return "device"
+    return "native"
+
+
+def use_device_data(cfg: RaveConfig, db_path: str, device_data: str) -> bool:
+    """Whether a single-process run takes the device pipeline (`input_pipeline`)."""
+    return input_pipeline(cfg, db_path, device_data) == "device"
 
 
 def host_batches(batches: Iterator[np.ndarray], device: torch.device) -> Iterator[torch.Tensor]:
@@ -158,13 +190,22 @@ def run_validation(cfg: RaveConfig, state: TrainState, loader: Loader, distance,
     the EMA weights when the run keeps them (reference rave/model.py:426-495),
     the model in eval mode (the JAX loop's `train=False` model) and put back
     in its mode after: logs `validation` and 8 clips; returns (mean loss,
-    [N, D] latent means)."""
+    [N, D] latent means). Under data parallelism every rank runs the same
+    number of full batches, each a shard of a global batch: the loss is the
+    global batch's, the same on every rank, and the latents and clips are
+    gathered in rank order."""
     model = state.model
     device = next(model.parameters()).device
     D = cfg.latent_size
-    n_batches = len(loader) if max_batches is None else min(len(loader), max_batches)
+    if mesh.world_size() > 1:  # full batches only, in lockstep over the ranks
+        n_batches = mesh.all_processes_min(len(loader.indices) // loader.batch, device)
+    else:
+        n_batches = len(loader)
+    if max_batches is not None:
+        n_batches = min(n_batches, max_batches)
     losses, latents, clips = [], [], []
-    with ema_weights(model, state.ema), eval_mode(model), torch.inference_mode():
+    with ema_weights(model, state.ema), eval_mode(model), torch.inference_mode(), \
+            mesh.sharded_batch():
         for b, x in enumerate(loader.epoch(0)):
             if b >= n_batches:
                 break
@@ -173,19 +214,19 @@ def run_validation(cfg: RaveConfig, state: TrainState, loader: Loader, distance,
             draws = draw_noise(cfg, x, torch.Generator(device=device).manual_seed(VAL_NOISE_SEED))
             zs, _ = model.reparametrize(z, draws)
             y = model.decode(zs, draws.uniform)[..., : x.shape[-1]]
-            losses.append(sum(distance(x, y).values()))
-            latents.append(z[:, :D].transpose(1, 2).reshape(-1, D))
+            losses.append(mesh.mean_over_ranks({"loss": sum(distance(x, y).values())})["loss"])
+            latents.append(mesh.gather_to_hosts(z[:, :D].transpose(1, 2).reshape(-1, D)))
             if sum(c.shape[0] for c in clips) < 8:
-                clips.append(torch.cat([x, y], dim=-1))
+                clips.append(mesh.gather_to_hosts(torch.cat([x, y], dim=-1)))
     if not losses:
         return None, None
     val = float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))
     logger.log(step, {"validation": val})
-    wav = torch.cat(clips)[:8, 0].reshape(-1).cpu().numpy()
+    wav = np.concatenate(clips)[:8, 0].reshape(-1)
     if cfg.data.derivative:  # derivative-domain audio integrated back (rave/model.py:491-492)
         wav = get_derivator_integrator(cfg.sampling_rate)[1](wav)
     logger.log_audio("audio_val", wav, cfg.sampling_rate, eval_number)
-    return val, torch.cat(latents).cpu().numpy()
+    return val, np.concatenate(latents)
 
 
 def codebook_health(model: torch.nn.Module) -> Tuple[float, float]:
@@ -238,28 +279,32 @@ def train(
     device: str | torch.device = "cuda",
 ) -> str:
     """Train `cfg` on the ARS store at `db_path` into `<out_path>/<name>_<hash>`
-    (resuming from its newest checkpoint when `resume`); returns the run dir."""
-    device = resolve_device(device)
-    channels = get_training_channels(db_path, n_channels)
+    (resuming from its newest checkpoint when `resume`); returns the run dir.
+    Under torchrun, one rank of a data-parallel run (the module docstring)."""
+    device = mesh.init_from_env(resolve_device(device))
+    rank, world = mesh.rank(), mesh.world_size()
+    is_main = rank == 0
+    progress = progress and is_main
+    channels = get_training_channels(db_path, n_channels)  # C20: raises on a URL, as JAX
     cfg.data.n_channels = channels  # recorded in the config snapshot
-    run_dir = make_run_dir(out_path, name, cfg)
+    run_dir = make_run_dir(out_path, name, cfg, write=is_main)
+    mesh.barrier()
 
     d = cfg.data
     dataset = get_dataset(db_path, cfg.sampling_rate, d.n_signal, derivative=d.derivative,
                           normalize=d.normalize, rand_pitch=d.rand_pitch,
                           augmentations=d.augmentations)
     train_idx, val_idx = split_dataset(dataset)
-    on_device = use_device_data(cfg, db_path, device_data)
-    if not on_device and standard_pipeline(cfg) and progress:
-        print("the native (C++) input pipeline is not ported (ROADMAP A17): "
-              "using the threaded host loader")
-    val_loader = Loader(dataset, val_idx, d.batch, seed=seed, shuffle=False, drop_last=False)
+    pipeline_kind = input_pipeline(cfg, db_path, device_data, world)
+    val_loader = Loader(dataset, val_idx, d.batch, seed=seed, shuffle=False, drop_last=False,
+                        host_id=rank, host_count=world)
 
-    # receptive field -> the valid-signal crop of the multiband loss
+    # receptive field -> the valid-signal crop of the multiband loss (rank 0's, shared)
     crop, rf = (0, 0), (0, 0)
     if cfg.train.valid_signal_crop:
         t0 = time.time()
-        rf = receptive_field(cfg, n_channels=channels, device=device)
+        rf = mesh.broadcast_object(
+            receptive_field(cfg, n_channels=channels, device=device) if is_main else None)
         crop = crop_frames(cfg, rf, channels)
         if crop[0] + crop[1] >= d.n_signal * channels // crop_dim(cfg, channels):
             raise ValueError(
@@ -274,6 +319,8 @@ def train(
     state = create_train_state(cfg, n_channels=channels, seed=seed, device=device)
     if resume and restore_checkpoint(str(run_dir), state) is not None and progress:
         print(f"resumed at step {state.step}")
+    mesh.replicate(state.model)
+    mesh.replicate(state.discriminator)
     with torch.no_grad():
         state.model.receptive_field.copy_(torch.tensor(rf, dtype=torch.float32))
     steps = build_train_steps(cfg, crop)
@@ -284,7 +331,7 @@ def train(
         max_steps = min(max_steps, state.step + 2)
         val_every = 1
     step = state.step
-    if on_device:
+    if pipeline_kind == "device":
         from rave_tpu_torch.data.device_data import DeviceDataPipeline, db_nbytes
 
         pipeline = DeviceDataPipeline(db_path, train_idx, d.batch, d.n_signal,
@@ -294,14 +341,22 @@ def train(
                   f"int16 on {device}, batches assembled there)")
         data = device_batches(pipeline, step)
     else:
-        loader = Loader(dataset, train_idx, d.batch, seed=seed, workers=d.workers)
+        if pipeline_kind == "native":
+            loader = NativeLoader(db_path, train_idx, d.batch, d.n_signal, cfg.sampling_rate,
+                                  seed=seed, host_id=rank, host_count=world)
+        else:
+            loader = Loader(dataset, train_idx, d.batch, seed=seed, workers=d.workers,
+                            host_id=rank, host_count=world)
+        if progress:
+            print("using the native (C++) input pipeline" if pipeline_kind == "native" else
+                  "using the threaded host loader")
         data = host_batches(loader.forever(), device)
 
     best_val, saved_at, eval_number = float("inf"), -1, 0
     t_last, s_last = time.time(), step
-    trace_start = step + 3 if trace_steps else -1
+    trace_start = step + 3 if trace_steps and is_main else -1
     profiler = None
-    logger = MetricsLogger(str(run_dir))
+    logger = MetricsLogger(str(run_dir)) if is_main else NullLogger()
     try:
         logger.log_text("config", config_lib.snapshot(cfg))
         logger.log_text("model", f"{state.model}\n\n{state.discriminator}")
@@ -313,7 +368,8 @@ def train(
                 profiler = None
             x = next(data)
             which, warmed, quantize = pick_phase(cfg, step)
-            draws = draw_noise(cfg, x, step_generator(seed + 1, step, device))
+            with mesh.sharded_batch():  # the global batch's draws, this rank's rows
+                draws = draw_noise(cfg, x, step_generator(seed + 1, step, device))
             if which == "gen":
                 metrics = steps["gen"](state, x, warmed, draws=draws, quantize=quantize)
             else:
@@ -346,19 +402,22 @@ def train(
                     perplexity, usage = codebook_health(state.model)
                     logger.log(step, {"codebook_perplexity": perplexity,
                                       "codebook_usage": usage})
-                if val_loss is not None and val_loss <= best_val:
+                if val_loss is not None and val_loss <= best_val:  # the same on every rank
                     best_val = val_loss
-                    save_checkpoint(str(run_dir), state)
+                    if is_main:
+                        save_checkpoint(str(run_dir), state)
                     saved_at = step
             if save_every and step % save_every == 0 and saved_at != step:
-                save_checkpoint(str(run_dir), state)
+                if is_main:
+                    save_checkpoint(str(run_dir), state)
                 saved_at = step
     finally:
         if profiler is not None:  # the window outlived the run: still write the trace
             stop_trace(profiler, run_dir, progress)
         logger.close()
-    if saved_at != step:
+    if saved_at != step and is_main:
         save_checkpoint(str(run_dir), state)
+    mesh.barrier()  # every rank returns once the run's last checkpoint is written
     return str(run_dir)
 
 

@@ -32,6 +32,13 @@ cast per op by the modules, so their gradients and the Adams are fp32.
 `train.remat` recomputes the generator step's autoencode pass in the
 backward, as `jax.checkpoint` does (rave_tpu/train/steps.py:212-213).
 
+Under data parallelism (a process group of W ranks, parallel/mesh.py) a
+step computes what the JAX step computes over the global batch of W*B
+rows: it runs inside `mesh.sharded_batch()`, where the ops that couple
+rows reduce over every rank and `draw_noise` draws at the global shape
+and keeps the rank's rows; the gradients are averaged over the ranks
+before both optimizers, and the returned metrics are the global batch's.
+
 The steps put the model in training mode (`model.train()`, the JAX
 package's `train=True` model): AdaIN is the identity there, and v1's
 BatchNorm normalizes by the batch and folds its statistics into the
@@ -62,6 +69,7 @@ from rave_tpu_torch.config import RaveConfig
 from rave_tpu_torch.factory import build_audio_distance, build_gan_loss
 from rave_tpu_torch.models.blocks import BatchNorm1d, LatentDraws
 from rave_tpu_torch.ops.dsp import mean_difference
+from rave_tpu_torch.parallel import mesh
 from rave_tpu_torch.train.schedules import (
     beta_factor, gen_lr_schedule, quantize_enabled, warmed_up,
 )
@@ -118,13 +126,16 @@ def draw_noise(cfg: RaveConfig, x: torch.Tensor,
     latent_size, T / decimation]; the noise synth's uniforms last, so the
     other draws are those of a model without it). The discrete sample rows
     are drawn on every call, as the JAX package draws them on every
-    training call, whether or not a code expires."""
+    training call, whether or not a code expires. Under
+    `mesh.sharded_batch()` x is this rank's rows of the global batch: the
+    draws are made at the global batch and the rank keeps its rows (the
+    sample rows index the global batch's vectors)."""
     lat = cfg.latent
-    B, T = x.shape[0], x.shape[-1] // cfg.decimation()
+    B, T = x.shape[0] * mesh.batch_shards(), x.shape[-1] // cfg.decimation()
 
     def normal(channels):
-        return torch.randn((B, channels, T), generator=generator, device=x.device,
-                           dtype=x.dtype)
+        return mesh.rank_rows(torch.randn((B, channels, T), generator=generator,
+                                          device=x.device, dtype=x.dtype))
 
     def rows():
         return torch.randint(0, B * T, (lat.num_quantizers, lat.codebook_size),
@@ -139,7 +150,8 @@ def draw_noise(cfg: RaveConfig, x: torch.Tensor,
         draws.init_idx, draws.expire_idx = rows(), rows()
     shape = cfg.noise_shape(x.shape[1], B, T)
     if shape is not None:
-        draws.uniform = torch.rand(shape, generator=generator, device=x.device, dtype=x.dtype)
+        draws.uniform = mesh.rank_rows(torch.rand(shape, generator=generator, device=x.device,
+                                                  dtype=x.dtype))
     return draws
 
 
@@ -230,6 +242,10 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
     def gen_step(state: TrainState, x: torch.Tensor, warmed: bool,
                  draws: Optional[LatentDraws] = None,
                  generator: Optional[torch.Generator] = None, quantize: bool = True) -> dict:
+        with mesh.sharded_batch():
+            return _gen_step(state, x, warmed, draws, generator, quantize)
+
+    def _gen_step(state, x, warmed, draws, generator, quantize):
         state.model.train()
         params = list(state.model.parameters())
         state.gen_opt.zero_grad(set_to_none=True)
@@ -247,6 +263,7 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
         for p in params:
             if p.grad is None:  # the frozen encoder: a zero gradient, as JAX's is
                 p.grad = torch.zeros_like(p)
+        mesh.average_gradients(params)
         lr = gen_lr(state.step)
         for group in state.gen_opt.param_groups:
             group["lr"] = lr
@@ -257,10 +274,14 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
         if state.ema is not None:
             update_ema(state.ema, state.model, t.ema)
         state.step += 1
-        return detached(metrics)
+        return mesh.mean_over_ranks(detached(metrics))
 
     def dis_step(state: TrainState, x: torch.Tensor, draws: Optional[LatentDraws] = None,
                  generator: Optional[torch.Generator] = None, quantize: bool = True) -> dict:
+        with mesh.sharded_batch():
+            return _dis_step(state, x, draws, generator, quantize)
+
+    def _dis_step(state, x, draws, generator, quantize):
         state.model.train()
         if draws is None:
             draws = draw_noise(cfg, x, generator)
@@ -270,11 +291,12 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
         _, loss_dis, metrics = losses_and_metrics(out, state.discriminator, x, True, state.step,
                                                   gen_metrics=t.dis_full_metrics)
         loss_dis.backward()
+        mesh.average_gradients(state.discriminator.parameters())
         state.dis_opt.step()
         if out["updates"] is not None:
             state.model.encoder.commit(out["updates"])
         state.step += 1
-        return detached(metrics)
+        return mesh.mean_over_ranks(detached(metrics))
 
     return {"gen": gen_step, "dis": dis_step}
 

@@ -7,8 +7,8 @@ preprocess -> train -> resume -> eval through `main(argv)` with
 and `generate`, offline and streaming, against the artifact's own forward.
 Every `--config` takes a reference `.gin` file stacked with presets and
 overrides: `train` on one (and with the spectral critic), as the JAX
-package composes it. The command not ported exits non-zero and names its
-ROADMAP item.
+package composes it. `remote_dataset` serves the store to the port's HTTP
+client.
 """
 import io
 import json
@@ -167,14 +167,35 @@ def test_export_generate(db, tmp_path):
         assert np.abs(want).max() > 0
 
 
-REFUSED = [([command, "--run", "x"], item) for command, item in sorted(cli.NOT_PORTED.items())]
+def test_remote_dataset_serves_the_store(db):
+    """`cli remote_dataset` in its own process serves the store: the port's
+    client reads every record as the store holds it, then the server is
+    stopped."""
+    import socket
+    import subprocess
+    import sys
 
+    from rave_tpu_torch.data.dataset import HTTPAudioDataset
+    from rave_tpu_torch.data.store import ArsReader
 
-@pytest.mark.parametrize("argv, item", REFUSED, ids=sorted(cli.NOT_PORTED))
-def test_unported_commands_name_their_item(argv, item):
-    code, _, err = run(argv)
-    assert code == 2
-    assert f"ROADMAP {item}" in err and "A1" in err
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    server = subprocess.Popen(
+        [sys.executable, "-m", "rave_tpu_torch.cli", "remote_dataset", "--db_path",
+         str(db / "db"), "--port", str(port)],
+        cwd=Path(__file__).resolve().parents[1], stdout=subprocess.PIPE, text=True)
+    try:
+        assert "(52 examples)" in server.stdout.readline()
+        remote = HTTPAudioDataset(f"http://127.0.0.1:{port}")
+        reader = ArsReader(str(db / "db"))
+        assert len(remote) == len(reader) == 52
+        for i in (0, 17, 51):
+            np.testing.assert_array_equal(remote.get(i, None),
+                                          reader[i].astype(np.float32) / 32767.0)
+    finally:
+        server.kill()
+        server.wait()
 
 
 RUN_GIN = """include "configs/v2.gin"

@@ -25,7 +25,10 @@ imported. A second interpreter does the same for the latent prior:
 tools/torch_reference_ckpt.py from a port model's weights, `import_torch
 --config <gin>`, `export` and `generate` of the imported run, and one
 critic step of v2 with the spectral critic and one generator step with the
-`encodec` and the `instantaneous` distances.
+`encodec` and the `instantaneous` distances; a fifth for the data path
+and data parallelism: the C++ sampler and its numpy twin, the
+`NativeLoader`, `remote_dataset`'s server and the HTTP dataset through a
+`Loader`, and the multi-process worker's steps in one process.
 Every module of the port, and tools/torch_reference_ckpt.py, is also read
 (`ast`): none imports yaml, orbax or tensorboard at module level (the
 machine with the GPU has none of them), nor jax, flax or the JAX package.
@@ -398,6 +401,64 @@ def test_import_and_gin_never_import_jax():
     assert out["codes"] == [0] * 3 and out["name"] == "run"
     assert out["wav"] == [4 * 8192]
     assert len(out["losses"]) == 3 and all(math.isfinite(v) for v in out["losses"])
+
+
+DATA_SCRIPT = """
+import contextlib, io, json, pathlib, sys, tempfile, threading
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from rave_tpu_torch.data.dataset import get_dataset
+from rave_tpu_torch.data.loader import Loader, NativeLoader
+from rave_tpu_torch.data.native import NativeSampler, sample_plain
+from rave_tpu_torch.data.server import make_server
+from rave_tpu_torch.data.store import ArsReader, ArsWriter
+from rave_tpu_torch.parallel import mpworker
+root = pathlib.Path(tempfile.mkdtemp())
+w = ArsWriter(str(root / "db"), num_signal=4096, channels=1, sr=44100)
+for i in range(6):
+    w.append((np.random.default_rng(i).standard_normal((4096, 1)) * 3000).astype(np.int16))
+w.close()
+got = NativeSampler(str(root / "db"), 4096, 1, crop=2048, sr=44100).sample(np.arange(4), 1)
+plain = sample_plain(ArsReader(str(root / "db")).records(), np.arange(4), 2048, 44100,
+                     epoch_tag=1)
+native = next(NativeLoader(str(root / "db"), np.arange(6), 2, 2048, 44100).epoch(0))
+server = make_server(str(root / "db"), 0, host="127.0.0.1")
+threading.Thread(target=server.serve_forever, daemon=True).start()
+url = "http://127.0.0.1:%d" % server.server_address[1]
+remote = list(Loader(get_dataset(url, 44100, 2048), np.arange(6), 2, workers=1).epoch(0))
+local = list(Loader(get_dataset(str(root / "db"), 44100, 2048), np.arange(6), 2,
+                    workers=1).epoch(0))
+server.shutdown()
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    code = mpworker.main(["--device", "cpu", "--batch", "2"])
+worker = json.loads(out.getvalue().split("MPWORKER ", 1)[1])
+print(json.dumps({
+    "plain": float(np.abs(got - plain).max()), "native": list(native.shape),
+    "remote": bool(np.array_equal(np.stack(remote), np.stack(local))), "code": code,
+    "losses": [worker[k] for k in ("step0_loss_gen", "step1_loss_gen", "step2_loss_dis")],
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "rave_tpu")),
+}))
+"""
+
+
+def test_data_path_and_parallel_never_import_jax():
+    """The sampler, the native and remote loaders and the DP worker in a
+    fresh interpreter; and no module of the port names the JAX package's
+    `native/` directory."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH", "")) if p)}
+    proc = subprocess.run([sys.executable, "-c", DATA_SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == [], out["loaded"]
+    assert out["plain"] <= 1e-6 and out["native"] == [2, 1, 2048] and out["remote"]
+    assert out["code"] == 0 and all(math.isfinite(v) for v in out["losses"])
+    for path in (ROOT / "rave_tpu_torch").rglob("*.py"):
+        text = path.read_text()
+        assert '/ "native"' not in text and "native/" not in text, path
 
 
 FOREIGN = {"yaml", "orbax", "tensorboard", "jax", "jaxlib", "flax", "rave_tpu"}

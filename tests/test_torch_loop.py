@@ -5,8 +5,11 @@ newest-step and `step=` choice, a temporary file never chosen, run and
 config discovery answering as the JAX package's on the same tree).
 
 The slice as a whole: both `train()` loops run 6 steps of the tiny v2 on
-the same db with the host loader (`device_data="off"`; the JAX loop's
-native sampler is made to raise, so its own fallback picks `Loader`). Both
+the same db with the threaded host loader (`device_data="off"`; the JAX
+loop's native sampler is made to raise, so its own fallback picks
+`Loader`, and the port's rule, which would take its C++ sampler there, is
+made to pick `Loader`: tests/test_torch_native.py holds the two packages'
+native loaders to each other). Both
 start from the JAX loop's initial state (the port's through
 `from_jax_variables`) and draw the same noise: the port's `draw_noise` is
 replaced by the JAX loop's per-step eps, recovered from
@@ -212,6 +215,7 @@ def port_run(db, jax_run, tmp_path_factory):
     phases, saves = [], []
     with pytest.MonkeyPatch.context() as mp:
         port_patches(mp, jax_run, phases, saves)
+        mp.setattr(loop, "input_pipeline", lambda *a, **k: "threads")
         run_dir = loop.train(make_cfg(config), db, name="p", out_path=str(out), max_steps=6,
                              val_every=3, save_every=4, seed=SEED, resume=False,
                              progress=False, device_data="off", device="cpu")
