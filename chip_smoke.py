@@ -39,17 +39,26 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
   7. grad    : the wrapper raises on float64, on mixed fp32/bf16, on C % 8
                in fp32 and C % 16 in bf16, and on a halo wider than a TMA
                box, with autograd recording or not;
-               the fused unit under autograd (kernel forward, plain
-               recompute backward) against plain autograd through the plain
-               version at the 11 centered v2 shapes at B=8: in fp32 y, dx,
-               dw1, dw2 each within 1e-4 of its max; in bf16 by the rule of
-               phase 4 against plain fp32 autograd; fwd+bwd times;
+               the gradient's kernel (`dilated_unit_backward`: dx, dw1,
+               dw2) against its plain closed form at every (C, T, d) of
+               UNIT_SHAPES and VARIANT_UNITS, centered and causal, at B=8
+               and B=1, and a ragged T per width (`grad_cases`), taken at
+               the kernel's side of leaky'(h)'s kink (`backward_row`): fp32
+               each within 1e-4 of its max, the kernel's h too; bf16 by the
+               rule of phase 4 against the plain fp32 closed form; at the
+               centered v2 and variant shapes at B=8 the Function's
+               gradients bit-equal to the kernel's, its y within the
+               forward's rules, and device ms of fwd+bwd (Function and
+               plain autograd) and of the backward alone (kernel and plain);
   8. train   : compose(["v2"]) at full width, B = data.batch = 8 x
                data.n_signal = 131072, fp32: the receptive field (and the
                valid-signal crop) from the port's probe, then pre-warmup
                generator steps, and adversarial generator and critic steps
                picked by pick_phase past phase_1_duration; exactly 22
-               kernel launches per step, finite losses, the params of what
+               kernel launches per step and 22 / 11 / 0 of the gradient's
+               kernel in a pre-warmup / adversarial / critic step (the
+               encoder runs frozen past the warmup, the critic step's
+               generator pass without a graph), finite losses, the params of what
                trains moved, the global step; mean ms per step per phase
                after one warm step, and peak memory. Then the same seeded
                weights at B=1 x 131072, one pre-warmup generator step and
@@ -76,7 +85,9 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                train.remat from the same state and noise, cuDNN
                deterministic, after one warm step: losses equal to 1e-6,
                gradients to 1e-5 (global relative L2), 44 launches (forward
-               and recompute) against 22, and a lower peak memory;
+               and recompute) against 22, 22 of the gradient's kernel each,
+               a lower peak memory, and the step again without remat from
+               the same state bit-equal to the first;
  11. loop    : the training driver through the port's command line, in
                process (`rave_tpu_torch.cli.main`): a seeded corpus of .wav
                tones, chirps and noise (104 records of 131072 samples, 2 of
@@ -92,7 +103,9 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                training loop is observed in process (it ends in a synchronize and
                records its time and its launches of each variant): exactly
                22 launches of the step's variant per step and 22 fp32 per
-               validation or eval batch; finite losses; the PCA buffers set
+               validation or eval batch, and the gradient kernel's per step
+               as phase 8 (none in validation or eval, one per unit in the
+               receptive-field probe); finite losses; the PCA buffers set
                by the pre-warmup validation; the run dir's files and
                checkpoints; the resumed state bit-equal to its checkpoint
                and its first batch the one an unbroken device pipeline makes
@@ -221,10 +234,14 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                summation orders by 5% in the next loss), two ranks of B=4 x
                131072 on one card with gloo, pre-warmup, adversarial and
                critic steps under cuDNN's deterministic algorithms; the
-               ranks' parameters and buffers bit-equal (a digest) and their
-               losses within 1e-4 of one process running the same steps on
-               the global batch of 8 from the same seeded weights and
-               draws; exactly 22 launches per step on every
+               ranks' parameters and buffers bit-equal (a digest); against
+               one process running the same steps on the global batch of 8
+               from the same seeded weights and draws, step 0's loss within
+               1e-4 and step 0's averaged generator gradient within
+               DP_GRAD_TOL (relative L2 over all parameters; the later
+               losses are printed, not held: after Adam's sign-driven first
+               update they part by rounding noise, ROADMAP C21); exactly 22
+               launches per step on every
                rank; the unit against its plain version at the 11 centered
                B=4 shapes of those steps (1e-4); then a 2-rank `cli train
                --device_data off` (B=1 per rank: one validation record each)
@@ -348,6 +365,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "rave_tpu_torch/csrc/dilated_unit.cu"
 KERNEL_REPLACES = "rave_tpu/ops/kernels/dilated_unit.py:75"
+# the gradient's kernel replaces `_bwd` of the custom_vjp (XLA's recompute, no Pallas in it)
+KERNEL_BWD_REPLACES = "rave_tpu/ops/kernels/dilated_unit.py:132"
+# the decoder's units in every preset that has them: an adversarial generator step's
+# gradient launches (the encoder runs frozen, without a graph)
+DECODER_UNITS = 11
 SAMPLE_RATE = 44100
 KERNEL_TOL, MODEL_TOL = 1e-4, 1e-3
 LOSS_TOL, GRAD_FLOOR = 1e-4, 1e-3  # GPU vs CPU step: loss; gradient bound's floor
@@ -367,6 +389,7 @@ TRAIN_BATCH = 8  # data.batch of the v2 preset: the unit shapes above at half th
 PEAK_FLOPS = {"fp32": 495e12 / 3, "bf16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES_PER_CALL = 1_000_000  # ~0.6 ms of the card's clock per timed call (cuda_ms)
+AUTOGRAD_SLEEP_CYCLES = 5_000_000  # ~3 ms per timed forward + backward under autograd
 # the loop phase: 104 records (2 in the validation split); a short warmup and a critic
 # step every other step, so that a few steps run all three programs
 LOOP_RECORDS, LOOP_FILES = 104, 4
@@ -401,17 +424,18 @@ def refuses(call, error) -> bool:
     return False
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, sleep_cycles: int = SLEEP_CYCLES_PER_CALL) -> float:
     """Mean device milliseconds per call, by CUDA events, after two warm
-    calls. The card first sleeps while the host queues all the calls, so a
-    call whose host work outlasts its device work is timed by the latter:
-    this is the device's time per call, not the host's."""
+    calls. The card first sleeps (`sleep_cycles` per call) while the host
+    queues all the calls, so a call whose host work outlasts its device
+    work is timed by the latter: this is the device's time per call, not
+    the host's, as long as the sleep outlasts the host's queueing."""
     import torch
 
     for _ in range(2):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
+    torch.cuda._sleep(sleep_cycles * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -435,6 +459,42 @@ def unit_bound(rows, batch: int, dtype: str, backward: bool = False) -> dict:
         C, T, K = r["C"], r["T"], 3
         b = (acts * batch * C * T + weights * (K + 1) * C * C) * elem / HBM_BYTES_PER_S
         o = work * 2 * (K + 1) * C * C * T * batch / PEAK_FLOPS[dtype]
+        bytes_s, ops_s, bound_s = bytes_s + b, ops_s + o, bound_s + max(b, o)
+    return {"bound_ms": bound_s * 1e3, "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "bytes_ms": bytes_s * 1e3, "ops_ms": ops_s * 1e3}
+
+
+def reset_counts() -> None:
+    """Every launch count of the unit's kernels to 0: the forward's (both
+    variants) and the gradient's."""
+    from rave_tpu_torch.ops.kernels import dilated_unit as du
+
+    du.launches = du.launches_bf16 = du.launches_backward = du.launches_backward_bf16 = 0
+
+
+def bwd_per_step(phase: str, units: int) -> int:
+    """The gradient kernel's launches in one step of `phase` of a model with
+    `units` fused units per forward: every unit in a pre-warmup generator
+    step, the decoder's in an adversarial one, none in a critic step (its
+    generator pass runs without a graph)."""
+    if units == 0:
+        return 0
+    return {"gen_prewarmup": units, "gen_adversarial": DECODER_UNITS, "dis": 0}[phase]
+
+
+def unit_bwd_bound(rows, batch: int, dtype: str) -> dict:
+    """The least time the card could take for the gradient alone of the units
+    of `rows` (one launch each), as `unit_bound`: bytes x and gy read, dx
+    written, the weights read and their gradients written; FLOP those the
+    gradient needs from x, the weights and gy: h again (2 K C^2 T B: its
+    sign is leaky'(h), and dw2 reads leaky(h)), dh (2 C^2 T B), dx (2 K C^2
+    T B), dw2 (2 C^2 T B) and dw1 (2 K C^2 T B)."""
+    elem = 4 if dtype == "fp32" else 2
+    bytes_s = ops_s = bound_s = 0.0
+    for r in rows:
+        C, T, K = r["C"], r["T"], 3
+        b = (3 * batch * C * T + 2 * (K + 1) * C * C) * elem / HBM_BYTES_PER_S
+        o = 2 * (3 * K + 2) * C * C * T * batch / PEAK_FLOPS[dtype]
         bytes_s, ops_s, bound_s = bytes_s + b, ops_s + o, bound_s + max(b, o)
     return {"bound_ms": bound_s * 1e3, "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "bytes_ms": bytes_s * 1e3, "ops_ms": ops_s * 1e3}
@@ -611,7 +671,7 @@ def phase_offline() -> dict:
     with torch.inference_mode():
         model(x, draws)  # warm (cuDNN heuristics, allocator)
         torch.cuda.synchronize()
-        dilated_unit.launches = dilated_unit.launches_bf16 = 0
+        reset_counts()
         y = model(x, draws)
         torch.cuda.synchronize()
         launches = dilated_unit.launches
@@ -687,13 +747,121 @@ def phase_stream() -> dict:
     return out
 
 
+def grad_cases() -> list:
+    """(case, B, C, T, d, mode) of phase `grad`'s backward checks: every (C, T,
+    d) of UNIT_SHAPES and VARIANT_UNITS, centered and causal, at B=8 and B=1;
+    then at each width its longest T and widest dilation there, ragged (T - 21),
+    centered, at B=8 and B=1."""
+    shapes = sorted({(C, T, d) for C, T, dils in UNIT_SHAPES for d in dils}
+                    | {(C, T, d) for units in VARIANT_UNITS.values() for C, T, dils in units
+                       for d in dils})
+    cases = [("main" if B == TRAIN_BATCH else "b1", B, C, T, d, mode) for C, T, d in shapes
+             for B in (TRAIN_BATCH, 1) for mode in ("centered", "causal")]
+    widest = {}
+    for C, T, d in shapes:
+        widest[C] = max(widest.get(C, (0, 0)), (T, d))
+    return cases + [("ragged", B, C, T - 21, d, "centered") for C, (T, d) in sorted(widest.items())
+                    for B in (TRAIN_BATCH, 1)]
+
+
+def backward_row(gen, case: str, B: int, C: int, T: int, d: int, mode: str, dtype) -> dict:
+    """The gradient's kernel (`_backward`, all three gradients) against its plain
+    version on one seeded shape. leaky'(h) jumps at h = 0, and the kernel's h
+    and the plain h differ by their rounding, so the plain version is taken at
+    the kernel's side of the kink (its recomputed g as `g_sign`), the kernel's
+    g is held to the plain g, and every h whose side differs must lie within
+    that rounding of 0 (KERNEL_TOL of max |h| in fp32, BF16_TOL in bf16).
+    fp32: dx, dw1, dw2 within KERNEL_TOL; bf16: no further from the fp32
+    referee (the plain version on the same bf16 numbers in fp32, at the same
+    side) than BF16_MARGIN x the plain bf16 version, and within BF16_TOL of it."""
+    import torch
+    import torch.nn.functional as F
+
+    from rave_tpu_torch.nn.conv import get_padding
+    from rave_tpu_torch.ops.kernels import dilated_unit as du
+
+    left, right = get_padding(3, 1, d, mode)
+    x = torch.randn(B, C, T, device="cuda", generator=gen).to(dtype)
+    w1, w2 = unit_weights(C, gen, dtype)
+    gy = torch.randn(B, C, T, device="cuda", generator=gen).to(dtype)
+    args = (x, w1, w2, gy, d, left, right)
+    *got, g_k = du.backward_kernel_with_g(*args)
+    want = du.fused_dilated_unit_backward_reference(*args, g_sign=g_k)
+    torch.cuda.synchronize()
+    where = f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} B={B} C={C} T={T} d={d} {mode}"
+    check(all(bool(torch.isfinite(a).all()) and a.dtype == dtype and a.shape == b.shape
+              for a, b in zip(got, want)), f"gradient kernel not finite, or not {dtype}, at {where}")
+    h = F.conv1d(F.pad(du._leaky(x.float()), (left, right)), w1.float(), dilation=d)
+    flips = (g_k > 0) != (h > 0)
+    kink = float(h[flips].abs().max() / h.abs().max()) if bool(flips.any()) else 0.0
+    keys = ("dx", "dw1", "dw2")
+    errs = {k: rel_err(a, b) for k, a, b in zip(keys, got, want)}
+    row = {"case": case, "B": B, "C": C, "T": T, "d": d, "mode": mode, "flips": int(flips.sum()),
+           "flip_h_max": kink, **{f"{k}_rel_err": v for k, v in errs.items()},
+           "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                              for a, b in zip(got, want))}
+    if dtype == torch.float32:
+        row["g_rel_err"] = rel_err(g_k, du._leaky(h))
+        check(kink <= KERNEL_TOL and max(errs.values()) <= KERNEL_TOL
+              and row["g_rel_err"] <= KERNEL_TOL,
+              f"gradient kernel vs plain at {where}: {errs}, g {row['g_rel_err']:.3e}, "
+              f"{row['flips']} sides of the kink differ at |h| <= {kink:.3e} max (<= {KERNEL_TOL})")
+    else:
+        ref = du.fused_dilated_unit_backward_reference(
+            *(t.float() for t in (x, w1, w2, gy)), d, left, right, g_sign=g_k)
+        check(kink <= BF16_TOL, f"bf16 gradient kernel at {where}: {row['flips']} sides of the "
+                                f"kink differ at |h| <= {kink:.3e} max (<= {BF16_TOL})")
+        for k, a, b, r in zip(keys, got, want, ref):
+            e_k, e_p = rel_err(a, r), rel_err(b, r)
+            row[f"{k}_rel_err_fp32"], row[f"{k}_plain_rel_err_fp32"] = e_k, e_p
+            check(e_k <= BF16_MARGIN * e_p and errs[k] <= BF16_TOL,
+                  f"bf16 gradient kernel {k} at {where}: {e_k:.3e} from the fp32 referee "
+                  f"(plain bf16 {e_p:.3e}), {errs[k]:.3e} from plain bf16")
+    if case == "main" and mode == "centered":  # the times of a B=8 training step's units
+        fwd_bwd_ms, plain_fwd_bwd_ms = function_ms(x, w1, w2, gy, d, left, right)
+        row.update(fwd_bwd_ms=fwd_bwd_ms, plain_fwd_bwd_ms=plain_fwd_bwd_ms,
+                   bwd_ms=cuda_ms(lambda: du._backward(*args, (True, True, True)), 10),
+                   plain_bwd_ms=cuda_ms(
+                       lambda: du.fused_dilated_unit_backward_reference(*args), 10))
+    return row
+
+
+def function_ms(x, w1, w2, gy, d, left, right) -> tuple:
+    """Device ms of forward plus backward (all three gradients): the
+    autograd.Function (both kernels), then plain autograd through the plain
+    version (cuDNN). Checks on the way that the Function's gradients are
+    `_backward`'s to the bit, and its y within the forward kernel's rules."""
+    import torch
+
+    from rave_tpu_torch.ops.kernels import dilated_unit as du
+
+    leaves = [t.detach().requires_grad_() for t in (x, w1, w2)]
+
+    def fwd_bwd(fn):
+        y = fn(*leaves, d, left, right)
+        return (y, *torch.autograd.grad(y, leaves, gy))
+
+    y, *grads = fwd_bwd(du.fused_dilated_unit)
+    y_p = fwd_bwd(du.fused_dilated_unit_reference)[0]
+    check(all(torch.equal(a, b) for a, b in zip(grads, du._backward(
+        x, w1, w2, gy, d, left, right, (True, True, True)))),
+        f"the Function's gradients are not the gradient kernel's at C={x.shape[1]} d={d}")
+    err = rel_err(y.detach(), y_p.detach())
+    if x.dtype == torch.float32:
+        check(err <= KERNEL_TOL, f"Function y vs plain at C={x.shape[1]} d={d}: {err:.3e}")
+    else:
+        check(err <= BF16_TOL, f"bf16 Function y vs plain at C={x.shape[1]} d={d}: {err:.3e}")
+    # autograd's host work per call (the Function's Python, the allocations,
+    # ~10-30 launches) can outlast a call's device work: a longer sleep
+    sleep = AUTOGRAD_SLEEP_CYCLES
+    return (cuda_ms(lambda: fwd_bwd(du.fused_dilated_unit), 10, sleep),
+            cuda_ms(lambda: fwd_bwd(du.fused_dilated_unit_reference), 10, sleep))
+
+
 def phase_grad() -> dict:
     import torch
 
-    from rave_tpu_torch.nn.conv import get_padding
-    from rave_tpu_torch.ops.kernels.dilated_unit import (
-        fused_dilated_unit, fused_dilated_unit_reference,
-    )
+    from rave_tpu_torch.ops.kernels.dilated_unit import fused_dilated_unit
 
     # what the kernel does not take must raise on the card, with autograd
     # recording or not: no call quietly runs the plain version
@@ -711,52 +879,26 @@ def phase_grad() -> dict:
                   f"instead of raising {error}")
 
     gen = torch.Generator(device="cuda").manual_seed(10)
-    rows = {"fp32": [], "bf16": []}
-    for C, T, dilations in UNIT_SHAPES:
-        x = torch.randn(TRAIN_BATCH, C, T, device="cuda", generator=gen)
-        w1, w2 = unit_weights(C, gen, torch.float32)
-        g = torch.randn(TRAIN_BATCH, C, T, device="cuda", generator=gen)
-        for dtype, name in ((f32, "fp32"), (b16, "bf16")):
-            leaves = [t.detach().to(dtype).requires_grad_() for t in (x, w1, w2)]
-            leaves32 = [t.detach().float().requires_grad_() for t in leaves]
-            g_d = g.to(dtype)
-            for d in dilations:
-                left, right = get_padding(3, 1, d, "centered")
-
-                def fwd_bwd(fn, inputs=leaves, grad=g_d):
-                    y = fn(*inputs, d, left, right)
-                    return (y, *torch.autograd.grad(y, inputs, grad))
-
-                got = fwd_bwd(fused_dilated_unit)
-                want = fwd_bwd(fused_dilated_unit_reference)
-                torch.cuda.synchronize()
-                check(all(bool(torch.isfinite(a).all()) and a.dtype == dtype for a in got),
-                      f"{name} grad not finite or not {dtype} at {C, T, d}")
-                keys = ("y", "dx", "dw1", "dw2")
-                errs = {k: rel_err(a.detach(), b.detach()) for k, a, b in zip(keys, got, want)}
-                row = {"C": C, "T": T, "d": d, **{f"{k}_rel_err": v for k, v in errs.items()}}
-                if name == "fp32":
-                    check(max(errs.values()) <= KERNEL_TOL,
-                          f"autograd.Function vs plain at C={C} T={T} d={d}: {errs} > {KERNEL_TOL}")
-                else:  # the referee: plain fp32 autograd on the same bf16 numbers
-                    ref = fwd_bwd(fused_dilated_unit_reference, leaves32, g_d.float())
-                    for k, a, b, r in zip(keys, got, want, ref):
-                        e_f, e_p = rel_err(a.detach(), r.detach()), rel_err(b.detach(), r.detach())
-                        row[f"{k}_rel_err_fp32"], row[f"{k}_plain_rel_err_fp32"] = e_f, e_p
-                        check(e_f <= BF16_MARGIN * e_p and errs[k] <= BF16_TOL,
-                              f"bf16 Function {k} at C={C} T={T} d={d}: {e_f:.3e} from the "
-                              f"fp32 referee (plain bf16 {e_p:.3e}), {errs[k]:.3e} from plain")
-                row["fwd_bwd_ms"] = cuda_ms(lambda: fwd_bwd(fused_dilated_unit), 10)
-                row["plain_fwd_bwd_ms"] = cuda_ms(lambda: fwd_bwd(fused_dilated_unit_reference), 10)
-                rows[name].append(row)
-    for name, rs in rows.items():
-        worst = max(max(r[f"{k}_rel_err"] for k in ("y", "dx", "dw1", "dw2")) for r in rs)
+    t0 = time.perf_counter()
+    out = {name: [backward_row(gen, *case, dtype) for case in grad_cases()]
+           for dtype, name in ((f32, "fp32"), (b16, "bf16"))}
+    v2 = {(C, T, d) for C, T, dils in UNIT_SHAPES for d in dils}
+    for name, rs in list(out.items()):
+        timed = [r for r in rs if "bwd_ms" in r]
+        # the 11 centered v2 shapes at B=8, each once: half a training step's units
+        out[name + "_v2"] = [r for r in timed if (r["C"], r["T"], r["d"]) in v2]
+        worst = max(max(r[f"{k}_rel_err"] for k in ("dx", "dw1", "dw2")) for r in rs)
+        flips = sum(r["flips"] for r in rs)
         summary = "; ".join(f"{r['C']}x{r['T']} d{r['d']} {r['fwd_bwd_ms']:.3f}/"
-                            f"{r['plain_fwd_bwd_ms']:.3f}" for r in rs)
-        print(f"grad {name}: {len(refusals)} refusals raised with and without autograd; "
-              f"{len(rs)} shapes, B={TRAIN_BATCH}, y/dx/dw1/dw2 max rel err from plain "
-              f"{worst:.2e}; fwd+bwd ms Function/plain: {summary}", flush=True)
-    return rows
+                            f"{r['plain_fwd_bwd_ms']:.3f} (bwd {r['bwd_ms']:.3f}/"
+                            f"{r['plain_bwd_ms']:.3f})" for r in out[name + "_v2"])
+        print(f"grad {name}: {len(refusals)} refusals raised with and without autograd; the "
+              f"gradient kernel at {len(rs)} shapes, dx/dw1/dw2 max rel err from plain "
+              f"{worst:.2e} (at the kernel's side of the kink; {flips} sides differ, all at "
+              f"|h| <= {max(r['flip_h_max'] for r in rs):.1e} max); v2 at B={TRAIN_BATCH}, "
+              f"fwd+bwd ms Function/plain (bwd kernel/plain): {summary}", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def _grad_errors(grads, ref) -> dict:
@@ -777,7 +919,8 @@ def _train_run(cfg, crop, x, bf16: bool, per_step: int = 22, prewarmup: int = 5,
     """`prewarmup` pre-warmup generator steps, then `cycles` *
     update_discriminator_every steps picked by pick_phase past the warmup,
     from seed 0, on the card: the kernel launches of each step (`per_step`
-    of the expected variant, none of the other), finite losses, moved
+    of the expected variant, none of the other; the gradient kernel's
+    `bwd_per_step` of the same variant), finite losses, moved
     params, the global step; ms per step per phase (mean after the first)
     and the peak memory."""
     import torch
@@ -797,14 +940,14 @@ def _train_run(cfg, crop, x, bf16: bool, per_step: int = 22, prewarmup: int = 5,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = {"gen_prewarmup": [], "gen_adversarial": [], "dis": []}
-    last, launches = {}, 0
+    last, launches, launches_bwd, bwd_by_phase = {}, 0, 0, {}
     kind = "bf16" if bf16 else "fp32"
 
     def one_step(which: str, warmed: bool) -> None:
-        nonlocal launches
+        nonlocal launches, launches_bwd
         step = state.step
         torch.cuda.synchronize()
-        dilated_unit.launches = dilated_unit.launches_bf16 = 0
+        reset_counts()
         t1 = time.perf_counter()
         if which == "dis":
             m = steps["dis"](state, x, generator=noise)
@@ -819,6 +962,13 @@ def _train_run(cfg, crop, x, bf16: bool, per_step: int = 22, prewarmup: int = 5,
               f"{dilated_unit.launches} kernel launches ({n_bf16} bf16) in a {kind} {name} "
               f"step, expected {per_step} {kind}")
         launches += n_kind
+        n_bwd, want_bwd = dilated_unit.launches_backward, bwd_per_step(name, per_step)
+        n_bwd_bf16 = dilated_unit.launches_backward_bf16
+        check(n_bwd == want_bwd and n_bwd_bf16 == (n_bwd if bf16 else 0),
+              f"{n_bwd} gradient kernel launches ({n_bwd_bf16} bf16) in a {kind} {name} step, "
+              f"expected {want_bwd} {kind}")
+        launches_bwd += n_bwd
+        bwd_by_phase[name] = n_bwd
         check(state.step == step + 1, f"global step {state.step} after step {step}")
         bad = [k for k, v in m.items() if not math.isfinite(float(v))]
         check(not bad, f"{kind} {name} step: non-finite {bad}")
@@ -840,7 +990,9 @@ def _train_run(cfg, crop, x, bf16: bool, per_step: int = 22, prewarmup: int = 5,
     check(all(p.dtype == torch.float32 for p in state.model.parameters()), "masters not fp32")
     return {"ms_per_step": {k: statistics.mean(v[1:]) * 1e3 for k, v in times.items()},
             "steps": {k: len(v) for k, v in times.items()}, "launches_per_step": per_step,
-            "launches": launches, "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches, "launches_backward": launches_bwd,
+            "launches_backward_per_step": bwd_by_phase,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
             "last_metrics": last}
 
 
@@ -891,7 +1043,7 @@ def phase_train() -> dict:
     probe_s = time.perf_counter() - t0
     x = torch.randn(B, 1, N, device="cuda", generator=torch.Generator(device="cuda").manual_seed(6))
     x = x * 0.1
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     run = _train_run(cfg, crop, x, bf16=False)
 
     # the same seeded weights at B=1: GPU (kernel) against CPU (plain), and a
@@ -918,7 +1070,8 @@ def phase_train() -> dict:
     print(f"train: v2 B={B} x {N}, rf {rf} samples -> crop {crop} band frames (probe "
           f"{probe_s:.1f} s); ms per step (mean after one warm step): "
           + ", ".join(f"{k} {v:.1f} (x{run['steps'][k] - 1})" for k, v in run["ms_per_step"].items())
-          + f"; 22 kernel launches per step, {run['launches']} in all; peak "
+          + f"; 22 kernel launches per step, {run['launches']} in all; gradient kernel "
+          + f"{run['launches_backward_per_step']} per step, {run['launches_backward']} in all; peak "
           + f"{run['peak_gb']:.2f} GiB; "
           + "; ".join(f"B=1 {k}: loss GPU vs CPU {c['loss_rel_err']:.1e}, grad GPU vs CPU "
                       f"{c['grad_gpu_vs_cpu']:.2e}, vs float64 GPU {c['grad_gpu_vs_f64']:.2e} "
@@ -949,7 +1102,7 @@ def phase_train_bf16(crop) -> dict:
     B, N = cfg.data.batch, cfg.data.n_signal
     x = torch.randn(B, 1, N, device="cuda", generator=torch.Generator(device="cuda").manual_seed(6))
     x = x * 0.1
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     run = _train_run(cfg, crop, x, bf16=True)
 
     # B=1 from the same seeded weights: bf16 against fp32, both on the card
@@ -1074,11 +1227,12 @@ def phase_remat(crop) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        dilated_unit.launches = dilated_unit.launches_bf16 = 0
+        reset_counts()
         t0 = time.perf_counter()
         m = step(state, x, False, draws=draws)
         torch.cuda.synchronize()
         runs[name] = {"ms": (time.perf_counter() - t0) * 1e3, "launches": dilated_unit.launches,
+                      "launches_backward": dilated_unit.launches_backward,
                       "peak_gb": (torch.cuda.max_memory_allocated() - base) / 2**30,
                       "metrics": {k: float(v) for k, v in m.items()},
                       "grads": {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}}
@@ -1094,16 +1248,26 @@ def phase_remat(crop) -> dict:
            "grad_distance": _grad_distance(remat["grads"], plain["grads"]),
            "plain_again_loss_rel_err": loss_err(again, plain),
            "plain_again_grad_distance": _grad_distance(again["grads"], plain["grads"]),
-           **{f"{k}_{f}": r[f] for k, r in runs.items() for f in ("ms", "launches", "peak_gb")}}
+           "plain_again_bit_equal": all(torch.equal(again["grads"][n], g)
+                                        for n, g in plain["grads"].items()),
+           **{f"{k}_{f}": r[f] for k, r in runs.items()
+              for f in ("ms", "launches", "launches_backward", "peak_gb")}}
     print(f"remat: v2 fp32 pre-warmup step, B={TRAIN_BATCH} x {N_SIGNAL}: with remat vs "
           f"without, losses {out['loss_rel_err']:.2e} <= {REMAT_LOSS_TOL}, gradients "
           f"{out['grad_distance']:.2e} <= {REMAT_GRAD_TOL} (without vs without: "
           f"{out['plain_again_loss_rel_err']:.2e}, {out['plain_again_grad_distance']:.2e}); "
-          f"launches {remat['launches']} vs {plain['launches']}; peak above the state "
+          f"launches {remat['launches']} vs {plain['launches']}, gradient kernel "
+          f"{remat['launches_backward']} vs {plain['launches_backward']}; the step again "
+          f"{'bit-equal' if out['plain_again_bit_equal'] else 'NOT bit-equal'}; peak above the state "
           f"{remat['peak_gb']:.2f} vs {plain['peak_gb']:.2f} GiB; {remat['ms']:.1f} vs "
           f"{plain['ms']:.1f} ms (one step each)", flush=True)
     check(plain["launches"] == 22 and remat["launches"] == 44,
           f"launches {plain['launches']} without remat (22), {remat['launches']} with (44)")
+    check(plain["launches_backward"] == 22 and remat["launches_backward"] == 22,
+          f"gradient kernel launches {plain['launches_backward']} without remat, "
+          f"{remat['launches_backward']} with (22 each)")
+    check(out["plain_again_bit_equal"], "the same pre-warmup step from the same state and noise "
+          f"gave other gradients (distance {out['plain_again_grad_distance']:.3e})")
     check(out["loss_rel_err"] <= REMAT_LOSS_TOL, f"remat losses {out['loss_rel_err']:.3e} apart")
     check(out["grad_distance"] <= REMAT_GRAD_TOL, f"remat gradients {out['grad_distance']:.3e} apart")
     check(remat["peak_gb"] < plain["peak_gb"], "remat did not lower the peak memory")
@@ -1164,23 +1328,26 @@ class LoopProbe:
 
     @staticmethod
     def counts():
-        from rave_tpu_torch.ops.kernels import dilated_unit
+        """Launches of the forward kernel (fp32, bf16), then of the gradient's."""
+        from rave_tpu_torch.ops.kernels import dilated_unit as du
 
-        return dilated_unit.launches - dilated_unit.launches_bf16, dilated_unit.launches_bf16
+        return (du.launches - du.launches_bf16, du.launches_bf16,
+                du.launches_backward - du.launches_backward_bf16, du.launches_backward_bf16)
 
     def observe(self, kind: str, fn, which: str = ""):
         import torch
 
         def call(*args, **kwargs):
             torch.cuda.synchronize()
-            (fp32, bf16), t0 = self.counts(), time.perf_counter()
+            before, t0 = self.counts(), time.perf_counter()
             step = args[0].step if kind == "step" else None
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             after = self.counts()
             event = {"kind": kind, "start": t0, "end": t1, "ms": (t1 - t0) * 1e3,
-                     "fp32": after[0] - fp32, "bf16": after[1] - bf16}
+                     **{k: a - b for k, a, b in zip(("fp32", "bf16", "bwd_fp32", "bwd_bf16"),
+                                                    after, before)}}
             if kind == "step":
                 event["step"] = step
                 event["phase"] = ("dis" if which == "dis" else
@@ -1289,26 +1456,35 @@ def _check_steps(events, kind: str, first: int, last: int, probe: bool = True,
                  per_step: int = 22) -> None:
     """The run took steps first..last-1, each launching `per_step` units of
     its variant (22; 0 for v3, whose Snake units bypass the kernel) and
-    finite; each validation batch and the probe's forwards as many."""
+    `bwd_per_step` of the gradient kernel, and finite; each validation batch
+    and the probe's forwards as many units, the probe as many gradients and
+    validation none."""
     steps = [e for e in events if e["kind"] == "step"]
     check([e["step"] for e in steps] == list(range(first, last)),
           f"{kind} run took steps {[e['step'] for e in steps]}, expected {first}..{last - 1}")
     other = "fp32" if kind == "bf16" else "bf16"
     for e in steps:
+        want_bwd = bwd_per_step(e["phase"], per_step)
         check(e[kind] == per_step and e[other] == 0,
               f"{kind} run, step {e['step']} ({e['phase']}): {e['fp32']} fp32 and "
               f"{e['bf16']} bf16 launches, expected {per_step} {kind}")
+        check(e[f"bwd_{kind}"] == want_bwd and e[f"bwd_{other}"] == 0,
+              f"{kind} run, step {e['step']} ({e['phase']}): {e['bwd_fp32']} fp32 and "
+              f"{e['bwd_bf16']} bf16 gradient kernel launches, expected {want_bwd} {kind}")
         check(e["finite"], f"{kind} run, step {e['step']}: non-finite metrics")
     for e in events:
         if e["kind"] == "validation":
-            check(e["fp32"] == per_step * e["batches"] and e["bf16"] == 0,
+            check(e["fp32"] == per_step * e["batches"] and e["bf16"] == 0
+                  and e["bwd_fp32"] == e["bwd_bf16"] == 0,
                   f"validation over {e['batches']} batches: {e['fp32']} fp32 / {e['bf16']} bf16 "
-                  "launches")
+                  f"launches, {e['bwd_fp32'] + e['bwd_bf16']} of the gradient kernel")
             check(math.isfinite(e["value"]), f"validation value {e['value']}")
         if e["kind"] == "receptive_field":  # no probe runs for the discrete family: (0, 0)
+            # the probe's gradient of one output sample by the input: one backward per unit
             check((e["fp32"] > 0) == (probe and per_step > 0) and e["fp32"] % 22 == 0
-                  and e["bf16"] == 0,
-                  f"receptive-field probe: {e['fp32']} fp32, {e['bf16']} bf16 launches")
+                  and e["bf16"] == 0 and e["bwd_fp32"] == e["fp32"] and e["bwd_bf16"] == 0,
+                  f"receptive-field probe: {e['fp32']} fp32, {e['bf16']} bf16 launches, "
+                  f"{e['bwd_fp32']} / {e['bwd_bf16']} of the gradient kernel")
 
 
 def phase_loop(train_ms: dict, train_bf16_ms: dict) -> dict:
@@ -1328,7 +1504,7 @@ def phase_loop(train_ms: dict, train_bf16_ms: dict) -> dict:
     db, runs = work / "db", work / "runs"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     _cli(["preprocess", "--input_path", work / "corpus", "--output_path", db,
           "--num_signal", N_SIGNAL, "--sampling_rate", SAMPLE_RATE])
     common = ["--config", "v2", "--db_path", db, "--out_path", runs, "--batch", TRAIN_BATCH,
@@ -1363,11 +1539,14 @@ def phase_loop(train_ms: dict, train_bf16_ms: dict) -> dict:
         ev = json.loads(_cli(["eval", "--run", run_dir, "--db_path", db, "--split", "val",
                               "--device", "cuda", *(["--ema_weights"] if ema else [])]
                              ).strip().splitlines()[-1])
-        ev["fp32"], ev["bf16"] = (a - b for a, b in zip(LoopProbe.counts(), before))
+        ev["fp32"], ev["bf16"], ev["bwd_fp32"], ev["bwd_bf16"] = (
+            a - b for a, b in zip(LoopProbe.counts(), before))
         evals.append(ev)
     torch.cuda.synchronize()
     launches = {"fp32": dilated_unit.launches - dilated_unit.launches_bf16,
-                "bf16": dilated_unit.launches_bf16}
+                "bf16": dilated_unit.launches_bf16,
+                "bwd_fp32": dilated_unit.launches_backward - dilated_unit.launches_backward_bf16,
+                "bwd_bf16": dilated_unit.launches_backward_bf16}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
     # the runs: launches, steps, files, checkpoints, PCA
@@ -1435,12 +1614,16 @@ def phase_loop(train_ms: dict, train_bf16_ms: dict) -> dict:
           f"eval --ema_weights: {evals[2]}")
     for ev in evals:
         check(ev["n_clips"] == LOOP_VAL_BATCH, f"eval over {ev['n_clips']} clips")
-        check(ev["fp32"] == 22 * ev["n_batches"] and ev["bf16"] == 0,
-              f"eval launches {ev['fp32']} fp32, {ev['bf16']} bf16")
+        check(ev["fp32"] == 22 * ev["n_batches"] and ev["bf16"] == 0
+              and ev["bwd_fp32"] == ev["bwd_bf16"] == 0,
+              f"eval launches {ev['fp32']} fp32, {ev['bf16']} bf16, "
+              f"{ev['bwd_fp32'] + ev['bwd_bf16']} of the gradient kernel")
     accounted = sum(e["fp32"] for e in first + resumed + bf16_events) + sum(
         ev["fp32"] for ev in evals)
     check(launches["fp32"] == accounted and
-          launches["bf16"] == sum(e["bf16"] for e in bf16_events),
+          launches["bf16"] == sum(e["bf16"] for e in bf16_events) and
+          all(launches[k] == sum(e[k] for e in first + resumed + bf16_events)
+              for k in ("bwd_fp32", "bwd_bf16")),
           f"launches {launches} not all in the probe, the steps, validation and eval")
 
     saves = [e for e in first + resumed + bf16_events if e["kind"] == "save"]
@@ -1514,7 +1697,7 @@ def phase_export(run_dir: Path) -> dict:
     for key, flags in (("streaming_ema", ["--streaming", "--ema_weights"]),
                        ("stereo_88200", ["--stereo", "--sr", 2 * SAMPLE_RATE])):
         torch.cuda.synchronize()
-        dilated_unit.launches = dilated_unit.launches_bf16 = 0
+        reset_counts()
         t0 = time.perf_counter()
         text = _cli(["export", "--run", run_dir, "--output", work / "export" / key,
                      "--device", "cuda", *flags])
@@ -1554,7 +1737,7 @@ def phase_export(run_dir: Path) -> dict:
     wav = work / "generate_in.wav"
     n = write_signal(wav, EXPORT_SECONDS, seed=21)
     torch.cuda.synchronize()
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     t0 = time.perf_counter()
     _cli(["generate", "--model", art_path, "--input", wav, "--out_path", work / "generated",
           "--seed", GENERATE_SEED, "--device", "cuda"])
@@ -1861,7 +2044,7 @@ def phase_prior(run_dir: Path, db: Path) -> dict:
 
     # (b) train_prior --smoke_test: 2 steps, a validation sample and a save after each
     torch.cuda.synchronize()
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     t0 = time.perf_counter()
     shapes = UnitShapes().__enter__()  # closed after (c)'s generate
     with PriorProbe(shapes) as probe:
@@ -2119,7 +2302,7 @@ def _discrete_offline(cfg) -> dict:
     with torch.inference_mode():
         model(x, draws)  # warm
         torch.cuda.synchronize()
-        dilated_unit.launches = dilated_unit.launches_bf16 = 0
+        reset_counts()
         y = model(x, draws)
         torch.cuda.synchronize()
         launches = dilated_unit.launches
@@ -2178,7 +2361,7 @@ def _discrete_steps(cfg) -> dict:
         nonlocal launches
         before = [cb.embed.clone() for cb in codebooks]
         torch.cuda.synchronize()
-        dilated_unit.launches = dilated_unit.launches_bf16 = 0
+        reset_counts()
         t0 = time.perf_counter()
         if which == "dis":
             m = steps["dis"](state, x, generator=noise, quantize=quantize)
@@ -2285,7 +2468,7 @@ def _discrete_export(cfg, run_dir: Path, work: Path) -> dict:
     wav = work / "discrete_in.wav"
     n = write_signal(wav, EXPORT_SECONDS, seed=22)
     torch.cuda.synchronize()
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     t0 = time.perf_counter()
     _cli(["generate", "--model", path, "--input", wav, "--out_path", work / "generated",
           "--device", "cuda"])
@@ -2354,7 +2537,7 @@ def _other_family(names) -> dict:
     step = build_train_steps(cfg)["gen"]
     step(state, x, False, generator=torch.Generator(device="cuda").manual_seed(7))  # warm
     torch.cuda.synchronize()
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     t0 = time.perf_counter()
     m = step(state, x, False, generator=torch.Generator(device="cuda").manual_seed(8))
     torch.cuda.synchronize()
@@ -2580,7 +2763,7 @@ def _v3_offline(cfg) -> dict:
             db.eps = db.eps[:b]
             model(xb, db)  # warm
             torch.cuda.synchronize()
-            dilated_unit.launches = dilated_unit.launches_bf16 = 0
+            reset_counts()
             y = model(xb, db)
             torch.cuda.synchronize()
             launches = dilated_unit.launches
@@ -2645,7 +2828,7 @@ def _v3_steps(cfg) -> dict:
     from rave_tpu_torch.ops.kernels import dilated_unit
     from rave_tpu_torch.train.analysis import crop_frames, receptive_field
 
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     rf = receptive_field(cfg, device="cuda")
     check(dilated_unit.launches == 0, f"v3 receptive-field probe: {dilated_unit.launches} launches")
     crop = crop_frames(cfg, rf)
@@ -2790,7 +2973,7 @@ def _v3_export(run_dir: Path, work: Path) -> dict:
     wav = work / "v3_in.wav"
     n = write_signal(wav, EXPORT_SECONDS, seed=23)
     torch.cuda.synchronize()
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     t0 = time.perf_counter()
     _cli(["generate", "--model", path, "--input", wav, "--out_path", work / "generated",
           "--device", "cuda"])
@@ -2950,7 +3133,7 @@ def _v3_discrete() -> dict:
     with torch.inference_mode():
         model(x, draws)
         torch.cuda.synchronize()
-        dilated_unit.launches = dilated_unit.launches_bf16 = 0
+        reset_counts()
         t0 = time.perf_counter()
         for _ in range(5):
             y = model(x, draws)
@@ -3014,7 +3197,7 @@ def phase_v3() -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     offline = timed("offline", _v3_offline, cfg)
     train = timed("steps", _v3_steps, cfg)
     loop = timed("loop", _v3_loop, work, ROOT / "build" / "loop" / "db")
@@ -3419,7 +3602,7 @@ def phase_variants() -> dict:
     db = ROOT / "build" / "loop" / "db"
     out = {}
     torch.cuda.synchronize()
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     for preset in VARIANTS:
         start = dilated_unit.launches
         cfg = variant_cfg(preset)
@@ -3688,7 +3871,7 @@ def phase_v1(v2_run: Path, db: Path) -> dict:
              "steps": lambda: _variant_steps("v1", cfg, want=0),
              "loop_export": lambda: _v1_loop_export(work, db)}
     torch.cuda.synchronize()
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     for name, run in parts.items():
         t0 = time.perf_counter()
         out[name] = run()
@@ -3745,8 +3928,9 @@ SPECTRAL_CRITIC_ITERS = 5
 def _timed_steps(cfg, crop, bf16: bool, programs: dict, want: int = 22) -> dict:
     """Each of `programs` ({name: (which, warmed, step)}) at B=8 x 131072 from
     the seed-0 state: a warm step, then a timed one, each with exactly `want`
-    launches of the step's variant (fp32, or bf16 under `train.bf16`), finite
-    metrics; ms per step and the peak memory."""
+    launches of the step's variant (fp32, or bf16 under `train.bf16`) and
+    `bwd_per_step` of the gradient kernel's, finite metrics; ms per step and
+    the peak memory."""
     import torch
 
     from rave_tpu_torch.ops.kernels import dilated_unit
@@ -3757,7 +3941,7 @@ def _timed_steps(cfg, crop, bf16: bool, programs: dict, want: int = 22) -> dict:
     x = torch.randn(TRAIN_BATCH, 1, N_SIGNAL, device="cuda", generator=gen) * 0.1
     st = _variant_state(cfg, "cuda", 0)
     kind = "bf16" if bf16 else "fp32"
-    ms = {}
+    ms, bwd_counts = {}, {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for name, (which, warmed, step) in programs.items():
@@ -3766,21 +3950,26 @@ def _timed_steps(cfg, crop, bf16: bool, programs: dict, want: int = 22) -> dict:
             st.step = step
             draws = draw_noise(cfg, x, gen)
             torch.cuda.synchronize()
-            before = (dilated_unit.launches, dilated_unit.launches_bf16)
+            before = LoopProbe.counts()
             t0 = time.perf_counter()
             m = (steps["gen"](st, x, warmed, draws=draws) if which == "gen"
                  else steps["dis"](st, x, draws=draws))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            n, n_bf16 = (dilated_unit.launches - before[0],
-                         dilated_unit.launches_bf16 - before[1])
+            n32, n_bf16, bwd32, bwd_bf16 = (a - b for a, b in zip(LoopProbe.counts(), before))
+            n, bwd, want_bwd = n32 + n_bf16, bwd32 + bwd_bf16, bwd_per_step(name, want)
             check(n == want and n_bf16 == (want if bf16 else 0),
                   f"{cfg.name} {kind} {name}: {n} launches ({n_bf16} bf16), expected {want} "
                   f"{kind}")
+            check(bwd == want_bwd and bwd_bf16 == (want_bwd if bf16 else 0),
+                  f"{cfg.name} {kind} {name}: {bwd} gradient kernel launches ({bwd_bf16} "
+                  f"bf16), expected {want_bwd} {kind}")
+            bwd_counts[name] = bwd
             bad = [k for k, v in m.items() if not math.isfinite(float(v))]
             check(not bad, f"{cfg.name} {kind} {name}: non-finite {bad}")
         ms[name] = times[-1] * 1e3
-    return {"ms_per_step": ms, "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    return {"ms_per_step": ms, "launches_backward_per_step": bwd_counts,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
 
 
 def _b1_losses(cfg, programs: dict) -> dict:
@@ -3867,7 +4056,7 @@ def phase_spectral(crop) -> dict:
             **{k: compose(["v2"], o) for k, o in DISTANCE_KINDS.items()}}
     # the main path: 2 steps of each program (a warm one, a timed one), 22 launches each
     torch.cuda.synchronize()
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     out = {k: _timed_steps(c, crop, k == "bf16", programs if k in ("fp32", "bf16")
                            else adversarial) for k, c in cfgs.items()}
     launches, launches_bf16 = dilated_unit.launches, dilated_unit.launches_bf16
@@ -4006,7 +4195,7 @@ def phase_import() -> dict:
         return text.strip().splitlines()[-1]
 
     torch.cuda.synchronize()
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     with UnitShapes() as shapes:
         run_dir = Path(cli_step("import_torch", [
             "import_torch", "--ckpt", work / "run.ckpt", "--config", gin, "--name", "imported",
@@ -4086,13 +4275,19 @@ NATIVE_STEPS, NATIVE_WARMUP = 10, 4  # each `cli train --device_data off` run: a
 NATIVE_TOL, NATIVE_SEED = 1e-6, 3  # the sampler against its numpy twin
 REMOTE_BATCHES = 3
 DP_RANKS, DP_BATCH = 2, 4  # the worker's ranks and rows per rank: the global batch of TRAIN_BATCH
-DP_LOSS_TOL = 1e-4  # two ranks against one process over the global batch
+DP_LOSS_TOL = 1e-4  # step 0's loss, two ranks against one process over the global batch
+# step 0's averaged gradient, relative L2 over all parameters, two ranks against one process:
+# twice the largest of 20 readings (worker seeds 1-10 on this tree and its parent, 4.9e-5 to
+# 1.918e-3; 7.4e-5 at the worker's seed; tools/torch_dp_spread.py). A sum for a mean reads 1.
+DP_GRAD_TOL = 4e-3
 # the worker at v2's widths and n_signal, at log_epsilon 1e-3 (ROADMAP C4): at v2's 1e-7 the
 # float32 pre-warmup gradient is rounding noise in many elements (~3% from float64), Adam's
 # first update is lr * sign(g), and two summation orders of one step part after it (PERF.md)
 DP_WORKER_ARGS = ["--full", "--override", "distance.log_epsilon=1e-3"]
 DP_LOOP_BATCH, DP_LOOP_STEPS, DP_LOOP_RESUME = 1, 4, 6  # one validation record per rank
 DP_TIMEOUT = 600
+# the gradient kernel's launches in mpworker's schedule: pre-warmup, adversarial, critic
+DP_BWD_LAUNCHES = [bwd_per_step(p, 22) for p in ("gen_prewarmup", "gen_adversarial", "dis")]
 
 
 def free_port() -> int:
@@ -4120,6 +4315,15 @@ def _run(cmd, what: str) -> str:
             proc.wait()
     check(proc.returncode == 0, f"{what} exited {proc.returncode}: {err[-3000:]}")
     return out
+
+
+def grads_rel_l2(got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over every tensor of two name -> gradient maps, in float64."""
+    check(got.keys() == want.keys(),
+          f"gradients differ in names: {sorted(got.keys() ^ want.keys())}")
+    num = sum(float((got[n].double() - want[n].double()).square().sum()) for n in want)
+    den = sum(float(want[n].double().square().sum()) for n in want)
+    return math.sqrt(num / den)
 
 
 def torchrun(ranks: int):
@@ -4179,7 +4383,7 @@ def phase_native(loop: dict) -> dict:
         common += ["--override", o]
     runs, by_step = {}, {}
     torch.cuda.synchronize()
-    dilated_unit.launches = dilated_unit.launches_bf16 = 0
+    reset_counts()
     loop_module.NativeLoader = CountedLoader
     try:
         with LoopProbe() as probe:
@@ -4198,7 +4402,9 @@ def phase_native(loop: dict) -> dict:
         loop_module.NativeLoader = real
     torch.cuda.synchronize()
     launches = {"fp32": dilated_unit.launches - dilated_unit.launches_bf16,
-                "bf16": dilated_unit.launches_bf16}
+                "bf16": dilated_unit.launches_bf16,
+                "bwd_fp32": dilated_unit.launches_backward - dilated_unit.launches_backward_bf16,
+                "bwd_bf16": dilated_unit.launches_backward_bf16}
     shutil.rmtree(work, ignore_errors=True)
     out = {"library": str(lib.relative_to(ROOT)), "build_s": build_s, "sample_rows": len(idx),
            "max_abs_err": err, "sample_ms": sample_ms, "plain_sample_ms": plain_ms,
@@ -4264,25 +4470,32 @@ def phase_remote(crop) -> dict:
         cfg = config_lib.compose(["v2"])
         state = create_train_state(cfg, device="cuda")
         steps = build_train_steps(cfg, crop)
-        counts, losses, ms = [], [], []
+        counts, counts_bwd, want_bwd, losses, ms = [], [], [], [], []
         torch.cuda.synchronize()
-        dilated_unit.launches = dilated_unit.launches_bf16 = 0
+        reset_counts()
         with fp32_exact():
             for xb in got:
                 x = torch.from_numpy(xb).cuda()
                 which, warmed, quantize = pick_phase(cfg, state.step)
                 draws = draw_noise(cfg, x, step_generator(1, state.step, "cuda"))
                 torch.cuda.synchronize()
-                n0, t0 = dilated_unit.launches, time.perf_counter()
+                n0, b0, t0 = (dilated_unit.launches, dilated_unit.launches_backward,
+                              time.perf_counter())
                 m = (steps["gen"](state, x, warmed, draws=draws, quantize=quantize)
                      if which == "gen" else steps["dis"](state, x, draws=draws,
                                                          quantize=quantize))
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
                 counts.append(dilated_unit.launches - n0)
+                phase = "dis" if which == "dis" else (
+                    "gen_adversarial" if warmed else "gen_prewarmup")
+                counts_bwd.append(dilated_unit.launches_backward - b0)
+                want_bwd.append(bwd_per_step(phase, 22))
                 losses.append(float(m["loss_gen" if which == "gen" else "loss_dis"]))
         check(counts == [2 * UNITS_PER_HALF] * REMOTE_BATCHES and dilated_unit.launches_bf16 == 0,
               f"remote steps' launches {counts}")
+        check(counts_bwd == want_bwd and dilated_unit.launches_backward_bf16 == 0,
+              f"remote steps' gradient kernel launches {counts_bwd}, expected {want_bwd}")
         check(all(math.isfinite(v) for v in losses), f"remote steps' losses {losses}")
         # C20: the JAX package's train cannot take a URL, nor can the port's
         check(refuses(lambda: train_loop(copy.deepcopy(cfg), url, out_path=str(work),
@@ -4294,6 +4507,7 @@ def phase_remote(crop) -> dict:
         server.wait()
     out = {"url": url, "records": len(remote), "batches": REMOTE_BATCHES, "http_batch_ms": http_ms,
            "local_batch_ms": local_ms, "launches": sum(counts), "launches_by_step": counts,
+           "launches_backward": sum(counts_bwd), "launches_backward_by_step": counts_bwd,
            "losses": losses, "step_ms": ms, "seconds": time.perf_counter() - t_phase}
     print(f"remote: cli remote_dataset on :{port} ({len(remote)} records) -> get_dataset(url) "
           f"through Loader: {REMOTE_BATCHES} batches of B={TRAIN_BATCH} x {N_SIGNAL} bit-equal "
@@ -4319,7 +4533,7 @@ def phase_parallel() -> dict:
     rows = [kernel_row(gen, "dp_b4", DP_BATCH, C, T, d, "centered") for C, T, dils in UNIT_SHAPES
             for d in dils]
     worker = ["rave_tpu_torch.parallel.mpworker", "--device", "cuda", "--deterministic",
-              *DP_WORKER_ARGS]
+              "--step0_grads", *DP_WORKER_ARGS]
     t0 = time.perf_counter()
     out_two = _run(torchrun(DP_RANKS) + worker + ["--batch", DP_BATCH, "--out_dir", work / "two"],
                    "the 2-rank worker")
@@ -4339,10 +4553,19 @@ def phase_parallel() -> dict:
         check(r["digest"] == ranks[0]["digest"] and all(r[k] == ranks[0][k] for k in losses),
               f"rank {r['rank']} is not bit-equal to rank 0")
         check(r["launches"] == [22, 22, 22], f"rank {r['rank']} launches {r['launches']}")
+        check(r["launches_backward"] == DP_BWD_LAUNCHES,
+              f"rank {r['rank']} gradient kernel launches {r['launches_backward']}")
     check(single["launches"] == [22, 22, 22], f"one-process launches {single['launches']}")
+    check(single["launches_backward"] == DP_BWD_LAUNCHES,
+          f"one-process gradient kernel launches {single['launches_backward']}")
     errs = {k: abs(ranks[0][k] - single[k]) / max(abs(single[k]), 1e-12) for k in losses}
-    check(all(math.isfinite(ranks[0][k]) for k in losses) and max(errs.values()) <= DP_LOSS_TOL,
-          f"2 ranks vs one process: {errs} > {DP_LOSS_TOL}")
+    grad_err = grads_rel_l2(torch.load(work / "two" / "step0_grads.pt"),
+                            torch.load(work / "one" / "step0_grads.pt"))
+    check(all(math.isfinite(ranks[0][k]) for k in losses), f"2-rank losses not finite: {errs}")
+    check(errs[losses[0]] <= DP_LOSS_TOL,
+          f"2 ranks vs one process: {losses[0]} {errs[losses[0]]:.3e} > {DP_LOSS_TOL}")
+    check(grad_err <= DP_GRAD_TOL,
+          f"2 ranks vs one process: step 0's gradient {grad_err:.3e} > {DP_GRAD_TOL}")
 
     # the training driver in two ranks: native loader, lockstep validation, rank 0 saves
     common = ["rave_tpu_torch.cli", "train", "--name", "dp", "--config", "v2", "--db_path", db,
@@ -4370,17 +4593,22 @@ def phase_parallel() -> dict:
     by_step = lambda r: [f"{v:.1f}" for v in r["ms"]]  # noqa: E731
     out = {"ranks": DP_RANKS, "batch_per_rank": DP_BATCH, "backend": "gloo",
            "losses": {k: ranks[0][k] for k in losses}, "one_process_losses":
-           {k: single[k] for k in losses}, "loss_rel_err": errs, "digest": ranks[0]["digest"],
+           {k: single[k] for k in losses}, "loss_rel_err": errs,
+           "step0_grad_rel_l2": grad_err, "digest": ranks[0]["digest"],
            "ms_by_rank": [r["ms"] for r in ranks], "one_process_ms": single["ms"],
            "launches": sum(sum(r["launches"]) for r in ranks),
            "launches_by_step": [r["launches"] for r in ranks], "worker_s": two_s,
+           "launches_backward": sum(sum(r["launches_backward"]) for r in ranks),
+           "launches_backward_by_step": [r["launches_backward"] for r in ranks],
            "one_process_s": one_s, "loop_s": loop_s, "validations": val_steps,
            "checkpoints": ckpts, "unit_rows": rows, "seconds": time.perf_counter() - t_phase}
     print(f"parallel: mpworker at v2's widths, {DP_RANKS} ranks x B={DP_BATCH} x {N_SIGNAL} on one "
           f"card (gloo), cuDNN deterministic: ranks bit-equal, losses "
           f"{', '.join(f'{ranks[0][k]:.6f}' for k in losses)} vs one process B="
-          f"{DP_RANKS * DP_BATCH} {', '.join(f'{single[k]:.6f}' for k in losses)} (max rel "
-          f"{max(errs.values()):.1e} <= {DP_LOSS_TOL}); 22 launches per step per rank; step ms "
+          f"{DP_RANKS * DP_BATCH} {', '.join(f'{single[k]:.6f}' for k in losses)} (rel "
+          f"{', '.join(f'{v:.3e}' for v in errs.values())}; step 0's {errs[losses[0]]:.1e} <= "
+          f"{DP_LOSS_TOL}), step 0's gradient rel L2 {grad_err:.3e} <= {DP_GRAD_TOL}; 22 "
+          f"launches per step per rank; step ms "
           f"rank 0 {by_step(ranks[0])}, one process {by_step(single)}; worker {two_s:.1f} s, one "
           f"process {one_s:.1f} s; 2-rank cli train (native loader, B={DP_LOOP_BATCH} per rank) "
           f"validated at {val_steps}, rank 0 saved {ckpts}, resumed at {DP_LOOP_STEPS}, "
@@ -4438,7 +4666,9 @@ def main() -> None:
               "fp32_b1_generate_forward": unit_bound(export_rows, 1, "fp32"),
               "fp32_b16_discrete_forward": unit_bound(discrete_rows, BATCH, "fp32"),
               "fp32_b4_dp_forward": unit_bound(parallel_rows, DP_BATCH, "fp32"),
-              **{f"{k}_b8_fwd_bwd": unit_bound(grad[k] * 2, TRAIN_BATCH, k, backward=True)
+              **{f"{k}_b8_fwd_bwd": unit_bound(grad[f"{k}_v2"] * 2, TRAIN_BATCH, k,
+                                               backward=True) for k in ("fp32", "bf16")},
+              **{f"{k}_b8_backward": unit_bwd_bound(grad[f"{k}_v2"] * 2, TRAIN_BATCH, k)
                  for k in ("fp32", "bf16")}}
     # each variant's forward: its units at B=16 (fp32, its path) and B=8 (bf16)
     variant_units = {f"{p}_{kind}": unit_rows_of(r, p, b) for p in VARIANTS
@@ -4454,6 +4684,33 @@ def main() -> None:
         return {key: {p: (sum(r[key] for r in variant_units[f"{p}_{kind}"]) if key != "bound_ms"
                           else bounds[f"{p}_{kind}_forward"]["bound_ms"]) for p in VARIANTS}
                 for key in ("ms", "plain_ms", "bound_ms")}
+    def backward_entry(kind: str, run: dict) -> dict:
+        """The gradient kernel of `kind`: its launches on the main path (phase
+        `train`'s steps, `bwd_per_step` each) and elsewhere, and its times at
+        a B=8 pre-warmup step's 22 units (each v2 shape in encoder and decoder)."""
+        units = grad[f"{kind}_v2"] * 2
+        bound = bounds[f"{kind}_b8_backward"]
+        entry = {"name": "fused_dilated_unit_backward" + ("_bf16" if kind == "bf16" else ""),
+                 "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_BWD_REPLACES,
+                 "launches": run["launches_backward"],
+                 "launches_per_step": run["launches_backward_per_step"],
+                 "launches_loop": loop["launches"][f"bwd_{kind}"],
+                 "launches_native": native["launches"][f"bwd_{kind}"],
+                 "max_abs_err": max(r["max_abs_err"] for r in grad[kind]),
+                 "grad_shapes": len(grad[kind]),
+                 "fwd_bwd_ms": sum(r["fwd_bwd_ms"] for r in units),
+                 "plain_fwd_bwd_ms": sum(r["plain_fwd_bwd_ms"] for r in units),
+                 "bound_ms_fwd_bwd": bounds[f"{kind}_b8_fwd_bwd"]["bound_ms"],
+                 "ms": sum(r["bwd_ms"] for r in units),
+                 "plain_ms": sum(r["plain_bwd_ms"] for r in units),
+                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None}
+        if kind == "fp32":
+            entry.update(launches_remat_step=remat["remat_launches_backward"],
+                         launches_remote=remote["launches_backward"],
+                         launches_parallel=parallel["launches_backward"],
+                         launches_by_step_parallel=parallel["launches_backward_by_step"])
+        return entry
+
     kernels = {"kernels": [{
         "name": "fused_dilated_unit", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": offline["launches"],
@@ -4507,7 +4764,7 @@ def main() -> None:
         "max_abs_err": max(r["max_abs_err"] for r in rows_bf16),
         "ms": sum(r["ms"] for r in main_bf16), "plain_ms": sum(r["plain_ms"] for r in main_bf16),
         "bound_ms": bound16["bound_ms"], "bound_by": bound16["bound_by"], "library_ms": None,
-    }]}
+    }, backward_entry("fp32", train), backward_entry("bf16", train_bf16)]}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

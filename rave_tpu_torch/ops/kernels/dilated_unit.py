@@ -23,11 +23,15 @@ them.
 
 The gradient mirrors the JAX package's `custom_vjp` (`_fwd` / `_bwd`):
 when autograd needs it, the forward runs inside `FusedDilatedUnit`, an
-`autograd.Function` that saves only `x, w1, w2`; its backward recomputes
-the plain formulation and differentiates it with `torch.autograd.grad`,
-as `_bwd` differentiates `_reference_impl` with XLA. The TPU kernel has no
-backward kernel, so neither has this one (ROADMAP A16 keeps a fused CUDA
-backward as a later item).
+`autograd.Function` that saves only `x, w1, w2`. Its backward is the
+closed form of the unit's gradient (`fused_dilated_unit_backward_reference`
+on a CPU tensor, the kernel's `dilated_unit_backward` on a CUDA tensor:
+g recomputed, dh, dx, and the weight gradients reduced over every frame
+in a fixed order), for the inputs that need a gradient. `_bwd` computes
+the same function by differentiating `_reference_impl` with XLA.
+`launches_backward` counts the backward's launches (of either dtype),
+`launches_backward_bf16` the bf16 ones; `backward_plan` picks how a shape
+runs.
 """
 from __future__ import annotations
 
@@ -45,6 +49,8 @@ NEG_SLOPE = 0.2
 
 launches = 0  # kernel launches, both variants, since import (or since the caller reset it)
 launches_bf16 = 0  # of which bf16
+launches_backward = 0  # gradient kernel launches (one per backward call), both variants
+launches_backward_bf16 = 0  # of which bf16
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -61,6 +67,59 @@ def fused_dilated_unit_reference(
     return F.conv1d(_leaky(h), w2[:, :, None]) + x
 
 
+def _leaky_grad(t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """leaky'(t) * v, as autograd's leaky_relu backward: v where t > 0,
+    else v * slope."""
+    return torch.where(t > 0, v, v * NEG_SLOPE)
+
+
+def fused_dilated_unit_backward_reference(
+    x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, gy: torch.Tensor,
+    dilation: int, pad_left: int, pad_right: int, needs=(True, True, True),
+    g_sign: torch.Tensor | None = None,
+):
+    """(dx, dw1, dw2) of the unit for the output gradient gy, in closed
+    form (None where `needs` says no):
+
+        a = leaky(x), h = conv_d(a, w1), g = leaky(h)
+        dh  = leaky'(h) * (w2^T gy)
+        dx  = gy + leaky'(x) * conv_d^T(dh, w1)
+        dw2 = sum_{b,t} gy g^T,  dw1[:, :, k] = sum_{b,t} dh a[t + k d - pad_left]^T
+
+    In float32 or wider it is exact autograd of the plain version. In bf16 it
+    is what the kernel computes: float32 inside, bf16 where the kernel keeps
+    bf16 (a and g, the products' operands; dh, which goes through device
+    memory) and each output rounded once.
+
+    leaky' jumps at h = 0, so two computations of h that differ by their
+    rounding take the other branch wherever h is within that rounding of 0.
+    `g_sign`, where given (another computation's g, as
+    `backward_kernel_with_g` returns the kernel's), picks the branch by its sign
+    instead of this computation's own, so that the two are compared on the
+    same side of the kink."""
+    dtype = x.dtype
+    wide = torch.promote_types(dtype, torch.float32)
+    rnd = (lambda t: t.to(dtype).to(wide)) if wide != dtype else (lambda t: t)
+    x, w1, w2, gy = (t.to(wide) for t in (x, w1, w2, gy))
+    T, K = x.shape[-1], w1.shape[-1]
+    a = rnd(_leaky(x))
+    ap = F.pad(a, (pad_left, pad_right))
+    g = rnd(_leaky(F.conv1d(ap, w1, dilation=dilation)))
+    dx = dw1 = dw2 = None
+    if needs[0] or needs[1]:
+        dh = rnd(_leaky_grad(g if g_sign is None else g_sign,
+                             F.conv1d(gy, w2.t()[:, :, None])))
+    if needs[0]:
+        da = F.conv_transpose1d(dh, w1, dilation=dilation)[..., pad_left:pad_left + T]
+        dx = (gy + _leaky_grad(x, da)).to(dtype)
+    if needs[1]:
+        dw1 = torch.stack([torch.einsum("bot,bit->oi", dh, ap[..., k * dilation:k * dilation + T])
+                           for k in range(K)], -1).to(dtype)
+    if needs[2]:
+        dw2 = torch.einsum("bot,bit->oi", gy, g).to(dtype)
+    return dx, dw1, dw2
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load_library("dilated_unit")
@@ -70,6 +129,10 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     )
     lib.dilated_unit_forward.restype = ctypes.c_int
+    lib.dilated_unit_backward.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    )
+    lib.dilated_unit_backward.restype = ctypes.c_int
     return lib
 
 
@@ -135,25 +198,94 @@ def plan(B: int, C: int, T: int, K: int, dilation: int, pad_left: int, bf16: boo
     takes a v2 pre-warmup gradient 0.48 from float64 (PERF.md).
     (`_check` has refused a halo wider than a box.)"""
     win = window(dilation * (K - 1), pad_left, 2 if bf16 else 4)
-    frame_tiles = B * -(-T // TILE)
-
-    def fit(np, fused, x_stages):
-        """(weight stages, bytes) that fit beside x_stages windows, or None."""
-        free = limit - smem_bytes(C, win, np, 0, x_stages, fused, bf16)
-        n = min(MAX_STAGES, free // (np * 128 * (1 if bf16 else 2) + 16))
-        return (n, smem_bytes(C, win, np, n, x_stages, fused, bf16)) if n >= 2 else None
-
     np = 96 if not bf16 or C <= 96 else 192
-    if frame_tiles >= FUSED_MIN_TILES and (f := fit(np, True, 2)):
+    if B * -(-T // TILE) >= FUSED_MIN_TILES and (f := _fit(C, win, np, True, 2, bf16, limit)):
         return Plan(True, np, f[0], 2, not bf16, f[1])
-    np = 192 if bf16 and frame_tiles * -(-C // 192) >= FUSED_MIN_TILES else 96
+    return _split_plan(B, C, T, win, bf16, limit, f"C={C}, K={K}, d={dilation}")
+
+
+def _fit(C: int, win: int, np: int, fused: bool, x_stages: int, bf16: bool, limit: int):
+    """(weight stages, bytes) that fit beside x_stages windows, or None."""
+    free = limit - smem_bytes(C, win, np, 0, x_stages, fused, bf16)
+    n = min(MAX_STAGES, free // (np * 128 * (1 if bf16 else 2) + 16))
+    return (n, smem_bytes(C, win, np, n, x_stages, fused, bf16)) if n >= 2 else None
+
+
+def _split_plan(B: int, C: int, T: int, win: int, bf16: bool, limit: int, what: str,
+                wide: bool = True) -> Plan:
+    """The split mode's plan for windows of `win` frames (`wide`: bf16 may
+    take N = 192)."""
+    np = 192 if wide and bf16 and B * -(-T // TILE) * -(-C // 192) >= FUSED_MIN_TILES else 96
     fits = [(f[0], x_stages, f[1]) for x_stages in (MAX_STAGES, 2)
-            if (f := fit(np, False, x_stages))]
+            if (f := _fit(C, win, np, False, x_stages, bf16, limit))]
     if not fits:
-        raise ValueError(f"C={C}, K={K}, d={dilation} needs more shared memory than a block "
-                         f"can have")
+        raise ValueError(f"{what} needs more shared memory than a block can have")
     w_stages, x_stages, smem = max(fits)  # weight stages first, then window stages
     return Plan(False, np, w_stages, x_stages, not bf16, smem)
+
+
+# The weight gradients' kernel (csrc/dilated_unit.cu, `wgrad_kernel`): blocks
+# of a 64 x 64 tile of the C x C output (three taps each) over chunks of 64
+# frames, two stages of TMA boxes (and, fp32, Q's lo parts); the frames of a
+# tile split over at most WG_TARGET_BLOCKS / tiles blocks (one wave), each
+# split at least WG_MIN_CHUNKS chunks.
+WG_FRAMES, WG_TILE, WG_TAPS, WG_STAGES = 64, 64, 3, 2
+WG_TARGET_BLOCKS = 264  # two blocks on each of the H100's 132 SMs
+WG_MIN_CHUNKS = 4
+
+
+class BackwardPlan(NamedTuple):
+    data: Plan       # the split-mode plan of the three data-gradient launches
+    splits_w1: int   # blocks that share each dw1 output tile's frames
+    splits_w2: int   # the same for dw2
+    partials: int    # fp32 elements of the splits' partial sums (0: none)
+    wg_smem: int     # bytes of shared memory of a weight-gradient block (the larger)
+
+
+def wg_pitch(frames: int, elem: int) -> int:
+    """Frames of a weight-gradient shared-memory row (the kernel's `wg_pitch`):
+    at least `frames`, whole 16-byte rows, 4 mod 32 words."""
+    step = 16 // elem
+    w = -(-frames // step) * step
+    while (w * elem // 4) % 32 != 4:
+        w += step
+    return w
+
+
+def wg_smem_bytes(taps: int, dilation: int, elem: int) -> int:
+    """Shared memory of a weight-gradient block (the kernel's `wg_smem_bytes`):
+    the stages' P and Q boxes, fp32's lo parts of Q, the barriers."""
+    pitch_q = wg_pitch(WG_FRAMES + (min(taps, WG_TAPS) - 1) * dilation + 16 // elem - 1, elem)
+    rows = WG_STAGES * (wg_pitch(WG_FRAMES, elem) + pitch_q) + (pitch_q if elem == 4 else 0)
+    return 1024 + rows * WG_TILE * elem + 8 * WG_STAGES
+
+
+def wg_splits(B: int, C: int, T: int, taps: int) -> int:
+    """Frame splits of one weight gradient: as many blocks as fill the card
+    in one wave, at least WG_MIN_CHUNKS chunks each, and partial sums (splits
+    x taps x C^2 floats) no larger than x (B x C x T); 1 writes the gradient
+    directly."""
+    tiles = (-(-C // WG_TILE)) ** 2 * -(-taps // WG_TAPS)
+    chunks = B * -(-T // WG_FRAMES)
+    return max(1, min(WG_TARGET_BLOCKS // tiles, chunks // WG_MIN_CHUNKS, B * T // (taps * C)))
+
+
+def backward_plan(B: int, C: int, T: int, K: int, dilation: int, pad_left: int, bf16: bool,
+                  limit: int) -> BackwardPlan:
+    """How the gradient runs this shape: the forward's split mode for g, dh
+    and dx, sized for the wider of the two windows (dx's convolution is
+    padded by pad_right on the left); the weight gradients' splits."""
+    elem, halo = (2 if bf16 else 4), dilation * (K - 1)
+    win = max(window(halo, pad_left, elem), window(halo, halo - pad_left, elem))
+    data = _split_plan(B, C, T, win, bf16, limit, f"the gradient at C={C}, K={K}, d={dilation}",
+                       wide=C > 96)  # N = 192 would leave half of each product idle
+    s1, s2 = wg_splits(B, C, T, K), wg_splits(B, C, T, 1)
+    partials = max(s1 * K if s1 > 1 else 0, s2 if s2 > 1 else 0) * C * C
+    wg_smem = max(wg_smem_bytes(K, dilation, elem), wg_smem_bytes(1, 1, elem))
+    if wg_smem > limit:
+        raise ValueError(f"the weight gradient at K={K}, d={dilation} needs more shared memory "
+                         f"than a block can have")
+    return BackwardPlan(data, s1, s2, partials, wg_smem)
 
 
 def tma_length(T: int, dtype: torch.dtype) -> int:
@@ -169,6 +301,14 @@ def kernel_plan(B: int, C: int, T: int, K: int, dilation: int, pad_left: int, bf
     """`plan` for this shape on this card, computed once per shape."""
     return plan(B, C, tma_length(T, torch.bfloat16 if bf16 else torch.float32), K, dilation,
                 pad_left, bf16, smem_limit(device_index))
+
+
+@functools.cache
+def kernel_backward_plan(B: int, C: int, T: int, K: int, dilation: int, pad_left: int,
+                         bf16: bool, device_index: int = 0) -> BackwardPlan:
+    """`backward_plan` for this shape on this card, computed once per shape."""
+    return backward_plan(B, C, tma_length(T, torch.bfloat16 if bf16 else torch.float32), K,
+                         dilation, pad_left, bf16, smem_limit(device_index))
 
 
 def _check(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -239,11 +379,82 @@ def _forward(
     return y if Tp == T else y[..., :T].contiguous()
 
 
+def _backward(
+    x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, gy: torch.Tensor,
+    dilation: int, pad_left: int, pad_right: int, needs,
+):
+    """(dx, dw1, dw2), None where `needs` says no: plain on the CPU, the
+    kernel on a CUDA tensor."""
+    if x.device.type == "cpu":
+        return fused_dilated_unit_backward_reference(x, w1, w2, gy, dilation, pad_left,
+                                                     pad_right, needs)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_dilated_unit runs on cpu or cuda, not {x.device}")
+    return _backward_kernel(x, w1, w2, gy, dilation, pad_left, pad_right, needs)[:3]
+
+
+def backward_kernel_with_g(
+    x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, gy: torch.Tensor,
+    dilation: int, pad_left: int, pad_right: int,
+):
+    """For checks: the gradient kernel's (dx, dw1, dw2) and its recomputed
+    g = leaky(h) [B, C, T] on a CUDA tensor, so that the plain version can
+    be compared at the kernel's side of leaky'(h)'s kink
+    (`fused_dilated_unit_backward_reference(..., g_sign=g)`)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the gradient kernel runs on cuda, not {x.device}")
+    return _backward_kernel(x, w1, w2, gy, dilation, pad_left, pad_right, (True,) * 3)
+
+
+def _backward_kernel(x, w1, w2, gy, dilation, pad_left, pad_right, needs):
+    """One launch of the gradient kernel: (dx, dw1, dw2, g), g a view of its workspace."""
+    _check(x, w1, w2, dilation, pad_left, pad_right)
+    if gy.shape != x.shape or gy.dtype != x.dtype or gy.device != x.device:
+        raise ValueError(f"the output gradient {tuple(gy.shape)} {gy.dtype} on {gy.device} does "
+                         f"not match x {tuple(x.shape)} {x.dtype} on {x.device}")
+    B, C, T = x.shape
+    K = w1.shape[2]
+    bf16 = x.dtype == torch.bfloat16
+    p = kernel_backward_plan(B, C, T, K, dilation, pad_left, bf16, x.device.index)
+    Tp = tma_length(T, x.dtype)
+    index = x.device.index
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
+        pad = (lambda t: t.contiguous()) if Tp == T else (lambda t: F.pad(t, (0, Tp - T)))
+        xp, gyp = pad(x), pad(gy)
+        w1c, w2c = w1.contiguous(), w2.contiguous()
+        # one workspace: the three prepared weights, then g and dh [B, C, Tp]
+        work = torch.empty((1 if bf16 else 2) * (2 * K + 1) * C * C + 2 * B * C * Tp,
+                           dtype=x.dtype, device=x.device)
+        part = torch.empty(max(p.partials, 1), dtype=torch.float32, device=x.device)
+        dx = torch.empty_like(xp) if needs[0] else None
+        dw1 = torch.empty_like(w1c) if needs[1] else None
+        dw2 = torch.empty_like(w2c) if needs[2] else None
+        ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+        d = p.data
+        err = _lib().dilated_unit_backward(
+            xp.data_ptr(), w1c.data_ptr(), w2c.data_ptr(), gyp.data_ptr(), ptr(dx), ptr(dw1),
+            ptr(dw2), work.data_ptr(), part.data_ptr(), B, C, Tp, K, dilation, pad_left,
+            int(bf16), d.np, d.w_stages, d.x_stages, int(d.flush), p.splits_w1, p.splits_w2,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dilated_unit backward launch failed: cudaError {err}")
+    global launches_backward, launches_backward_bf16
+    launches_backward += 1
+    launches_backward_bf16 += bf16
+    if dx is not None and Tp != T:
+        dx = dx[..., :T].contiguous()
+    weights = (1 if bf16 else 2) * (2 * K + 1) * C * C
+    return dx, dw1, dw2, work[weights:weights + B * C * Tp].view(B, C, Tp)[..., :T]
+
+
 class FusedDilatedUnit(torch.autograd.Function):
     """The unit under autograd: `_fwd` / `_bwd` of the JAX package's
     `custom_vjp`. Forward: `_forward` (the kernel on a CUDA tensor), saving
-    only the inputs. Backward: the plain formulation recomputed in the
-    inputs' dtype and differentiated, for the inputs that need a gradient."""
+    only the inputs. Backward: `_backward` (the gradient's kernel on a CUDA
+    tensor, its closed form on the CPU), for the inputs that need a
+    gradient."""
 
     @staticmethod
     def forward(ctx, x, w1, w2, dilation: int, pad_left: int, pad_right: int):
@@ -253,14 +464,9 @@ class FusedDilatedUnit(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_y):
-        saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
-            y = fused_dilated_unit_reference(*inputs, *ctx.conv)
-            wanted = [t for t, n in zip(inputs, needs) if n]
-            grads = iter(torch.autograd.grad(y, wanted, grad_y))
-        return (*(next(grads) if n else None for n in needs), None, None, None)
+        x, w1, w2 = ctx.saved_tensors
+        grads = _backward(x, w1, w2, grad_y, *ctx.conv, ctx.needs_input_grad[:3])
+        return (*grads, None, None, None)
 
 
 def fused_dilated_unit(

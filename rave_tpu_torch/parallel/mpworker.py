@@ -19,9 +19,12 @@ weights seeded (seed 0) and its draws made by `draw_noise` from
 {"model": state_dict, "discriminator": state_dict}) and `--draws` the
 steps' draws at the global batch (a list of `LatentDraws` fields), so that
 a test can hand the worker the JAX package's. Each rank prints one line,
-`MPWORKER {json}` (per-step losses and milliseconds, unit launches,
-parameter checksums and a digest of every parameter and buffer), and with
-`--out_dir` writes it to `<out_dir>/rank<r>.json`.
+`MPWORKER {json}` (per-step losses and milliseconds, the unit's launches of
+the forward and the gradient kernels, parameter checksums and a digest of
+every parameter and buffer), and with
+`--out_dir` writes it to `<out_dir>/rank<r>.json`. With `--step0_grads`
+rank 0 also writes the generator's gradients of step 0, as the optimizer
+took them (after the ranks' average), to `<out_dir>/step0_grads.pt`.
 """
 from __future__ import annotations
 
@@ -100,7 +103,7 @@ def run(args) -> dict:
     out["param0_checksum"] = float(sum(p.detach().double().abs().sum()
                                        for p in state.model.parameters()))
     xb = mesh.put_batch(x_global, device)
-    ms, launches = [], []
+    ms, launches, launches_bwd = [], [], []
     cudnn = torch.backends.cudnn
     saved_flags = cudnn.deterministic, cudnn.benchmark
     if args.deterministic:
@@ -117,7 +120,8 @@ def run(args) -> dict:
                         draws = draw_noise(cfg, xb, step_generator(DRAW_SEED, i, device))
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
-                n0, t0 = dilated_unit.launches, time.perf_counter()
+                n0, b0, t0 = (dilated_unit.launches, dilated_unit.launches_backward,
+                              time.perf_counter())
                 if which == "gen":
                     m = steps["gen"](state, xb, warmed, draws=draws, quantize=args.quantize)
                     out[f"step{i}_loss_gen"] = float(m["loss_gen"])
@@ -127,11 +131,16 @@ def run(args) -> dict:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0 and args.step0_grads and rank == 0:
+                    torch.save({n: p.grad.detach().cpu() for n, p in
+                                state.model.named_parameters()},
+                               Path(args.out_dir) / "step0_grads.pt")
                 launches.append(dilated_unit.launches - n0)
+                launches_bwd.append(dilated_unit.launches_backward - b0)
                 out[f"step{i}_metrics"] = {k: float(v) for k, v in m.items()}
     finally:
         cudnn.deterministic, cudnn.benchmark = saved_flags
-    out["ms"], out["launches"] = ms, launches
+    out["ms"], out["launches"], out["launches_backward"] = ms, launches, launches_bwd
     out["checksum"] = float(sum(p.detach().double().abs().sum()
                                 for p in state.model.parameters()))
     out["buffer_checksum"] = float(sum(b.detach().double().abs().sum()
@@ -159,11 +168,16 @@ def main(argv=None) -> int:
     p.add_argument("--draws", default=None)
     p.add_argument("--save_state", default=None)
     p.add_argument("--out_dir", default=None)
+    p.add_argument("--step0_grads", action="store_true",
+                   help="rank 0 writes step 0's generator gradients to <out_dir>/step0_grads.pt")
     args = p.parse_args(argv)
+    if args.step0_grads and not args.out_dir:
+        p.error("--step0_grads needs --out_dir")
+    if args.out_dir:
+        Path(args.out_dir).mkdir(parents=True, exist_ok=True)
     out = run(args)
     line = json.dumps(out)
     if args.out_dir:
-        Path(args.out_dir).mkdir(parents=True, exist_ok=True)
         (Path(args.out_dir) / f"rank{out['rank']}.json").write_text(line)
     print("MPWORKER " + line, flush=True)
     from rave_tpu_torch.parallel import mesh

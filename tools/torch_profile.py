@@ -14,11 +14,11 @@ default):
             through step_encode -> step_decode: 4 warm, 8 timed, 12 profiled;
   train   : compose(["v2"]), B=8 x 131072, one step of each phase (pre-warmup
             generator, adversarial generator, critic): 1 warm, 3 timed and
-            1 profiled each. The fused unit's share of a step is its kernel's
-            device time plus that of its recompute backward, which this tool
-            wraps in a `record_function` range; the convolutions' share is
-            that of every cuDNN kernel (the convolutions of critic and
-            generator and their layout transforms);
+            1 profiled each. The fused unit's share of a step is the device
+            time of its forward and of its gradient's kernel, each of which
+            this tool wraps in a `record_function` range; the convolutions'
+            share is that of every cuDNN kernel (the convolutions of critic
+            and generator and their layout transforms);
   train_bf16 : the same with train.bf16 and train.bf16_dis (the CLI's
             `--bf16`), the fused unit's bf16 kernel;
   artifact_v2, artifact_discrete : the artifact's eager streaming block,
@@ -104,11 +104,14 @@ def device_summary(prof, calls: int, wall_ms: float, top: int) -> list[str]:
     return lines
 
 
-# the fused unit's kernels (csrc/dilated_unit.cu): its weight preparation and the unit
-UNIT_KERNEL = re.compile(r"unit_kernel|prepare_weights")
+# the fused unit's kernels (csrc/dilated_unit.cu): its weight preparations, the unit (the
+# forward's and the gradient's launches) and the weight gradients with their reduction
+UNIT_KERNEL = re.compile(r"unit_kernel|prepare_weights|wgrad_kernel|wgrad_reduce")
 # cuDNN's kernels by name: convolutions (forward, data and weight gradients)
-# and the layout transforms around them
-CONV_KERNEL = re.compile(r"xmma|fprop|dgrad|wgrad|implicit_gemm|cudnn|convolve|conv[12]d", re.I)
+# and the layout transforms around them; the unit's own kernels are not cuDNN's
+CONV_KERNEL = re.compile(r"^(?!.*(?:unit_kernel|prepare_weights|wgrad_kernel|wgrad_reduce))"
+                         r".*(?:xmma|fprop|dgrad|wgrad|implicit_gemm|cudnn|convolve|conv[12]d)",
+                         re.I)
 
 
 def kernel_ms(prof, calls: int, pattern) -> float:
@@ -120,29 +123,45 @@ def kernel_ms(prof, calls: int, pattern) -> float:
 
 
 def range_ms(prof, calls: int, name: str) -> float:
-    """Device time of the kernels launched under the `record_function` range `name`."""
+    """Device time of the kernels launched under the `record_function` range
+    `name`: the range's own device total where the profiler keeps one on the
+    CPU event, else that of the device events that start inside the range's
+    spans on the device timeline (its GPU user annotations)."""
     from torch.autograd import DeviceType
 
-    return sum(e.device_time_total for e in prof.events()
-               if e.device_type == DeviceType.CPU and e.name == name) / 1e3 / calls
+    events = prof.events()
+    total = sum(e.device_time_total for e in events
+                if e.device_type == DeviceType.CPU and e.name == name)
+    if total == 0:
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                       if e.device_type == DeviceType.CUDA and e.is_user_annotation
+                       and e.name == name)
+        total = sum(e.time_range.end - e.time_range.start for e in events
+                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                    and any(a <= e.time_range.start < b for a, b in spans))
+    return total / 1e3 / calls
 
 
 def unit_share(prof, calls: int, busy_ms: float) -> str:
-    """Device time of the fused unit per call (its forward kernel, either
-    variant, and the kernels under the backward's `record_function` range),
-    that of cuDNN's kernels (convolutions and their layout transforms), and
-    that of the critic's forward (the kernels under its range)."""
-    fwd = kernel_ms(prof, calls, UNIT_KERNEL)
+    """Device time of the fused unit per call (the kernels under the
+    `record_function` ranges of its forward, either variant, and of its
+    gradient's kernel), that of cuDNN's kernels (convolutions and their
+    layout transforms), and that of the critic's forward (the kernels under
+    its range)."""
+    fwd = range_ms(prof, calls, FORWARD_RANGE)
     bwd = range_ms(prof, calls, BACKWARD_RANGE)
+    unit = kernel_ms(prof, calls, UNIT_KERNEL)
     conv = kernel_ms(prof, calls, CONV_KERNEL)
     critic = range_ms(prof, calls, CRITIC_RANGE)
-    return (f"fused unit: forward kernel {fwd:.3f} ms + recompute backward {bwd:.3f} ms = "
-            f"{fwd + bwd:.3f} ms per call, {100 * (fwd + bwd) / busy_ms:.1f}% of device busy; "
-            f"cuDNN convolutions and layout transforms (the recompute's included) {conv:.3f} ms, "
+    return (f"fused unit: forward kernel {fwd:.3f} ms + backward kernel {bwd:.3f} ms = "
+            f"{fwd + bwd:.3f} ms per call (its kernels by name {unit:.3f} ms), "
+            f"{100 * (fwd + bwd) / busy_ms:.1f}% of device busy; "
+            f"cuDNN convolutions and layout transforms {conv:.3f} ms, "
             f"{100 * conv / busy_ms:.1f}%; the critic's forward {critic:.3f} ms, "
             f"{100 * critic / busy_ms:.1f}%")
 
 
+FORWARD_RANGE = "fused_dilated_unit.forward"
 BACKWARD_RANGE = "fused_dilated_unit.backward"
 CRITIC_RANGE = "critic.forward"
 
@@ -157,13 +176,17 @@ def train_cell(activities, top: int, overrides=(), names=("v2",)) -> list[str]:
     from rave_tpu_torch.train.state import create_train_state
     from rave_tpu_torch.train.steps import build_train_steps
 
-    backward = dilated_unit.FusedDilatedUnit.backward
+    forward, backward = dilated_unit._forward, dilated_unit._backward
 
-    def traced_backward(ctx, grad_y):
+    def traced_forward(*args):
+        with record_function(FORWARD_RANGE):
+            return forward(*args)
+
+    def traced_backward(*args):
         with record_function(BACKWARD_RANGE):
-            return backward(ctx, grad_y)
+            return backward(*args)
 
-    dilated_unit.FusedDilatedUnit.backward = staticmethod(traced_backward)
+    dilated_unit._forward, dilated_unit._backward = traced_forward, traced_backward
     cfg = compose(list(names), list(overrides))
     rf = receptive_field(cfg, device="cuda") if cfg.train.valid_signal_crop else (0, 0)
     steps = build_train_steps(cfg, crop_frames(cfg, rf))
@@ -200,7 +223,7 @@ def train_cell(activities, top: int, overrides=(), names=("v2",)) -> list[str]:
         lines += [f"== train {'+'.join(names)} {' '.join(overrides)} B={cfg.data.batch} x "
                   f"{cfg.data.n_signal}, {name} step"]
         lines += summary[:1] + [unit_share(prof, 1, busy_ms)] + summary[1:]
-    dilated_unit.FusedDilatedUnit.backward = staticmethod(backward)
+    dilated_unit._forward, dilated_unit._backward = forward, backward
     return lines
 
 
