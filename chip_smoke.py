@@ -45,11 +45,15 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                and B=1, and a ragged T per width (`grad_cases`), taken at
                the kernel's side of leaky'(h)'s kink (`backward_row`): fp32
                each within 1e-4 of its max, the kernel's h too; bf16 by the
-               rule of phase 4 against the plain fp32 closed form; at the
-               centered v2 and variant shapes at B=8 the Function's
-               gradients bit-equal to the kernel's, its y within the
-               forward's rules, and device ms of fwd+bwd (Function and
-               plain autograd) and of the backward alone (kernel and plain);
+               rule of phase 4 against the plain fp32 closed form; two calls
+               bit-equal at every shape; at the centered v2 and variant
+               shapes at B=8 the Function's gradients bit-equal to the
+               kernel's, its y within the forward's rules, device ms of
+               fwd+bwd (Function and plain autograd) and of the backward
+               alone (kernel and plain); at the 11 v2 shapes the device
+               kernels of one call (torch.profiler: exactly 5) and the
+               weight gradients' kernel's ms beside cuDNN's weight
+               gradients of the same two convolutions and their bound;
   8. train   : compose(["v2"]) at full width, B = data.batch = 8 x
                data.n_signal = 131072, fp32: the receptive field (and the
                valid-signal crop) from the port's probe, then pre-warmup
@@ -367,6 +371,8 @@ KERNEL_SOURCE = "rave_tpu_torch/csrc/dilated_unit.cu"
 KERNEL_REPLACES = "rave_tpu/ops/kernels/dilated_unit.py:75"
 # the gradient's kernel replaces `_bwd` of the custom_vjp (XLA's recompute, no Pallas in it)
 KERNEL_BWD_REPLACES = "rave_tpu/ops/kernels/dilated_unit.py:132"
+# device kernels of one call of the gradient: the weights' preparation, g, dh, dx, dw1 and dw2
+BWD_KERNELS = 5
 # the decoder's units in every preset that has them: an adversarial generator step's
 # gradient launches (the encoder runs frozen, without a graph)
 DECODER_UNITS = 11
@@ -787,10 +793,14 @@ def backward_row(gen, case: str, B: int, C: int, T: int, d: int, mode: str, dtyp
     args = (x, w1, w2, gy, d, left, right)
     *got, g_k = du.backward_kernel_with_g(*args)
     want = du.fused_dilated_unit_backward_reference(*args, g_sign=g_k)
+    again = du._backward(*args, (True, True, True))
     torch.cuda.synchronize()
     where = f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} B={B} C={C} T={T} d={d} {mode}"
     check(all(bool(torch.isfinite(a).all()) and a.dtype == dtype and a.shape == b.shape
               for a, b in zip(got, want)), f"gradient kernel not finite, or not {dtype}, at {where}")
+    # the weight gradients' splits are added in a fixed order: the same bits every call
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"two calls of the gradient kernel differ at {where}")
     h = F.conv1d(F.pad(du._leaky(x.float()), (left, right)), w1.float(), dilation=d)
     flips = (g_k > 0) != (h > 0)
     kink = float(h[flips].abs().max() / h.abs().max()) if bool(flips.any()) else 0.0
@@ -823,7 +833,80 @@ def backward_row(gen, case: str, B: int, C: int, T: int, d: int, mode: str, dtyp
                    bwd_ms=cuda_ms(lambda: du._backward(*args, (True, True, True)), 10),
                    plain_bwd_ms=cuda_ms(
                        lambda: du.fused_dilated_unit_backward_reference(*args), 10))
+        if (C, T, d) in {(c, t, e) for c, t, dils in UNIT_SHAPES for e in dils}:  # v2's
+            row.update(inputs=args, **wgrad_library(x, w1, w2, gy, d, left, right))
     return row
+
+
+def wgrad_kernels(rows) -> None:
+    """For each row's `inputs`, one `_backward` call's device kernels and the
+    weight gradients' kernel's device ms per call, from one torch.profiler
+    session over 5 calls of each after a warm one. The calls run on one
+    stream, so their kernels run in launch order: the session's kernels, by
+    start, must be BWD_KERNELS per call, each call's the weights'
+    preparation, three launches of `unit_kernel` and one of
+    `wgrad_wgmma_kernel`. Fills `kernels_per_call` and `wgrad_ms`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rave_tpu_torch.ops.kernels import dilated_unit as du
+
+    calls = 5
+    for r in rows:
+        du._backward(*r["inputs"], (True, True, True))
+    torch.cuda.synchronize()
+    for attempt in range(2):  # a session that recorded no device event is run again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for r in rows:
+                for _ in range(calls):
+                    du._backward(*r["inputs"], (True, True, True))
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                          and not e.is_user_annotation), key=lambda e: e.time_range.start)
+        if kernels:
+            break
+    check(len(kernels) == BWD_KERNELS * calls * len(rows),
+          f"the gradient's {calls * len(rows)} calls ran {len(kernels)} device kernels, not "
+          f"{BWD_KERNELS} each")
+    want = {"prepare_weights_bwd": 1, "unit_kernel": 3, "wgrad_wgmma_kernel": 1}
+    for i, r in enumerate(rows):
+        mine = kernels[i * BWD_KERNELS * calls:(i + 1) * BWD_KERNELS * calls]
+        for c in range(calls):
+            names = [e.name for e in mine[c * BWD_KERNELS:(c + 1) * BWD_KERNELS]]
+            check(all(sum(k in n for n in names) == m for k, m in want.items()),
+                  f"a gradient call at C={r['C']} T={r['T']} d={r['d']} ran {names}")
+        r["kernels_per_call"] = len(mine) / calls
+        r["wgrad_ms"] = sum(e.time_range.end - e.time_range.start for e in mine
+                            if "wgrad_wgmma_kernel" in e.name) / 1e3 / calls
+
+
+def wgrad_library(x, w1, w2, gy, d, left, right) -> dict:
+    """cuDNN's weight gradients of the unit's two convolutions on these inputs
+    (`aten.convolution_backward` with output_mask (False, True, False): dw1
+    from the padded leaky(x) and dh, dw2 from g and gy, in the inputs' type,
+    TF32 off in fp32: a yardstick the port never calls), by `cuda_ms`; and
+    their bound, 2 (K + 1) C^2 T B FLOP over the type's peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from rave_tpu_torch.ops.kernels import dilated_unit as du
+
+    # the plain gradient's dh and g in the inputs' type, for cuDNN's weight gradients
+    h = F.conv1d(F.pad(du._leaky(x), (left, right)), w1, dilation=d)
+    g = du._leaky(h)
+    dh = du._leaky_grad(g, F.conv1d(gy, w2.t()[:, :, None]))
+    a = F.pad(du._leaky(x), (left, right))
+    conv_bwd = torch.ops.aten.convolution_backward
+
+    def library():
+        conv_bwd(dh, a, w1, None, [1], [0], [d], False, [0], 1, [False, True, False])
+        conv_bwd(gy, g, w2[:, :, None], None, [1], [0], [1], False, [0], 1, [False, True, False])
+
+    B, C, T = x.shape
+    flop = 2 * (w1.shape[2] + 1) * C * C * T * B
+    peak = PEAK_FLOPS["bf16" if x.dtype == torch.bfloat16 else "fp32"]
+    return {"library_wgrad_ms": cuda_ms(library, 10), "wgrad_bound_ms": flop / peak * 1e3}
 
 
 def function_ms(x, w1, w2, gy, d, left, right) -> tuple:
@@ -885,18 +968,29 @@ def phase_grad() -> dict:
     v2 = {(C, T, d) for C, T, dils in UNIT_SHAPES for d in dils}
     for name, rs in list(out.items()):
         timed = [r for r in rs if "bwd_ms" in r]
+        v2_rows = [r for r in timed if "inputs" in r]
+        wgrad_kernels(v2_rows)
+        for r in v2_rows:
+            r.pop("inputs")
+            check(r["kernels_per_call"] == BWD_KERNELS,
+                  f"one {name} call of the gradient ran {r['kernels_per_call']} device kernels "
+                  f"at C={r['C']} T={r['T']} d={r['d']}, not {BWD_KERNELS}")
         # the 11 centered v2 shapes at B=8, each once: half a training step's units
         out[name + "_v2"] = [r for r in timed if (r["C"], r["T"], r["d"]) in v2]
         worst = max(max(r[f"{k}_rel_err"] for k in ("dx", "dw1", "dw2")) for r in rs)
         flips = sum(r["flips"] for r in rs)
         summary = "; ".join(f"{r['C']}x{r['T']} d{r['d']} {r['fwd_bwd_ms']:.3f}/"
                             f"{r['plain_fwd_bwd_ms']:.3f} (bwd {r['bwd_ms']:.3f}/"
-                            f"{r['plain_bwd_ms']:.3f})" for r in out[name + "_v2"])
+                            f"{r['plain_bwd_ms']:.3f}; wgrad {r['wgrad_ms']:.4f}/"
+                            f"{r['library_wgrad_ms']:.4f}/{r['wgrad_bound_ms']:.4f})"
+                            for r in out[name + "_v2"])
         print(f"grad {name}: {len(refusals)} refusals raised with and without autograd; the "
-              f"gradient kernel at {len(rs)} shapes, dx/dw1/dw2 max rel err from plain "
-              f"{worst:.2e} (at the kernel's side of the kink; {flips} sides differ, all at "
-              f"|h| <= {max(r['flip_h_max'] for r in rs):.1e} max); v2 at B={TRAIN_BATCH}, "
-              f"fwd+bwd ms Function/plain (bwd kernel/plain): {summary}", flush=True)
+              f"gradient kernel at {len(rs)} shapes, two calls bit-equal at each, dx/dw1/dw2 "
+              f"max rel err from plain {worst:.2e} (at the kernel's side of the kink; {flips} "
+              f"sides differ, all at |h| <= {max(r['flip_h_max'] for r in rs):.1e} max); "
+              f"{BWD_KERNELS} device kernels per call; v2 at B={TRAIN_BATCH}, fwd+bwd ms "
+              f"Function/plain (bwd kernel/plain; weight gradients kernel/cuDNN/bound): "
+              f"{summary}", flush=True)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -4703,7 +4797,11 @@ def main() -> None:
                  "bound_ms_fwd_bwd": bounds[f"{kind}_b8_fwd_bwd"]["bound_ms"],
                  "ms": sum(r["bwd_ms"] for r in units),
                  "plain_ms": sum(r["plain_bwd_ms"] for r in units),
-                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None}
+                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None,
+                 # one launch of the weight gradients per call, and its time beside cuDNN's
+                 "kernels_per_call": BWD_KERNELS,
+                 **{k: sum(r[k] for r in units) for k in ("wgrad_ms", "library_wgrad_ms",
+                                                         "wgrad_bound_ms")}}
         if kind == "fp32":
             entry.update(launches_remat_step=remat["remat_launches_backward"],
                          launches_remote=remote["launches_backward"],

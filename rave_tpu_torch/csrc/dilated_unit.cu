@@ -61,7 +61,9 @@
 // kernel's `_bwd` (rave_tpu/ops/kernels/dilated_unit.py:132), which has no
 // Pallas kernel: it recomputes the unit and differentiates it with XLA. Here
 // the data gradients are three more launches of this kernel's split mode and
-// the weight gradients a kernel of their own (`wgrad_kernel`); see there.
+// both weight gradients one launch of a wgmma kernel of their own
+// (`wgrad_wgmma_kernel`: Q shifted in registers, P swizzled by TMA, splits
+// over frames reduced in the launch in a fixed order); see there.
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, the driver is reached at run time
 #include <cuda_bf16.h>
@@ -766,7 +768,7 @@ int forward(const void* x, const void* w1, const void* w2, void* y, void* wbuf, 
 // dilated launch over dh with w1 transposed and its taps reversed, the pads
 // swapped (the transposed convolution is a convolution), epilogue gy +
 // leaky'(x) * v. The weight gradients are GEMMs of C x C outputs whose
-// reduction runs over every frame of the batch: `wgrad_kernel` below.
+// reduction runs over every frame of the batch: `wgrad_wgmma_kernel` below.
 //
 // What bounds it on the H100: from x, the weights and gy the gradient needs
 // h again (its sign is leaky'(h); dw2 reads leaky(h)), so 2 (3 K + 2) C^2 T B
@@ -774,19 +776,76 @@ int forward(const void* x, const void* w1, const void* w2, void* y, void* wbuf, 
 // its bytes (x, gy, dx, g and dh each through device memory once or twice)
 // are a few microseconds at 3.35 TB/s. The data launches are the forward's
 // split mode (dx's convolution reads dh across tile edges, so dh goes
-// through device memory, as does g, which dw2 reads too); the weight
-// gradients run on mma.sync, far under the tensor cores' rate (see there).
+// through device memory, as does g, which dw2 reads too). The weight
+// gradients, 2 (K + 1) C^2 T B of those FLOP, are one launch of
+// `wgrad_wgmma_kernel` below. So a unit's gradient is five launches at every
+// shape: prepare_weights_bwd, g, dh, dx and the weight gradients.
 
-// Frames of one reduction step of the weight gradients, and the block's
-// C x C output tile: 64 output rows (p) x 64 columns (q), four warps of 32 x 32.
-constexpr int kWgFrames = 64;
-constexpr int kWgTile = 64;
-constexpr int kWgThreads = 128;
-constexpr int kWgStages = 2;
-constexpr int kWgTaps = 3;  // taps per block (acc registers); more taps take more blocks
-// fp32: k8 steps whose products (24 per output each) gather in the tensor
-// cores before a flush into fp32 registers: 48, half the forward's 96
-constexpr int kWgFlush = 2;
+// ---- the weight gradients ----------------------------------------------------
+//
+// For each tap k of each gradient, D[q][p] = sum over the batch's frames t of
+// f(Q[b, q, t + k d - pad_left]) . P[b, p, t], Q zero outside [0, T):
+//   dw1: Q = x, f = leaky, P = dh, K taps;   dw2: Q = g, f = identity, P = gy,
+// one tap; written transposed, dw[p][q][k] ([C_out][C_in][taps]).
+//
+// What bounds it: 2 (K + 1) C^2 T B FLOP (4.83 GFLOP per unit at every v2
+// level at B = 8) at 3xTF32's 165 TFLOP/s or bf16's 989 on the H100, and the
+// bytes its tiles bring from L2 into shared memory (every tile of N output
+// channels reads Q's windows again, every tile of 128 input channels P): on
+// the H100 a block takes ~30 kB of these boxes per us, which bounds bf16;
+// fp32 is bound by its products and the flush (PERF.md, from a per-block
+// clock). The design:
+//   * A GEMM per tap with M = input channels q, N = output channels p and
+//     the reduction over frames, on wgmma (m64nNk8 tf32, m64nNk16 bf16).
+//     Both operands are [B, C, T] with frames contiguous, so P, the
+//     unshifted operand, loaded by TMA in boxes [N channel rows][128 bytes of
+//     frames] (a chunk: 32 fp32 or 64 bf16 frames) with the 128-byte
+//     swizzle, is already the K-major B that wgmma reads from shared memory
+//     (tf32 has no transpose bit). Q, shifted by k d - pad_left frames (not a
+//     multiple of any swizzle atom), is A from registers: loaded with
+//     ld.shared at any frame from a plain TMA window [128 q rows][the chunk
+//     + 16 bytes] (a box starts 16-byte aligned), as the forward loads its
+//     A, f and (fp32) the TF32 hi/lo split applied there. A tile has one
+//     tap, so each window element is prepared once, as it loads. TMA's zero
+//     fill is the padding (leaky(0) = 0). bf16's leaky is three bf16x2
+//     instructions, exact (see there). N is 96, or 192 in bf16 (the plan's).
+//   * fp32 is 3xTF32 (a_lo b_hi + a_hi b_lo + a_hi b_hi, each part rounded)
+//     with the tensor cores' sums flushed into fp32 registers every
+//     kWgFlush k8 steps (48 products per output), two windows' sums
+//     alternating. B's parts: three helper warps split each landed P box,
+//     the hi part in place and the lo part into a second buffer with the
+//     same swizzle (the split is elementwise, the swizzle an address
+//     permutation), then fence.proxy.async before the consumers' wgmma reads
+//     them. bf16 multiplies bf16 with fp32 sums and reads P as it lands.
+//   * Warp specialised: one producer thread keeps TMA loads in flight in a
+//     ring of 3-6 stages (full, ready (fp32: split) and empty mbarriers);
+//     two consumer warpgroups of 64 q rows each read every stage's P;
+//     `setmaxnreg` gives them the producer's registers.
+//   * The work is tiles of (gradient, tap, 128 q rows, N p rows), dw1's
+//     first, each over the batch's chunks, sample-major. Block b runs the
+//     units [floor(b U / grid), floor((b + 1) U / grid)) of that sequence of
+//     U (tile, chunk) units: the plan's grid (`wg_grid`) is one block per
+//     tile, or a whole number of blocks per tile, or one per SM. A block's
+//     run over one tile is a segment. A whole tile's sums are the gradient.
+//     A segment of a shared tile writes fp32 partials (each warpgroup its
+//     half, in the accumulators' order: coalesced) and counts its arrival (a
+//     release fence, then an atomic increment); the sums are added in two
+//     levels, each by the last arrival at a counter: groups of R =
+//     ceil(sqrt(nseg)) consecutive segments, then the groups, so the
+//     critical path reads R + nseg / R partials, not nseg. The last resets
+//     the counter and writes the gradient in the input's type. No atomics in
+//     the sums, and the order depends on the shape alone: the same inputs
+//     give the same bits.
+// What it leaves (measured, PERF.md): at C = 96 the second warpgroup holds
+// 32 real q rows of 64 (a quarter of the tile idle) and at C = 192 the
+// second q tile's second warpgroup none; each tap's tile reads its Q window
+// and P box again (a tile of three taps shares them, but triples its
+// partials and spills fp32's registers: slower); Q's windows cost ~25% more
+// than 128-byte rows would (the 16-byte start alignment; sharing 128-byte
+// lines across stages instead was slower); a split tile's reduction, 10-20 us
+// at the end of the launch; ptxas serializes fp32's products around the
+// flush (C7514); the stores of dw1 interleave the taps that separate tiles
+// write (stride K).
 
 // TF32 by integer ops (cvt is slower): rounded to nearest, ties away from 0.
 __device__ __forceinline__ uint32_t tf32_round(float v) {
@@ -801,303 +860,535 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) 
   lo = tf32_round(v - __uint_as_float(hi));
 }
 
-// Frames of a weight-gradient smem row: at least `frames`, whole 16-byte TMA
-// rows, and 4 mod 32 words, so that a fragment load (8 rows x 4 frames of
-// 32-bit words) hits 32 distinct banks.
-template <class E>
-__host__ __device__ constexpr int wg_pitch(int frames) {
-  int w = round_up(frames, 16 / (int)sizeof(E));
-  while ((w * (int)sizeof(E) / 4) % 32 != 4) w += 16 / (int)sizeof(E);
-  return w;
-}
+constexpr int kWgRows = 128;  // q rows of a tile: two consumer warpgroups of 64
+constexpr int kWgMinStages = 3, kWgMaxStages = 6;
+constexpr int kWgHelpers = 3;  // producer warps that split fp32's P into TF32 parts
+// fp32: k8 steps whose products (8 frames x 3 per output each) gather in the
+// tensor cores before a flush into fp32 registers: 48
+constexpr int kWgFlush = 2;
+// counters of a tile's warpgroup half: the tile's, then one per group of its
+// segments (at most ceil(sqrt(segments)) <= 12 groups at 132 SMs)
+constexpr int kWgCounters = 16;
 
-// Frames of Q's window: the chunk, the taps of a block ((taps - 1) d) and the
-// offset of the first tap from a 16-byte boundary.
+// Per element type: the frames of a chunk (one 128-byte swizzle row of P),
+// TMA's 16-byte start alignment in frames, and the frames of a Q window row
+// (the chunk and that alignment: 144 bytes, 36 words, 4 mod 8, so that an A
+// fragment load of 8 rows x 4 words hits 32 distinct banks).
 template <class E>
-__host__ __device__ constexpr int wg_q_pitch(int taps, int dilation) {
-  return wg_pitch<E>(kWgFrames + (taps - 1) * dilation + 16 / (int)sizeof(E) - 1);
-}
-
-// The stages' P and Q boxes, then (fp32) Q's lo parts, then the barriers.
-template <class E>
-__host__ __device__ constexpr int wg_smem_bytes(int pitch_q) {
-  return 1024 + (kWgStages * (wg_pitch<E>(kWgFrames) + pitch_q) + (sizeof(E) == 4) * pitch_q) *
-                    kWgTile * (int)sizeof(E) +
-         8 * kWgStages;
-}
-
-struct WgParams {
-  void* out;  // splits == 1: the gradient, E [C][C][taps]; else fp32 partials [splits][C][C][taps]
-  int C, T, taps, dilation, pad_left, batch;
-  int leaky_q;  // Q is leaky(input)
-  int splits;   // blocks that share one output tile's frames, each over its own range
-  int pitch_q;
+struct Wg {
+  static constexpr int FRAMES = 128 / (int)sizeof(E), STEP = 16 / (int)sizeof(E);
+  static constexpr int QP = FRAMES + STEP, PARTS = Arith<E>::PARTS;
+  // P [np][128 bytes] (and fp32's lo part of it), then Q [128][QP]; each a
+  // multiple of 1024 bytes
+  __host__ __device__ static constexpr int stage_bytes(int np) {
+    return PARTS * np * 128 + kWgRows * QP * (int)sizeof(E);
+  }
+  __host__ __device__ static constexpr int tx_bytes(int np) {  // what TMA writes into a stage
+    return np * 128 + kWgRows * QP * (int)sizeof(E);
+  }
+  // the stages, their full / ready / empty barriers, a flag per consumer warpgroup
+  __host__ __device__ static constexpr int smem_bytes(int np, int stages) {
+    return 1024 + stages * (stage_bytes(np) + 24) + 8;
+  }
 };
 
-// D[k][p][q] = sum over the batch's frames t of P[b, p, t] . f(Q[b, q, t + k d -
-// pad_left]) for the taps k of blockIdx.z's group, f = leaky or identity, Q zero
-// outside [0, T): dw1 (P = dh, Q = x, leaky) and dw2 (P = gy, Q = g, one tap).
-// blockIdx.x is the 64 x 64 output tile, blockIdx.y the split of the frames.
-//
-// Both operands are activations [B, C, T], frames contiguous: the reduction
-// dim is the fast one of both, and Q's taps are shifts by k d frames, not a
-// multiple of any swizzle atom. So both are read from shared memory into
-// registers at any frame (mma.sync fragments, like the forward's A), from
-// TMA boxes [64 channels][pitch frames] (zero fill is the padding) in a ring
-// of two stages. Q's box is read by every tap, so once it has landed the
-// block prepares it in place, once: leaky where asked and (fp32) its TF32
-// hi part, its lo part beside it; the taps' fragment loads then do no
-// arithmetic. fp32 splits P in registers (3xTF32) and flushes the tensor
-// cores' sums into fp32 registers every kWgFlush k8 steps; bf16 multiplies
-// bf16 with fp32 sums. The partial sums of the splits are added in a fixed
-// order by `wgrad_reduce`: no atomics, the same bits on every run.
-//
-// What bounds it: 2 K C^2 T B FLOP (dw1; dw2 a K-th of it), at 3xTF32's
-// 165 TFLOP/s or bf16's 989 on the H100, over a few MB of activations. It
-// runs far from that: mma.sync, not wgmma (whose tf32 B must be K-major in
-// swizzled shared memory, which the taps' shifts are not), one 64 x 64
-// tile of four warps per block, two blocks per SM.
-template <class E, int TK>
-__global__ void __launch_bounds__(kWgThreads)
-wgrad_kernel(const __grid_constant__ CUtensorMap map_p, const __grid_constant__ CUtensorMap map_q,
-             const WgParams p) {
-  constexpr int step = 16 / (int)sizeof(E);
-  constexpr int PP = wg_pitch<E>(kWgFrames);
+// One weight gradient of a launch.
+struct WgGrad {
+  void* out;  // E [C][C][taps]
+  int taps, dilation, pad_left;
+  float slope;  // f(v) = v where v >= 0, else slope v: leaky (kSlope) or the identity (1)
+};
+
+struct WgParams {
+  WgGrad grad[2];        // dw1 first where both run
+  int C, T, stages;
+  int q_tiles, p_tiles;  // tiles of one tap
+  int tiles0, tiles;     // of grad[0]; of the launch
+  int chunks;            // of a tile: batch x ceil(T / FRAMES), sample-major
+  float* part;           // fp32 partials: 2 slots per block, kWgRows x N each
+  int* counters;         // kWgCounters per tile and consumer warpgroup, 0 between launches
+};
+
+// The tile of a unit: its index, gradient, tap, and first q and p.
+struct WgTile {
+  int t, g, k, q0, p0;
+  WgGrad grad;
+};
+
+__device__ __forceinline__ WgTile wg_tile(const WgParams& p, int t, int np) {
+  WgTile x;
+  x.t = t;
+  x.g = t >= p.tiles0;
+  x.grad = x.g ? p.grad[1] : p.grad[0];
+  const int per_tap = p.q_tiles * p.p_tiles, r0 = t - (x.g ? p.tiles0 : 0);
+  x.k = r0 / per_tap;
+  const int r = r0 - x.k * per_tap;
+  x.q0 = r / p.p_tiles * kWgRows;
+  x.p0 = r % p.p_tiles * np;
+  return x;
+}
+
+// Block b runs the units [wg_lo(b), wg_lo(b + 1)); wg_block(u) is the block
+// that runs unit u.
+__device__ __forceinline__ long long wg_lo(long long b, long long units, int grid) {
+  return b * units / grid;
+}
+__device__ __forceinline__ int wg_block(long long u, long long units, int grid) {
+  return (int)(((u + 1) * grid - 1) / units);
+}
+
+// Keeps registers that an asynchronous product reads alive up to this point.
+template <int S, int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[S][R]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int r = 0; r < R; ++r) asm volatile("" : "+r"(a[s][r])::"memory");
+}
+
+template <class E, int NP>
+__global__ void __launch_bounds__(kThreads, 1)
+wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap map_p0,
+                   const __grid_constant__ CUtensorMap map_q0,
+                   const __grid_constant__ CUtensorMap map_p1,
+                   const __grid_constant__ CUtensorMap map_q1, const WgParams p) {
+  using W = Wg<E>;
+  constexpr bool kF32 = sizeof(E) == 4;
+  constexpr int SB = W::stage_bytes(NP), QP = W::QP, F = W::FRAMES, STEP = W::STEP;
+  constexpr int Q_OFF = W::PARTS * NP * 128;  // Q's offset in a stage
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const int C = p.C, QP = p.pitch_q;
-  const int p_bytes = kWgTile * PP * (int)sizeof(E), q_bytes = kWgTile * QP * (int)sizeof(E);
-  const int stage_bytes = p_bytes + q_bytes;  // both multiples of 1024 (wg_pitch)
   const uint32_t base = sm90::smem_addr(smem);
-  float* q_lo = reinterpret_cast<float*>(smem + kWgStages * stage_bytes);  // fp32
-  const uint32_t full = base + kWgStages * stage_bytes + (sizeof(E) == 4) * q_bytes;
+  const uint32_t full = base + p.stages * SB, ready = full + 8 * p.stages;
+  const uint32_t empty = ready + 8 * p.stages;
+  volatile int* last_flag = reinterpret_cast<volatile int*>(smem + p.stages * (SB + 24));
+  const long long units = (long long)p.tiles * p.chunks;
+  const int grid = gridDim.x;
+  const long long lo = wg_lo(blockIdx.x, units, grid), hi = wg_lo(blockIdx.x + 1, units, grid);
+  const int per_b = (p.T + F - 1) / F;  // chunks of one sample
 
-  const int q_tiles = (C + kWgTile - 1) / kWgTile;
-  const int p0 = blockIdx.x / q_tiles * kWgTile, q0 = blockIdx.x % q_tiles * kWgTile;
-  const int split = blockIdx.y, k0 = blockIdx.z * TK;
-  // this split's chunks: an equal share of the batch's, sample-major
-  const int per_b = (p.T + kWgFrames - 1) / kWgFrames;
-  const long all = (long)p.batch * per_b;
-  const int c_begin = (int)(split * all / p.splits);
-  const int n = (int)((split + 1) * all / p.splits) - c_begin;
-  // Q's window starts at t0 + k0 d - pad_left, rounded down to 16 bytes
-  const int shift = k0 * p.dilation - p.pad_left;
-  const int q_off = ((shift % step) + step) % step;
-  const int q_rel = shift - q_off;
-
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    for (int s = 0; s < kWgStages; ++s) sm90::mbar_init(full + 8 * s, 1);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      sm90::mbar_init(full + 8 * i, 1);
+      sm90::mbar_init(ready + 8 * i, kWgHelpers);       // one arrival per helper warp
+      sm90::mbar_init(empty + 8 * i, kConsumers / 32);  // one per consumer warp
+    }
     sm90::mbar_fence_init();
   }
   __syncthreads();
-  auto issue = [&](int i) {  // chunk c_begin + i into stage i % kWgStages
-    const int c = c_begin + i, b = c / per_b, t0 = (c - b * per_b) * kWgFrames;
-    const int s = i % kWgStages;
-    const uint32_t bar = full + 8 * s, dst = base + s * stage_bytes;
-    sm90::mbar_expect_tx(bar, stage_bytes);
-    sm90::tma_load_3d(dst, &map_p, bar, t0, p0, b);
-    sm90::tma_load_3d(dst + p_bytes, &map_q, bar, t0 + q_rel, q0, b);
+
+  // Every role walks the block's units segment by segment: `visit(tile, c0,
+  // c1)` for the chunks [c0, c1) of each tile in turn.
+  auto walk = [&](auto visit) {
+    for (long long u = lo; u < hi;) {
+      const int t = (int)(u / p.chunks), c0 = (int)(u - (long long)t * p.chunks);
+      const int c1 = (int)min((long long)p.chunks, c0 + (hi - u));
+      visit(wg_tile(p, t, NP), c0, c1);
+      u += c1 - c0;
+    }
   };
-  if (tid == 0) {
-    sm90::prefetch_map(&map_p);
-    sm90::prefetch_map(&map_q);
-    for (int i = 0; i < kWgStages && i < n; ++i) issue(i);
-  }
+  // Q's window of a tile starts at its tap's shift rounded down to 16 bytes;
+  // q_off is the tap's first frame in the window.
+  auto shift_of = [](const WgTile& tl) { return tl.k * tl.grad.dilation - tl.grad.pad_left; };
+  auto q_off_of = [&](const WgTile& tl) { return ((shift_of(tl) % STEP) + STEP) % STEP; };
 
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int pr = 32 * (warp >> 1) + g, qr = 32 * (warp & 1) + g;  // this thread's first rows
-  float acc[TK][2][4][4];
-#pragma unroll
-  for (int j = 0; j < TK; ++j)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[j][mi][ni][r] = 0.f;
-
-  for (int i = 0; i < n; ++i) {
-    const int s = i % kWgStages;
-    sm90::mbar_wait(full + 8 * s, (i / kWgStages) & 1);
-    const E* P = reinterpret_cast<const E*>(smem + s * stage_bytes);
-    E* Q = reinterpret_cast<E*>(smem + s * stage_bytes + p_bytes);
-    // Q prepared in place, once for every tap
-    if constexpr (sizeof(E) == 4) {
-      for (int e = tid; e < kWgTile * QP; e += kWgThreads) {
-        const float v = p.leaky_q ? leaky(Q[e]) : Q[e];
-        uint32_t hi, lo;
-        split_tf32(v, hi, lo);
-        Q[e] = __uint_as_float(hi);
-        q_lo[e] = __uint_as_float(lo);
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warpgroup --------------------------------------------------
+    sm90::reg_dealloc<40>();  // with the consumers' 232: the launch's 168 x 384 registers
+    const int warp = (threadIdx.x - kConsumers) >> 5, lane = threadIdx.x & 31;
+    int s = 0, ph = 0;
+    if (warp == 0) {
+      if (lane == 0) {  // one thread issues every load
+        sm90::prefetch_map(&map_p0);
+        sm90::prefetch_map(&map_q0);
+        sm90::prefetch_map(&map_p1);
+        sm90::prefetch_map(&map_q1);
+        walk([&](const WgTile& tl, int c0, int c1) {
+          const CUtensorMap* mp = tl.g ? &map_p1 : &map_p0;
+          const CUtensorMap* mq = tl.g ? &map_q1 : &map_q0;
+          const int q_rel = shift_of(tl) - q_off_of(tl);
+          for (int c = c0; c < c1; ++c) {
+            const int b = c / per_b, t0 = (c - b * per_b) * F;
+            sm90::mbar_wait(empty + 8 * s, ph ^ 1);
+            sm90::mbar_expect_tx(full + 8 * s, W::tx_bytes(NP));
+            const uint32_t st = base + s * SB;
+            sm90::tma_load_3d(st, mp, full + 8 * s, t0, tl.p0, b);
+            sm90::tma_load_3d(st + Q_OFF, mq, full + 8 * s, t0 + q_rel, tl.q0, b);
+            if (++s == p.stages) s = 0, ph ^= 1;
+          }
+        });
       }
-    } else if (p.leaky_q) {
-      uint32_t* q2 = reinterpret_cast<uint32_t*>(Q);
-      for (int e = tid; e < kWgTile * QP / 2; e += kWgThreads) {
-        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(q2 + e);
-        q2[e] = pack_bf16(leaky(__low2float(v)), leaky(__high2float(v)));
+    } else if constexpr (kF32) {
+      // helpers: each landed P box into TF32 parts, hi in place, lo NP * 128 bytes on
+      const int h = threadIdx.x - kConsumers - 32;
+      for (long long u = lo; u < hi; ++u) {
+        sm90::mbar_wait(full + 8 * s, ph);
+        float4* pp = reinterpret_cast<float4*>(smem + s * SB);
+        for (int i = h; i < NP * 8; i += 32 * kWgHelpers) {
+          const float4 v = pp[i];
+          uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
+          split_tf32(v.x, h0, l0);
+          split_tf32(v.y, h1, l1);
+          split_tf32(v.z, h2, l2);
+          split_tf32(v.w, h3, l3);
+          pp[i] = make_float4(__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(h2),
+                              __uint_as_float(h3));
+          pp[i + NP * 8] = make_float4(__uint_as_float(l0), __uint_as_float(l1),
+                                       __uint_as_float(l2), __uint_as_float(l3));
+        }
+        sm90::fence_proxy_async();  // these writes before the consumers' wgmma reads
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(ready + 8 * s);
+        if (++s == p.stages) s = 0, ph ^= 1;
       }
     }
-    __syncthreads();
-    if constexpr (sizeof(E) == 4) {
-#pragma unroll 2
-      for (int ks0 = 0; ks0 < kWgFrames / 8; ks0 += kWgFlush) {
-        uint32_t ah[kWgFlush][2][4], al[kWgFlush][2][4];
-#pragma unroll
-        for (int f = 0; f < kWgFlush; ++f)
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            const float* a = reinterpret_cast<const float*>(P) + (pr + 16 * mi) * PP +
-                             8 * (ks0 + f) + tig;
-            const float v[4] = {a[0], a[8 * PP], a[4], a[8 * PP + 4]};
-#pragma unroll
-            for (int r = 0; r < 4; ++r) split_tf32(v[r], ah[f][mi][r], al[f][mi][r]);
-          }
-#pragma unroll
-        for (int j = 0; j < TK; ++j) {
-          if (k0 + j >= p.taps) break;
-          uint32_t bh[kWgFlush][4][2], bl[kWgFlush][4][2];
-#pragma unroll
-          for (int f = 0; f < kWgFlush; ++f)
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni) {
-              const int e = (qr + 8 * ni) * QP + q_off + j * p.dilation + 8 * (ks0 + f) + tig;
-              const uint32_t* hi = reinterpret_cast<const uint32_t*>(Q);
-              const uint32_t* lo = reinterpret_cast<const uint32_t*>(q_lo);
-              bh[f][ni][0] = hi[e];
-              bh[f][ni][1] = hi[e + 4];
-              bl[f][ni][0] = lo[e];
-              bl[f][ni][1] = lo[e + 4];
-            }
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni) {
-              float t[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-              for (int f = 0; f < kWgFlush; ++f) {
-                sm90::mma_tf32_m16n8k8(t, al[f][mi], bh[f][ni]);
-                sm90::mma_tf32_m16n8k8(t, ah[f][mi], bl[f][ni]);
-                sm90::mma_tf32_m16n8k8(t, ah[f][mi], bh[f][ni]);
-              }
-#pragma unroll
-              for (int r = 0; r < 4; ++r) acc[j][mi][ni][r] += t[r];
-            }
-        }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 q rows each -------------------------------------
+  sm90::reg_alloc<232>();
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int row = 64 * wg + 16 * (tid >> 5) + g;  // this thread's first q row of a tile (and row + 8)
+  const uint32_t landed = kF32 ? ready : full;     // a stage may be read once this completes
+  int s = 0, ph = 0;
+  auto advance = [&]() {
+    if (++s == p.stages) s = 0, ph ^= 1;
+  };
+  auto release = [&](int stage) {  // this warp is done with `stage`
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty + 8 * stage);
+  };
+  float acc[NP / 2];  // acc[4 j + r]: D at q row + 8 (r >> 1), p 8 j + 2 tig + (r & 1)
+
+  walk([&](const WgTile& tl, int c0, int c1) {
+    const int n = c1 - c0;
+    if (tl.q0 + 64 * wg >= p.C) {  // no row of this warpgroup: keep the ring's pace only
+      for (int i = 0; i < n; ++i) {
+        sm90::mbar_wait(landed + 8 * s, ph);
+        release(s);
+        advance();
       }
+      return;
+    }
+    const int q_off = q_off_of(tl);
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
+
+    if constexpr (kF32) {
+      const float slope = tl.grad.slope;  // leaky on dw1's Q as its fragments load
+      // A fragments of one flush window (kWgFlush k8 steps): [step][0..3] hi,
+      // [4..7] lo; the m64k8 layout: rows row, row + 8; frames tig, tig + 4.
+      // Two windows' sums alternate between part0 and part1: a window's
+      // products run while the window before is flushed into acc and the
+      // window after loads its fragments.
+      constexpr int WPS = 4 / kWgFlush;  // windows per chunk
+      uint32_t fa0[kWgFlush][8], fa1[kWgFlush][8];
+      float part0[NP / 2], part1[NP / 2];
+#pragma unroll
+      for (int i = 0; i < NP / 2; ++i) part0[i] = part1[i] = 0.f;
+      auto frag = [&](uint32_t(&f)[kWgFlush][8], int st, int w) {
+        const float* q = reinterpret_cast<const float*>(smem + st * SB + Q_OFF) + row * QP +
+                         q_off + 8 * kWgFlush * (w % WPS) + tig;
+#pragma unroll
+        for (int ff = 0; ff < kWgFlush; ++ff) {
+          const float* a = q + 8 * ff;
+          const float v[4] = {a[0], a[8 * QP], a[4], a[8 * QP + 4]};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_tf32(v[i] >= 0.f ? v[i] : slope * v[i], f[ff][i], f[ff][4 + i]);
+        }
+      };
+      const int nw = n * WPS;
+      int held = -1;  // the stage that the window in flight before this one frees when done
+      sm90::mbar_wait(ready + 8 * s, ph);
+      frag(fa0, s, 0);
+      auto window = [&](uint32_t(&cur)[kWgFlush][8], uint32_t(&other)[kWgFlush][8],
+                        float(&sum)[NP / 2], float(&prev)[NP / 2], int w) {
+        const uint32_t wb = base + s * SB;
+        sm90::fence_acc(sum);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int ff = 0; ff < kWgFlush; ++ff) {
+          const int ks = kWgFlush * (w % WPS) + ff;
+          const uint64_t b_hi = sm90::desc_sw128(wb + 32 * ks);
+          const uint64_t b_lo = sm90::desc_sw128(wb + NP * 128 + 32 * ks);
+          const uint32_t(&a_hi)[4] = *reinterpret_cast<const uint32_t(*)[4]>(&cur[ff][0]);
+          const uint32_t(&a_lo)[4] = *reinterpret_cast<const uint32_t(*)[4]>(&cur[ff][4]);
+          Mma<float, NP>::run(sum, a_lo, b_hi, ff != 0);  // a window's first product overwrites
+          Mma<float, NP>::run(sum, a_hi, b_lo, 1);
+          Mma<float, NP>::run(sum, a_hi, b_hi, 1);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();  // the window before is done: flush its sums
+        fence_regs(other);      // its fragments: apart from `cur`'s registers until here
+        sm90::fence_acc(prev);
+        if (w > 0) {
+#pragma unroll
+          for (int i = 0; i < NP / 2; ++i) acc[i] += prev[i];
+        }
+        if (held >= 0) release(held);
+        held = -1;
+        if ((w + 1) % WPS == 0) {  // this window ends its chunk: the stage is freed after it
+          held = s;
+          advance();
+        }
+        if (w + 1 < nw) {
+          if ((w + 1) % WPS == 0) sm90::mbar_wait(ready + 8 * s, ph);
+          frag(other, s, w + 1);
+        }
+      };
+      for (int w = 0; w < nw; w += 2) {
+        window(fa0, fa1, part0, part1, w);
+        if (w + 1 < nw) window(fa1, fa0, part1, part0, w + 1);
+      }
+      sm90::wgmma_wait<0>();
+      fence_regs(fa0);
+      fence_regs(fa1);
+      sm90::fence_acc(part0);
+      sm90::fence_acc(part1);
+      if (nw % 2) {  // the last window's sums
+#pragma unroll
+        for (int i = 0; i < NP / 2; ++i) acc[i] += part0[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < NP / 2; ++i) acc[i] += part1[i];
+      }
+      release(held);
     } else {
-#pragma unroll 2
-      for (int ks = 0; ks < kWgFrames / 16; ++ks) {
-        uint32_t a[2][4];
+      // The slope as two bf16 parts: 0.2f = 0.2001953125 - 0.000195503..., and
+      // fma(v, hi, bf16(v lo)) rounds to the bf16 of 0.2f v (in fp32) for every
+      // bf16 v, as the reference's leaky does (tests/test_torch_dilated_unit_wgrad.py)
+      const __nv_bfloat162 kSlopeHi = __float2bfloat162_rn(0.2001953125f);
+      const __nv_bfloat162 kSlopeLo = __float2bfloat162_rn(-0.00019550323486328125f);
+      // A fragments of one chunk: four k16 steps, the m64k16 layout: rows row,
+      // row + 8; frame pairs 2 tig, 2 tig + 8 (two 16-bit loads at an odd shift)
+      uint32_t fb0[4][4], fb1[4][4] = {};
+      const bool lq = tl.grad.slope != 1.f;  // leaky on dw1's Q as its fragments load
+      auto frag = [&](uint32_t(&f)[4][4], int st) {
+        const bf16* q = reinterpret_cast<const bf16*>(smem + st * SB + Q_OFF) + row * QP +
+                        q_off + 2 * tig;
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const bf16* ap = reinterpret_cast<const bf16*>(P) + (pr + 16 * mi) * PP + 16 * ks + 2 * tig;
-          a[mi][0] = *reinterpret_cast<const uint32_t*>(ap);
-          a[mi][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * PP);
-          a[mi][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-          a[mi][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * PP + 8);
-        }
+        for (int ks = 0; ks < 4; ++ks) {
+          const bf16* a[4] = {q + 16 * ks, q + 16 * ks + 8 * QP, q + 16 * ks + 8,
+                              q + 16 * ks + 8 * QP + 8};
 #pragma unroll
-        for (int j = 0; j < TK; ++j) {
-          if (k0 + j >= p.taps) break;
-          // an even offset reads each pair as one word; an odd one, two halves
-          const int off = q_off + j * p.dilation;
-          uint32_t b[4][2];
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            const bf16* q = Q + (qr + 8 * ni) * QP + off + 16 * ks + 2 * tig;
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-              b[ni][r] = off & 1 ? pack_raw(q[8 * r], q[8 * r + 1])
-                                 : *reinterpret_cast<const uint32_t*>(q + 8 * r);
+          for (int i = 0; i < 4; ++i) {
+            uint32_t v = q_off & 1 ? pack_raw(a[i][0], a[i][1])
+                                   : *reinterpret_cast<const uint32_t*>(a[i]);
+            if (lq) {  // leaky: max(v, 0.2 v), 0.2 v rounded as bf16(0.2f v)
+              const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
+              const __nv_bfloat162 r = __hmax2(h, __hfma2(h, kSlopeHi, __hmul2(h, kSlopeLo)));
+              v = *reinterpret_cast<const uint32_t*>(&r);
+            }
+            f[ks][i] = v;
           }
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni) sm90::mma_bf16_m16n8k16(acc[j][mi][ni], a[mi], b[ni]);
         }
+      };
+      sm90::fence_acc(acc);
+      int held = -1;  // the stage of the chunk in flight
+      sm90::mbar_wait(full + 8 * s, ph);
+      frag(fb0, s);
+      // One chunk's products while the chunk before finishes; then the next
+      // chunk's fragments load into the registers that one used.
+      auto chunk = [&](uint32_t(&cur)[4][4], uint32_t(&other)[4][4], int i) {
+        const uint32_t wb = base + s * SB;
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          Mma<bf16, NP>::run(acc, cur[ks], sm90::desc_sw128(wb + 32 * ks), 1);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();  // the chunk before is done: its stage and fragments are free
+        fence_regs(other);
+        if (held >= 0) release(held);
+        held = s;
+        advance();
+        if (i + 1 < n) {
+          sm90::mbar_wait(full + 8 * s, ph);
+          frag(other, s);
+        }
+      };
+      for (int i = 0; i < n; i += 2) {
+        chunk(fb0, fb1, i);
+        if (i + 1 < n) chunk(fb1, fb0, i + 1);
       }
+      sm90::wgmma_wait<0>();
+      fence_regs(fb0);
+      fence_regs(fb1);
+      sm90::fence_acc(acc);
+      release(held);
     }
-    // the stage's next writer is TMA (the async proxy): order this block's
-    // writes to it before that
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();  // every warp is done with stage s: it may refill
-    if (tid == 0 && i + kWgStages < n) issue(i + kWgStages);
-  }
 
-  const size_t cct = (size_t)C * C * p.taps;
+    // ---- epilogue ---------------------------------------------------------------
+    E* out = static_cast<E*>(tl.grad.out);
+    auto put_all = [&]() {  // acc is the tile's gradient: dw[p][q][k]
 #pragma unroll
-  for (int j = 0; j < TK; ++j) {
-    const int k = k0 + j;
-    if (k >= p.taps) break;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
+      for (int j = 0; j < NP / 8; ++j)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const int row = p0 + pr + 16 * mi + 8 * (r >> 1);
-          const int col = q0 + qr - g + 8 * ni + 2 * tig + (r & 1);
-          if (row >= C || col >= C) continue;
-          const size_t idx = ((size_t)row * C + col) * p.taps + k;
-          if (p.splits == 1)
-            static_cast<E*>(p.out)[idx] = (E)acc[j][mi][ni][r];
-          else
-            static_cast<float*>(p.out)[split * cct + idx] = acc[j][mi][ni][r];
+          const int q = tl.q0 + row + 8 * (r >> 1), pc = tl.p0 + 8 * j + 2 * tig + (r & 1);
+          if (q < p.C && pc < p.C)
+            out[((size_t)pc * p.C + q) * tl.grad.taps + tl.k] = (E)acc[4 * j + r];
         }
-  }
+    };
+    if (c0 == 0 && c1 == p.chunks) {  // the whole tile
+      put_all();
+      return;
+    }
+    // A segment of a shared tile: its partials in slot 0 (the block's first
+    // tile) or 1 (its last), this warpgroup's half in the accumulators' order.
+    auto partials = [&](int b) {
+      const int slot = 2 * b + (tl.t == wg_lo(b, units, grid) / p.chunks ? 0 : 1);
+      return reinterpret_cast<float4*>(p.part) + (size_t)(2 * slot + wg) * (NP / 8) * 128 + tid;
+    };
+    auto store = [&](int b) {
+      float4* dst = partials(b);
+#pragma unroll
+      for (int j = 0; j < NP / 8; ++j)
+        dst[j * 128] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+    };
+    // acc = the partials of blocks b0, b0 + stride, ... (count of them), in that
+    // order; JG n8 blocks of M partials in flight at a time (NP / 8 is 12 or 24)
+    auto gather = [&](int b0, int count, int stride) {
+      constexpr int JG = 12, M = NP <= 128 ? 2 : 1;  // bf16's N = 192 spills with 2
+#pragma unroll
+      for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
+      auto add = [&](const float4(&x)[JG], int j0) {
+#pragma unroll
+        for (int j = 0; j < JG; ++j) {
+          float* a = &acc[4 * (j0 + j)];
+          a[0] += x[j].x;
+          a[1] += x[j].y;
+          a[2] += x[j].z;
+          a[3] += x[j].w;
+        }
+      };
+#pragma unroll
+      for (int j0 = 0; j0 < NP / 8; j0 += JG) {
+        int m = 0;
+        for (; m + M <= count; m += M) {
+          float4 x[M][JG];
+#pragma unroll
+          for (int mm = 0; mm < M; ++mm) {
+            const float4* src = partials(b0 + (m + mm) * stride) + j0 * 128;
+#pragma unroll
+            for (int j = 0; j < JG; ++j) x[mm][j] = __ldcg(src + j * 128);
+          }
+#pragma unroll
+          for (int mm = 0; mm < M; ++mm) add(x[mm], j0);
+        }
+        for (; m < count; ++m) {
+          float4 x[JG];
+          const float4* src = partials(b0 + m * stride) + j0 * 128;
+#pragma unroll
+          for (int j = 0; j < JG; ++j) x[j] = __ldcg(src + j * 128);
+          add(x, j0);
+        }
+      }
+    };
+    // Publishes this warpgroup's writes and counts an arrival at `counter` of
+    // `expected`; true (to every thread) for the last, which resets it.
+    auto arrive_last = [&](int* counter, int expected) {
+      __threadfence();  // release: the partials before the count
+      sm90::named_barrier(1 + wg, 128);
+      if (tid == 0) {
+        const bool last = atomicAdd(counter, 1) == expected - 1;
+        if (last) atomicExch(counter, 0);  // for the next launch
+        last_flag[wg] = last;
+      }
+      sm90::named_barrier(1 + wg, 128);
+      const bool last = last_flag[wg];
+      if (last) __threadfence();  // acquire: every arrival's partials are written
+      return last;
+    };
+    store(blockIdx.x);
+    const int b_first = wg_block((long long)tl.t * p.chunks, units, grid);
+    const int nseg = wg_block((long long)(tl.t + 1) * p.chunks - 1, units, grid) - b_first + 1;
+    int R = 1;
+    while (R * R < nseg) ++R;
+    const int groups = (nseg + R - 1) / R, gi = (blockIdx.x - b_first) / R;
+    const int g_first = b_first + gi * R, g_size = min(R, nseg - gi * R);
+    int* counters = p.counters + (2 * tl.t + wg) * kWgCounters;  // [0] the tile, [1 + gi] group gi
+    if (!arrive_last(counters + 1 + gi, g_size)) return;
+    gather(g_first, g_size, 1);
+    if (groups > 1) {
+      store(g_first);  // the group's sum over its first segment's partials
+      if (!arrive_last(counters, groups)) return;
+      gather(b_first, groups, R);
+    }
+    put_all();
+  });
 }
 
-// out[i] = the sum of the splits' partials, in split order, rounded once.
+// The N instantiated per type: fp32 96 (its flush's two sums take the
+// registers a wider N would need), bf16 96 and 192.
 template <class E>
-__global__ void wgrad_reduce(const float* __restrict__ part, E* __restrict__ out, size_t n,
-                             int splits) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = 0.f;
-    for (int s = 0; s < splits; ++s) v += part[s * n + i];
-    out[i] = (E)v;
-  }
+bool wgrad_width_ok(int np) {
+  return np == 96 || (sizeof(E) == 2 && np == 192);
 }
 
-// The weight gradient of one convolution into `out` (E, [C][C][taps]), through
-// `part` (fp32, splits x C C taps) when splits > 1.
+// Whether the weight gradients can run with N = np, `stages` and `grid`.
 template <class E>
-int wgrad(const void* P, const void* Q, void* out, float* part, int B, int C, int T, int taps,
-          int dilation, int pad_left, bool leaky_q, int splits, cudaStream_t stream) {
-  const bool is_bf16 = sizeof(E) == 2;
-  const int tk = taps == 1 ? 1 : kWgTaps;
-  const int pitch_q = wg_q_pitch<E>(tk < taps ? tk : taps, dilation);
-  const int bytes = wg_smem_bytes<E>(pitch_q);
-  if (splits < 1 || pitch_q > kMaxBox || bytes > max_smem_optin() || (splits > 1 && !part))
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap map_p, map_q;
-  if (!make_map(&map_p, is_bf16, P, {(uint64_t)T, (uint64_t)C, (uint64_t)B},
-                {(uint32_t)wg_pitch<E>(kWgFrames), (uint32_t)kWgTile, 1}, false) ||
-      !make_map(&map_q, is_bf16, Q, {(uint64_t)T, (uint64_t)C, (uint64_t)B},
-                {(uint32_t)pitch_q, (uint32_t)kWgTile, 1}, false))
-    return (int)cudaErrorInvalidValue;
-  const WgParams wp{splits == 1 ? out : part, C, T, taps, dilation, pad_left, B, (int)leaky_q,
-                    splits, pitch_q};
-  const int tiles = (C + kWgTile - 1) / kWgTile;
-  const dim3 grid(tiles * tiles, splits, (taps + tk - 1) / tk);
-  cudaError_t err;
-  if (tk == 1) {
-    static bool raised[kMaxDevices] = {};
-    if ((err = raise_smem_cap(wgrad_kernel<E, 1>, raised)) != cudaSuccess) return (int)err;
-    wgrad_kernel<E, 1><<<grid, kWgThreads, bytes, stream>>>(map_p, map_q, wp);
-  } else {
-    static bool raised[kMaxDevices] = {};
-    if ((err = raise_smem_cap(wgrad_kernel<E, kWgTaps>, raised)) != cudaSuccess) return (int)err;
-    wgrad_kernel<E, kWgTaps><<<grid, kWgThreads, bytes, stream>>>(map_p, map_q, wp);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return (int)err;
-  const size_t n = (size_t)C * C * taps;
-  wgrad_reduce<E><<<(int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024), 256, 0, stream>>>(
-      part, static_cast<E*>(out), n, splits);
+bool wgrad_plan_ok(int np, int stages, int grid) {
+  return wgrad_width_ok<E>(np) && stages >= kWgMinStages && stages <= kWgMaxStages &&
+         grid >= 1 && Wg<E>::smem_bytes(np, stages) <= max_smem_optin();
+}
+
+template <class E, int NP>
+int wgrad_launch(const CUtensorMap (&m)[4], const WgParams& p, int grid, cudaStream_t stream) {
+  static bool raised[kMaxDevices] = {};
+  const cudaError_t err = raise_smem_cap(wgrad_wgmma_kernel<E, NP>, raised);
+  if (err != cudaSuccess) return (int)err;
+  wgrad_wgmma_kernel<E, NP><<<grid, kThreads, Wg<E>::smem_bytes(NP, p.stages), stream>>>(
+      m[0], m[1], m[2], m[3], p);
   return (int)cudaGetLastError();
+}
+
+// Both weight gradients in one launch, each skipped where its output is null:
+// dw1 (P = dh, Q = x under leaky, K taps) and dw2 (P = gy, Q = g, one tap); N
+// = np, `stages` ring stages, `grid` blocks at most, each with an equal
+// share of the (tile, chunk) units (grid = the tiles: one tile each). `part`
+// holds 2 grid kWgRows np floats, `counters` 2 kWgCounters ints per tile.
+template <class E>
+int wgrad(const void* dh, const void* x, const void* gy, const void* g, void* dw1, void* dw2,
+          float* part, int* counters, int B, int C, int T, int K, int dilation, int pad_left,
+          int np, int stages, int grid, cudaStream_t stream) {
+  using W = Wg<E>;
+  if (!dw1 && !dw2) return 0;
+  if (!wgrad_plan_ok<E>(np, stages, grid) || !part || !counters) return (int)cudaErrorInvalidValue;
+  const bool is_bf16 = sizeof(E) == 2;
+  const uint64_t act[3] = {(uint64_t)T, (uint64_t)C, (uint64_t)B};
+  const uint32_t box_p[3] = {(uint32_t)W::FRAMES, (uint32_t)np, 1};
+  const uint32_t box_q[3] = {(uint32_t)W::QP, (uint32_t)kWgRows, 1};
+  WgParams p{};
+  CUtensorMap m[4];
+  int n = 0;
+  auto add = [&](const void* P, const void* Q, void* out, int taps, int dil, int pad, float slope) {
+    p.grad[n] = WgGrad{out, taps, dil, pad, slope};
+    const bool ok = make_map(&m[2 * n], is_bf16, P, act, box_p, true) &&
+                    make_map(&m[2 * n + 1], is_bf16, Q, act, box_q, false);
+    ++n;
+    return ok;
+  };
+  if (dw1 && !add(dh, x, dw1, K, dilation, pad_left, kSlope)) return (int)cudaErrorInvalidValue;
+  if (dw2 && !add(gy, g, dw2, 1, 1, 0, 1.f)) return (int)cudaErrorInvalidValue;
+  if (n == 1) m[2] = m[0], m[3] = m[1], p.grad[1] = p.grad[0];
+  p.C = C;
+  p.T = T;
+  p.stages = stages;
+  p.q_tiles = (C + kWgRows - 1) / kWgRows;
+  p.p_tiles = (C + np - 1) / np;
+  p.tiles0 = p.grad[0].taps * p.q_tiles * p.p_tiles;
+  p.tiles = p.tiles0 + (n == 2 ? p.q_tiles * p.p_tiles : 0);
+  p.chunks = B * ((T + W::FRAMES - 1) / W::FRAMES);
+  p.part = part;
+  p.counters = counters;
+  const long long units = (long long)p.tiles * p.chunks;
+  if (grid > units) grid = (int)units;  // no block without a unit
+  if constexpr (sizeof(E) == 2)
+    if (np == 192) return wgrad_launch<E, 192>(m, p, grid, stream);
+  return wgrad_launch<E, 96>(m, p, grid, stream);
 }
 
 // w1 [C_out, C_in, K] and w2 [C_out, C_in] -> the forward's w1 [K * PARTS, C_out,
@@ -1142,9 +1433,9 @@ __global__ void prepare_weights_bwd(const E* __restrict__ w1, const E* __restric
 
 template <class E>
 int backward(const void* x, const void* w1, const void* w2, const void* gy, void* dx, void* dw1,
-             void* dw2, void* work, float* part, int B, int C, int T, int K, int dilation,
-             int pad_left, int np, int w_stages, int x_stages, int flush, int splits1,
-             int splits2, cudaStream_t stream) {
+             void* dw2, void* work, float* part, int* counters, int B, int C, int T, int K,
+             int dilation, int pad_left, int np, int w_stages, int x_stages, int flush, int wg_np,
+             int wg_stages, int wg_grid, cudaStream_t stream) {
   using A = Arith<E>;
   const bool is_bf16 = sizeof(E) == 2;
   const int halo = dilation * (K - 1), pad_right = halo - pad_left;
@@ -1155,7 +1446,8 @@ int backward(const void* x, const void* w1, const void* w2, const void* gy, void
   if (B < 1 || C < 1 || T < 1 || K < 1 || dilation < 1 || pad_left < 0 || pad_left > halo ||
       C * (int)sizeof(E) % 16 != 0 || T * (int)sizeof(E) % 16 != 0 || w_stages < 2 ||
       w_stages > kMaxStages || x_stages < 2 || x_stages > kMaxStages ||
-      !fits(window(halo, pad_left, sizeof(E))) || !fits(window(halo, pad_right, sizeof(E))))
+      !fits(window(halo, pad_left, sizeof(E))) || !fits(window(halo, pad_right, sizeof(E))) ||
+      ((dw1 || dw2) && !wgrad_plan_ok<E>(wg_np, wg_stages, wg_grid)))
     return (int)cudaErrorInvalidValue;
 
   // work: the three prepared weights, then g and dh [B, C, T]
@@ -1204,12 +1496,9 @@ int backward(const void* x, const void* w1, const void* w2, const void* gy, void
     if ((e = launch_any<E>(np, kGrad, flush, map_dh, map_w1t, map_w1t, pd, B, stream)) != 0)
       return e;
   }
-  if (dw2 && (e = wgrad<E>(gy, g, dw2, part, B, C, T, 1, 1, 0, false, splits2, stream)) != 0)
-    return e;
-  if (dw1 && (e = wgrad<E>(dh, x, dw1, part, B, C, T, K, dilation, pad_left, true, splits1,
-                           stream)) != 0)
-    return e;
-  return 0;
+  // dw1 and dw2 in one launch
+  return wgrad<E>(dh, x, gy, g, dw1, dw2, part, counters, B, C, T, K, dilation, pad_left, wg_np,
+                  wg_stages, wg_grid, stream);
 }
 
 }  // namespace
@@ -1237,21 +1526,27 @@ int dilated_unit_forward(const void* x, const void* w1, const void* w2, void* y,
 }
 
 // The gradient, on `stream`: dx [B, C, T], dw1 [C, C, K] and dw2 [C, C] in
-// the inputs' type, each skipped where its pointer is null. `work` holds
+// the inputs' type, each skipped where its pointer is null; five launches
+// (the weights' preparation, g, dh, dx, and dw1 with dw2). `work` holds
 // PARTS (2 K + 1) C^2 + 2 B C T elements of that type (the prepared weights,
-// g and dh); `part` (fp32) max(splits1 K, splits2) C^2 floats where a split
-// count is above 1. Returns as `dilated_unit_forward`; `backward_plan` in
-// ops/kernels/dilated_unit.py picks np, the stages, flush and the splits.
+// g and dh); `part` (fp32) 2 wg_grid 128 wg_np floats; `counters`
+// (int32) 32 per weight-gradient tile, zero, and left zero by every launch
+// that completes. Returns as `dilated_unit_forward`; `backward_plan` in
+// ops/kernels/dilated_unit.py picks np, the stages, flush and the weight
+// gradients' N, stages and grid.
 int dilated_unit_backward(const void* x, const void* w1, const void* w2, const void* gy, void* dx,
-                          void* dw1, void* dw2, void* work, void* part, int B, int C, int T, int K,
-                          int dilation, int pad_left, int is_bf16, int np, int w_stages,
-                          int x_stages, int flush, int splits1, int splits2, cudaStream_t stream) {
+                          void* dw1, void* dw2, void* work, void* part, void* counters, int B,
+                          int C, int T, int K, int dilation, int pad_left, int is_bf16, int np,
+                          int w_stages, int x_stages, int flush, int wg_np, int wg_stages,
+                          int wg_grid, cudaStream_t stream) {
   float* f = static_cast<float*>(part);
-  return is_bf16 ? backward<bf16>(x, w1, w2, gy, dx, dw1, dw2, work, f, B, C, T, K, dilation,
-                                  pad_left, np, w_stages, x_stages, flush, splits1, splits2, stream)
-                 : backward<float>(x, w1, w2, gy, dx, dw1, dw2, work, f, B, C, T, K, dilation,
-                                   pad_left, np, w_stages, x_stages, flush, splits1, splits2,
-                                   stream);
+  int* c = static_cast<int*>(counters);
+  return is_bf16 ? backward<bf16>(x, w1, w2, gy, dx, dw1, dw2, work, f, c, B, C, T, K, dilation,
+                                  pad_left, np, w_stages, x_stages, flush, wg_np, wg_stages,
+                                  wg_grid, stream)
+                 : backward<float>(x, w1, w2, gy, dx, dw1, dw2, work, f, c, B, C, T, K, dilation,
+                                   pad_left, np, w_stages, x_stages, flush, wg_np, wg_stages,
+                                   wg_grid, stream);
 }
 
 }  // extern "C"

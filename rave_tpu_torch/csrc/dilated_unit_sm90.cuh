@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the fused dilated unit's kernels
 // (dilated_unit.cu): mbarriers, TMA tensor loads, warpgroup matrix products
 // (wgmma) with A from registers and B from shared memory, the shared-memory
-// descriptor of B, and the warp-level mma.sync products of the weight
-// gradients. Inline PTX only; nothing here launches anything.
+// descriptor of B, the proxy fence and named barriers. Inline PTX only;
+// nothing here launches anything.
 #pragma once
 
 #include <stdint.h>
@@ -164,29 +164,18 @@ __device__ __forceinline__ void wgmma_bf16_n192(float (&d)[96], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// ---- mma.sync (the weight gradients' warp-level products) ---------------------
+// ---- proxies and named barriers ----------------------------------------------
 
-// D[16 x 8] += A[16 x 8] . B[8 x 8], TF32 in, fp32 sums: A the m16n8k8 row-major
-// fragment (a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4) for lane = 4 g + t),
-// B the column-major one (b0 (k t, n g), b1 (k t+4, n g)), D as the accumulators of
-// wgmma (d0 (g, 2t), d1 (g, 2t+1), d2 (g+8, 2t), d3 (g+8, 2t+1)).
-__device__ __forceinline__ void mma_tf32_m16n8k8(float (&d)[4], const uint32_t (&a)[4],
-                                                 const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses of it (a wgmma reading them, a TMA load overwriting them).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// The same for bf16 with k = 16: each register holds two neighbouring k values,
-// a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..);
-// b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g).
-__device__ __forceinline__ void mma_bf16_m16n8k16(float (&d)[4], const uint32_t (&a)[4],
-                                                  const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// A barrier among `threads` threads of the block (whole warps) under `id` (1..15;
+// 0 is __syncthreads').
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 }  // namespace sm90

@@ -26,12 +26,12 @@ when autograd needs it, the forward runs inside `FusedDilatedUnit`, an
 `autograd.Function` that saves only `x, w1, w2`. Its backward is the
 closed form of the unit's gradient (`fused_dilated_unit_backward_reference`
 on a CPU tensor, the kernel's `dilated_unit_backward` on a CUDA tensor:
-g recomputed, dh, dx, and the weight gradients reduced over every frame
-in a fixed order), for the inputs that need a gradient. `_bwd` computes
-the same function by differentiating `_reference_impl` with XLA.
-`launches_backward` counts the backward's launches (of either dtype),
-`launches_backward_bf16` the bf16 ones; `backward_plan` picks how a shape
-runs.
+g recomputed, dh, dx, and both weight gradients in one `wgmma` launch that
+reduces over every frame in a fixed order), for the inputs that need a
+gradient. `_bwd` computes the same function by differentiating
+`_reference_impl` with XLA. `launches_backward` counts the backward's calls
+(of either dtype), `launches_backward_bf16` the bf16 ones; `backward_plan`
+picks how a shape runs.
 """
 from __future__ import annotations
 
@@ -130,7 +130,7 @@ def _lib() -> ctypes.CDLL:
     )
     lib.dilated_unit_forward.restype = ctypes.c_int
     lib.dilated_unit_backward.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     )
     lib.dilated_unit_backward.restype = ctypes.c_int
     return lib
@@ -224,68 +224,96 @@ def _split_plan(B: int, C: int, T: int, win: int, bf16: bool, limit: int, what: 
     return Plan(False, np, w_stages, x_stages, not bf16, smem)
 
 
-# The weight gradients' kernel (csrc/dilated_unit.cu, `wgrad_kernel`): blocks
-# of a 64 x 64 tile of the C x C output (three taps each) over chunks of 64
-# frames, two stages of TMA boxes (and, fp32, Q's lo parts); the frames of a
-# tile split over at most WG_TARGET_BLOCKS / tiles blocks (one wave), each
-# split at least WG_MIN_CHUNKS chunks.
-WG_FRAMES, WG_TILE, WG_TAPS, WG_STAGES = 64, 64, 3, 2
-WG_TARGET_BLOCKS = 264  # two blocks on each of the H100's 132 SMs
-WG_MIN_CHUNKS = 4
+# The weight gradients' kernel (csrc/dilated_unit.cu, `wgrad_wgmma_kernel`):
+# tiles of one tap x 128 input channels (two consumer warpgroups of 64) x N
+# output channels, over chunks of one 128-byte TMA row of frames; a ring of
+# WG_MIN_STAGES..WG_MAX_STAGES stages of P (and, fp32, its lo part) and a Q
+# window of the chunk and 16 bytes; each block runs a share of the (tile,
+# chunk) units. WG_WIDTHS: the N each variant instantiates.
+WG_ROWS, WG_MIN_STAGES, WG_MAX_STAGES = 128, 3, 6
+WG_WIDTHS = {False: (96,), True: (96, 192)}
+WG_COUNTERS = 16  # int32 counters per tile and consumer warpgroup (`kWgCounters`)
+H100_SMS = 132
 
 
 class BackwardPlan(NamedTuple):
     data: Plan       # the split-mode plan of the three data-gradient launches
-    splits_w1: int   # blocks that share each dw1 output tile's frames
-    splits_w2: int   # the same for dw2
-    partials: int    # fp32 elements of the splits' partial sums (0: none)
-    wg_smem: int     # bytes of shared memory of a weight-gradient block (the larger)
+    wg_np: int       # output channels (N) of a weight-gradient tile
+    wg_stages: int   # the weight gradients' ring stages
+    wg_grid: int     # their blocks (`wg_grid`), each with an equal share of the units
+    wg_tiles: int    # tiles of dw1 and dw2: (K + 1) x ceil(C / 128) x ceil(C / N)
+    wg_chunks: int   # chunks of a tile: B x ceil(T / wg_frames)
+    partials: int    # fp32 elements of the partial sums: 2 slots per block
+    counters: int    # int32 tile counters: WG_COUNTERS per tile and consumer warpgroup
+    wg_smem: int     # bytes of shared memory of a weight-gradient block
 
 
-def wg_pitch(frames: int, elem: int) -> int:
-    """Frames of a weight-gradient shared-memory row (the kernel's `wg_pitch`):
-    at least `frames`, whole 16-byte rows, 4 mod 32 words."""
-    step = 16 // elem
-    w = -(-frames // step) * step
-    while (w * elem // 4) % 32 != 4:
-        w += step
-    return w
+def wg_frames(bf16: bool) -> int:
+    """Frames of a weight-gradient chunk: one 128-byte swizzle row of P."""
+    return 64 if bf16 else 32
 
 
-def wg_smem_bytes(taps: int, dilation: int, elem: int) -> int:
-    """Shared memory of a weight-gradient block (the kernel's `wg_smem_bytes`):
-    the stages' P and Q boxes, fp32's lo parts of Q, the barriers."""
-    pitch_q = wg_pitch(WG_FRAMES + (min(taps, WG_TAPS) - 1) * dilation + 16 // elem - 1, elem)
-    rows = WG_STAGES * (wg_pitch(WG_FRAMES, elem) + pitch_q) + (pitch_q if elem == 4 else 0)
-    return 1024 + rows * WG_TILE * elem + 8 * WG_STAGES
+def wg_q_pitch(bf16: bool) -> int:
+    """Frames of a Q window row (the kernel's `Wg::QP`): the chunk and TMA's
+    16-byte start alignment, 144 bytes (36 words: 4 mod 8, conflict-free A
+    fragment loads)."""
+    return wg_frames(bf16) + (8 if bf16 else 4)
 
 
-def wg_splits(B: int, C: int, T: int, taps: int) -> int:
-    """Frame splits of one weight gradient: as many blocks as fill the card
-    in one wave, at least WG_MIN_CHUNKS chunks each, and partial sums (splits
-    x taps x C^2 floats) no larger than x (B x C x T); 1 writes the gradient
-    directly."""
-    tiles = (-(-C // WG_TILE)) ** 2 * -(-taps // WG_TAPS)
-    chunks = B * -(-T // WG_FRAMES)
-    return max(1, min(WG_TARGET_BLOCKS // tiles, chunks // WG_MIN_CHUNKS, B * T // (taps * C)))
+def wg_stage_bytes(np: int, bf16: bool) -> int:
+    """One stage: P [np][128 bytes] (fp32 also its lo part), then Q [128][pitch]."""
+    return (1 if bf16 else 2) * np * 128 + WG_ROWS * wg_q_pitch(bf16) * (2 if bf16 else 4)
+
+
+def wg_smem_bytes(np: int, stages: int, bf16: bool) -> int:
+    """Shared memory of a weight-gradient block (the kernel's `Wg::smem_bytes`):
+    the stages, three barriers each, a flag per consumer warpgroup."""
+    return 1024 + stages * (wg_stage_bytes(np, bf16) + 24) + 8
+
+
+def wg_tiles(C: int, np: int, taps: int) -> int:
+    """Tiles of the weight gradients of `taps` taps in all."""
+    return taps * -(-C // WG_ROWS) * -(-C // np)
+
+
+def wg_grid(tiles: int, chunks: int, sms: int = H100_SMS) -> int:
+    """The weight gradients' blocks: one per tile where the tiles number sms /
+    2 to sms (no tile is split); where they are fewer, a whole number of
+    blocks per tile if that keeps 90% of the SMs busy (each block then runs
+    one segment of one tile: fewer partials, measured faster), else one
+    block per SM; never more blocks than units."""
+    if sms // 2 <= tiles <= sms:
+        return tiles
+    if tiles < sms // 2 and tiles * (sms // tiles) * 10 >= 9 * sms:
+        return min(tiles * (sms // tiles), tiles * chunks)
+    return min(sms, tiles * chunks)
 
 
 def backward_plan(B: int, C: int, T: int, K: int, dilation: int, pad_left: int, bf16: bool,
-                  limit: int) -> BackwardPlan:
-    """How the gradient runs this shape: the forward's split mode for g, dh
-    and dx, sized for the wider of the two windows (dx's convolution is
-    padded by pad_right on the left); the weight gradients' splits."""
+                  limit: int, sms: int = H100_SMS) -> BackwardPlan:
+    """How the gradient runs this shape on a card of `sms` SMs whose blocks
+    may have `limit` bytes of shared memory: the forward's split mode for g,
+    dh and dx, sized for the wider of the two windows (dx's convolution is
+    padded by pad_right on the left); for the weight gradients N = 192 in
+    bf16 where it divides C, else 96 (the wider tile reads fewer bytes per
+    product: faster at v2's C = 192, 384 and 768 in bf16, measured); the
+    blocks of `wg_grid`, each with an equal share of the (tile, chunk) units;
+    as many stages as fit, up to WG_MAX_STAGES."""
     elem, halo = (2 if bf16 else 4), dilation * (K - 1)
     win = max(window(halo, pad_left, elem), window(halo, halo - pad_left, elem))
     data = _split_plan(B, C, T, win, bf16, limit, f"the gradient at C={C}, K={K}, d={dilation}",
                        wide=C > 96)  # N = 192 would leave half of each product idle
-    s1, s2 = wg_splits(B, C, T, K), wg_splits(B, C, T, 1)
-    partials = max(s1 * K if s1 > 1 else 0, s2 if s2 > 1 else 0) * C * C
-    wg_smem = max(wg_smem_bytes(K, dilation, elem), wg_smem_bytes(1, 1, elem))
-    if wg_smem > limit:
-        raise ValueError(f"the weight gradient at K={K}, d={dilation} needs more shared memory "
-                         f"than a block can have")
-    return BackwardPlan(data, s1, s2, partials, wg_smem)
+    np = 192 if bf16 and C % 192 == 0 else 96
+    stages = min(WG_MAX_STAGES, (limit - wg_smem_bytes(np, 0, bf16))
+                 // (wg_stage_bytes(np, bf16) + 24))
+    if stages < WG_MIN_STAGES:
+        raise ValueError(f"the weight gradient at C={C} needs more shared memory than a block "
+                         f"can have")
+    tiles = wg_tiles(C, np, K + 1)
+    chunks = B * -(-T // wg_frames(bf16))
+    grid = wg_grid(tiles, chunks, sms)
+    return BackwardPlan(data, np, stages, grid, tiles, chunks, 2 * grid * WG_ROWS * np,
+                        2 * WG_COUNTERS * tiles, wg_smem_bytes(np, stages, bf16))
 
 
 def tma_length(T: int, dtype: torch.dtype) -> int:
@@ -307,8 +335,23 @@ def kernel_plan(B: int, C: int, T: int, K: int, dilation: int, pad_left: int, bf
 def kernel_backward_plan(B: int, C: int, T: int, K: int, dilation: int, pad_left: int,
                          bf16: bool, device_index: int = 0) -> BackwardPlan:
     """`backward_plan` for this shape on this card, computed once per shape."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return backward_plan(B, C, tma_length(T, torch.bfloat16 if bf16 else torch.float32), K,
-                         dilation, pad_left, bf16, smem_limit(device_index))
+                         dilation, pad_left, bf16, smem_limit(device_index), sms)
+
+
+_COUNTERS: dict = {}  # device index -> int32 zeros: the weight gradients' tile counters
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The weight gradients' tile counters on `device`, at least `n`. Every
+    launch that completes leaves them zero, so one buffer serves every call
+    on the device (its stream orders the calls)."""
+    buf = _COUNTERS.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[device.index] = torch.zeros(max(n, 16384), dtype=torch.int32,
+                                                    device=device)
+    return buf
 
 
 def _check(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -407,7 +450,9 @@ def backward_kernel_with_g(
 
 
 def _backward_kernel(x, w1, w2, gy, dilation, pad_left, pad_right, needs):
-    """One launch of the gradient kernel: (dx, dw1, dw2, g), g a view of its workspace."""
+    """One call of the gradient's kernels (five launches: the weights'
+    preparation, g, dh, dx, and dw1 with dw2): (dx, dw1, dw2, g), g a view of
+    its workspace."""
     _check(x, w1, w2, dilation, pad_left, pad_right)
     if gy.shape != x.shape or gy.dtype != x.dtype or gy.device != x.device:
         raise ValueError(f"the output gradient {tuple(gy.shape)} {gy.dtype} on {gy.device} does "
@@ -426,7 +471,7 @@ def _backward_kernel(x, w1, w2, gy, dilation, pad_left, pad_right, needs):
         # one workspace: the three prepared weights, then g and dh [B, C, Tp]
         work = torch.empty((1 if bf16 else 2) * (2 * K + 1) * C * C + 2 * B * C * Tp,
                            dtype=x.dtype, device=x.device)
-        part = torch.empty(max(p.partials, 1), dtype=torch.float32, device=x.device)
+        part = torch.empty(p.partials, dtype=torch.float32, device=x.device)
         dx = torch.empty_like(xp) if needs[0] else None
         dw1 = torch.empty_like(w1c) if needs[1] else None
         dw2 = torch.empty_like(w2c) if needs[2] else None
@@ -434,8 +479,9 @@ def _backward_kernel(x, w1, w2, gy, dilation, pad_left, pad_right, needs):
         d = p.data
         err = _lib().dilated_unit_backward(
             xp.data_ptr(), w1c.data_ptr(), w2c.data_ptr(), gyp.data_ptr(), ptr(dx), ptr(dw1),
-            ptr(dw2), work.data_ptr(), part.data_ptr(), B, C, Tp, K, dilation, pad_left,
-            int(bf16), d.np, d.w_stages, d.x_stages, int(d.flush), p.splits_w1, p.splits_w2,
+            ptr(dw2), work.data_ptr(), part.data_ptr(), _counters(x.device, p.counters).data_ptr(),
+            B, C, Tp, K, dilation, pad_left, int(bf16), d.np, d.w_stages, d.x_stages,
+            int(d.flush), p.wg_np, p.wg_stages, p.wg_grid,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

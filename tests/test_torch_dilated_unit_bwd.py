@@ -1,6 +1,6 @@
 """The fused dilated unit's gradient: its plain closed form against the JAX
-package's and against autograd, the autograd.Function on the CPU, and the
-host side of the gradient's kernel (its plan).
+package's and against autograd, and the autograd.Function on the CPU (the
+host side of the gradient's kernel is tests/test_torch_dilated_unit_wgrad.py).
 
 `fused_dilated_unit_backward_reference` computes (dx, dw1, dw2) from the
 closed form (g recomputed, dh, the transposed convolution, the weight
@@ -20,14 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from rave_tpu.ops.kernels import dilated_unit as jax_unit
 from rave_tpu_torch.nn.conv import get_padding
 from rave_tpu_torch.ops.kernels import dilated_unit
 
 TOL_JAX, TOL_AUTOGRAD = 1e-5, 1e-6
 BF16_FLOOR = 1e-3
-H100_SMEM = 232448  # opt-in shared memory of an H100 block
 
 
 def rel_err(a, b):
@@ -175,71 +173,3 @@ def test_function_on_cpu_runs_the_plain_backward(mode):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (dilated_unit.launches, dilated_unit.launches_backward,
             dilated_unit.launches_backward_bf16) == counts
-
-
-# ---- host side of the gradient's kernel: the plan --------------------------
-
-def plan_cases():
-    """Every (C, T, d) of the v2 forward (UNIT_SHAPES) and of the variants
-    (VARIANT_UNITS), as chip_smoke.py drives them."""
-    shapes = {(C, T, d) for C, T, dils in chip_smoke.UNIT_SHAPES for d in dils}
-    shapes |= {(C, T, d) for units in chip_smoke.VARIANT_UNITS.values() for C, T, dils in units
-               for d in dils}
-    return sorted(shapes)
-
-
-@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("C,T,d", plan_cases())
-def test_backward_plan_fits(C, T, d, bf16):
-    """At every main-path and variant shape, B = 1, 8 and 16, full and ragged
-    lengths, centered and causal: the data launches' split plan fits an H100
-    block with 2-4 stages for the wider of the two windows (dx's convolution
-    is padded by pad_right on the left) and within one TMA box; the weight
-    gradients' blocks fit, in one wave of two per SM; each split has at least
-    one 64-frame chunk; the partial sums are no larger than x, and absent
-    when nothing is split."""
-    dtype = torch.bfloat16 if bf16 else torch.float32
-    elem = 2 if bf16 else 4
-    for B in (1, 8, 16):
-        for length in (T, T - 21):
-            Tp = dilated_unit.tma_length(length, dtype)
-            for mode in ("centered", "causal"):
-                left, right = get_padding(3, 1, d, mode)
-                p = dilated_unit.backward_plan(B, C, Tp, 3, d, left, bf16, H100_SMEM)
-                data = p.data
-                assert not data.fused and data.flush == (not bf16)
-                assert data.np in ((96, 192) if bf16 and C > 96 else (96,))
-                assert 2 <= data.w_stages <= 4 and 2 <= data.x_stages <= 4
-                assert data.smem <= H100_SMEM and p.wg_smem <= H100_SMEM
-                for pad in (left, right):
-                    assert dilated_unit.window(2 * d, pad, elem) <= dilated_unit.MAX_BOX
-                chunks = B * -(-Tp // dilated_unit.WG_FRAMES)
-                for splits, taps in ((p.splits_w1, 3), (p.splits_w2, 1)):
-                    assert 1 <= splits <= max(1, chunks // dilated_unit.WG_MIN_CHUNKS)
-                    tiles = (-(-C // dilated_unit.WG_TILE)) ** 2
-                    assert splits == 1 or splits * tiles <= dilated_unit.WG_TARGET_BLOCKS
-                    if splits > 1:
-                        assert splits * taps * C * C <= B * C * Tp
-                assert p.partials <= B * C * Tp
-                assert (p.partials == 0) == (p.splits_w1 == 1 and p.splits_w2 == 1)
-
-
-def test_backward_plan_fills_the_card_where_the_frames_allow():
-    """Long reductions split until the weight gradients fill the card's two
-    blocks per SM in one wave: v2's C=96 level (4 output tiles) takes 66
-    splits; C=768 at T=128 (144 tiles, 16 chunks at B=8) is not split."""
-    p = dilated_unit.backward_plan(8, 96, 8192, 3, 9, 9, False, H100_SMEM)
-    assert (p.splits_w1, p.splits_w2) == (66, 66)
-    p = dilated_unit.backward_plan(8, 768, 128, 3, 1, 1, False, H100_SMEM)
-    assert (p.splits_w1, p.splits_w2, p.partials) == (1, 1, 0)
-
-
-@pytest.mark.parametrize("elem", [2, 4])
-@pytest.mark.parametrize("frames", [64, 64 + 2 + 3, 64 + 18 + 7, 64 + 120 + 3])
-def test_wg_pitch_is_aligned_and_conflict_free(frames, elem):
-    """A weight-gradient smem row holds the frames, is whole 16-byte TMA rows,
-    and is 4 mod 32 words (8 rows x 4 words of a fragment load: 32 banks);
-    its boxes stay within TMA's 256 and multiples of 1024 bytes per 64 rows."""
-    w = dilated_unit.wg_pitch(frames, elem)
-    assert w >= frames and (w * elem) % 16 == 0 and (w * elem // 4) % 32 == 4
-    assert w <= dilated_unit.MAX_BOX and (dilated_unit.WG_TILE * w * elem) % 1024 == 0

@@ -105,11 +105,12 @@ def device_summary(prof, calls: int, wall_ms: float, top: int) -> list[str]:
 
 
 # the fused unit's kernels (csrc/dilated_unit.cu): its weight preparations, the unit (the
-# forward's and the gradient's launches) and the weight gradients with their reduction
-UNIT_KERNEL = re.compile(r"unit_kernel|prepare_weights|wgrad_kernel|wgrad_reduce")
+# forward's and the gradient's launches) and the weight gradients (one launch per call)
+WGRAD_KERNEL = re.compile(r"wgrad_wgmma_kernel")
+UNIT_KERNEL = re.compile(r"unit_kernel|prepare_weights|wgrad_wgmma_kernel")
 # cuDNN's kernels by name: convolutions (forward, data and weight gradients)
 # and the layout transforms around them; the unit's own kernels are not cuDNN's
-CONV_KERNEL = re.compile(r"^(?!.*(?:unit_kernel|prepare_weights|wgrad_kernel|wgrad_reduce))"
+CONV_KERNEL = re.compile(r"^(?!.*(?:unit_kernel|prepare_weights|wgrad_wgmma_kernel))"
                          r".*(?:xmma|fprop|dgrad|wgrad|implicit_gemm|cudnn|convolve|conv[12]d)",
                          re.I)
 
@@ -145,16 +146,18 @@ def range_ms(prof, calls: int, name: str) -> float:
 def unit_share(prof, calls: int, busy_ms: float) -> str:
     """Device time of the fused unit per call (the kernels under the
     `record_function` ranges of its forward, either variant, and of its
-    gradient's kernel), that of cuDNN's kernels (convolutions and their
-    layout transforms), and that of the critic's forward (the kernels under
-    its range)."""
+    gradient's kernels; the weight gradients' kernel apart), that of cuDNN's
+    kernels (convolutions and their layout transforms), and that of the
+    critic's forward (the kernels under its range)."""
     fwd = range_ms(prof, calls, FORWARD_RANGE)
     bwd = range_ms(prof, calls, BACKWARD_RANGE)
     unit = kernel_ms(prof, calls, UNIT_KERNEL)
+    wgrad = kernel_ms(prof, calls, WGRAD_KERNEL)
     conv = kernel_ms(prof, calls, CONV_KERNEL)
     critic = range_ms(prof, calls, CRITIC_RANGE)
     return (f"fused unit: forward kernel {fwd:.3f} ms + backward kernel {bwd:.3f} ms = "
-            f"{fwd + bwd:.3f} ms per call (its kernels by name {unit:.3f} ms), "
+            f"{fwd + bwd:.3f} ms per call (its kernels by name {unit:.3f} ms, of which the "
+            f"backward's weight gradients {wgrad:.3f} ms), "
             f"{100 * (fwd + bwd) / busy_ms:.1f}% of device busy; "
             f"cuDNN convolutions and layout transforms {conv:.3f} ms, "
             f"{100 * conv / busy_ms:.1f}%; the critic's forward {critic:.3f} ms, "
