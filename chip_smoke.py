@@ -32,10 +32,15 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                (a) B=16 x 131072 samples, finite, the right shape, exactly
                22 kernel launches per forward, and the realtime factor;
                (b) B=1 x 65536, GPU (kernel) against CPU (plain) <= 1e-3;
-  6. stream  : compose(["v2","causal"]), 32 blocks of block_size() through
-               step_encode -> step_decode against the causal offline
-               encode/decode of the same signal (delay 0) <= 1e-3, and the
-               p50 time per block;
+  6. stream  : (run after phase 20) compose(["v2","causal"]), 32 blocks of
+               block_size() through step_encode -> step_decode against the
+               causal offline encode/decode of the same signal (delay 0) <=
+               1e-3, and the eager p50 time per block; then the same pair
+               served by `graphed_stream` (a CUDA graph per block shape)
+               beside an eager twin (a copy of the model, its steps called
+               directly) over 32 blocks with `init_stream_state` halfway
+               (`model_lockstep`): outputs and stream buffers bit-equal, the
+               served p50 under the block's budget;
   7. grad    : the wrapper raises on float64, on mixed fp32/bf16, on C % 8
                in fp32 and C % 16 in bf16, and on a halo wider than a TMA
                box, with autograd recording or not;
@@ -127,11 +132,20 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                `ExportedRAVE.forward` on the same input and seed; the
                artifact on the card against the same artifact on the CPU
                (plain unit) on a 3 s clip, offline and 8 streaming blocks,
-               <= 1e-3; `forward_step.pt2` (`torch.export.load`) in lockstep
-               with the eager streaming forward over 32 blocks, outputs and
-               state <= 1e-5. Prints generate's realtime factor end to end
-               and for the bare forward, the streaming p50 per block (eager
-               and .pt2) against the block's budget, the peak memory, and the
+               <= 1e-3; in lockstep over 32 blocks with a `reset_stream`
+               halfway (`run_lockstep`), the artifact's served streaming
+               forward (a CUDA graph replay), its eager twin (the step
+               program called directly), `forward_step.pt2`
+               (`torch.export.load`) called directly and through
+               `StepGraphs`: the served outputs and state bit-equal to the
+               eager twin's, the .pt2 within 1e-5 of the served ones (outputs
+               and state), the served .pt2 bit-equal to the direct one, the
+               served p50s (forward and .pt2) under the block's budget; the
+               stereo artifact's served forward likewise against its eager
+               twin. Prints generate's realtime factor end to end
+               and for the bare forward, the streaming p50 per block (served,
+               served .pt2, eager, .pt2 eager, the model's bare steps) against
+               the block's budget, the peak memory, and the
                unit at the 30 s forward's 11 centered shapes at B=1 against
                its plain version (phase 3's machinery);
  13. prior   : the latent prior (run after phase 12, on phase 11's run and
@@ -151,8 +165,10 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                5` (11: one decode; the wav's length), `sample_prior(argmax=True)`
                on the card against the CPU (the card's chain fed to the CPU's
                prior gives the card's codes, float32 ties aside), `prior_step.pt2`
-               bit-equal to the eager step over 32 steps, and the p50 of a
-               prior step, eager and .pt2, under one latent frame's period
+               and both served steps (the artifact's graph of the step, the
+               .pt2 through `StepGraphs`) bit-equal to the eager step over 32
+               steps, and the p50 of a prior step, served, served .pt2, eager
+               and .pt2, each under one latent frame's period
                (2048 / 44100 s = 46.44 ms: a live prior makes a frame per
                block); (d) the unit at every shape (b) and (c) gave it, as
                recorded there (the encoder's at B=8 x 524288 samples, the
@@ -176,9 +192,12 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                store, resumed once (bit-equal, the running statistics
                included), `cli export --streaming`, `cli generate` of a 30 s
                file, the artifact on the card against the CPU (1e-3),
-               `forward_step.pt2` bit-equal to the eager steps over 32
-               blocks, the streaming p50, eager and .pt2, under the 46.44 ms
-               budget; (e) `cli export_onnx --verify` of a 2-step `--config
+               `forward_step.pt2` bit-equal to the served steps over 32
+               blocks, the served forward (and (b)'s causal model through
+               `graphed_stream`) bit-equal to the eager steps across a
+               reset, the served streaming p50s (forward, .pt2) under the
+               46.44 ms budget, the eager ones printed; (e) `cli export_onnx
+               --verify` of a 2-step `--config
                onnx` run (0 launches) and of phase 11's v2 run (its live
                forward's 22 launches exactly, the kernel held against its
                plain version at each shape they gave it, 1e-4), each
@@ -209,8 +228,10 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                artifact's forward against the source weights' (the same
                weights saved as a port run and exported alike) within 1e-5
                (the weight norm re-decomposed in float32); the artifact's
-               streaming p50 per 2048-sample block, eager and `.pt2`, under its
-               46.44 ms; the unit against its plain version at each shape the
+               served forward bit-equal to its eager twin over 32 blocks
+               across a reset, its served streaming p50s per 2048-sample
+               block (forward, `.pt2`) under its 46.44 ms, the eager ones
+               printed; the unit against its plain version at each shape the
                path gave it (1e-4). Work in build/import, deleted at the end;
  17. native : the C++ sampler (csrc/ars_pipeline.cc, built by g++ into
                build/kernels/) on phase 11's store: B=8 x 131072 with the
@@ -273,8 +294,9 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                and `cli generate` of a 30 s file (22 launches), the artifact
                on the card against the CPU (latents 1e-3 and `check_codes`, the
                decode of one index tensor 1e-3), `forward_step.pt2` bit-equal to
-               the eager steps over 32 blocks, the streaming p50 against
-               the 1024-sample block's 23.22 ms; then v2 + wasserstein and
+               the served steps over 32 blocks, the served forward bit-equal
+               to its eager twin across a reset, the served p50s (forward,
+               .pt2) under the 1024-sample block's 23.22 ms; then v2 + wasserstein and
                v2 + spherical: one generator step each at B=8 x 131072 (22
                launches), the first step at B=1 and the artifact's codec
                halves (`EncodeSide`, `DecodeSide`) of the stepped model on
@@ -291,8 +313,10 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                uniforms); (b) blocks of block_size() streamed through
                step_encode and step_decode against the offline encode and
                decode past the delays (1e-3; the noise synth's offline
-               draws shifted by its lag), and the p50 of 32 streaming
-               forward blocks against the block's budget; (c) the
+               draws shifted by its lag), and 32 streaming forward blocks
+               through `graphed_stream` beside the model's steps
+               (`model_lockstep`): bit-equal, the served p50 under the
+               block's budget (`v2_small`'s 512 samples: 11.61 ms); (c) the
                receptive-field crop, one step of each program at B=8 x
                131072 after a warm one (launches exact, ms, peak memory) and
                the first step of each at B=1 x 65536 on the card against the
@@ -302,8 +326,10 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                --streaming`, `cli generate` of a 30 s file (a forward's
                launches), the artifact on the card against the CPU (3 s clip
                offline, 8 streaming blocks; 1e-3) and `forward_step.pt2`
-               against the eager steps over 32 blocks (1e-5), the streaming
-               p50 eager and .pt2. hybrid trains without the valid-signal
+               against the served steps over 32 blocks (1e-5), the served
+               forward bit-equal to its eager twin across a reset, the served
+               p50s (forward, .pt2) under the block's budget, the eager ones
+               printed. hybrid trains without the valid-signal
                crop (ROADMAP C12). Work in build/variants, deleted at the end;
  22. v3     : compose(["v3"]) at full width (capacity 96, latent 128, ratios
                4.4.4.2, Snake, AdaIN before each residual unit, the descript
@@ -334,15 +360,23 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                reach (the receptive field's left side plus the delay, from
                the transfer's start: no block read sees the learning
                segments), later half against earlier half; the transfer
-               moving the output, `forward_step.pt2` bit-equal to the eager
+               moving the output, `forward_step.pt2` bit-equal to the served
                steps over 32 blocks while the target learns (AdaIN's state
-               included), the resets bringing the identity back, the
-               streaming p50 under the 46.44 ms budget; (e) discrete_v3: the
+               included), the served forward bit-equal to its eager twin
+               over those blocks (a reset halfway) and 4 more with the
+               target's learning off and reset, the cuDNN-off stream served
+               by a graph captured with cuDNN off (one more capture), the
+               resets bringing the identity back, the served streaming p50s
+               (forward, .pt2) under the 46.44 ms budget; (e) discrete_v3: the
                B=16 forward, the k-means step apart, one step of each program
                at B=8, B=1 losses card vs CPU (1e-3) and `check_codes`;
                work in build/v3, deleted at the end;
  23. the kernels' JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Each phase that streams also prints a `graphs` line: the CUDA graphs it
+captured and replayed, and per family the served, served .pt2, eager and
+.pt2 eager p50s against the block's budget.
 
 Per-shape details go to build/chip_smoke.json; the loop and export phases
 work in build/loop (corpus, db, run dirs, artifacts, generated wavs), the
@@ -745,11 +779,21 @@ def phase_stream() -> dict:
         check(z_err <= MODEL_TOL and y_err <= MODEL_TOL,
               f"stream vs offline rel err z {z_err:.3e}, y {y_err:.3e} > {MODEL_TOL}")
     p50 = statistics.median(times) * 1e3
-    out = {"block": block, "blocks": n_blocks, "block_ms_p50": p50,
-           "block_budget_ms": block / SAMPLE_RATE * 1e3, "z_rel_err": z_err, "y_rel_err": y_err}
+    budget = block / SAMPLE_RATE * 1e3
+    reset_graph_counts()
+    served = model_lockstep(model, cfg, x, n_blocks)
+    check(served["graph_bit_equal"], f"stream: graphed_stream not bit-equal to the model's steps "
+                                     f"({served['graph_max_rel_err']:.3e})")
+    check(served["p50_ms"]["graph"] < budget, f"stream: served p50 {served['p50_ms']} over the "
+                                              f"{budget:.2f} ms budget")
+    out = {"block": block, "blocks": n_blocks, "block_ms_p50": p50, "block_budget_ms": budget,
+           "z_rel_err": z_err, "y_rel_err": y_err, "served": served,
+           "graphs": graphs_line("stream", {"v2_causal": served["p50_ms"]},
+                                 {"v2_causal": budget})}
     print(f"stream: v2 causal, {n_blocks} blocks of {block} samples, p50 {p50:.3f} ms per "
-          f"block (budget {out['block_budget_ms']:.2f} ms); vs offline rel err z {z_err:.2e}, "
-          f"y {y_err:.2e} <= {MODEL_TOL}", flush=True)
+          f"block eager, {served['p50_ms']['graph']:.3f} ms served by graphed_stream, bit-equal "
+          f"to the eager steps over {n_blocks} blocks across a reset (budget {budget:.2f} ms); "
+          f"vs offline rel err z {z_err:.2e}, y {y_err:.2e} <= {MODEL_TOL}", flush=True)
     return out
 
 
@@ -1769,6 +1813,220 @@ def write_signal(path: Path, seconds: float, seed: int) -> int:
     return n
 
 
+# ---- the served streaming steps: CUDA graphs beside their eager twins ---------------------
+
+def reset_graph_counts() -> None:
+    from rave_tpu_torch.nn import graphs
+
+    graphs.captures = graphs.replays = 0
+
+
+def graphs_line(phase: str, p50s: dict, budgets: dict) -> dict:
+    """Print phase `phase`'s `graphs` line: the CUDA graphs captured and
+    replayed since `reset_graph_counts`, and per family the p50 ms of each
+    path (`graph`: the public method or `graphed_stream`; `program`: the
+    `.pt2` through `StepGraphs`; `eager` / `program_eager`: called directly)
+    against its block's budget; returns them."""
+    from rave_tpu_torch.nn import graphs
+
+    out = {"captured": graphs.captures, "replays": graphs.replays, "p50_ms": p50s,
+           "budget_ms": budgets}
+    print(f"graphs: {phase}: {graphs.captures} graphs captured, {graphs.replays} replays; p50 "
+          + "; ".join(f"{k} " + ", ".join(f"{path} {ms:.3f}" for path, ms in v.items())
+                      + f" ms (budget {budgets[k]:.2f})" for k, v in p50s.items()), flush=True)
+    return out
+
+
+def timed_call(fn, *args, **kwargs):
+    """(fn's result, host ms), the call ending in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def states_equal(a, b) -> bool:
+    return all(torch_equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return x.shape == y.shape and bool(torch.equal(x, y))
+
+
+class Lockstep:
+    """An artifact's served streaming forward (its public method: a CUDA graph
+    replay) beside its eager twin (`stream_steps["forward"]`, the step program
+    and the resampler called directly on a copy of the stream state) and,
+    with `program`, its `forward_step.pt2` called directly and through
+    `StepGraphs`, each on its own state. Every block of every path is timed
+    by the host clock, ending in a synchronize; the served outputs and state
+    are compared with the eager twin's, the program's with the served ones
+    (its state's relative errors over `state_floor`) and the program's served
+    ones with its direct ones. `reset_stream` and `attribute` change every
+    path's state as the artifact changes its own."""
+
+    def __init__(self, art, program=None, state_floor: float = 1e-6):
+        from rave_tpu_torch.nn.graphs import StepGraphs
+
+        self.art, self.program, self.state_floor = art, program, state_floor
+        self.eager = [t.clone() for t in art.stream_state]
+        if program is not None:
+            self.direct = [t.clone() for t in art.state]
+            self.served = StepGraphs(program, [t.clone() for t in art.state], art.graph_pool)
+        self.ms = {"graph": [], "eager": []}
+        if program is not None:
+            self.ms.update(program=[], program_eager=[])
+        self.blocks, self.graph_equal, self.graph_err = 0, True, 0.0
+        self.program_y_err = self.program_state_err = 0.0
+        self.program_equal = self.program_graph_equal = True
+
+    def _states(self) -> list:
+        return [self.eager] + ([self.direct, self.served.state] if self.program else [])
+
+    def reset_stream(self) -> None:
+        self.art.reset_stream()
+        adain = set(self.art.adain_indices)
+        for state in self._states():
+            for i, t in enumerate(state):
+                if i not in adain:
+                    t.zero_()
+
+    def attribute(self, name: str, *args) -> None:
+        """The artifact's AdaIN setter `name`, then its AdaIN state into every path's."""
+        getattr(self.art, name)(*args)
+        for i in self.art.adain_indices:
+            for state in self._states():
+                state[i].copy_(self.art.stream_state[i])
+
+    def block(self, xb, seed: int):
+        import torch
+
+        from rave_tpu_torch.train.loop import fp32_exact
+
+        art, n = self.art, len(self.art.slots)
+        y_g, ms = timed_call(art.forward, xb, streaming=True, seed=seed)
+        self.ms["graph"].append(ms)
+        s = torch.full((), seed, dtype=torch.int64, device=xb.device)
+        with torch.no_grad(), fp32_exact():
+            (y_e, self.eager), ms = timed_call(art.stream_steps["forward"], self.eager, xb, s)
+            self.ms["eager"].append(ms)
+            if self.program is not None:
+                (y_p, self.direct), ms = timed_call(self.program, self.direct, xb, s)
+                self.ms["program_eager"].append(ms)
+                y_pg, ms = timed_call(self.served, xb, seed)
+                self.ms["program"].append(ms)
+        equal = torch_equal(y_g, y_e) and states_equal(art.stream_state, self.eager)
+        if not equal:
+            self.graph_err = max([self.graph_err, rel_err(y_g, y_e)] + [
+                rel_err(a, b, 1e-6) for a, b in zip(art.stream_state, self.eager)])
+        self.graph_equal = self.graph_equal and equal
+        if self.program is not None:
+            self.program_y_err = max(self.program_y_err, rel_err(y_p, y_g))
+            self.program_state_err = max([self.program_state_err] + [
+                rel_err(a, b, self.state_floor) for a, b in zip(self.direct, art.state)])
+            self.program_equal = (self.program_equal and torch_equal(y_p, y_g)
+                                  and states_equal(self.direct, art.stream_state[:n]))
+            self.program_graph_equal = (self.program_graph_equal and torch_equal(y_pg, y_p)
+                                        and states_equal(self.served.state, self.direct))
+        self.blocks += 1
+        return y_g
+
+    def p50(self) -> dict:
+        return {k: statistics.median(v) for k, v in self.ms.items()}
+
+    def summary(self) -> dict:
+        out = {"blocks": self.blocks, "graph_bit_equal": self.graph_equal,
+               "graph_max_rel_err": self.graph_err, "p50_ms": self.p50()}
+        if self.program is not None:
+            out.update(program_y_err=self.program_y_err,
+                       program_state_err=self.program_state_err,
+                       program_bit_equal=self.program_equal,
+                       program_graph_bit_equal=self.program_graph_equal)
+        return out
+
+
+def run_lockstep(art, x, seed0: int, program=None, blocks: int = PROGRAM_BLOCKS,
+                 attributes=None, state_floor: float = 1e-6) -> Lockstep:
+    """`blocks` blocks of `x` through a `Lockstep` from a fresh stream, a
+    `reset_stream` after half of them, and the artifact's AdaIN `attributes`
+    ({block: [(name, *args)]}) before the blocks they name."""
+    lock = Lockstep(art, program, state_floor)
+    lock.reset_stream()
+    B = art.block_size
+    check(x.shape[-1] >= blocks * B, f"{x.shape[-1]} samples for {blocks} blocks of {B}")
+    for i in range(blocks):
+        if i == blocks // 2:
+            lock.reset_stream()
+        for name, *args in (attributes or {}).get(i, []):
+            lock.attribute(name, *args)
+        lock.block(x[..., i * B:(i + 1) * B], seed0 + i)
+    return lock
+
+
+def check_served(what: str, lock, budget: float) -> dict:
+    """The served path's checks: the graph's outputs and state bit-equal to
+    the eager twin's over every block; its p50, and the `.pt2` served through
+    `StepGraphs` (bit-equal to the `.pt2` called directly), under the budget."""
+    s = lock.summary()
+    check(lock.blocks >= PROGRAM_BLOCKS, f"{what}: {lock.blocks} blocks served")
+    check(s["graph_bit_equal"], f"{what}: the served graph is not bit-equal to the eager "
+                                f"steps over {lock.blocks} blocks ({s['graph_max_rel_err']:.3e})")
+    gated = {k: v for k, v in s["p50_ms"].items() if k in ("graph", "program")}
+    check(max(gated.values()) < budget, f"{what}: served streaming p50 {gated} over the "
+                                        f"{budget:.2f} ms budget")
+    if "program_graph_bit_equal" in s:
+        check(s["program_graph_bit_equal"], f"{what}: the .pt2 served through StepGraphs is not "
+                                            f"bit-equal to the .pt2 called directly")
+    return s
+
+
+def model_lockstep(model, cfg, xs, blocks: int, uniforms=None) -> dict:
+    """The model's step pair served by `graphed_stream` (a CUDA graph per
+    block shape) beside an eager twin (a copy of the model, its `step_encode`
+    and `step_decode` called directly), `blocks` blocks of `xs` from a fresh
+    stream with `init_stream_state` after half of them: each timed by the
+    host clock; outputs and both models' stream buffers compared."""
+    import torch
+
+    from rave_tpu_torch.export.artifact import graphed_stream, stream_slots
+    from rave_tpu_torch.nn.streaming import init_stream_state
+
+    D, block = cfg.latent_size, cfg.block_size()
+    with torch.no_grad():
+        twin = copy.deepcopy(model)
+        served = graphed_stream(model, D)
+        ms, equal, err = {"graph": [], "eager": []}, True, 0.0
+        for i in range(blocks):
+            if i in (0, blocks // 2):
+                init_stream_state(model, 1)
+                init_stream_state(twin, 1)
+            xb, u = xs[..., i * block:(i + 1) * block], uniforms[i] if uniforms else None
+            (z, y), t = timed_call(served, xb, u)
+            ms["graph"].append(t)
+
+            def eager():
+                z_e = twin.step_encode(xb)
+                return z_e, twin.step_decode(z_e[:, :D], u)
+
+            (z_e, y_e), t = timed_call(eager)
+            ms["eager"].append(t)
+            mine = [getattr(m, a) for _, m, a in stream_slots(model)]
+            theirs = [getattr(m, a) for _, m, a in stream_slots(twin)]
+            same = torch_equal(z, z_e) and torch_equal(y, y_e) and states_equal(mine, theirs)
+            if not same:
+                err = max([err, rel_err(z, z_e), rel_err(y, y_e)]
+                          + [rel_err(a, b, 1e-6) for a, b in zip(mine, theirs)])
+            equal = equal and same
+    return {"blocks": blocks, "graph_bit_equal": equal, "graph_max_rel_err": err,
+            "p50_ms": {k: statistics.median(v) for k, v in ms.items()},
+            "graphs": len(served.graphs)}
+
+
 def phase_export(run_dir: Path) -> dict:
     import numpy as np
     import torch
@@ -1880,34 +2138,30 @@ def phase_export(run_dir: Path) -> dict:
           f"artifact GPU vs CPU rel err: offline {offline_err:.3e}, streaming {stream_err:.3e}, "
           f"stereo at 88.2 kHz {stereo_err:.3e} > {MODEL_TOL}; seeded draws {draw_err:.3e}")
 
-    # 4. forward_step.pt2 in lockstep with the eager streaming forward; beside
-    # them, the model's bare step pair (no codec, no seed, no state swap)
-    program = art.load_program("forward")
-    art.reset_stream()
-    state = [s.clone() for s in art.state]
-    eager_ms, program_ms, bare_ms, y_err, state_err = [], [], [], 0.0, 0.0
-    for i in range(PROGRAM_BLOCKS):
-        xb = x[..., i * B:(i + 1) * B]
-        torch.cuda.synchronize()
-        tb = time.perf_counter()
-        with torch.no_grad():
-            art.model.step_decode(art.model.step_encode(xb)[:, :D])
-        torch.cuda.synchronize()
-        bare_ms.append((time.perf_counter() - tb) * 1e3)
-        t0 = time.perf_counter()
-        y_e = art.forward(xb, streaming=True, seed=1000 + i)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        y_p, state = program(state, xb, torch.tensor(1000 + i, device="cuda"))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        eager_ms.append((t1 - t0) * 1e3)
-        program_ms.append((t2 - t1) * 1e3)
-        y_err = max(y_err, rel_err(y_p, y_e))
-        state_err = max([state_err] + [rel_err(a, b, 1e-6) for a, b in zip(state, art.state)])
+    # 4. the served forward (a CUDA graph), its eager twin, forward_step.pt2 called
+    # directly and served, in lockstep over 32 blocks; the stereo artifact's served
+    # forward against its eager twin; beside them, the model's bare step pair (no
+    # codec, no seed, no state swap)
+    reset_graph_counts()
+    budget = B / SAMPLE_RATE * 1e3
+    lock = run_lockstep(art, x, 1000, art.load_program("forward"))
+    y_err, state_err = lock.program_y_err, lock.program_state_err
     check(y_err <= PROGRAM_TOL and state_err <= PROGRAM_TOL,
           f"forward_step.pt2 vs eager over {PROGRAM_BLOCKS} blocks: y {y_err:.3e}, state "
           f"{state_err:.3e} > {PROGRAM_TOL}")
+    served = {"v2": check_served("export v2", lock, budget)}
+    xs_long = torch.randn(2, 1, PROGRAM_BLOCKS * st_gpu.block_size, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(10)) * 0.1
+    budgets = {"v2": budget, "stereo_88200": st_gpu.block_size / (2 * SAMPLE_RATE) * 1e3}
+    served["stereo_88200"] = check_served("export stereo", run_lockstep(st_gpu, xs_long, 1100),
+                                          budgets["stereo_88200"])
+    bare_ms = []
+    for i in range(PROGRAM_BLOCKS):
+        xb = x[..., i * B:(i + 1) * B]
+        with torch.no_grad():
+            _, ms = timed_call(lambda: art.model.step_decode(art.model.step_encode(xb)[:, :D]))
+        bare_ms.append(ms)
+    graphs = graphs_line("export", {k: v["p50_ms"] for k, v in served.items()}, budgets)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
     # 5. the unit at the 30 s forward's 11 centered shapes, B=1
@@ -1915,8 +2169,7 @@ def phase_export(run_dir: Path) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(30)
     unit_rows = [kernel_row(gen, "export_b1", 1, C, N // (16 * 4 ** i), d, "centered")
                  for i, (C, _, dils) in enumerate(UNIT_SHAPES) for d in dils]
-    p50 = {"eager": statistics.median(eager_ms), "program": statistics.median(program_ms),
-           "bare_model_steps": statistics.median(bare_ms)}
+    p50 = {**served["v2"]["p50_ms"], "bare_model_steps": statistics.median(bare_ms)}
     out = {"artifacts": {k: {kk: (str(v.relative_to(ROOT)) if kk == "path" else v)
                              for kk, v in a.items() if kk != "manifest"} for k, a in arts.items()},
            "latent_size": latent, "generate_launches": launches, "generate_s": generate_s,
@@ -1926,20 +2179,22 @@ def phase_export(run_dir: Path) -> dict:
            "gpu_vs_cpu_rel_err": {"offline": offline_err, "stream": stream_err,
                                   "stereo_88200": stereo_err, "draws_abs": draw_err},
            "program_rel_err": {"y": y_err, "state": state_err}, "block_ms_p50": p50,
-           "block_budget_ms": B / SAMPLE_RATE * 1e3, "peak_gb": peak_gb, "unit_b1": unit_rows,
-           "seconds": time.perf_counter() - t_phase}
+           "block_budget_ms": budget, "served": served, "graphs": graphs, "peak_gb": peak_gb,
+           "unit_b1": unit_rows, "seconds": time.perf_counter() - t_phase}
     print(f"export: cli export x2 (--streaming --ema_weights; --stereo --sr {2 * SAMPLE_RATE}) "
           + "; ".join(f"{k} {a['seconds']:.1f} s, {a['mib']:.1f} MiB" for k, a in arts.items())
           + f"; latent {latent} of {D}; generate {n / SAMPLE_RATE:.1f} s of audio: {launches} "
           f"launches, wav {wav_err:.2e} from forward; GPU vs CPU offline {offline_err:.2e}, "
           f"{CPU_STREAM_BLOCKS} blocks {stream_err:.2e}, stereo {stereo_err:.2e} <= {MODEL_TOL}, "
           f"draws {draw_err:.1e}; forward_step.pt2 vs "
-          f"eager {PROGRAM_BLOCKS} blocks y {y_err:.2e}, state {state_err:.2e} <= {PROGRAM_TOL}",
-          flush=True)
+          f"eager {PROGRAM_BLOCKS} blocks y {y_err:.2e}, state {state_err:.2e} <= {PROGRAM_TOL}"
+          f"; served forward bit-equal to the eager steps over {PROGRAM_BLOCKS} blocks across a "
+          f"reset (v2 and stereo), the served .pt2 bit-equal to the .pt2", flush=True)
     print(f"export times: generate realtime factor {out['realtime_factor_generate']:.1f}x end "
           f"to end ({generate_s:.2f} s), {out['realtime_factor_forward']:.1f}x bare forward "
-          f"({forward_s * 1e3:.1f} ms); streaming p50 per block eager {p50['eager']:.3f} ms, "
-          f".pt2 {p50['program']:.3f} ms, the model's bare steps {p50['bare_model_steps']:.3f} "
+          f"({forward_s * 1e3:.1f} ms); streaming p50 per block served {p50['graph']:.3f} ms, "
+          f".pt2 served {p50['program']:.3f} ms, eager {p50['eager']:.3f} ms, .pt2 eager "
+          f"{p50['program_eager']:.3f} ms, the model's bare steps {p50['bare_model_steps']:.3f} "
           f"ms (budget {out['block_budget_ms']:.2f} ms); peak "
           f"{peak_gb:.2f} GiB; unit B=1 kernel/plain ms: {shape_summary(unit_rows)}; phase "
           f"{out['seconds']:.1f} s", flush=True)
@@ -2126,11 +2381,13 @@ def phase_prior(run_dir: Path, db: Path) -> dict:
     from scipy.io import wavfile
 
     from rave_tpu_torch.export.artifact import ExportedRAVE, prior_step_seed
+    from rave_tpu_torch.nn.graphs import StepGraphs
     from rave_tpu_torch.ops.kernels import dilated_unit
     from rave_tpu_torch.prior.train import encode_latents
     from rave_tpu_torch.utils.checkpoint import load_run
 
     t_phase = time.perf_counter()
+    reset_graph_counts()
     work = ROOT / "build" / "prior"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -2203,33 +2460,53 @@ def phase_prior(run_dir: Path, db: Path) -> dict:
 
     check(art.has_prior and art.manifest["prior"] == pcfg, "the artifact's prior")
     codes = check_prior_codes(art, cpu_art, PRIOR_PROGRAM_STEPS, GENERATE_SEED)
+    # the eager step, prior_step.pt2 and both served (the artifact's own graph of
+    # the step, and the .pt2 through StepGraphs) in lockstep from a zero frame and
+    # state, a new chain from zero halfway: bit-equal
     program = art.load_program("prior")
+    served, served_program = art.graphs["prior"], StepGraphs(program, art.prior_state(),
+                                                              art.graph_pool)
     D = art.prior_step.prior.latent_size * art.prior_step.prior.resolution
-    x_e = x_p = torch.zeros(1, D, 1, device="cuda")
-    s_e, s_p = art.prior_state(), art.prior_state()
     with torch.no_grad():
         for i in range(PRIOR_PROGRAM_STEPS):
-            seed = torch.tensor(prior_step_seed(GENERATE_SEED, i), dtype=torch.int64,
-                                device="cuda")
-            x_e, s_e = art.prior_step(s_e, x_e, seed)
-            x_p, s_p = program(s_p, x_p, seed)
+            if i in (0, PRIOR_PROGRAM_STEPS // 2):
+                x_e = x_p = x_g = x_pg = torch.zeros(1, D, 1, device="cuda")
+                s_e, s_p = art.prior_state(), art.prior_state()
+                for t in served.state + served_program.state:
+                    t.zero_()
+            seed = prior_step_seed(GENERATE_SEED, i)
+            seed_t = torch.tensor(seed, dtype=torch.int64, device="cuda")
+            x_e, s_e = art.prior_step(s_e, x_e, seed_t)
+            x_p, s_p = program(s_p, x_p, seed_t)
+            x_g, x_pg = served(x_g, seed), served_program(x_pg, seed)
             check(torch.equal(x_e, x_p) and all(torch.equal(a, b) for a, b in zip(s_e, s_p)),
                   f"prior_step.pt2 differs from the eager step at step {i}")
+            check(torch.equal(x_g, x_e) and torch.equal(x_pg, x_e)
+                  and states_equal(served.state, s_e) and states_equal(served_program.state, s_e),
+                  f"a served prior step differs from the eager step at step {i}")
 
-    def step_ms(fn) -> list:
+    def step_ms(fn, graph: bool = False) -> list:
         x, state, ms = torch.zeros(1, D, 1, device="cuda"), art.prior_state(), []
+        for t in fn.state if graph else ():
+            t.zero_()
         with torch.no_grad():
             for i in range(PRIOR_TIMED_STEPS + 4):
-                seed = torch.tensor(prior_step_seed(1, i), dtype=torch.int64, device="cuda")
+                seed = prior_step_seed(1, i)
+                seed_t = torch.tensor(seed, dtype=torch.int64, device="cuda")
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                x, state = fn(state, x, seed)
+                if graph:
+                    x = fn(x, seed)
+                else:
+                    x, state = fn(state, x, seed_t)
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
         return ms[4:]
 
-    p50 = {"eager": statistics.median(step_ms(art.prior_step)),
-           "program": statistics.median(step_ms(program))}
+    p50 = {"graph": statistics.median(step_ms(served, graph=True)),
+           "program": statistics.median(step_ms(served_program, graph=True)),
+           "eager": statistics.median(step_ms(art.prior_step)),
+           "program_eager": statistics.median(step_ms(program))}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     z = art.sample_prior(n_frames, seed=GENERATE_SEED)
@@ -2270,6 +2547,7 @@ def phase_prior(run_dir: Path, db: Path) -> dict:
            "export_s": export_s, "generate_s": generate_s, "wav_samples": int(wav.shape[0]),
            "card_vs_cpu": codes, "program_steps_bit_equal": PRIOR_PROGRAM_STEPS,
            "step_ms_p50": p50, "frame_budget_ms": PRIOR_FRAME_MS,
+           "graphs": graphs_line("prior", {"prior_step": p50}, {"prior_step": PRIOR_FRAME_MS}),
            "sample_prior_s": sample_s, "sample_frames": n_frames,
            "launches": launches, "launches_per_encode": UNITS_PER_HALF,
            "launches_per_decode": UNITS_PER_HALF, "unit_rows": unit_rows,
@@ -2289,8 +2567,10 @@ def phase_prior(run_dir: Path, db: Path) -> dict:
           f"{sample_s:.2f} s; argmax codes card vs CPU on the card's chain: "
           f"{codes['codes_differ']} of {codes['codes']} differ ({codes['code_ties']} ties), "
           f"own chains' latents {codes['own_chain_z_rel_err']:.2e}; prior_step.pt2 "
-          f"bit-equal over {PRIOR_PROGRAM_STEPS} steps; step p50 eager {p50['eager']:.3f} / "
-          f".pt2 {p50['program']:.3f} ms (frame budget {PRIOR_FRAME_MS:.2f}); {launches} "
+          f"and both served steps bit-equal over {PRIOR_PROGRAM_STEPS} steps; step p50 served "
+          f"{p50['graph']:.3f} / .pt2 served {p50['program']:.3f} / eager {p50['eager']:.3f} / "
+          f".pt2 eager {p50['program_eager']:.3f} ms (frame budget {PRIOR_FRAME_MS:.2f}); "
+          f"{launches} "
           f"launches; card vs CPU encode_latents (B={x.shape[0]}) {encode_err:.2e}, a "
           f"sample's decode {decode_err:.2e} <= {MODEL_TOL}; unit at the path's "
           f"{len(unit_rows)} shapes: max rel err {max(r['rel_err'] for r in unit_rows):.2e} <= "
@@ -2582,31 +2862,16 @@ def _discrete_export(cfg, run_dir: Path, work: Path) -> dict:
     y_err = rel_err(art.decode(idx_cpu.cuda(), seed=4).cpu(), cpu.decode(idx_cpu, seed=4))
     check(y_err <= MODEL_TOL, f"discrete artifact card vs CPU: decode {y_err:.3e}")
 
-    program = art.load_program("forward")
-    art.reset_stream()
-    state = [s.clone() for s in art.state]
-    eager_ms, program_ms, equal = [], [], True
-    for i in range(PROGRAM_BLOCKS):
-        xb = x[..., i * B:(i + 1) * B]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        y_e = art.forward(xb, streaming=True, seed=2000 + i)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        y_p, state = program(state, xb, torch.tensor(2000 + i, device="cuda"))
-        torch.cuda.synchronize()
-        eager_ms.append((t1 - t0) * 1e3)
-        program_ms.append((time.perf_counter() - t1) * 1e3)
-        equal = equal and torch.equal(y_p, y_e) and all(
-            torch.equal(a, b) for a, b in zip(state, art.state))
+    budget = B / SAMPLE_RATE * 1e3
+    lock = run_lockstep(art, x, 2000, art.load_program("forward"))
+    equal = lock.program_equal
     check(equal, f"discrete forward_step.pt2 not bit-equal to the eager steps over "
                  f"{PROGRAM_BLOCKS} blocks")
+    served = check_served("discrete", lock, budget)
     return {"export_s": export_s, "generate_s": generate_s, "generate_launches": launches,
             "realtime_factor_generate": n / SAMPLE_RATE / generate_s, **codes,
-            "decode_rel_err": y_err, "program_bit_equal": equal,
-            "block_ms_p50": {"eager": statistics.median(eager_ms),
-                             "program": statistics.median(program_ms)},
-            "block_budget_ms": B / SAMPLE_RATE * 1e3}
+            "decode_rel_err": y_err, "program_bit_equal": equal, "served": served,
+            "block_ms_p50": served["p50_ms"], "block_budget_ms": budget}
 
 
 def _other_family(names) -> dict:
@@ -2683,6 +2948,7 @@ def phase_discrete() -> dict:
         seconds[name] = time.perf_counter() - t0
         return out
 
+    reset_graph_counts()
     offline = timed("offline", _discrete_offline, cfg)
     train = timed("steps", _discrete_steps, cfg)
     b1 = timed("b1_card_vs_cpu", lambda: {
@@ -2701,6 +2967,8 @@ def phase_discrete() -> dict:
     out = {"kernel_rows": kernel_rows, "offline": offline, "train": train,
            "b1_loss_rel_err": b1_err, "loop": {k: v for k, v in loop.items() if k != "run_dir"},
            "export": export, "others": others, "launches": launches, "part_seconds": seconds,
+           "graphs": graphs_line("discrete", {"discrete": export["block_ms_p50"]},
+                                 {"discrete": export["block_budget_ms"]}),
            "seconds": time.perf_counter() - t_phase}
     print(f"discrete: units at C=768 T=256 kernel/plain ms {shape_summary(kernel_rows)} (max rel "
           f"err {max(r['rel_err'] for r in kernel_rows):.2e} <= {KERNEL_TOL}); forward B={BATCH} x "
@@ -2722,9 +2990,13 @@ def phase_discrete() -> dict:
     print(f"discrete export: {export['export_s']:.1f} s; generate 30 s "
           f"{export['realtime_factor_generate']:.1f}x end to end, 22 launches; artifact card vs "
           f"CPU {codes_summary(export)}, decode {export['decode_rel_err']:.2e}"
-          f"; forward_step.pt2 bit-equal over {PROGRAM_BLOCKS} blocks; streaming p50 eager "
-          f"{export['block_ms_p50']['eager']:.3f} ms, .pt2 {export['block_ms_p50']['program']:.3f}"
-          f" ms (budget {export['block_budget_ms']:.2f} ms); "
+          f"; forward_step.pt2 bit-equal over {PROGRAM_BLOCKS} blocks, the served forward "
+          f"bit-equal to the eager steps across a reset; streaming p50 served "
+          f"{export['block_ms_p50']['graph']:.3f} ms, .pt2 served "
+          f"{export['block_ms_p50']['program']:.3f} ms, eager "
+          f"{export['block_ms_p50']['eager']:.3f} ms, .pt2 eager "
+          f"{export['block_ms_p50']['program_eager']:.3f} ms (budget "
+          f"{export['block_budget_ms']:.2f} ms); "
           + "; ".join(f"{k}: step {o['step_ms']:.1f} ms, B=1 losses {o['b1_loss_rel_err']:.1e}, "
                       f"codec {o['codec_rel_err']['encode']:.1e} / "
                       f"{o['codec_rel_err']['decode']:.1e}" for k, o in others.items())
@@ -3122,29 +3394,23 @@ def _v3_export(run_dir: Path, work: Path) -> dict:
           f"v3 artifact card vs CPU per call {errs} (<= {MODEL_TOL}); the transfer moved the "
           f"output {moved:.3e} (> 1e-2)")
 
-    program = art.load_program("forward")
-    art.reset_stream()
+    # the served forward, its eager twin and the .pt2 (direct and served) in lockstep
+    # while the target learns, a reset_stream halfway; then the target's learning
+    # off and reset, a few blocks more
     art.set_learn_target(True)
-    state = [s.clone() for s in art.state]
-    eager_ms, program_ms, equal = [], [], True
-    for i in range(PROGRAM_BLOCKS):
-        xb = x[..., i * B:(i + 1) * B]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        y_e = art.forward(xb, streaming=True, seed=2000 + i)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        y_p, state = program(state, xb, torch.tensor(2000 + i, device="cuda"))
-        torch.cuda.synchronize()
-        eager_ms.append((t1 - t0) * 1e3)
-        program_ms.append((time.perf_counter() - t1) * 1e3)
-        equal = equal and torch.equal(y_p, y_e) and all(
-            torch.equal(a, b) for a, b in zip(state, art.state))
+    lock = run_lockstep(art, x, 2000, art.load_program("forward"))
+    equal = lock.program_equal
     learned = [float(art.state[i]) for i in art.adain_indices
                if art.slots[i][2] == "num_update_y"]
     check(equal and learned == [float(V3_ADAIN_BLOCKS + PROGRAM_BLOCKS)] * 22,
           f"v3 forward_step.pt2 not bit-equal to the eager steps over {PROGRAM_BLOCKS} blocks "
           f"({equal}) or the target's updates {learned[:3]}...")
+    lock.attribute("set_learn_target", False)
+    lock.attribute("reset_target")
+    for i in range(PROGRAM_BLOCKS, PROGRAM_BLOCKS + V3_ADAIN_BLOCKS):
+        lock.block(x[..., i * B:(i + 1) * B], 2000 + i)
+    budget = B / SAMPLE_RATE * 1e3
+    lockstep = check_served("v3", lock, budget)
     art.set_learn_target(False)
     art.reset_target()
     art.reset_source()
@@ -3173,11 +3439,17 @@ def _v3_export(run_dir: Path, work: Path) -> dict:
     ref = {"card": adain_stream(float64_twin(art), in_f64),
            "cpu": adain_stream(float64_twin(cpu), in_f64)}
     served, cpu_run = adain_stream(art, segments), adain_stream(cpu, on_cpu)
+    captured = len(art.graphs["forward"].graphs)
     enabled, torch.backends.cudnn.enabled = torch.backends.cudnn.enabled, False
     try:
         plain = adain_stream(art, segments)
     finally:
         torch.backends.cudnn.enabled = enabled
+    # the cuDNN-off stream replayed a graph of its own, captured with cuDNN off
+    cudnn_off = [k for k in art.graphs["forward"].graphs if not k[3][0]]
+    new = len(art.graphs["forward"].graphs) - captured
+    check(new == 1 and len(cudnn_off) == 1, f"v3: {new} graphs captured for the cuDNN-off "
+                                            f"stream, {len(cudnn_off)} keyed cuDNN off")
     drift = {k: {"card": rel_err(served[k], v), "card_cudnn_off": rel_err(plain[k], v),
                  "cpu": rel_err(cpu_run[k], ref["cpu"][k])} for k, v in ref["card"].items()}
     blocks = [rel_err(a, b) for a, b in zip(served["transfer"].reshape(n_blocks, -1),
@@ -3192,17 +3464,15 @@ def _v3_export(run_dir: Path, work: Path) -> dict:
           f"{settle} (grows?)")
     kernels = max(rel_err(v.cpu(), cpu.model.state_dict()[k], 1e-30)
                   for k, v in art.model.state_dict().items() if k.endswith(".w"))
-    p50 = {"eager": statistics.median(eager_ms), "program": statistics.median(program_ms)}
-    budget = B / SAMPLE_RATE * 1e3
-    check(max(p50.values()) < budget, f"v3 streaming p50 {p50} over the {budget:.2f} ms budget")
     return {"export_s": export_s, "generate_s": generate_s, "generate_launches": launches,
             "realtime_factor_generate": n / SAMPLE_RATE / generate_s, "card_vs_cpu": errs,
             "free_stream_vs_float64": drift, "free_transfer_by_block": blocks,
             "free_transfer_settle_blocks": settle, "free_drift_ratio": drift_ratio,
             "fixed_kernels_card_vs_cpu": kernels,
             "transfer_rel_change": moved,
-            "reset_rel_err": back, "program_bit_equal": equal,
-            "block_ms_p50": p50, "block_budget_ms": budget}
+            "reset_rel_err": back, "program_bit_equal": equal, "served": lockstep,
+            "cudnn_off_graphs": len(cudnn_off), "block_ms_p50": lockstep["p50_ms"],
+            "block_budget_ms": budget}
 
 
 def _v3_discrete() -> dict:
@@ -3292,6 +3562,7 @@ def phase_v3() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    reset_graph_counts()
     offline = timed("offline", _v3_offline, cfg)
     train = timed("steps", _v3_steps, cfg)
     loop = timed("loop", _v3_loop, work, ROOT / "build" / "loop" / "db")
@@ -3306,6 +3577,8 @@ def phase_v3() -> dict:
            "loop": {k: v for k, v in loop.items() if k != "run_dir"}, "export": export,
            "discrete_v3": discrete, "launches": launches, "part_seconds": seconds,
            "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "graphs": graphs_line("v3", {"v3": export["block_ms_p50"]},
+                                 {"v3": export["block_budget_ms"]}),
            "seconds": time.perf_counter() - t_phase}
     runs, crit = train["runs"], train["critic_fwd_bwd_ms"]
     print(f"v3: forward B={BATCH} x {N_SIGNAL} (training mode) {offline['train']['forward_ms']:.2f}"
@@ -3337,8 +3610,14 @@ def phase_v3() -> dict:
           + f" (fixed kernels card vs CPU {export['fixed_kernels_card_vs_cpu']:.1e})"
           + f"; transfer moved {export['transfer_rel_change']:.2e}, reset back "
           f"{export['reset_rel_err']:.1e}; forward_step.pt2 bit-equal over {PROGRAM_BLOCKS} "
-          f"blocks; streaming p50 eager {export['block_ms_p50']['eager']:.3f} ms, .pt2 "
-          f"{export['block_ms_p50']['program']:.3f} ms (budget {export['block_budget_ms']:.2f}"
+          f"blocks, the served forward bit-equal to the eager steps over "
+          f"{export['served']['blocks']} blocks across a reset and the target's learning off "
+          f"and reset, {export['cudnn_off_graphs']} graph captured with cuDNN off for its "
+          f"stream; streaming p50 served {export['block_ms_p50']['graph']:.3f} ms, .pt2 served "
+          f"{export['block_ms_p50']['program']:.3f} ms, eager "
+          f"{export['block_ms_p50']['eager']:.3f} ms, .pt2 eager "
+          f"{export['block_ms_p50']['program_eager']:.3f} ms (budget "
+          f"{export['block_budget_ms']:.2f}"
           f" ms)", flush=True)
     print(f"discrete_v3: forward B={BATCH} {discrete['forward_ms']:.2f} ms = "
           f"{discrete['realtime_factor']:.1f}x realtime; steps B={TRAIN_BATCH} ms "
@@ -3480,7 +3759,9 @@ def _variant_offline(preset: str, cfg) -> dict:
 def _variant_stream(preset: str, cfg) -> dict:
     """Streamed blocks of block_size() against the offline output past the
     delays (encode; decode on the noise synth's offline draws shifted by its
-    lag), and the p50 of a streaming forward block (encode + decode)."""
+    lag); then 32 streaming forward blocks (encode + decode) served by
+    `graphed_stream` beside the model's own steps (`model_lockstep`): bit-equal,
+    the served p50 under the block's budget."""
     import torch
 
     from rave_tpu_torch.factory import build_rave
@@ -3521,21 +3802,19 @@ def _variant_stream(preset: str, cfg) -> dict:
         check(z_err <= MODEL_TOL and y_err <= MODEL_TOL,
               f"{preset}: stream vs offline past the delays z {z_err:.3e}, y {y_err:.3e}")
 
-        init_stream_state(model, 1)
         xs = torch.randn(1, 1, block * VARIANT_STREAM_BLOCKS, device="cuda", generator=gen)
-        times = []
-        for i in range(VARIANT_STREAM_BLOCKS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            z = model.step_encode(xs[..., i * block:(i + 1) * block])
-            shape = cfg.noise_shape(1, 1, frames)
-            u = None if shape is None else torch.rand(shape, device="cuda", generator=gen)
-            model.step_decode(z[:, :D], u)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        shape = cfg.noise_shape(1, 1, frames)
+        uniforms = None if shape is None else [torch.rand(shape, device="cuda", generator=gen)
+                                                for _ in range(VARIANT_STREAM_BLOCKS)]
+    served = model_lockstep(model, cfg, xs, VARIANT_STREAM_BLOCKS, uniforms)
+    budget = block / SAMPLE_RATE * 1e3
+    check(served["graph_bit_equal"], f"{preset}: graphed_stream not bit-equal to the model's "
+                                     f"steps ({served['graph_max_rel_err']:.3e})")
+    check(served["p50_ms"]["graph"] < budget, f"{preset}: the model's served stream p50 "
+                                              f"{served['p50_ms']} over the {budget:.2f} ms budget")
     return {"block": block, "encode_delay": De, "decode_delay": Dd, "z_rel_err": z_err,
-            "y_rel_err": y_err, "block_ms_p50": statistics.median(times) * 1e3,
-            "block_budget_ms": block / SAMPLE_RATE * 1e3}
+            "y_rel_err": y_err, "block_ms_p50": served["p50_ms"]["eager"], "served": served,
+            "block_budget_ms": budget}
 
 
 def _variant_state(cfg, device: str, step: int):
@@ -3656,31 +3935,17 @@ def _variant_loop_export(preset: str, cfg, work: Path, db: Path) -> dict:
     check(off_err <= MODEL_TOL and st_err <= MODEL_TOL,
           f"{preset} artifact card vs CPU: offline {off_err:.3e}, streaming {st_err:.3e}")
 
-    program = art.load_program("forward")
-    art.reset_stream()
-    state = [s.clone() for s in art.state]
-    eager_ms, program_ms, worst = [], [], 0.0
-    for i in range(PROGRAM_BLOCKS):
-        xb = x[..., i * B:(i + 1) * B]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        y_e = art.forward(xb, streaming=True, seed=3000 + i)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        y_p, state = program(state, xb, torch.tensor(3000 + i, device="cuda"))
-        torch.cuda.synchronize()
-        eager_ms.append((t1 - t0) * 1e3)
-        program_ms.append((time.perf_counter() - t1) * 1e3)
-        worst = max([worst, rel_err(y_p, y_e)]
-                    + [rel_err(a, b, 1.0) for a, b in zip(state, art.state)])
+    budget = B / SAMPLE_RATE * 1e3
+    lock = run_lockstep(art, x, 3000, art.load_program("forward"), state_floor=1.0)
+    worst = max(lock.program_y_err, lock.program_state_err)
     check(worst <= PROGRAM_TOL, f"{preset} forward_step.pt2 vs eager {worst:.3e} > {PROGRAM_TOL}")
+    served = check_served(f"{preset} artifact", lock, budget)
     return {"loop_ms": loop_ms(events), "export_s": export_s, "generate_s": generate_s,
             "realtime_factor_generate": n / SAMPLE_RATE / generate_s,
             "generate_launches": gen_launches, "card_vs_cpu": {"offline": off_err,
                                                                "streaming": st_err},
-            "program_vs_eager": worst, "block_ms_p50": {"eager": statistics.median(eager_ms),
-                                                        "program": statistics.median(program_ms)},
-            "block_budget_ms": B / SAMPLE_RATE * 1e3}
+            "program_vs_eager": worst, "served": served, "block_ms_p50": served["p50_ms"],
+            "block_budget_ms": budget}
 
 
 def phase_variants() -> dict:
@@ -3697,6 +3962,7 @@ def phase_variants() -> dict:
     out = {}
     torch.cuda.synchronize()
     reset_counts()
+    reset_graph_counts()
     for preset in VARIANTS:
         start = dilated_unit.launches
         cfg = variant_cfg(preset)
@@ -3716,23 +3982,33 @@ def phase_variants() -> dict:
         print(f"variants {preset}: forward B={BATCH} x {N_SIGNAL} {o['forward_ms']:.2f} ms = "
               f"{o['realtime_factor']:.1f}x realtime, {o['launches_per_forward']} launches per "
               f"forward; B=1 card vs CPU {o['b1_rel_err']:.2e}; stream vs offline z "
-              f"{s['z_rel_err']:.2e} y {s['y_rel_err']:.2e}, p50 {s['block_ms_p50']:.3f} ms per "
-              f"{s['block']}-sample block (budget {s['block_budget_ms']:.2f}); steps B="
+              f"{s['z_rel_err']:.2e} y {s['y_rel_err']:.2e}, p50 eager {s['block_ms_p50']:.3f} ms,"
+              f" served {s['served']['p50_ms']['graph']:.3f} ms (bit-equal over "
+              f"{s['served']['blocks']} blocks across a reset) per {s['block']}-sample block "
+              f"(budget {s['block_budget_ms']:.2f}); steps B="
               f"{TRAIN_BATCH} ms " + ", ".join(f"{k} {v:.1f}" for k, v in st["ms_per_step"].items())
               + f", peak {st['peak_gb']:.2f} GiB, rf {st['receptive_field']}; B=1 card vs CPU "
               "losses " + ", ".join(f"{k} {v:.1e}" for k, v in st["b1_loss_rel_err"].items())
               + f"; cli train/export/generate: generate 30 s {le['realtime_factor_generate']:.1f}x"
               f", artifact card vs CPU {le['card_vs_cpu']['offline']:.1e} / "
               f"{le['card_vs_cpu']['streaming']:.1e}, .pt2 vs eager {le['program_vs_eager']:.1e}"
-              f", p50 eager {le['block_ms_p50']['eager']:.3f} / .pt2 "
-              f"{le['block_ms_p50']['program']:.3f} ms; {res['launches']} launches; "
+              f", served forward bit-equal to the eager steps; p50 served "
+              f"{le['block_ms_p50']['graph']:.3f} / .pt2 served {le['block_ms_p50']['program']:.3f}"
+              f" / eager {le['block_ms_p50']['eager']:.3f} / .pt2 eager "
+              f"{le['block_ms_p50']['program_eager']:.3f} ms; {res['launches']} launches; "
               f"{res['seconds']:.1f} s", flush=True)
     shutil.rmtree(work, ignore_errors=True)
     launches = dilated_unit.launches
     check(dilated_unit.launches_bf16 == 0 and all(r["launches"] > 0 for r in out.values()),
           f"variants: launches {[r['launches'] for r in out.values()]}, "
           f"{dilated_unit.launches_bf16} bf16")
-    return {"presets": out, "launches": launches, "seconds": time.perf_counter() - t_phase}
+    p50s, budgets = {}, {}
+    for p, r in out.items():  # the model's stream and the artifact's, one block each
+        p50s[f"{p}_model"] = r["stream"]["served"]["p50_ms"]
+        p50s[f"{p}_artifact"] = r["loop_export"]["block_ms_p50"]
+        budgets[f"{p}_model"] = budgets[f"{p}_artifact"] = r["stream"]["block_budget_ms"]
+    return {"presets": out, "launches": launches, "graphs": graphs_line("variants", p50s, budgets),
+            "seconds": time.perf_counter() - t_phase}
 
 
 # ---------------------------------------------------------------------------
@@ -3859,34 +4135,20 @@ def _v1_loop_export(work: Path, db: Path) -> dict:
     check(off_err <= MODEL_TOL and st_err <= MODEL_TOL,
           f"v1 artifact card vs CPU: offline {off_err:.3e}, streaming {st_err:.3e}")
 
-    program = art.load_program("forward")
-    art.reset_stream()
-    state = [s.clone() for s in art.state]
-    eager_ms, program_ms, equal = [], [], True
-    for i in range(PROGRAM_BLOCKS):
-        xb = x[..., i * B:(i + 1) * B]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        y_e = art.forward(xb, streaming=True, seed=3000 + i)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        y_p, state = program(state, xb, torch.tensor(3000 + i, device="cuda"))
-        torch.cuda.synchronize()
-        eager_ms.append((t1 - t0) * 1e3)
-        program_ms.append((time.perf_counter() - t1) * 1e3)
-        equal = equal and torch.equal(y_p, y_e) and all(
-            torch.equal(a, b) for a, b in zip(state, art.state))
+    lock = run_lockstep(art, x, 3000, art.load_program("forward"))
+    equal = lock.program_equal
     check(equal, f"v1 forward_step.pt2 not bit-equal to the eager steps over {PROGRAM_BLOCKS} "
                  "blocks")
-    p50 = {"eager": statistics.median(eager_ms), "program": statistics.median(program_ms)}
     budget = B / SAMPLE_RATE * 1e3
-    check(max(p50.values()) < budget, f"v1 streaming p50 {p50} over the {budget:.2f} ms budget")
+    served = check_served("v1", lock, budget)
+    p50 = served["p50_ms"]
     ckpts = [e["mb"] for e in first + resumed if e["kind"] == "save"]
     return {"loop_ms": loop_ms(first + resumed), "checkpoint_mb": ckpts, "export_s": export_s,
             "generate_s": generate_s, "realtime_factor_generate": n / SAMPLE_RATE / generate_s,
             "launches": sum(e["fp32"] + e["bf16"] for e in first + resumed) + gen_launches,
             "card_vs_cpu": {"offline": off_err, "streaming": st_err},
-            "program_bit_equal": equal, "block_ms_p50": p50, "block_budget_ms": budget}
+            "program_bit_equal": equal, "served": served, "block_ms_p50": p50,
+            "block_budget_ms": budget}
 
 
 def _export_onnx(run_dir: Path, out: Path) -> dict:
@@ -3966,10 +4228,16 @@ def phase_v1(v2_run: Path, db: Path) -> dict:
              "loop_export": lambda: _v1_loop_export(work, db)}
     torch.cuda.synchronize()
     reset_counts()
+    reset_graph_counts()
     for name, run in parts.items():
         t0 = time.perf_counter()
         out[name] = run()
         seconds[name] = time.perf_counter() - t0
+    out["graphs"] = graphs_line(
+        "v1", {"v1_causal_model": out["stream"]["served"]["p50_ms"],
+               "v1_artifact": out["loop_export"]["block_ms_p50"]},
+        {"v1_causal_model": out["stream"]["block_budget_ms"],
+         "v1_artifact": out["loop_export"]["block_budget_ms"]})
     launches = dilated_unit.launches
     check(launches == 0 and dilated_unit.launches_bf16 == 0,
           f"{launches} unit launches on the v1 path, expected 0")
@@ -3993,9 +4261,12 @@ def phase_v1(v2_run: Path, db: Path) -> dict:
           f"(running statistics included); export {le['export_s']:.1f} s, generate 30 s "
           f"{le['realtime_factor_generate']:.1f}x, artifact card vs CPU "
           f"{le['card_vs_cpu']['offline']:.1e} / {le['card_vs_cpu']['streaming']:.1e}, "
-          f"forward_step.pt2 bit-equal over {PROGRAM_BLOCKS} blocks, streaming p50 eager "
-          f"{le['block_ms_p50']['eager']:.3f} ms, .pt2 {le['block_ms_p50']['program']:.3f} ms "
-          f"(budget {le['block_budget_ms']:.2f} ms); export_onnx --verify: onnx "
+          f"forward_step.pt2 bit-equal over {PROGRAM_BLOCKS} blocks, the served forward and "
+          f"the causal model's served stream bit-equal to the eager steps, streaming p50 served "
+          f"{le['block_ms_p50']['graph']:.3f} ms, .pt2 served {le['block_ms_p50']['program']:.3f}"
+          f" ms, eager {le['block_ms_p50']['eager']:.3f} ms, .pt2 eager "
+          f"{le['block_ms_p50']['program_eager']:.3f} ms (budget {le['block_budget_ms']:.2f} ms)"
+          f"; export_onnx --verify: onnx "
           f"{ox['onnx']['seconds']:.1f} s, {ox['onnx']['mib']:.2f} MiB, err "
           f"{ox['onnx']['verify_max_abs_err']:.1e}, {ox['onnx']['launches']} launches; v2 "
           f"{ox['v2']['seconds']:.1f} s, {ox['v2']['mib']:.2f} MiB, err "
@@ -4212,29 +4483,6 @@ def _source_model(cfg):
     return model
 
 
-def _block_p50(art, x) -> dict:
-    """The streaming p50 per block, eager and `forward_step.pt2`, over
-    PROGRAM_BLOCKS blocks of x, after 4 warm blocks each."""
-    import torch
-
-    program, B = art.load_program("forward"), art.block_size
-    art.reset_stream()
-    state = [s.clone() for s in art.state]
-    eager, prog = [], []
-    for i in range(PROGRAM_BLOCKS + 4):
-        xb = x[..., i * B:(i + 1) * B]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        art.forward(xb, streaming=True, seed=4000 + i)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        _, state = program(state, xb, torch.tensor(4000 + i, device="cuda"))
-        torch.cuda.synchronize()
-        eager.append((t1 - t0) * 1e3)
-        prog.append((time.perf_counter() - t1) * 1e3)
-    return {"eager": statistics.median(eager[4:]), "program": statistics.median(prog[4:])}
-
-
 def phase_import() -> dict:
     """A reference checkpoint of v2 into the port; see the module docstring."""
     import torch
@@ -4255,6 +4503,7 @@ def phase_import() -> dict:
     from rave_tpu_torch.utils.convert import jax_path, to_jax_variables
 
     t_phase = time.perf_counter()
+    reset_graph_counts()
     work = ROOT / "build" / "import"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -4327,10 +4576,10 @@ def phase_import() -> dict:
     check(model_err <= IMPORT_TOL and art_err <= IMPORT_TOL,
           f"imported vs source: model forward {model_err:.3e}, artifact {art_err:.3e} > "
           f"{IMPORT_TOL}")
-    p50 = _block_p50(art, x)
     budget = art.block_size / SAMPLE_RATE * 1e3
-    check(max(p50.values()) < budget, f"imported artifact's streaming p50 {p50} over the "
-                                      f"{budget:.2f} ms budget")
+    served = check_served("imported artifact", run_lockstep(
+        art, x, 4000, art.load_program("forward")), budget)
+    p50 = served["p50_ms"]
     sr, y_wav = wavfile.read(work / "gen" / "in_reconstructed.wav")
     check(sr == SAMPLE_RATE and y_wav.shape == (n,) and abs(y_wav).max() > 0,
           f"generated wav {sr} Hz {y_wav.shape}")
@@ -4347,7 +4596,9 @@ def phase_import() -> dict:
     out = {"launches": launches, "launches_by_step": counts, "seconds_by_step": seconds,
            "ckpt_s": ckpt_s, "ckpt_mb": ckpt_mb, "reference_tensors": len(sd),
            "model_rel_err": model_err, "artifact_rel_err": art_err, "block_ms_p50": p50,
-           "block_budget_ms": budget, "realtime_factor_generate": n / SAMPLE_RATE
+           "block_budget_ms": budget, "served": served,
+           "graphs": graphs_line("import", {"imported": p50}, {"imported": budget}),
+           "realtime_factor_generate": n / SAMPLE_RATE
            / seconds["generate"], "unit_rows": list(rows.values()), "unit_path": unit_path,
            "seconds": time.perf_counter() - t_phase}
     print(f"import: v2 at full width ({len(sd)} reference tensors, {ckpt_mb:.1f} MiB .ckpt in "
@@ -4355,8 +4606,11 @@ def phase_import() -> dict:
           f", export --streaming {seconds['export']:.1f} s, generate {EXPORT_SECONDS:g} s "
           f"{seconds['generate']:.2f} s ({out['realtime_factor_generate']:.1f}x); launches "
           f"{counts}; imported vs source forward {model_err:.2e}, artifact {art_err:.2e} <= "
-          f"{IMPORT_TOL}; streaming p50 eager {p50['eager']:.3f} ms, .pt2 {p50['program']:.3f} "
-          f"ms (budget {budget:.2f}); unit at {len(rows)} shapes: max rel err "
+          f"{IMPORT_TOL}; the served forward bit-equal to the eager steps over "
+          f"{served['blocks']} blocks across a reset, streaming p50 served {p50['graph']:.3f} ms,"
+          f" .pt2 served {p50['program']:.3f} ms, eager {p50['eager']:.3f} ms, .pt2 eager "
+          f"{p50['program_eager']:.3f} ms (budget {budget:.2f}); unit at {len(rows)} shapes: "
+          f"max rel err "
           f"{unit_path['max_rel_err']:.1e}, its {launches} launches {unit_path['ms']:.3f} ms "
           f"(plain {unit_path['plain_ms']:.3f}, bound {unit_path['bound_ms']:.3f}); "
           f"{out['seconds']:.1f} s", flush=True)
@@ -4723,7 +4977,6 @@ def main() -> None:
     rows = phase_kernel()
     rows_bf16 = phase_kernel_bf16()
     offline = phase_offline()
-    stream = phase_stream()
     grad = phase_grad()
     train = phase_train()
     train_bf16 = phase_train_bf16(tuple(train["crop_frames"]))
@@ -4740,6 +4993,7 @@ def main() -> None:
     remote = phase_remote(tuple(train["crop_frames"]))
     parallel = phase_parallel()
     discrete = phase_discrete()
+    stream = phase_stream()  # the phases whose served streams are new checks run last
     variants = phase_variants()
     v3 = phase_v3()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "rave_tpu"))

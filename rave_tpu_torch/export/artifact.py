@@ -71,10 +71,11 @@ from rave_tpu_torch.models.blocks import (
 )
 from rave_tpu_torch.models.rave import RAVE
 from rave_tpu_torch.nn.conv import freeze_weights
-from rave_tpu_torch.nn.streaming import StreamingModule, init_stream_state
+from rave_tpu_torch.nn.graphs import StepGraphs
+from rave_tpu_torch.nn.streaming import StreamingModule
 from rave_tpu_torch.ops.resampler import Resampler
 from rave_tpu_torch.prior.core import DiagonalShift, QuantizedNormal
-from rave_tpu_torch.prior.model import Prior, generate, gumbel_from_uniform, sample_prediction
+from rave_tpu_torch.prior.model import Prior, gumbel_from_uniform, sample_prediction
 from rave_tpu_torch.train.loop import fp32_exact
 from rave_tpu_torch.utils.rng import MASK32, hash32, normal_from_seed, uniform_from_seed
 
@@ -162,11 +163,12 @@ def initial_state(model: nn.Module) -> List[torch.Tensor]:
 
 
 @contextlib.contextmanager
-def swapped(slots, values, learning: bool = False):
-    """The buffers of `slots` set to `values` (AdaIN learning if `learning`),
-    and put back on exit."""
+def swapped(slots, values, learning: Optional[bool] = False):
+    """The buffers of `slots` set to `values` (AdaIN learning if `learning`,
+    not learning after; None leaves the flags as they are), and put back on
+    exit."""
     saved = [getattr(m, attr) for _, m, attr in slots]
-    adains = {m for _, m, _ in slots if isinstance(m, AdaIN)}
+    adains = {m for _, m, _ in slots if isinstance(m, AdaIN)} if learning is not None else ()
     for (_, m, attr), v in zip(slots, values):
         setattr(m, attr, v)
     for m in adains:
@@ -178,6 +180,29 @@ def swapped(slots, values, learning: bool = False):
             setattr(m, attr, v)
         for m in adains:
             m.learning = False
+
+
+def graphed_stream(model: RAVE, latent_size: Optional[int] = None) -> StepGraphs:
+    """The model's streaming pair as one served step, `(x, uniform=None) ->
+    (z, y)`: `step_encode(x)`, then `step_decode` of its first `latent_size`
+    channels (all when None), over the model's own stream and AdaIN buffers
+    (`stream_slots`), read at each call and written in place. A CUDA graph
+    per block shape on the card, eager on the CPU (`StepGraphs`); the
+    model's mode and AdaIN's learning flags are part of the key.
+    `init_stream_state` zeroes the buffers in place, so a reset replays the
+    same graph."""
+    slots = stream_slots(model)
+    adains = [m for m in model.modules() if isinstance(m, AdaIN)]
+
+    def pair(state, x, uniform=None):
+        with swapped(slots, state, learning=None):
+            z = model.step_encode(x)
+            y = model.step_decode(z if latent_size is None else z[:, :latent_size], uniform)
+            new = [getattr(m, attr) for _, m, attr in slots]
+        return (z, y), new
+
+    return StepGraphs(pair, lambda: [getattr(m, attr) for _, m, attr in slots],
+                      key=lambda: (model.training, tuple(m.learning for m in adains)))
 
 
 class _Side(nn.Module):
@@ -304,7 +329,16 @@ class ExportedRAVE:
     Every call without an explicit `seed` takes the next seed of a chain
     started from `seed` (the JAX artifact's `_rng` / `_next_rng`). The
     streaming state (`state`, and the resampler's own) persists between
-    calls until `reset_stream`, which keeps the AdaIN part of `state`."""
+    calls until `reset_stream`, which keeps the AdaIN part of `state`.
+
+    The streaming calls and the prior's steps are served by `StepGraphs`
+    (`graphs`: "encode", "decode", "forward" and "prior"): on the card each
+    replays a CUDA graph of the whole call (the resampler's step in, the
+    step program, the resampler's step out), the JAX artifact's jitted
+    step. Their state tensors (`stream_state`: `state`, then the
+    resampler's) keep their addresses: `reset_stream`, the attribute
+    setters and an assignment to `state` write them in place. Calling a
+    `steps` program directly is the eager path."""
 
     def __init__(self, path: str, device: str | torch.device = "cuda", seed: int = 0):
         self.path = Path(path)
@@ -329,7 +363,6 @@ class ExportedRAVE:
         self.steps = {m: StepProgram(m, self.model, self.encode_side, self.decode_side)
                       for m in STEP_METHODS}
         self.slots = stream_slots(self.model)
-        self.state = initial_state(self.model)
         # the AdaIN buffers' places in `state` (the attributes' setters write them)
         self.adain_indices = [i for i, (_, m, _) in enumerate(self.slots)
                               if isinstance(m, AdaIN)]
@@ -339,6 +372,16 @@ class ExportedRAVE:
         if tsr != self.manifest["sampling_rate"]:
             self.resampler = Resampler(tsr, self.manifest["sampling_rate"], self.stream_batch,
                                        self.n_channels).to(self.device)
+        self._resampler_slots = stream_slots(self.resampler) if self.resampler else []
+        with torch.inference_mode(False):  # written in place by every later call
+            self._stream = initial_state(self.model) + [
+                torch.zeros_like(getattr(m, attr)) for _, m, attr in self._resampler_slots]
+        adain = set(self.adain_indices)
+        self._stream_indices = [i for i in range(len(self._stream)) if i not in adain]
+        self.graph_pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self.stream_steps = {m: self._stream_step(m) for m in STEP_METHODS}
+        self.graphs = {m: StepGraphs(self.stream_steps[m], self._stream, self.graph_pool)
+                       for m in STEP_METHODS}
         self.prior_step = None
         pc = self.manifest.get("prior")
         if pc and (self.path / "prior.pt").exists():
@@ -347,6 +390,57 @@ class ExportedRAVE:
             prior.load_state_dict(torch.load(self.path / "prior.pt", map_location="cpu",
                                              weights_only=True))
             self.prior_step = PriorStep(prior.to(self.device).eval().requires_grad_(False))
+            with torch.inference_mode(False):
+                self._prior_stream = self.prior_state()
+            self.graphs["prior"] = StepGraphs(self.prior_step, self._prior_stream,
+                                              self.graph_pool)
+
+    # ---- the stream state ------------------------------------------------
+    @property
+    def state(self) -> Tuple[torch.Tensor, ...]:
+        """The model's stream and AdaIN tensors (`stream_slots(self.model)`),
+        as the step programs take them: a tuple, so an item assignment
+        raises. Assigning a list to `state` copies it into them in place,
+        or, where the dtypes differ (a float64 copy), puts the new tensors in
+        their places (the graphs key them apart)."""
+        return tuple(self._stream[:len(self.slots)])
+
+    @state.setter
+    def state(self, values: List[torch.Tensor]) -> None:
+        n = len(self.slots)
+        if len(values) != n:
+            raise ValueError(f"{len(values)} state tensors for {n} stream buffers")
+        if all(v.shape == s.shape and v.dtype == s.dtype for v, s in zip(values, self._stream)):
+            with torch.no_grad():
+                for s, v in zip(self._stream, values):
+                    s.copy_(v)
+        else:
+            self._stream[:n] = [v.to(self.device) for v in values]
+
+    @property
+    def stream_state(self) -> List[torch.Tensor]:
+        """Every state tensor of the streaming calls: `state`, then the
+        resampler's (what `stream_steps` take and `graphs` write)."""
+        return self._stream
+
+    def _stream_step(self, method: str):
+        """`method`'s streaming call as a step over `stream_state`, `(state,
+        x, seed, eps, noise, uniform) -> (y, state')`: the resampler's step
+        in (encode, forward), the step program, the resampler's step out
+        (decode, forward). What a graph of `graphs` captures."""
+        step, n, rs = self.steps[method], len(self.slots), self.resampler
+
+        def run(state, x, seed, eps=None, noise=None, uniform=None):
+            with swapped(self._resampler_slots, state[n:]):
+                if rs is not None and method != "decode":
+                    x = rs.step_to_model(x)
+                y, new = step(state[:n], x, seed, eps=eps, noise=noise, uniform=uniform)
+                if rs is not None and method != "encode":
+                    y = rs.step_from_model(y)
+                new = new + [getattr(m, attr) for _, m, attr in self._resampler_slots]
+            return y, new
+
+        return run
 
     # ---- seeds -----------------------------------------------------------
     def next_seed(self) -> int:
@@ -354,9 +448,12 @@ class ExportedRAVE:
         self._calls += 1
         return hash32(self._seed ^ hash32(self._calls))
 
+    def _seed_value(self, seed: Optional[int]) -> int:
+        return self.next_seed() if seed is None else int(seed) & MASK32
+
     def _seed_tensor(self, seed: Optional[int]) -> torch.Tensor:
-        seed = self.next_seed() if seed is None else int(seed) & MASK32
-        return torch.tensor(seed, dtype=torch.int64, device=self.device)
+        """An int64 scalar on the device, filled by a kernel (no host copy)."""
+        return torch.full((), self._seed_value(seed), dtype=torch.int64, device=self.device)
 
     # ---- the step programs -----------------------------------------------
     def load_program(self, method: str):
@@ -378,12 +475,13 @@ class ExportedRAVE:
         if n % unit:
             raise ValueError(f"streaming {what} must be a multiple of {unit} (got {n})")
 
-    def _resample(self, x: torch.Tensor, direction: str, streaming: bool) -> torch.Tensor:
+    def _resample(self, x: torch.Tensor, direction: str) -> torch.Tensor:
+        """The offline resampling; a streaming call's is in its step (`stream_steps`)."""
         if self.resampler is None:
             return x
         if direction == "in":
-            return self.resampler.to_model_sampling_rate(x, streaming)
-        return self.resampler.from_model_sampling_rate(x, streaming)
+            return self.resampler.to_model_sampling_rate(x)
+        return self.resampler.from_model_sampling_rate(x)
 
     @fp32_exact()
     @torch.no_grad()
@@ -392,13 +490,10 @@ class ExportedRAVE:
         """[B, C, T] waveform at target_sr -> [B, latent_size, T_lat]."""
         if streaming:
             self._check_block(x.shape[-1], self.block_size, "chunks (samples)")
-        x = self._resample(x.to(self.device), "in", streaming)
-        s = self._seed_tensor(seed)
-        if streaming:
-            z, self.state = self.steps["encode"](self.state, x, s, eps=eps)
-            return z
+            return self.graphs["encode"](x, self._seed_value(seed), eps)
+        x = self._resample(x.to(self.device), "in")
         with self._adain_state():
-            return self.encode_side(x, s, eps)
+            return self.encode_side(x, self._seed_tensor(seed), eps)
 
     @fp32_exact()
     @torch.no_grad()
@@ -409,13 +504,11 @@ class ExportedRAVE:
         if streaming:
             self._check_block(z.shape[-1], self.manifest["block_size"] // self.cfg.decimation(),
                               "latent chunks (frames)")
-        z, s = z.to(self.device), self._seed_tensor(seed)
-        if streaming:
-            y, self.state = self.steps["decode"](self.state, z, s, noise=noise, uniform=uniform)
-        else:
-            with self._adain_state():
-                y = self.decode_side(z, s, noise, uniform=uniform)
-        return self._resample(y, "out", streaming)
+            return self.graphs["decode"](z, self._seed_value(seed), None, noise, uniform)
+        with self._adain_state():
+            y = self.decode_side(z.to(self.device), self._seed_tensor(seed), noise,
+                                 uniform=uniform)
+        return self._resample(y, "out")
 
     @fp32_exact()
     @torch.no_grad()
@@ -426,17 +519,13 @@ class ExportedRAVE:
         decode with it + 0x9E3779B9, as the `forward_step` program."""
         if streaming:
             self._check_block(x.shape[-1], self.block_size, "chunks (samples)")
-        x = self._resample(x.to(self.device), "in", streaming)
+            return self.graphs["forward"](x, self._seed_value(seed), eps, noise, uniform)
+        x = self._resample(x.to(self.device), "in")
         s = self._seed_tensor(seed)
-        if streaming:
-            y, self.state = self.steps["forward"](self.state, x, s, eps=eps, noise=noise,
-                                                  uniform=uniform)
-        else:
-            with self._adain_state():
-                z = self.encode_side(x, s, eps)
-                y = self.decode_side(z, (s + DECODE_SEED_OFFSET) & MASK32, noise,
-                                     uniform=uniform)
-        return self._resample(y, "out", streaming)
+        with self._adain_state():
+            z = self.encode_side(x, s, eps)
+            y = self.decode_side(z, (s + DECODE_SEED_OFFSET) & MASK32, noise, uniform=uniform)
+        return self._resample(y, "out")
 
     @property
     def block_size(self) -> int:
@@ -445,11 +534,11 @@ class ExportedRAVE:
         return b * self.resampler.ratio if self.resampler else b
 
     def reset_stream(self) -> None:
-        """Zero the stream buffers; the AdaIN state stays as it is."""
-        fresh = initial_state(self.model)
-        self.state = [self.state[i] if i in self.adain_indices else t for i, t in enumerate(fresh)]
-        if self.resampler is not None:
-            init_stream_state(self.resampler, self.stream_batch * self.n_channels)
+        """Zero the stream buffers (the resampler's too) in place; the AdaIN
+        state stays as it is."""
+        with torch.no_grad():
+            for i in self._stream_indices:
+                self._stream[i].zero_()
 
     # ---- AdaIN attributes and the prior ----------------------------------
     def _adain_state(self):
@@ -460,9 +549,10 @@ class ExportedRAVE:
     def _set_adain(self, leaf: str, value: float) -> None:
         """Fill every AdaIN buffer named `leaf` (rave_tpu/export/artifact.py:398-408);
         nothing without AdaIN, as the JAX artifact without an `adain` collection."""
-        for i in self.adain_indices:
-            if self.slots[i][2] == leaf:
-                self.state[i] = torch.full_like(self.state[i], value)
+        with torch.no_grad():
+            for i in self.adain_indices:
+                if self.slots[i][2] == leaf:
+                    self._stream[i].fill_(value)
 
     def set_learn_target(self, on: bool) -> None:
         self._set_adain("learn_y", 1.0 if on else 0.0)
@@ -499,16 +589,20 @@ class ExportedRAVE:
         model (rave_tpu/export/artifact.py:212-243)."""
         if self.prior_step is None:
             raise RuntimeError(f"{self.path} was exported without a prior")
-        s = self.next_seed() if seed is None else int(seed) & MASK32
+        s = self._seed_value(seed)
         prior = self.prior_step.prior
         D, R = prior.latent_size, prior.resolution
         n = n_frames + D - 1
-        gumbel = None if argmax else [
-            prior_gumbel(torch.tensor(prior_step_seed(s, i), dtype=torch.int64,
-                                      device=self.device), 1, D, R) for i in range(n)]
-        x0 = torch.zeros(1, D * R, 1, device=self.device)
-        ys = generate(prior, x0, n, gumbel, argmax=argmax)
-        seed_t = torch.tensor(s, dtype=torch.int64, device=self.device)
+        # the prior's `generate` from a zero frame and a zero state, one
+        # served step at a time
+        for t in self._prior_stream:
+            t.zero_()
+        x, ys, step = torch.zeros(1, D * R, 1, device=self.device), [], self.graphs["prior"]
+        for i in range(n):
+            x = step(x, prior_step_seed(s, i), argmax=argmax)
+            ys.append(x)
+        ys = torch.cat(ys, dim=-1)
+        seed_t = torch.full((), s, dtype=torch.int64, device=self.device)
         dither = uniform_from_seed(seed_t, (1, D, n), PRIOR_DITHER_SALT)
         z = DiagonalShift().inverse(QuantizedNormal(R).decode(ys, dither))
         if D < self.latent_size:

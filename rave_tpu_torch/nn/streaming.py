@@ -4,7 +4,9 @@ Every module that carries left context between streaming steps derives
 from `StreamingModule` and declares each piece of state with
 `add_stream_state`. The state is a non-persistent buffer: it follows the
 module's device and dtype under `.to()`, stays out of `state_dict`, and
-`init_stream_state(module, batch)` zeroes it for a given batch size.
+`init_stream_state(module, batch)` zeroes it for a given batch size, in
+place where the buffer already has that size (a CUDA graph of the step
+keeps reading the same addresses: nn/graphs.py).
 
 The contract (the port of rave_tpu/nn/streaming.py, tested against the
 JAX package): for a module with cumulative delay D (output-rate samples),
@@ -35,10 +37,20 @@ class StreamingModule(nn.Module):
     def reset_stream(self, batch: int) -> None:
         for name, (channels, length) in self._stream_shapes.items():
             old = getattr(self, name)
-            setattr(
-                self, name,
-                torch.zeros(batch, channels, length, dtype=old.dtype, device=old.device),
-            )
+            if old.shape == (batch, channels, length) and _writable(old):
+                with torch.no_grad():
+                    old.zero_()
+            else:
+                setattr(
+                    self, name,
+                    torch.zeros(batch, channels, length, dtype=old.dtype, device=old.device),
+                )
+
+
+def _writable(t: torch.Tensor) -> bool:
+    """Whether `t` may be zeroed in place here: no gradient through it, and
+    not an inference tensor outside inference mode."""
+    return not t.requires_grad and (not t.is_inference() or torch.is_inference_mode_enabled())
 
 
 def as_dtype(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -74,6 +74,29 @@ def crop_frames(cfg: RaveConfig, rf: Tuple[int, int], n_channels: int = 1) -> Tu
     return rf[0] // dim, rf[1] // dim
 
 
+def valid_crop(cfg: RaveConfig, rf: Tuple[int, int], n_signal: int,
+               n_channels: int = 1) -> Tuple[int, int]:
+    """`crop_frames`, or a ValueError where it leaves the multiband loss no
+    band frame. The bands (`RAVE.multiband`, a PQMF under every input) hold
+    n_signal / n_band frames of each channel, and the crop is rave_tpu's.
+    Under mel and raw input that crop counts samples as band frames, and
+    rave_tpu's guard, which compares it with n_signal, lets a crop through
+    that empties the loss (ROADMAP C12); here it raises. Under PQMF input
+    both guards are the same."""
+    crop = crop_frames(cfg, rf, n_channels)
+    frames = n_signal // cfg.n_band
+    if crop[0] + crop[1] >= frames:
+        why = "" if cfg.input_mode == "pqmf" else (
+            f"; under {cfg.input_mode} input the crop divides the receptive field by the "
+            f"channels alone, as rave_tpu does, a crop rave_tpu's guard lets through to a loss "
+            f"over no frame (ROADMAP C12)")
+        raise ValueError(
+            f"n_signal={n_signal} leaves no valid signal after cropping the model's receptive "
+            f"field ({rf[0]}+{rf[1]} samples, {crop[0]}+{crop[1]} of the {frames} band frames)"
+            f" — raise --n_signal or disable train.valid_signal_crop{why}")
+    return crop
+
+
 def pca(latents: np.ndarray):
     """Full PCA of [N, D] latents -> (components [D, D], mean [D],
     cumulative explained-variance 'fidelity' [D]), float32; a numpy SVD

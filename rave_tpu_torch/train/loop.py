@@ -55,7 +55,7 @@ from rave_tpu_torch.data.store import get_training_channels, read_metadata
 from rave_tpu_torch.data.transforms import get_derivator_integrator
 from rave_tpu_torch.factory import build_audio_distance, resolve_device
 from rave_tpu_torch.parallel import mesh
-from rave_tpu_torch.train.analysis import crop_dim, crop_frames, pca, receptive_field
+from rave_tpu_torch.train.analysis import pca, receptive_field, valid_crop
 from rave_tpu_torch.train.state import TrainState, create_train_state
 from rave_tpu_torch.train.steps import build_train_steps, draw_noise, pick_phase
 from rave_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -305,12 +305,7 @@ def train(
         t0 = time.time()
         rf = mesh.broadcast_object(
             receptive_field(cfg, n_channels=channels, device=device) if is_main else None)
-        crop = crop_frames(cfg, rf, channels)
-        if crop[0] + crop[1] >= d.n_signal * channels // crop_dim(cfg, channels):
-            raise ValueError(
-                f"n_signal={d.n_signal} leaves no valid signal after cropping the model's "
-                f"receptive field ({rf[0]}+{rf[1]} samples) — raise --n_signal or disable "
-                "train.valid_signal_crop")
+        crop = valid_crop(cfg, rf, d.n_signal, channels)
         if progress:
             ms = 1000 / cfg.sampling_rate
             print(f"receptive field: {rf[0] * ms:.1f}ms <- x -> {rf[1] * ms:.1f}ms "

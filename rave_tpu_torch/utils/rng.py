@@ -62,13 +62,24 @@ def uniform_bits(seed, salt: int, counter):
     return hash32(hash32((counter + key) & MASK32) ^ key)
 
 
+def _seed_tensor(seed, device) -> torch.Tensor:
+    """`seed` as an int64 tensor. An int under a CUDA graph's capture would
+    be recorded as a constant, every replay drawing the same numbers: the
+    served steps (nn/graphs.py) pass their seed as a tensor, and this refuses."""
+    if torch.is_tensor(seed):
+        return seed
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a seed drawn from under a CUDA graph's capture must be a tensor "
+                           "(an int would be captured as a constant)")
+    return torch.tensor(int(seed), dtype=torch.int64, device=device)
+
+
 def normal_from_seed(seed: torch.Tensor | int, shape: Sequence[int], salt: int,
                      device: str | torch.device | None = None) -> torch.Tensor:
     """Standard normal float32 draws of `shape` from a uint32 `seed` (an int64
     tensor, or an int) and a constant `salt`: draw i uses the counters 2i and
     2i + 1 (Box-Muller)."""
-    if not torch.is_tensor(seed):
-        seed = torch.tensor(int(seed), dtype=torch.int64, device=device)
+    seed = _seed_tensor(seed, device)
     n = math.prod(shape)
     bits = uniform_bits(seed, salt, torch.arange(2 * n, dtype=torch.int64, device=seed.device))
     bits = (bits >> 8).double().reshape(n, 2)
@@ -82,8 +93,7 @@ def uniform_from_seed(seed: torch.Tensor | int, shape: Sequence[int], salt: int,
                       device: str | torch.device | None = None) -> torch.Tensor:
     """Uniform float32 draws in [0, 1) of `shape` from a uint32 `seed` (an int64
     tensor, or an int) and a constant `salt`: draw i uses the counter i."""
-    if not torch.is_tensor(seed):
-        seed = torch.tensor(int(seed), dtype=torch.int64, device=device)
+    seed = _seed_tensor(seed, device)
     n = math.prod(shape)
     bits = uniform_bits(seed, salt, torch.arange(n, dtype=torch.int64, device=seed.device))
     return ((bits >> 8).float() / 2.0**24).reshape(tuple(shape))
