@@ -371,7 +371,32 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                B=16 forward, the k-means step apart, one step of each program
                at B=8, B=1 losses card vs CPU (1e-3) and `check_codes`;
                work in build/v3, deleted at the end;
- 23. the kernels' JSON line, then the last line
+ 23. host   : the port's Python-free artifact host (csrc/rtpu_host.cc,
+               built by g++ against the installed torch in a thread started
+               after phase 1, beside the phases that work the card; the
+               build's seconds printed) on the artifacts phases 12, 13, 20 and
+               22 wrote (kept in build/host/artifacts when their phases
+               delete their work): `info` of each against its manifest, on
+               cuda:0 and the card's name, with the served path's backend
+               flags and the TorchScript executor's profiling and
+               optimizations off; 32 blocks of v2 (phase 12's centered mono
+               artifact) through `encode`, its latents bit-equal to the
+               Python artifact's eager stream (the step called directly)
+               from the initial state on the same seeds, then `decode` of
+               them and `forward`, each wav within 1/32767 of the eager
+               stream's output; `encode` and `forward` of the discrete
+               artifact (1024-sample blocks) likewise; v3's AdaIN in three
+               processes (learn the target, learn the source, transfer,
+               the state carried by `--save-state` / `--load-state`)
+               against one eager stream with the same fills, wavs within
+               1/32767; `prior` (dithered) on phase 13's artifact bit-equal
+               to `sample_prior` on the card; `bench 256` of each streaming
+               artifact, its p50 per block (upload, step, fetch,
+               synchronize) under the block's budget (v2 and v3 46.44 ms,
+               discrete 23.22 ms), beside the Python artifact's served and
+               eager p50s of the same callback; every saved state's bit
+               equality with the eager stream's recorded; 0 unit launches;
+ 24. the kernels' JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each phase that streams also prints a `graphs` line: the CUDA graphs it
@@ -384,7 +409,8 @@ prior phase in build/prior, the v1 phase in build/v1, the import phase in
 build/import, the native phase in build/native, the remote phase in
 build/remote, the parallel phase in build/parallel, the discrete phase in
 build/discrete, the variants phase in
-build/variants and the v3 phase in build/v3 (each deleted at its end).
+build/variants, the v3 phase in build/v3 and the host phase in build/host
+(each deleted at its end; the host's binary stays in build/host).
 """
 from __future__ import annotations
 
@@ -2540,8 +2566,9 @@ def phase_prior(run_dir: Path, db: Path) -> dict:
           and encode_err <= MODEL_TOL and decode_err <= MODEL_TOL,
           f"prior path card vs CPU: encode_latents {tuple(z_enc['cuda'].shape)} "
           f"{encode_err:.3e}, a sample's decode {decode_err:.3e} > {MODEL_TOL}")
+    host_artifact = keep_for_host("prior", path)  # streamed by phase `host`
     shutil.rmtree(work, ignore_errors=True)
-    out = {"stock": stock, "latent_size": pcfg["latent_size"], "artifact_latent_size":
+    out = {"stock": stock, "host_artifact": host_artifact, "latent_size": pcfg["latent_size"], "artifact_latent_size":
            art.latent_size, "train_s": train_s, "encode_ms": [c["ms"] for c in enc],
            "decode_ms": [c["ms"] for c in dec], "ce": [r["latent_prediction"] for r in rows],
            "export_s": export_s, "generate_s": generate_s, "wav_samples": int(wav.shape[0]),
@@ -2871,7 +2898,7 @@ def _discrete_export(cfg, run_dir: Path, work: Path) -> dict:
     return {"export_s": export_s, "generate_s": generate_s, "generate_launches": launches,
             "realtime_factor_generate": n / SAMPLE_RATE / generate_s, **codes,
             "decode_rel_err": y_err, "program_bit_equal": equal, "served": served,
-            "block_ms_p50": served["p50_ms"], "block_budget_ms": budget}
+            "block_ms_p50": served["p50_ms"], "block_budget_ms": budget, "path": str(path)}
 
 
 def _other_family(names) -> dict:
@@ -2961,6 +2988,7 @@ def phase_discrete() -> dict:
     export = timed("export", _discrete_export, cfg, loop["run_dir"], work)
     others = {names[-1]: timed(names[-1], _other_family, names)
               for names in (["v2", "wasserstein"], ["v2", "spherical"])}
+    export["path"] = keep_for_host("discrete", export["path"])  # streamed by phase `host`
     shutil.rmtree(work, ignore_errors=True)
     launches = offline["launches"] + train["launches"] + loop["launches"] + \
         export["generate_launches"] + sum(o["launches"] for o in others.values())
@@ -3472,7 +3500,7 @@ def _v3_export(run_dir: Path, work: Path) -> dict:
             "transfer_rel_change": moved,
             "reset_rel_err": back, "program_bit_equal": equal, "served": lockstep,
             "cudnn_off_graphs": len(cudnn_off), "block_ms_p50": lockstep["p50_ms"],
-            "block_budget_ms": budget}
+            "block_budget_ms": budget, "path": str(path)}
 
 
 def _v3_discrete() -> dict:
@@ -3568,6 +3596,7 @@ def phase_v3() -> dict:
     loop = timed("loop", _v3_loop, work, ROOT / "build" / "loop" / "db")
     export = timed("export", _v3_export, loop["run_dir"], work)
     discrete = timed("discrete_v3", _v3_discrete)
+    export["path"] = keep_for_host("v3", export["path"])  # streamed by phase `host`
     shutil.rmtree(work, ignore_errors=True)
     launches = (sum(o["launches"] for o in (offline["train"], offline["eval"]))
                 + sum(r["launches"] for r in train["runs"].values()) + loop["launches"]
@@ -4966,6 +4995,350 @@ def phase_parallel() -> dict:
     return out
 
 
+# ---- the native artifact host (csrc/rtpu_host.cc) on the artifacts of earlier phases -------
+
+HOST_ARTIFACTS = ROOT / "build" / "host" / "artifacts"
+HOST_BLOCKS = 32  # streamed blocks per command
+HOST_BENCH_BLOCKS = 256  # timed blocks of `bench` per artifact
+HOST_PY_BLOCKS = 64  # timed blocks of the Python paths beside it
+HOST_PRIOR_FRAMES = 64
+HOST_SEED = 4242
+WAV_TOL = 1 / 32767 + 1e-7  # a wav's int16 rounding (truncation toward zero), as `generate`'s
+
+
+class HostBuild:
+    """The artifact host's g++ build (rave_tpu_torch/export/native_host.py),
+    started when the smoke starts, on the host's CPU beside the phases that
+    work the card; `result()` waits for it and raises what it raised."""
+
+    def __init__(self):
+        import threading
+
+        self.path, self.error, self.seconds = None, None, None
+        self.thread = threading.Thread(target=self._build, daemon=True)
+        self.thread.start()
+
+    def _build(self):
+        from rave_tpu_torch.export.native_host import ensure_host
+
+        t0 = time.perf_counter()
+        try:
+            self.path = ensure_host()
+        except BaseException as e:  # re-raised in the main thread by result()
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+    def result(self) -> tuple:
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.path, self.seconds
+
+
+class Host:
+    """The built host binary; `run` runs one command of it (`_run`: a
+    non-zero exit fails the phase) and keeps its seconds in `seconds`."""
+
+    def __init__(self, path: str):
+        self.path, self.seconds = path, {}
+
+    def run(self, what: str, *args) -> str:
+        t0 = time.perf_counter()
+        out = _run([self.path, *args], f"rtpu_host {what}")
+        self.seconds[what] = time.perf_counter() - t0
+        return out
+
+
+def keep_for_host(name: str, path) -> str:
+    """Move the artifact `path` out of its phase's work directory, which the
+    phase deletes, to where phase `host` streams it; its new place."""
+    dest = HOST_ARTIFACTS / name
+    shutil.rmtree(dest, ignore_errors=True)
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    shutil.move(str(path), str(dest))
+    return str(dest.relative_to(ROOT))
+
+
+def host_info(host: Host, path: Path, name: str) -> dict:
+    """`rtpu_host <path> info` as {key: [values]}."""
+    fields = {}
+    for line in host.run(f"{name} info", path, "info").splitlines():
+        key, _, value = line.partition(": ")
+        fields.setdefault(key, []).append(value)
+    return fields
+
+
+def check_info(fields: dict, man: dict, what: str) -> None:
+    """`info` against the manifest, and the host on the card with the served path's flags."""
+    import torch
+
+    ratio = man["methods"]["encode"]["out_ratio"]
+    want = {"name": [man["name"]], "sampling_rate": [str(man["sampling_rate"])],
+            "block_size": [str(man["block_size"])], "n_channels": [str(man["n_channels"])],
+            "stream_batch": [str(man["stream_batch"])], "latent_size": [str(man["latent_size"])],
+            "latent_family": [man["latent_family"]],
+            "frames_per_block": [str(man["block_size"] // ratio)],
+            "total_latency_samples": [str(man["latency"]["total_samples"])],
+            "device": [f"cuda:0 ({torch.cuda.get_device_name(0)})"],
+            "cudnn": ["enabled 1 deterministic 0 benchmark 0 allow_tf32 0"],
+            "matmul": ["allow_tf32 0"],
+            "torchscript": ["profiling_executor 0 profiling_mode 0 optimize 0"],
+            "aot_method": sorted(man["aot"]), "attribute": man["attributes"]}
+    got = {k: sorted(fields.get(k, [])) if k == "aot_method" else fields.get(k, [])
+           for k in want}
+    check(got == want, f"{what}: rtpu_host info {got}, expected {want}")
+
+
+def host_signal(path: Path, n: int, seed: int, scale: float = 0.3):
+    """A seeded mono float32 wav of `n` samples (read back exactly by both sides)."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    x = (np.random.default_rng(seed).standard_normal(n) * scale).astype(np.float32)
+    wavfile.write(path, SAMPLE_RATE, x)
+    return x
+
+
+def host_blocks(x, block: int):
+    """`x` zero-padded to whole blocks, as the host streams it: [1, 1, block] tensors."""
+    import numpy as np
+    import torch
+
+    n = -(-len(x) // block)
+    xp = np.zeros(n * block, np.float32)
+    xp[:len(x)] = x
+    return [torch.from_numpy(xp[i * block:(i + 1) * block]).reshape(1, 1, block)
+            for i in range(n)]
+
+
+def eager_stream(art, method: str, blocks, seed_base: int, state=None, fills=()):
+    """`method` streamed eagerly (`art.stream_steps`, called directly) over
+    `blocks` on the card from `state` (the artifact's initial state), block i
+    with the host's seed of block i, after the AdaIN `fills` ((leaf, value));
+    the outputs concatenated on the CPU, and the state after."""
+    import torch
+
+    from rave_tpu_torch.export.artifact import prior_step_seed
+    from rave_tpu_torch.train.loop import fp32_exact
+
+    state = [t.clone() for t in (art.stream_state if state is None else state)]
+    for leaf, value in fills:
+        for i in art.adain_indices:
+            if art.slots[i][2] == leaf:
+                state[i].fill_(value)
+    outs = []
+    with torch.no_grad(), fp32_exact():
+        for i, xb in enumerate(blocks):
+            seed = torch.tensor(prior_step_seed(seed_base, i), dtype=torch.int64, device="cuda")
+            y, state = art.stream_steps[method](state, xb.cuda(), seed)
+            outs.append(y.cpu())
+    return torch.cat(outs, -1), state
+
+
+def wav_err(path: Path, y) -> float:
+    """The wav `path` (int16) against the float output `y` [T] clamped to [-1, 1]."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    sr, written = wavfile.read(path)
+    want = y.clamp(-1, 1).numpy()
+    check(sr == SAMPLE_RATE and written.shape == want.shape,
+          f"{path.name}: {sr} Hz, {written.shape}, expected {want.shape}")
+    return float(np.abs(written / 32767 - want).max())
+
+
+def state_equal(path: Path, state) -> bool:
+    from rave_tpu_torch.export.native_host import read_state
+
+    return states_equal(read_state(path, [t.cpu() for t in state]), [t.cpu() for t in state])
+
+
+def host_bench(host: Host, path: Path, what: str) -> dict:
+    """`rtpu_host bench` of the forward: p50 and p95 ms per block (upload,
+    step, fetch, synchronize) and the budget it prints."""
+    import re
+
+    out = host.run(f"{what} bench", path, "bench", HOST_BENCH_BLOCKS, "forward")
+    m = re.search(r"per-block forward: p50 ([0-9.]+) ms\s+p95 ([0-9.]+) ms", out)
+    b = re.search(r"budget ([0-9.]+) ms/block", out)
+    check(m is not None and b is not None and "device: cuda:0 (" in out,
+          f"rtpu_host bench {what}: {out[-800:]}")
+    return {"p50_ms": float(m.group(1)), "p95_ms": float(m.group(2)),
+            "budget_ms": float(b.group(1))}
+
+
+def python_p50(art, x) -> dict:
+    """The Python artifact's forward per block as an audio callback pays it
+    (a host block uploaded, the step, the output fetched, a synchronize):
+    served (the public streaming call, a CUDA graph) and eager (the step
+    called directly), HOST_PY_BLOCKS blocks each after 4 warm ones."""
+    import torch
+
+    from rave_tpu_torch.train.loop import fp32_exact
+
+    blocks = host_blocks(x, art.block_size)
+    ms = {"served": [], "eager": []}
+    state = [t.clone() for t in art.stream_state]
+    with torch.no_grad(), fp32_exact():
+        for i in range(HOST_PY_BLOCKS + 4):
+            xb = blocks[i % len(blocks)]
+            _, t = timed_call(lambda: art.forward(xb.cuda(), streaming=True, seed=i).cpu())
+            seed = torch.tensor(i, dtype=torch.int64, device="cuda")
+
+            def eager():
+                nonlocal state
+                y, state = art.stream_steps["forward"](state, xb.cuda(), seed)
+                return y.cpu()
+
+            _, t_e = timed_call(eager)
+            if i >= 4:
+                ms["served"].append(t)
+                ms["eager"].append(t_e)
+    return {k: statistics.median(v) for k, v in ms.items()}
+
+
+def phase_host(build: HostBuild, artifacts: dict) -> dict:
+    """The artifact host on the card, on the artifacts of phases `export`
+    (v2), `prior`, `discrete` and `v3`; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from rave_tpu_torch.export.artifact import ExportedRAVE
+    from rave_tpu_torch.ops.kernels import dilated_unit
+
+    t_phase = time.perf_counter()
+    binary, build_s = build.result()
+    host = Host(binary)
+    work = ROOT / "build" / "host" / "work"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    paths = {k: ROOT / v for k, v in artifacts.items()}
+    reset_counts()
+    out = {"build_s": build_s, "binary": str(Path(binary).relative_to(ROOT)), "families": {},
+           # what the TorchScript programs add to each artifact
+           "artifact_mib": {name: {kind: sum(f.stat().st_size for f in path.glob(pattern)) / 2**20
+                                   for kind, pattern in (("all", "*"), ("ts", "*.ts"),
+                                                         ("state", "*.state"))}
+                            for name, path in paths.items()}}
+    for name, path in paths.items():
+        check_info(host_info(host, path, name),
+                   json.loads((path / "manifest.json").read_text()), name)
+
+    # v2 and discrete: encode bit-equal, forward (and v2's decode) within the wav's rounding
+    for name in ("v2", "discrete"):
+        path = paths[name]
+        art = ExportedRAVE(str(path), device="cuda")
+        B, L = art.block_size, art.latent_size
+        x = host_signal(work / f"{name}.wav", HOST_BLOCKS * B - 100, seed=len(name))
+        blocks = host_blocks(x, B)
+        r = {"block": B}
+        host.run(f"{name} encode", "--save-state", work / f"{name}_enc.state", path, "encode",
+                 work / f"{name}.wav", work / f"{name}_z.f32", HOST_SEED)
+        z = np.fromfile(work / f"{name}_z.f32", np.float32).reshape(-1, L)
+        z_py, state = eager_stream(art, "encode", blocks, HOST_SEED)
+        z_py = z_py[0].T.numpy()
+        r["encode_bit_equal"] = z.shape == z_py.shape and bool(np.array_equal(z, z_py))
+        r["encode_max_abs_err"] = float(np.abs(z - z_py).max()) if z.shape == z_py.shape else None
+        r["encode_state_bit_equal"] = state_equal(work / f"{name}_enc.state", state)
+        check(r["encode_bit_equal"], f"{name}: the host's encode latents {z.shape} are not "
+                                     f"bit-equal to the Python eager stream's {z_py.shape} "
+                                     f"(max abs err {r['encode_max_abs_err']})")
+        host.run(f"{name} forward", "--save-state", work / f"{name}_fwd.state", path,
+                 "forward", work / f"{name}.wav", work / f"{name}_fwd.wav", HOST_SEED + 1)
+        y, state = eager_stream(art, "forward", blocks, HOST_SEED + 1)
+        r["forward_wav_err"] = wav_err(work / f"{name}_fwd.wav", y[0, 0, :len(x)])
+        r["forward_state_bit_equal"] = state_equal(work / f"{name}_fwd.state", state)
+        if name == "v2":
+            host.run("v2 decode", "--save-state", work / "v2_dec.state", path, "decode",
+                     work / "v2_z.f32", work / "v2_dec.wav", HOST_SEED + 2)
+            frames = B // art.cfg.decimation()
+            zb = [torch.from_numpy(z[i * frames:(i + 1) * frames].T.copy())[None]
+                  for i in range(len(blocks))]
+            y, state = eager_stream(art, "decode", zb, HOST_SEED + 2)
+            r["decode_wav_err"] = wav_err(work / "v2_dec.wav", y[0, 0])
+            r["decode_state_bit_equal"] = state_equal(work / "v2_dec.state", state)
+        errs = {k: v for k, v in r.items() if k.endswith("wav_err")}
+        check(max(errs.values()) <= WAV_TOL, f"{name}: host wavs {errs} > 1/32767")
+        r["bench"] = host_bench(host, path, name)
+        r["python_p50_ms"] = python_p50(art, x)
+        out["families"][name] = r
+        del art
+
+    # v3: learn the target, learn the source, transfer, each a process of its own
+    path = paths["v3"]
+    art = ExportedRAVE(str(path), device="cuda")
+    B = art.block_size
+    target = host_signal(work / "target.wav", 8 * B, seed=31, scale=0.5)
+    source = host_signal(work / "source.wav", 8 * B, seed=32, scale=0.1)
+    plan = [(["--attr", "learn_target=1"], "target", [("learn_y", 1.0)]),
+            (["--attr", "learn_target=0", "--attr", "learn_source=1"], "source",
+             [("learn_y", 0.0), ("learn_x", 1.0)]),
+            (["--attr", "learn_source=0"], "source", [("learn_x", 0.0)])]
+    state, r = None, {"block": B, "wav_err": [], "state_bit_equal": []}
+    for k, (flags, which, fills) in enumerate(plan):
+        load = ["--load-state", work / f"v3_{k - 1}.state"] if k else []
+        host.run(f"v3 forward {k}", *flags, *load, "--save-state", work / f"v3_{k}.state",
+                 path, "forward", work / f"{which}.wav", work / f"v3_{k}.wav",
+                 HOST_SEED + 10 * k)
+        x = target if which == "target" else source
+        y, state = eager_stream(art, "forward", host_blocks(x, B), HOST_SEED + 10 * k, state,
+                                fills)
+        r["wav_err"].append(wav_err(work / f"v3_{k}.wav", y[0, 0]))
+        r["state_bit_equal"].append(state_equal(work / f"v3_{k}.state", state))
+    learned = [float(s.flatten()[0]) for (n, _, _), s in zip(art.slots, state)
+               if n.endswith("num_update_y") or n.endswith("num_update_x")]
+    check(max(r["wav_err"]) <= WAV_TOL and min(learned) > 0,
+          f"v3 AdaIN across processes: wavs {r['wav_err']} > 1/32767, or a statistic not "
+          f"learned ({min(learned)} updates)")
+    r["bench"] = host_bench(host, path, "v3")
+    r["python_p50_ms"] = python_p50(art, source)
+    out["families"]["v3"] = r
+    del art
+
+    # the prior: dithered, against sample_prior on the card
+    path = paths["prior"]
+    art = ExportedRAVE(str(path), device="cuda")
+    host.run("prior", path, "prior", HOST_PRIOR_FRAMES, work / "prior_z.f32", HOST_SEED)
+    z = np.fromfile(work / "prior_z.f32", np.float32).reshape(HOST_PRIOR_FRAMES, -1)
+    z_py = art.sample_prior(HOST_PRIOR_FRAMES, seed=HOST_SEED)[0].T.cpu().numpy()
+    bit_equal = z.shape == z_py.shape and bool(np.array_equal(z, z_py))
+    check(bit_equal, f"prior: the host's latents {z.shape} are not bit-equal to sample_prior's "
+                     f"{z_py.shape}")
+    out["prior"] = {"frames": HOST_PRIOR_FRAMES, "steps": HOST_PRIOR_FRAMES - 1 +
+                    art.prior_step.prior.latent_size, "bit_equal": bit_equal}
+    del art
+    check(dilated_unit.launches == 0, f"phase host: {dilated_unit.launches} unit launches")
+    for name, r in out["families"].items():
+        check(r["bench"]["p50_ms"] < r["bench"]["budget_ms"],
+              f"{name}: the host's p50 {r['bench']['p50_ms']:.3f} ms per block over the "
+              f"{r['bench']['budget_ms']:.2f} ms budget")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(HOST_ARTIFACTS, ignore_errors=True)
+    out["launches"] = dilated_unit.launches
+    out["command_s"] = host.seconds
+    out["seconds"] = time.perf_counter() - t_phase
+    fam = out["families"]
+    print(f"host: rtpu_host built in {build_s:.1f} s (g++ against torch {torch.__version__}); "
+          f"info agrees with the manifests, cuda:0 ({torch.cuda.get_device_name(0)}); "
+          f"{HOST_BLOCKS} blocks of v2 and discrete: encode bit-equal to the Python eager "
+          f"stream (states bit-equal: v2 {fam['v2']['encode_state_bit_equal']}, discrete "
+          f"{fam['discrete']['encode_state_bit_equal']}); wavs from the eager stream: v2 forward "
+          f"{fam['v2']['forward_wav_err']:.2e}, decode {fam['v2']['decode_wav_err']:.2e}, "
+          f"discrete forward {fam['discrete']['forward_wav_err']:.2e} <= 1/32767; v3 AdaIN in "
+          f"3 processes {', '.join(f'{e:.2e}' for e in fam['v3']['wav_err'])} (states bit-equal "
+          f"{fam['v3']['state_bit_equal']}); prior {HOST_PRIOR_FRAMES} frames bit-equal to "
+          f"sample_prior; 0 unit launches; artifacts "
+          + ", ".join(f"{k} {v['all']:.1f} MiB (.ts {v['ts']:.1f}, .state {v['state']:.2f})"
+                      for k, v in out["artifact_mib"].items())
+          + f"; phase {out['seconds']:.1f} s, of which host commands "
+          f"{sum(host.seconds.values()):.1f} s ({len(host.seconds)} processes)", flush=True)
+    print("host bench (ms per block, upload + step + fetch + synchronize): " + "; ".join(
+          f"{k} host p50 {r['bench']['p50_ms']:.3f} p95 {r['bench']['p95_ms']:.3f}, Python served "
+          f"{r['python_p50_ms']['served']:.3f} eager {r['python_p50_ms']['eager']:.3f} (budget "
+          f"{r['bench']['budget_ms']:.2f})" for k, r in fam.items()), flush=True)
+    return out
+
+
 def main() -> None:
     if not (ROOT / KERNEL_SOURCE).is_file():
         raise SystemExit(f"chip_smoke: {KERNEL_SOURCE} not found; run from a checkout")
@@ -4973,6 +5346,7 @@ def main() -> None:
     import torch
 
     card = phase_device()
+    host_build = HostBuild()  # g++ on the CPU while the phases below work the card
     build_info = phase_build()
     rows = phase_kernel()
     rows_bf16 = phase_kernel_bf16()
@@ -4985,6 +5359,7 @@ def main() -> None:
     export = phase_export(ROOT / loop["run_dir"])
     prior = phase_prior(ROOT / loop["run_dir"], ROOT / "build" / "loop" / "db")
     v1 = phase_v1(ROOT / loop["run_dir"], ROOT / "build" / "loop" / "db")
+    v2_artifact = keep_for_host("v2", ROOT / export["artifacts"]["streaming_ema"]["path"])
     shutil.rmtree(ROOT / "build" / "loop" / "runs", ignore_errors=True)  # ~0.7 GB per checkpoint
     shutil.rmtree(ROOT / "build" / "loop" / "export", ignore_errors=True)
     spectral = phase_spectral(tuple(train["crop_frames"]))
@@ -4996,6 +5371,9 @@ def main() -> None:
     stream = phase_stream()  # the phases whose served streams are new checks run last
     variants = phase_variants()
     v3 = phase_v3()
+    host = phase_host(host_build, {"v2": v2_artifact, "prior": prior["host_artifact"],
+                                   "discrete": discrete["export"]["path"],
+                                   "v3": v3["export"]["path"]})
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "rave_tpu"))
     check(not foreign, f"the port loaded the JAX package or jax: {foreign[:5]}")
 
@@ -5073,6 +5451,7 @@ def main() -> None:
         "launches_v3": v3["launches"],  # Snake units bypass the kernel, as in rave_tpu
         "launches_variants": variants["launches"],
         "launches_v1": v1["launches"],  # v1 has no DilatedUnit, as in rave_tpu
+        "launches_host": host["launches"],  # the artifact host streams no unit
         "launches_onnx_verify": v1["launches_onnx_verify"],  # the v2 run's live forward
         # v2 + spectral_discriminator and the other distances: 22 per step
         "launches_spectral": spectral["launches"] - spectral["launches_bf16"],
@@ -5126,7 +5505,7 @@ def main() -> None:
          "train_bf16": train_bf16, "remat": remat, "loop": loop, "export": export,
          "prior": prior, "discrete": discrete, "v3": v3, "variants": variants, "v1": v1,
          "spectral": spectral, "import": imported, "native": native, "remote": remote,
-         "parallel": parallel,
+         "parallel": parallel, "host": host,
          **kernels},
         indent=1))
     print(json.dumps(kernels), flush=True)

@@ -72,7 +72,7 @@ from rave_tpu_torch.models.blocks import (
 from rave_tpu_torch.models.rave import RAVE
 from rave_tpu_torch.nn.conv import freeze_weights
 from rave_tpu_torch.nn.graphs import StepGraphs
-from rave_tpu_torch.nn.streaming import StreamingModule
+from rave_tpu_torch.nn.streaming import StreamingModule, static_size
 from rave_tpu_torch.ops.resampler import Resampler
 from rave_tpu_torch.prior.core import DiagonalShift, QuantizedNormal
 from rave_tpu_torch.prior.model import Prior, gumbel_from_uniform, sample_prediction
@@ -130,7 +130,7 @@ def pre_process_latent(cfg: RaveConfig, model: nn.Module, full_latent_size: int,
         idx = z.clamp(0, cfg.latent.codebook_size - 1).to(torch.int64)
         z = model.rvq.decode(idx).transpose(1, 2)
     B, L, T = z.shape
-    if L < full_latent_size:
+    if static_size(z, 1) < full_latent_size:
         if noise is None:
             noise = normal_from_seed(seed, (B, full_latent_size - L, T), DECODE_SALT)
         z = torch.cat([z, noise.to(z.dtype)], dim=1)

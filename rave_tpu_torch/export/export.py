@@ -30,11 +30,27 @@ one autoregressive step of the prior (artifact.py::PriorStep). A program
 holds its weights on the device it was exported on; the manifest records it. Nothing fails
 quietly: a failed smoke decode or program export raises, and a failed
 export leaves no manifest `aot` section behind.
+
+Each step program is also written as TorchScript, `<method>_step.ts`
+(`torch.jit.trace` of the same module on the same example inputs, the
+manifest's `aot.<method>.ts_file`), with its initial state as a host state
+file (`state_file`: zeros, and the AdaIN buffers as the model holds them).
+These are what the native host (csrc/rtpu_host.cc, the counterpart of the
+StableHLO modules rave_tpu's `_aot_lower` writes for its host) loads. Not
+the `.pt2`: libtorch runs a `.pt2` only through AOTInductor, an Inductor
+compile whose generated kernels round otherwise, while a traced program
+run with the graph executor's profiling and optimizations off calls the
+ATen kernels of the eager step, so the host's outputs can be held bit for
+bit to the Python artifact's. Whatever the trace reads on the host would be
+baked in as a constant: every `TracerWarning` is an error here, and the
+trace is checked (`check_trace`). A trace is specific to its shapes, as the
+`.pt2` is to its block: one program per block shape.
 """
 from __future__ import annotations
 
 import json
 import math
+import warnings
 from pathlib import Path
 from typing import Optional
 
@@ -43,6 +59,7 @@ import torch
 
 from rave_tpu_torch import config as config_lib
 from rave_tpu_torch.export.artifact import FORMAT, STEP_METHODS, ExportedRAVE, stream_slots
+from rave_tpu_torch.export.native_host import write_state
 from rave_tpu_torch.factory import resolve_device
 from rave_tpu_torch.utils.checkpoint import read_generator, read_prior
 
@@ -182,9 +199,20 @@ def _specs(tensors) -> list:
             for t in tensors]
 
 
+def trace_program(module, args, path: Path) -> None:
+    """`module` traced on `args` into the TorchScript file `path`; a
+    `TracerWarning` (a value the trace would bake in) raises."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", torch.jit.TracerWarning)
+        warnings.filterwarnings("ignore", message=r".*torch\.jit\.trace.* is deprecated")
+        traced = torch.jit.trace(module, args, strict=False, check_trace=True)
+    traced.save(str(path))
+
+
 def export_programs(art: ExportedRAVE, out_dir: Path) -> dict:
     """`torch.export` each streaming step of `art` into `<method>_step.pt2`,
-    and the prior's step into `prior_step.pt2` when it has one; the
+    and the prior's step into `prior_step.pt2` when it has one, each also
+    traced into `<name>.ts` with its initial state in `<name>.state`; the
     manifest's `aot` section. Flat inputs are (state..., x, seed), flat
     outputs (y, state'...), the state in the order of `state_leaves`."""
     block, ratio, device = art.manifest["block_size"], art.cfg.decimation(), art.device
@@ -205,12 +233,16 @@ def export_programs(art: ExportedRAVE, out_dir: Path) -> dict:
             args = (state, x_in, seed)
             program = torch.export.export(module, args, strict=False)
             torch.export.save(program, str(out_dir / f"{name}.pt2"))
+            trace_program(module, args, out_dir / f"{name}.ts")
+            write_state(out_dir / f"{name}.state", state)
             y, new_state = module(*args)
             inputs = [*state, x_in, seed]
             outputs = [y, *new_state]
             n = len(state)
             report[name] = {
                 "file": f"{name}.pt2",
+                "ts_file": f"{name}.ts",
+                "state_file": f"{name}.state",
                 "device": str(device),
                 "inputs": _specs(inputs),
                 "outputs": _specs(outputs),

@@ -40,7 +40,7 @@ from rave_tpu_torch.models.quantization import ResidualVectorQuantization
 from rave_tpu_torch.nn.combinators import AlignBranches, Lambda, Residual, Sequential
 from rave_tpu_torch.nn.conv import Conv1d, ConvTranspose1d, conv_delay, get_padding, tconv_delay
 from rave_tpu_torch.nn.gru import GRU
-from rave_tpu_torch.nn.streaming import as_dtype
+from rave_tpu_torch.nn.streaming import as_dtype, static_shape, static_size
 from rave_tpu_torch.parallel import mesh
 from rave_tpu_torch.ops.dsp import (
     amp_to_impulse_response, at_least_float32, fft_convolve, mod_sigmoid,
@@ -280,7 +280,7 @@ class AdaIN(nn.Module):
         return self._transfer(x)
 
     def _transfer(self, x):
-        bs = x.shape[0]
+        bs = static_size(x, 0)
         if bs > ADAIN_MAX_BATCH:
             raise ValueError(f"AdaIN holds statistics for {ADAIN_MAX_BATCH} batch slots; "
                              f"a batch of {bs} runs only in training mode")
@@ -436,7 +436,7 @@ class FilteredNoise(nn.Module):
         d = self.out_channels
         amp = mod_sigmoid(amp - 5.0).transpose(1, 2).reshape(B, n, d, self.noise_bands)
         ir = amp_to_impulse_response(amp, self.target_size)  # [B, n, d, target]
-        if tuple(uniform.shape) != tuple(ir.shape):
+        if static_shape(uniform) != static_shape(ir):
             raise ValueError(f"the noise synth takes uniform draws {tuple(ir.shape)}; got "
                              f"{tuple(uniform.shape)}")
         out = fft_convolve(uniform.to(ir.dtype) * 2 - 1, ir)

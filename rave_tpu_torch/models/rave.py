@@ -19,7 +19,7 @@ from torch import nn
 
 from rave_tpu_torch.models.blocks import GeneratorV1, LatentDraws
 from rave_tpu_torch.models.pqmf_module import PQMFAnalysis, PQMFSynthesis
-from rave_tpu_torch.nn.streaming import StreamingModule, as_dtype
+from rave_tpu_torch.nn.streaming import StreamingModule, as_dtype, static_size
 from rave_tpu_torch.ops.pqmf import PQMFBank
 from rave_tpu_torch.ops.stft import frame_signal, hann_window, mel_filterbank
 
@@ -67,7 +67,7 @@ class MelAnalysis(StreamingModule):
         return self._project(frames)
 
     def step(self, x: torch.Tensor) -> torch.Tensor:
-        if x.shape[-1] % self.hop:
+        if static_size(x, -1) % self.hop:
             raise ValueError(f"a mel block must be a multiple of the hop {self.hop}")
         ext = torch.cat([as_dtype(self.cache, x.dtype), x], dim=-1)
         self.cache = ext[..., ext.shape[-1] - self.cache.shape[-1]:]

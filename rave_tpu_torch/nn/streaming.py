@@ -17,6 +17,7 @@ exactly in 'causal' mode (D == 0), within float tolerance in 'centered'.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Tuple
 
 import torch
@@ -58,6 +59,24 @@ def as_dtype(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     exported program then holds no cast node (and no check of it) for the
     fp32 weights and state of an fp32 model, a third of its nodes in v3's."""
     return t if t.dtype == dtype else t.to(dtype)
+
+
+def static_shape(t: torch.Tensor) -> Tuple[int, ...]:
+    """`t.shape` as Python ints, also under `torch.jit.trace`, which gives
+    sizes as traced tensors: a traced step program holds its example's
+    shapes (export.py traces one program per block shape), so a size that
+    Python reads there is a constant of that program, as it is of the
+    `.pt2`."""
+    if not torch.jit.is_tracing():
+        return tuple(t.shape)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", torch.jit.TracerWarning)
+        return tuple(int(d) for d in t.shape)
+
+
+def static_size(t: torch.Tensor, dim: int) -> int:
+    """`static_shape(t)[dim]`."""
+    return static_shape(t)[dim]
 
 
 def init_stream_state(module: nn.Module, batch: int) -> None:

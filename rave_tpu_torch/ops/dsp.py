@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from rave_tpu_torch.nn.streaming import static_size
 from rave_tpu_torch.parallel import mesh
 
 
@@ -39,7 +40,7 @@ def amp_to_impulse_response(amp: torch.Tensor, target_size: int) -> torch.Tensor
     (or cropped from its end, when it is longer than `target_size`, as
     torch's negative pad does in the reference) and rolled back."""
     ir = torch.fft.irfft(at_least_float32(amp), dim=-1)
-    filter_size = ir.shape[-1]
+    filter_size = static_size(ir, -1)
     ir = torch.roll(ir, filter_size // 2, dims=-1)
     n = torch.arange(filter_size, dtype=torch.float64, device=ir.device)
     win = (0.5 - 0.5 * torch.cos(2 * torch.pi * n / filter_size)).to(ir.dtype)  # hanning(n+1)[:-1]

@@ -137,8 +137,8 @@ def test_export_generate(db, tmp_path):
     assert code == 0
     art_dir = Path(out.strip().splitlines()[-1].removeprefix("exported: "))
     assert art_dir == tmp_path / "v2_streaming.rtpu"
-    assert {p.name for p in art_dir.iterdir()} == {
-        "manifest.json", "weights.pt", "encode_step.pt2", "decode_step.pt2", "forward_step.pt2"}
+    assert {p.name for p in art_dir.iterdir()} == {"manifest.json", "weights.pt"} | {
+        f"{m}_step.{ext}" for m in ("encode", "decode", "forward") for ext in ("pt2", "ts", "state")}
 
     from rave_tpu_torch.export.artifact import ExportedRAVE
 

@@ -501,3 +501,25 @@ def test_no_foreign_module_level_imports():
             else:
                 continue
             assert not roots & (FOREIGN - {"tensorboard"}), (path, roots)
+
+
+def test_native_host_stands_alone():
+    """The artifact host's module in a fresh interpreter loads no jax and no
+    module of the JAX package, and the host's C++ source includes nothing
+    of the JAX package's `native/` directory: only libtorch's and the C++
+    library's headers."""
+    import re
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH", "")) if p)}
+    script = ("import json, sys\nimport rave_tpu_torch.export.native_host as h\n"
+              "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'flax', 'rave_tpu'))))")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    source = (ROOT / "rave_tpu_torch" / "csrc" / "rtpu_host.cc").read_text()
+    includes = re.findall(r'^\s*#\s*include\s*([<"][^>"]+[>"])', source, re.MULTILINE)
+    assert includes and all(i.startswith("<") for i in includes), includes
+    assert not any("native" in i or "rave_tpu" in i or "xla" in i for i in includes), includes
