@@ -97,6 +97,37 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                and recompute) against 22, 22 of the gradient's kernel each,
                a lower peak memory, and the step again without remat from
                the same state bit-equal to the first;
+ 10b. train_graph : v2's three training programs as CUDA graphs
+               (train/graphs.py::TrainGraphs) against the eager steps, in
+               fp32, under train.bf16 + bf16_dis and under train.remat, at
+               B=8 x 131072 under cuDNN's deterministic algorithms
+               (`graph_lockstep`): phase 8's schedule (5 pre-warmup steps,
+               then 4 cycles of the critic's period) twice from seed 0, the
+               eager steps and the graphed ones, each step on the same draws;
+               every step's metrics, and after the runs every parameter,
+               gradient, buffer, Adam moment, step count and learning rate
+               and EMA tensor bit-equal; each program warmed up by one
+               eager step (which makes its gradients and Adam states),
+               captured at the next (the wrappers count the launches that a
+               warm-up or a capture makes: those of the eager twin, 22
+               forward and 22 / 11 / 0 of the gradient's kernel, 44 forward
+               in a remat pre-warmup step) and replayed at later steps (no
+               Python runs, the wrappers count none); then one more replay
+               of each program profiled by torch.profiler, whose unit
+               launches counted in the card's trace (a weight preparation
+               per forward call, a `wgrad_wgmma_kernel` per gradient call)
+               must be the eager step's; the graphed pre-warmup step's wall
+               (its replays) under the eager one in fp32 and bf16. Printed:
+               every program's eager and graphed walls, one more step of
+               each program timed and profiled in fp32 and bf16 (device
+               busy and its share of the wall; the eager trace's launches
+               held to the wrappers' count), the peak memory of each run.
+               Phases 20 and 15 at their ends, and 14, 21 (hybrid) and 22
+               in their steps, run their family's programs through
+               `TrainGraphs` the same way (`family_lockstep`: 3 pre-warmup
+               steps, 3 cycles of a critic step every other step, a
+               `graphs` line each), bit-equal to the eager steps, a replay
+               of each program traced;
  11. loop    : the training driver through the port's command line, in
                process (`rave_tpu_torch.cli.main`): a seeded corpus of .wav
                tones, chirps and noise (104 records of 131072 samples, 2 of
@@ -110,8 +141,12 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                takes the C++ sampler there, which phase 17 runs) -> `eval`
                twice. Each step, validation and checkpoint save of the
                training loop is observed in process (it ends in a synchronize and
-               records its time and its launches of each variant): exactly
-               22 launches of the step's variant per step and 22 fp32 per
+               records its time and its launches of each variant; every
+               run prints that its steps run as CUDA graphs, and the runs
+               capture graphs and replay them, the resumed run its own after
+               the restore): exactly
+               22 launches of the step's variant per step that runs Python
+               (none in a replay) and 22 fp32 per
                validation or eval batch, and the gradient kernel's per step
                as phase 8 (none in validation or eval, one per unit in the
                receptive-field probe); finite losses; the PCA buffers set
@@ -186,11 +221,14 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                CPU (1e-3); (b) v1 causal streamed through step_encode and
                step_decode against the offline pass past the delays (1e-3);
                (c) one step of each program at B=8 x 131072 after a warm
-               one (ms, peak memory), the first step of each at B=1 on the
-               card against the CPU (losses and BatchNorm's running
-               statistics 1e-4); (d) `cli train --config v1` on phase 11's
-               store, resumed once (bit-equal, the running statistics
-               included), `cli export --streaming`, `cli generate` of a 30 s
+               one (ms, peak memory), the three programs eager and through
+               `TrainGraphs` under deterministic cuDNN (`family_lockstep`,
+               bit-equal, BatchNorm's running statistics included), the first step
+               of each at B=1 on the card against the CPU (losses and
+               BatchNorm's running statistics 1e-4); (d) `cli train
+               --config v1` on phase 11's store, resumed once (bit-equal,
+               the running statistics included), `cli export --streaming`,
+               `cli generate` of a 30 s
                file, the artifact on the card against the CPU (1e-3),
                `forward_step.pt2` bit-equal to the served steps over 32
                blocks, the served forward (and (b)'s causal model through
@@ -239,8 +277,9 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                `sample_plain` (max abs err <= 1e-6) and its host ms per
                batch; then `cli train --device_data off` in process, fp32
                and `--bf16`, 8 steps each (the three programs), fed by the
-               native loader (its batches counted), observed as phase 11's
-               runs: exactly 22 launches of the step's variant per step and
+               native loader (its batches counted), its steps as CUDA graphs,
+               observed as phase 11's runs: exactly 22 launches of the step's
+               variant per step and
                per validation batch; loop ms per step against the bare step,
                printed beside phase 11's threaded host-loader figures. Work in
                build/native, deleted at the end;
@@ -248,8 +287,10 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                its own, killed on the way out: `get_dataset("http://...")`
                through `Loader` gives 3 batches of B=8 x 131072 bit-equal to
                the same `Loader` over the local store (ms per batch over
-               HTTP and locally), 3 v2 steps on them (22 launches each,
-               finite losses), and `train` on the URL raises
+               HTTP and locally), 3 v2 steps on them through `TrainGraphs`
+               (a warm-up step, a capture and its replay, a replay; 22
+               wrapper launches in each of the first two, none in the
+               replay, finite losses), and `train` on the URL raises
                FileNotFoundError (ROADMAP C20);
  19. parallel : `python -m torch.distributed.run --nproc_per_node 2 -m
                rave_tpu_torch.parallel.mpworker --full`: v2 at full width
@@ -272,7 +313,11 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                --device_data off` (B=1 per rank: one validation record each)
                for 4 steps and resumed to 6: the native loader, validation in
                lockstep every 2 steps, one checkpoint per validation written
-               by rank 0. A dead rank fails the phase. Work in
+               by rank 0, the steps eager by the loop's rule (gloo's
+               collectives cannot be captured; rank 0 says so). The workers
+               run beside the two `cli train` runs (the 2-rank worker beside
+               the first, the one process beside the resume): their step ms are
+               taken under that load. A dead rank fails the phase. Work in
                build/parallel, deleted at the end;
  20. discrete : compose(["discrete"]) at full width (capacity 96, latent 128,
                16 x 1024 codes, 128 noise channels, ratios 4.4.2.2), TF32
@@ -318,7 +363,9 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                (`model_lockstep`): bit-equal, the served p50 under the
                block's budget (`v2_small`'s 512 samples: 11.61 ms); (c) the
                receptive-field crop, one step of each program at B=8 x
-               131072 after a warm one (launches exact, ms, peak memory) and
+               131072 after a warm one (launches exact, ms, peak memory),
+               hybrid's three programs also eager and through `TrainGraphs`
+               under deterministic cuDNN (`family_lockstep`, bit-equal), and
                the first step of each at B=1 x 65536 on the card against the
                CPU (losses 1e-4); (d) `cli train --config <preset>` 3 steps
                (the three programs) on phase 11's store with the device
@@ -341,8 +388,11 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                (AdaIN holds 8 batch slots), timed; at B=1 x 65536 in eval
                mode the card against the CPU (1e-3), the transfer acting;
                (b) the receptive-field probe, then fp32 and `train.bf16` +
-               `bf16_dis` steps of the three programs at B=8 x 131072 (ms per
-               step, peak memory), the first step of each program at B=1 on
+               `bf16_dis` steps of the three programs at B=8 x 131072 (ms
+               per step, peak memory), the fp32 programs also eager and
+               through `TrainGraphs` under deterministic cuDNN
+               (`family_lockstep`, bit-equal), the first step of each
+               program at B=1 on
                the card against the CPU (losses 1e-3), and the critic alone,
                forward and backward on the 16-row real+fake batch, device ms
                split between its MPDs and MRDs; (c) `cli train --config v3` on
@@ -376,16 +426,19 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                after phase 1, beside the phases that work the card; the
                build's seconds printed) on the artifacts phases 12, 13, 20 and
                22 wrote (kept in build/host/artifacts when their phases
-               delete their work): `info` of each against its manifest, on
-               cuda:0 and the card's name, with the served path's backend
-               flags and the TorchScript executor's profiling and
+               delete their work): `info` of each (side by side) against
+               its manifest, on cuda:0 and the card's name, with the
+               served path's backend flags and the TorchScript executor's
+               profiling and
                optimizations off; 32 blocks of v2 (phase 12's centered mono
                artifact) through `encode`, its latents bit-equal to the
                Python artifact's eager stream (the step called directly)
                from the initial state on the same seeds, then `decode` of
                them and `forward`, each wav within 1/32767 of the eager
                stream's output; `encode` and `forward` of the discrete
-               artifact (1024-sample blocks) likewise; v3's AdaIN in three
+               artifact (1024-sample blocks) likewise (these five host
+               commands run side by side, before the eager streams they are
+               held to); v3's AdaIN in three
                processes (learn the target, learn the source, transfer,
                the state carried by `--save-state` / `--load-state`)
                against one eager stream with the same fills, wavs within
@@ -416,14 +469,17 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import io
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1438,6 +1494,410 @@ def phase_remat(crop) -> dict:
     return out
 
 
+# ---- the training programs as CUDA graphs (train/graphs.py) -----------------------------
+
+# what `cli train` prints when it runs its steps as CUDA graphs (train/loop.py::step_method),
+# and under data parallelism
+GRAPHED_STEPS = "the training steps run as CUDA graphs"
+EAGER_DP_STEPS = "the training steps run eagerly (data parallel"
+
+TRAIN_GRAPH_MODES = {"fp32": [], "bf16": ["train.bf16=true", "train.bf16_dis=true"],
+                     "remat": ["train.remat=true"]}
+# a family's graphed steps beside its eager ones: 3 pre-warmup steps, then 3 cycles of a
+# critic's period of 2, so that each program's key is warmed up (one eager step), captured
+# (its one replay) and replayed at a later step
+FAMILY_PREWARMUP, FAMILY_CYCLES, FAMILY_DIS_EVERY = 3, 3, 2
+# the families whose programs bring into a capture what v2's do not: the codebooks' k-means
+# and training (discrete), BatchNorm's running statistics (v1), the mel front-end and the GRU
+# (hybrid), Snake, AdaIN and the multi-period / multi-resolution critic (v3), the spectral
+# critic (spectral); v2_small and v2_nopqmf run v2's programs at other widths and outputs
+GRAPHED_FAMILIES = ("discrete", "v1", "hybrid", "v3", "spectral")
+TRAIN_GRAPH_PREWARMUP, TRAIN_GRAPH_CYCLES = 5, 4  # phase `train`'s schedule (`_train_run`)
+
+
+def step_phase(which: str, warmed: bool) -> str:
+    return "dis" if which == "dis" else ("gen_adversarial" if warmed else "gen_prewarmup")
+
+
+def trace_launches(names) -> tuple:
+    """The unit's wrapper calls in a device trace's kernel names, as
+    `LoopProbe.counts()`: forward calls (fp32, bf16), one weight
+    preparation each (`prepare_weights_f32` / `prepare_weights_bf16`), then
+    gradient calls (fp32, bf16), one `wgrad_wgmma_kernel` each."""
+    wgrad = [n for n in names if "wgrad_wgmma_kernel" in n]
+    wgrad_bf16 = sum("bfloat16" in n for n in wgrad)
+    return (sum("prepare_weights_f32" in n for n in names),
+            sum("prepare_weights_bf16" in n for n in names), len(wgrad) - wgrad_bf16, wgrad_bf16)
+
+
+@contextlib.contextmanager
+def kept_graphs():
+    """CUDA graphs made inside keep the graph they captured beside the
+    executable one (`keep_graph=True`; instantiated at the first replay), for
+    `graph_node_launches`."""
+    import torch
+
+    made = torch.cuda.CUDAGraph
+    torch.cuda.CUDAGraph = lambda: made(keep_graph=True)
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = made
+
+
+def graph_node_launches(graph) -> tuple:
+    """The unit's wrapper calls that a captured CUDA graph holds, which each
+    of its replays runs: its nodes (`cudaGraphDebugDotPrint` of a graph
+    made under `kept_graphs`; one node statement per line start, the kernel's
+    name in its label) counted by their kernels' names as
+    `trace_launches` counts a trace's kernels."""
+    path = ROOT / "build" / "graph_nodes.dot"
+    path.unlink(missing_ok=True)
+    with warnings.catch_warnings():  # torch's "DEBUG: calling debug_dump()" notes
+        warnings.simplefilter("ignore")
+        graph.debug_dump(str(path))
+    check(path.exists(), "a kept CUDA graph printed no nodes (cudaGraphDebugDotPrint)")
+    text = path.read_text(errors="replace")
+    path.unlink()
+    return trace_launches(re.split(r'\n\s*"[^"\n]*node_\d+"\s*\[', "\n" + text)[1:])
+
+
+def program_graph(graphs, p: str):
+    """The CUDA graph of program `p` among a `TrainGraphs`' (one per program)."""
+    which, warmed = ("dis", True) if p == "dis" else ("gen", p == "gen_adversarial")
+    held = [e.graph for k, e in graphs.graphs.items() if k[:2] == (which, warmed)]
+    check(len(held) == 1, f"{len(held)} graphs of the {p} program")
+    return held[0]
+
+
+def device_trace(calls: dict) -> dict:
+    """Each call of `calls` ({name: fn}) profiled alone by torch.profiler
+    (the card's activity only: the host's ops would cost the session seconds
+    and are not read) and ended by a synchronize: {name: {"busy_ms":
+    the union of the intervals of the kernels and copies the card ran,
+    "launches": `trace_launches` of its kernels}} (a step's backward
+    launches from autograd's own thread, so a range around the call would
+    not hold them). A session that recorded no device event is run again
+    once; busy_ms None and launches None where the second saw none either."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in calls.items():
+        for attempt in range(2):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+            if events:
+                break
+        if not events:
+            out[name] = {"busy_ms": None, "launches": None}
+            continue
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+        busy, (s0, e0) = 0.0, spans[0]
+        for a, b in spans[1:]:
+            if a > e0:
+                busy, s0, e0 = busy + e0 - s0, a, b
+            else:
+                e0 = max(e0, b)
+        out[name] = {"busy_ms": (busy + e0 - s0) / 1e3,
+                     "launches": trace_launches([e.name for e in events])}
+    return out
+
+
+PROGRAMS = ("gen_prewarmup", "gen_adversarial", "dis")
+# traced sessions of one more step of a program at most: a session can lose a kernel's record
+# (seen on an H100 80GB HBM3: 21 of a replay's 22 weight preparations), never add one
+TRACE_ATTEMPTS = 3
+
+
+def graph_lockstep(cfg, crop, x, prewarmup: int, cycles: int, what: str,
+                   per_step: int = None, busy: bool = False) -> dict:
+    """`prewarmup` pre-warmup generator steps, then `cycles` *
+    update_discriminator_every steps past the warmup, each picked by
+    pick_phase (phase `train`'s schedule), twice from seed 0 under
+    deterministic cuDNN: the eager steps, then `TrainGraphs` over them; step
+    i takes the same draws in both. Failing checks: each step's metrics
+    bit-equal, and after the runs every parameter, gradient, buffer, Adam
+    state and learning rate and EMA tensor; the wrappers' launches in each
+    graphed step that ran Python (a key's warm-up, a capture) those of its
+    eager twin, and none in a replay (`per_step` forward launches with
+    `bwd_per_step` of the gradient's in each eager step where given; a remat
+    pre-warmup step twice the forwards, a remat adversarial step its eager
+    twin's alone); every program captured once and replayed at a later
+    step. Then one more step of each program in each run, past the
+    comparison: with `busy` timed (synchronized), then profiled
+    (`device_trace`): in the graphed run always, a replay whose unit
+    launches, counted in the card's trace, must be those of the program's
+    eager steps; in the eager run with `busy`, where the trace's count must
+    be the wrappers'. A trace that counts fewer is taken again, one more
+    step, up to TRACE_ATTEMPTS sessions (the profiler can lose a record);
+    one that counts more fails. The wall of each step, the peak memory of each run
+    and the device-busy share of each profiled step."""
+    import torch
+
+    from rave_tpu_torch.train import graphs as train_graphs
+    from rave_tpu_torch.train.graphs import TrainGraphs, state_tensors
+    from rave_tpu_torch.train.state import create_train_state
+    from rave_tpu_torch.train.steps import build_train_steps, draw_noise, pick_phase
+
+    t = cfg.train
+    runs = {}
+    with deterministic_cudnn():
+        for graphed in (False, True):
+            steps = build_train_steps(cfg, crop)
+            run = TrainGraphs(steps) if graphed else steps
+            state = create_train_state(cfg, seed=0, device="cuda")
+            captures, replays = train_graphs.captures, train_graphs.replays
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            walls, counts, metrics, phases, served, quantize_of = [], [], [], [], [], {}
+            # the graphed run's graphs keep their nodes (graph_node_launches)
+            with kept_graphs() if graphed else contextlib.nullcontext():
+                for i in range(prewarmup + cycles * t.update_discriminator_every):
+                    if i == prewarmup:
+                        state.step = t.phase_1_duration
+                    which, warmed, quantize = pick_phase(cfg, state.step)
+                    check((i < prewarmup) == (not warmed),
+                          f"{what}: step {state.step} warmed {warmed}")
+                    draws = draw_noise(cfg, x,
+                                       torch.Generator(device="cuda").manual_seed(100 + i))
+                    torch.cuda.synchronize()
+                    launched = LoopProbe.counts()  # read, never reset: the phases' totals stand
+                    before = train_graphs.captures, train_graphs.replays
+                    t0 = time.perf_counter()
+                    m = (run.gen(state, x, warmed, draws=draws, quantize=quantize)
+                         if which == "gen" else run.dis(state, x, draws=draws, quantize=quantize))
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    # a replay of a graph captured at an earlier step, or a step that ran Python
+                    served.append((train_graphs.captures, train_graphs.replays)
+                                  == (before[0], before[1] + 1))
+                    counts.append(tuple(a - b for a, b in zip(LoopProbe.counts(), launched)))
+                    metrics.append({k: v.detach().cpu() for k, v in m.items()})
+                    phases.append(step_phase(which, warmed))
+                    quantize_of[phases[-1]] = quantize
+            runs[graphed] = {"state": state, "run": run, "walls": walls, "counts": counts,
+                             "served": served, "metrics": metrics, "phases": phases,
+                             "quantize": quantize_of,
+                             "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+                             "captures": train_graphs.captures - captures,
+                             "replays": train_graphs.replays - replays}
+        eager, graph = runs[False], runs[True]
+        n = len(eager["phases"])
+        for i in range(n):
+            a, b = eager["metrics"][i], graph["metrics"][i]
+            bad = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+            phase = eager["phases"][i]
+            check(a.keys() == b.keys() and not bad,
+                  f"{what}: step {i} ({phase}): graphed metrics {bad[:4]} differ from eager "
+                  f"({[(float(a[k]), float(b[k])) for k in bad[:2] if k in b]})")
+            want = (0, 0, 0, 0) if graph["served"][i] else eager["counts"][i]
+            check(graph["counts"][i] == want,
+                  f"{what}: step {i} ({phase}, {'a replay' if graph['served'][i] else 'Python'}):"
+                  f" wrapper launches {graph['counts'][i]}, expected {want}")
+            # a remat adversarial step's recompute: held to its eager twin's count alone
+            if per_step is not None and not (t.remat and phase == "gen_adversarial"):
+                fwd = per_step * (2 if t.remat and phase == "gen_prewarmup" else 1)
+                bwd = bwd_per_step(phase, per_step)
+                check(eager["counts"][i] == ((0, fwd, 0, bwd) if t.bf16 else (fwd, 0, bwd, 0)),
+                      f"{what}: step {i} ({phase}): launches {eager['counts'][i]}, expected "
+                      f"{fwd} forward and {bwd} gradient ({'bf16' if t.bf16 else 'fp32'})")
+            check(all(math.isfinite(float(v)) for v in b.values()),
+                  f"{what}: step {i}: non-finite metrics")
+        ta, tb = state_tensors(eager["state"]), state_tensors(graph["state"])
+        check(len(ta) == len(tb), f"{what}: {len(ta)} eager state tensors, {len(tb)} graphed")
+        unequal_at = [i for i, (a, b) in enumerate(zip(ta, tb))
+                      if (a is None) != (b is None) or (a is not None and not torch.equal(a, b))]
+        check(not unequal_at, f"{what}: {len(unequal_at)} of {len(ta)} state tensors differ "
+                              f"after the run (parameters, gradients, buffers, Adam states, EMA)")
+        programs = [p for p in PROGRAMS if p in eager["phases"]]
+        check(graph["captures"] == len(graph["run"].graphs) == len(programs),
+              f"{what}: {graph['captures']} graphs captured for the programs {programs}")
+        graph_n = {p: sum(q == p and r for q, r in zip(graph["phases"], graph["served"]))
+                   for p in programs}
+        check(all(graph_n.values()), f"{what}: replays per program {graph_n}: a program was "
+                                     f"never replayed after its capture")
+        # the programs' unit launches, from their eager steps (one count per program)
+        eager_launches = {p: {c for c, q in zip(eager["counts"], eager["phases"]) if q == p}
+                          for p in programs}
+        check(all(len(v) == 1 for v in eager_launches.values()),
+              f"{what}: eager launches per program {eager_launches}")
+        eager_launches = {p: v.pop() for p, v in eager_launches.items()}
+
+        for graphed, r in runs.items():  # one more step of each program, past the comparison
+            st, run = r["state"], r["run"]
+            calls, python = {}, {}
+            for p in programs:
+                draws = draw_noise(cfg, x, torch.Generator(device="cuda").manual_seed(99))
+                q = r["quantize"][p]
+                call = (functools.partial(run.gen, st, x, p == "gen_adversarial", draws=draws,
+                                          quantize=q) if p != "dis" else
+                        functools.partial(run.dis, st, x, draws=draws, quantize=q))
+
+                def counted(call=call, p=p):
+                    before = LoopProbe.counts(), train_graphs.captures, train_graphs.replays
+                    call()
+                    python[p] = (tuple(a - b for a, b in zip(LoopProbe.counts(), before[0])),
+                                 (train_graphs.captures, train_graphs.replays)
+                                 == (before[1], before[2] + 1))
+                calls[p] = counted
+            r["busy"] = {}
+            if busy:
+                for p, call in calls.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    call()
+                    torch.cuda.synchronize()
+                    r["busy"][p] = {"wall_ms": (time.perf_counter() - t0) * 1e3}
+            if not (graphed or busy):
+                continue
+            for p, call in calls.items():
+                for attempt in range(1, TRACE_ATTEMPTS + 1):
+                    traced = device_trace({p: call})[p]
+                    counts, replayed = python[p]
+                    want = eager_launches[p] if graphed else counts
+                    if traced["launches"] == want:
+                        break
+                    # the profiler can lose a kernel's record, never invent one
+                    check(traced["launches"] is None
+                          or all(a <= b for a, b in zip(traced["launches"], want)),
+                          f"{what}: the {'graphed' if graphed else 'eager'} {p} step's trace "
+                          f"holds {traced['launches']} unit launches, more than {want}")
+                r.setdefault("trace_attempts", {})[p] = attempt
+                if graphed:
+                    check(replayed and counts == (0, 0, 0, 0),
+                          f"{what}: the traced {p} step was not a replay (wrappers' launches "
+                          f"{counts})")
+                    nodes = graph_node_launches(program_graph(run, p))
+                    r.setdefault("graph_launches", {})[p] = list(nodes)
+                    check(nodes == eager_launches[p],
+                          f"{what}: the {p} graph's kernel nodes hold {nodes} unit launches, "
+                          f"the eager step {eager_launches[p]}")
+                    # a trace that lost records in every session is read against the nodes
+                    check(traced["launches"] == eager_launches[p] or attempt == TRACE_ATTEMPTS,
+                          f"{what}: a replay of the {p} graph ran {traced['launches']} unit "
+                          f"launches in the card's trace, the eager step {eager_launches[p]}")
+                else:
+                    check(traced["launches"] == counts,
+                          f"{what}: the eager {p} step's trace holds {traced['launches']} unit "
+                          f"launches, its wrappers counted {counts}")
+                if busy:
+                    wall = r["busy"][p]["wall_ms"]
+                    r["busy"][p].update(busy_ms=traced["busy_ms"], busy_share=None
+                                        if traced["busy_ms"] is None else traced["busy_ms"] / wall)
+                if graphed:
+                    r.setdefault("replay_launches", {})[p] = (
+                        None if traced["launches"] is None else list(traced["launches"]))
+
+    first = {p: eager["phases"].index(p) for p in programs}
+    eager_ms = {p: [w for i, (w, q) in enumerate(zip(eager["walls"], eager["phases"]))
+                    if q == p and i != first[p]] for p in programs}
+    graph_ms = {p: [w for w, q, r in zip(graph["walls"], graph["phases"], graph["served"])
+                    if q == p and r] for p in programs}
+    return {"steps": n, "phases": eager["phases"],
+            # eager: after each program's first step; graphed: the replays of graphs
+            # captured at earlier steps (not the warm-up steps, not the capturing step)
+            "eager_ms": {p: statistics.mean(v) if v else None for p, v in eager_ms.items()},
+            "graph_ms": {p: statistics.mean(v) if v else None for p, v in graph_ms.items()},
+            "eager_n": {p: len(v) for p, v in eager_ms.items()},
+            "graph_n": {p: len(v) for p, v in graph_ms.items()},
+            "walls_eager": eager["walls"], "walls_graph": graph["walls"],
+            "launches": [list(c) for c in graph["counts"]],
+            "eager_launches": {p: list(c) for p, c in eager_launches.items()},
+            "replay_launches": graph["replay_launches"],
+            "graph_launches": graph["graph_launches"],
+            "trace_attempts": {"eager": eager.get("trace_attempts", {}),
+                               "graph": graph["trace_attempts"]},
+            "peak_gb": {"eager": eager["peak_gb"], "graph": graph["peak_gb"]},
+            "busy": {"eager": eager["busy"], "graph": graph["busy"]},
+            "captures": graph["captures"], "replays": graph["replays"],
+            "state_tensors": len(ta)}
+
+
+def lockstep_summary(r: dict) -> str:
+    """One line's worth of a `graph_lockstep` result."""
+    fmt = lambda v: "-" if v is None else f"{v:.1f}"  # noqa: E731
+    walls = ", ".join(f"{p} {fmt(r['eager_ms'][p])} -> {fmt(r['graph_ms'][p])} "
+                      f"(x{r['eager_n'][p]}/x{r['graph_n'][p]})" for p in sorted(r["eager_ms"]))
+    traced = ", ".join(f"{p} {v if v is None else tuple(v)}"
+                       + (f" (session {r['trace_attempts']['graph'][p]})"
+                          if r["trace_attempts"]["graph"][p] > 1 else "")
+                       + ("" if v == r["graph_launches"][p] else
+                          f" (the graph's nodes {tuple(r['graph_launches'][p])})")
+                       for p, v in sorted(r["replay_launches"].items()))
+    return (f"{r['steps']} steps bit-equal (metrics; {r['state_tensors']} state tensors), "
+            f"{r['captures']} graphs, {r['replays']} replays; unit launches of a replay in the "
+            f"card's trace (fwd fp32, bf16, grad fp32, bf16; the graph's kernel nodes hold the "
+            f"eager step's): {traced}; ms eager -> graphed: "
+            f"{walls}; peak {r['peak_gb']['eager']:.2f} -> {r['peak_gb']['graph']:.2f} GiB")
+
+
+def family_lockstep(cfg, crop, what: str, per_step: int) -> dict:
+    """`graph_lockstep` of a family at full width, B = data.batch x
+    data.n_signal: FAMILY_PREWARMUP pre-warmup steps and FAMILY_CYCLES cycles
+    of a critic step every FAMILY_DIS_EVERY steps, each program warmed up,
+    captured and replayed at a later step, one more replay of each traced;
+    printed as a `graphs` line."""
+    import torch
+
+    cfg = copy.deepcopy(cfg)
+    cfg.train.update_discriminator_every = FAMILY_DIS_EVERY
+    x = torch.randn(cfg.data.batch, 1, cfg.data.n_signal, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(6)) * 0.1
+    r = graph_lockstep(cfg, crop, x, FAMILY_PREWARMUP, FAMILY_CYCLES, f"{what} graphed steps",
+                       per_step=per_step)
+    print(f"graphs: {what} training steps B={cfg.data.batch} x {cfg.data.n_signal} through "
+          f"TrainGraphs: {lockstep_summary(r)}", flush=True)
+    return r
+
+
+def graph_launches(train_graph: dict, modes, column: int) -> int:
+    """The unit's launches of one kind (a `LoopProbe.counts()` column) that
+    a replay of each program of phase `train_graph`'s `modes` runs, counted
+    in the graphs' kernel nodes (`graph_node_launches`; the traced replays'
+    counts are printed beside them)."""
+    return sum(v[column] for m in modes for v in train_graph[m]["graph_launches"].values())
+
+
+def phase_train_graph(crop) -> dict:
+    """v2's three programs as CUDA graphs against the eager steps; see the module docstring."""
+    import torch
+
+    from rave_tpu_torch.config import compose
+
+    t_phase = time.perf_counter()
+    out = {}
+    for mode, overrides in TRAIN_GRAPH_MODES.items():
+        cfg = compose(["v2"], overrides)
+        x = torch.randn(cfg.data.batch, 1, cfg.data.n_signal, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(6)) * 0.1
+        r = out[mode] = graph_lockstep(cfg, crop, x, TRAIN_GRAPH_PREWARMUP, TRAIN_GRAPH_CYCLES,
+                                       f"train_graph v2 {mode}", per_step=22,
+                                       busy=mode != "remat")
+        busy = "; ".join(
+            f"{run} {p} {b['wall_ms']:.1f} ms busy "
+            + ("not measured" if b["busy_ms"] is None else
+               f"{b['busy_ms']:.1f} ({100 * b['busy_share']:.0f}%)")
+            for run, by in r["busy"].items() for p, b in sorted(by.items()))
+        print(f"train_graph: v2 {mode} B={cfg.data.batch} x {cfg.data.n_signal}, "
+              f"{lockstep_summary(r)}" + (f"; one more step each: {busy}" if busy else ""),
+              flush=True)
+        del x
+    for mode in ("fp32", "bf16"):
+        e, g = out[mode]["eager_ms"]["gen_prewarmup"], out[mode]["graph_ms"]["gen_prewarmup"]
+        check(g is not None and e is not None and g < e,
+              f"train_graph v2 {mode}: the graphed pre-warmup step takes {g} ms, the eager "
+              f"{e} ms")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"train_graph: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def write_corpus(folder: Path, seed: int = 11) -> None:
     """LOOP_FILES seeded .wav files of tones, chirps, noise and their mix,
     LOOP_RECORDS records of N_SIGNAL samples in all."""
@@ -1466,7 +1926,7 @@ class LoopProbe:
     counts are read, never reset, so the phase's totals stay those of the
     main path."""
 
-    NAMES = ("receptive_field", "build_train_steps", "run_validation", "save_checkpoint",
+    NAMES = ("receptive_field", "train_steps", "run_validation", "save_checkpoint",
              "restore_checkpoint")
 
     def __init__(self):
@@ -1481,9 +1941,9 @@ class LoopProbe:
         loop.run_validation = self.observe("validation", self.saved["run_validation"])
         loop.save_checkpoint = self.observe("save", self.saved["save_checkpoint"])
         loop.restore_checkpoint = self.observe("restore", self.saved["restore_checkpoint"])
-        loop.build_train_steps = lambda *a, **k: {
+        loop.train_steps = lambda *a, **k: {
             which: self.observe("step", fn, which)
-            for which, fn in self.saved["build_train_steps"](*a, **k).items()}
+            for which, fn in self.saved["train_steps"](*a, **k).items()}
         return self
 
     def __exit__(self, *exc):
@@ -1501,8 +1961,11 @@ class LoopProbe:
     def observe(self, kind: str, fn, which: str = ""):
         import torch
 
+        from rave_tpu_torch.train import graphs as train_graphs
+
         def call(*args, **kwargs):
             torch.cuda.synchronize()
+            graphs = train_graphs.captures, train_graphs.replays
             before, t0 = self.counts(), time.perf_counter()
             step = args[0].step if kind == "step" else None
             out = fn(*args, **kwargs)
@@ -1514,6 +1977,9 @@ class LoopProbe:
                                                     after, before)}}
             if kind == "step":
                 event["step"] = step
+                # a replay of a graph captured at an earlier step (not a warm-up or capture)
+                event["replayed"] = (train_graphs.captures, train_graphs.replays) == (
+                    graphs[0], graphs[1] + 1)
                 event["phase"] = ("dis" if which == "dis" else
                                   "gen_adversarial" if args[2] else "gen_prewarmup")
                 event["finite"] = all(math.isfinite(float(v)) for v in out.values())
@@ -1557,18 +2023,14 @@ def threaded_loader():
 
 def loop_ms(events) -> dict:
     """Mean loop ms per step by phase: from the end of one step to the end of
-    the next (the loop's own work, data and logging included), over steps
-    that follow a step of the same run with no validation or save between,
-    after each phase's first step; and the bare step calls' mean over the same
-    steps."""
-    loop_times, bare, seen = {}, {}, set()
+    the next (the loop's own work, data and logging included), over the steps
+    that replay a graph captured at an earlier step and follow a step of the
+    same run with no validation or save between (a key's warm-up and
+    capturing steps pay one-time costs); and the bare step calls' mean over
+    the same steps. A phase with no such step is left out."""
+    loop_times, bare = {}, {}
     for prev, ev in zip(events, events[1:]):
-        if ev["kind"] != "step":
-            continue
-        if ev["phase"] not in seen:
-            seen.add(ev["phase"])
-            continue
-        if prev["kind"] == "step":
+        if ev["kind"] == "step" and ev["replayed"] and prev["kind"] == "step":
             loop_times.setdefault(ev["phase"], []).append((ev["end"] - prev["end"]) * 1e3)
             bare.setdefault(ev["phase"], []).append(ev["ms"])
     return {k: {"loop_ms": statistics.mean(v), "step_ms": statistics.mean(bare[k]), "n": len(v)}
@@ -1618,20 +2080,23 @@ def _cli(args) -> str:
 
 def _check_steps(events, kind: str, first: int, last: int, probe: bool = True,
                  per_step: int = 22) -> None:
-    """The run took steps first..last-1, each launching `per_step` units of
-    its variant (22; 0 for v3, whose Snake units bypass the kernel) and
-    `bwd_per_step` of the gradient kernel, and finite; each validation batch
-    and the probe's forwards as many units, the probe as many gradients and
-    validation none."""
+    """The run took steps first..last-1, each that ran Python (eager, or a
+    graph's warm-up or capture) launching `per_step` units of its variant
+    (22; 0 for v3, whose Snake units bypass the kernel) and `bwd_per_step` of
+    the gradient kernel, each replay of a graph none (it runs no Python;
+    phase `train_graph` counts a replay's kernels in the card's trace), and
+    finite; each validation batch and the probe's forwards as many units, the
+    probe as many gradients and validation none."""
     steps = [e for e in events if e["kind"] == "step"]
     check([e["step"] for e in steps] == list(range(first, last)),
           f"{kind} run took steps {[e['step'] for e in steps]}, expected {first}..{last - 1}")
     other = "fp32" if kind == "bf16" else "bf16"
     for e in steps:
-        want_bwd = bwd_per_step(e["phase"], per_step)
-        check(e[kind] == per_step and e[other] == 0,
-              f"{kind} run, step {e['step']} ({e['phase']}): {e['fp32']} fp32 and "
-              f"{e['bf16']} bf16 launches, expected {per_step} {kind}")
+        want = 0 if e["replayed"] else per_step
+        want_bwd = 0 if e["replayed"] else bwd_per_step(e["phase"], per_step)
+        check(e[kind] == want and e[other] == 0,
+              f"{kind} run, step {e['step']} ({e['phase']}, replayed {e['replayed']}): "
+              f"{e['fp32']} fp32 and {e['bf16']} bf16 launches, expected {want} {kind}")
         check(e[f"bwd_{kind}"] == want_bwd and e[f"bwd_{other}"] == 0,
               f"{kind} run, step {e['step']} ({e['phase']}): {e['bwd_fp32']} fp32 and "
               f"{e['bwd_bf16']} bf16 gradient kernel launches, expected {want_bwd} {kind}")
@@ -1658,6 +2123,7 @@ def phase_loop(train_ms: dict, train_bf16_ms: dict) -> dict:
     from rave_tpu_torch.data.dataset import get_dataset, split_dataset
     from rave_tpu_torch.data.device_data import DeviceDataPipeline
     from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.train import graphs as train_graphs
     from rave_tpu_torch.train.loop import device_batches
     from rave_tpu_torch.utils import checkpoint
 
@@ -1675,6 +2141,7 @@ def phase_loop(train_ms: dict, train_bf16_ms: dict) -> dict:
               "--n_signal", N_SIGNAL, "--device", "cuda"]
     for o in LOOP_SCHEDULE:
         common += ["--override", o]
+    graphs0 = train_graphs.captures, train_graphs.replays
     with LoopProbe() as probe:
         # fp32 with the device-resident dataset, then a resume with more steps
         out = _cli(["train", "--name", "loop", "--max_steps", LOOP_STEPS, "--val_every",
@@ -1697,6 +2164,11 @@ def phase_loop(train_ms: dict, train_bf16_ms: dict) -> dict:
                          f"train.phase_1_duration={LOOP_BF16_WARMUP}"])
         run_bf16 = Path(out3.strip().splitlines()[-1].removeprefix("run dir: "))
         bf16_events = probe.take()
+    graphed = (train_graphs.captures - graphs0[0], train_graphs.replays - graphs0[1])
+    for o in (out, out2, out3):  # each run captures its graphs, the resumed one after its restore
+        check(GRAPHED_STEPS in o, f"cli train did not graph its steps: {o[-1500:]}")
+    check(graphed[0] >= 3 and graphed[1] > 0, f"loop runs: {graphed[0]} graphs captured, "
+                                              f"{graphed[1]} replays")
     evals = []
     for ema in (False, False, True):
         before = LoopProbe.counts()
@@ -1794,6 +2266,7 @@ def phase_loop(train_ms: dict, train_bf16_ms: dict) -> dict:
     timing = {"fp32": loop_ms(first + resumed), "bf16": loop_ms(bf16_events)}
     out = {"records": LOOP_RECORDS, "run_dir": str(run_dir.relative_to(ROOT)),
            "checkpoints": ckpts, "launches": launches, "peak_gb": peak_gb,
+           "graph_captures": graphed[0], "graph_replays": graphed[1],
            "loop_ms": timing, "bare_step_ms": {"fp32": train_ms, "bf16": train_bf16_ms},
            "device_batch_ms": batch_ms, "save_s": [e["ms"] / 1e3 for e in saves],
            "checkpoint_mb": [e["mb"] for e in saves], "eval": evals[0],
@@ -1808,7 +2281,9 @@ def phase_loop(train_ms: dict, train_bf16_ms: dict) -> dict:
                         for kind, t in timing.items() for ph, v in sorted(t.items()))
     print(f"loop: cli preprocess {LOOP_RECORDS} records -> train v2 B={TRAIN_BATCH} x {N_SIGNAL} "
           f"steps 0..{LOOP_STEPS - 1} (device data), resumed to {LOOP_RESUME_STEPS}, bf16 "
-          f"{LOOP_BF16_STEPS} steps (host loader) -> eval x2; 22 launches per step and per "
+          f"{LOOP_BF16_STEPS} steps (host loader) -> eval x2; steps as CUDA graphs "
+          f"({graphed[0]} captured, {graphed[1]} replays); 22 launches per step that runs "
+          f"Python (none in a replay) and per "
           f"validation/eval batch, {launches['fp32']} fp32 + {launches['bf16']} bf16 in all; "
           f"checkpoints {ckpts}; restore bit-equal (EMA included); validation {out['validation']}; eval "
           + ", ".join(f"{k} {evals[0][k]}" for k in EVAL_METRICS)
@@ -2392,12 +2867,30 @@ def check_prior_codes(card_art, cpu_art, n: int, seed: int) -> dict:
     l_card = logits[0, bad[:, 1], picks_card[0, bad[:, 1], bad[:, 2]], bad[:, 2]].double()
     l_cpu = logits[0, bad[:, 1], picks_cpu[0, bad[:, 1], bad[:, 2]], bad[:, 2]].double()
     ties = int(((l_cpu - l_card).abs() <= CODE_TIE * (l_cpu.abs() + l_card.abs())).sum())
+    # how near the CPU's two best logits came anywhere on the chain (relative gap)
+    top = logits.double().topk(2, dim=2).values
+    gaps = (top[:, :, 0] - top[:, :, 1]) / (top[:, :, 0].abs() + top[:, :, 1].abs())
+    nearest = float(gaps.nan_to_num(nan=math.inf).min())
+    if len(bad) != ties:  # each pick that parts: both devices' logits and a float64 referee's
+        with torch.no_grad():
+            on_card = split_classes(prior(inputs.cuda()), D).cpu()
+            f64 = split_classes(copy.deepcopy(cpu_art.prior_step.prior).double()(
+                inputs.double()), D)
+        parts = []
+        for (_, d, t), a, b in zip(bad.tolist(), l_cpu.tolist(), l_card.tolist()):
+            pa, pb = int(picks_cpu[0, d, t]), int(picks_card[0, d, t])
+            parts.append(f"dim {d} step {t}: CPU picks {pa}, card {pb}; CPU logits {a:.9g} / "
+                         f"{b:.9g} (relative gap {(a - b) / (abs(a) + abs(b)):.3e}), card "
+                         f"{float(on_card[0, d, pa, t]):.9g} / {float(on_card[0, d, pb, t]):.9g}, "
+                         f"float64 {float(f64[0, d, pa, t]):.9g} / {float(f64[0, d, pb, t]):.9g} "
+                         f"(float64 picks {int(f64[0, d, :, t].argmax())})")
+        print("prior argmax codes that part:\n  " + "\n  ".join(parts), flush=True)
     check(len(bad) == ties, f"prior argmax codes: {len(bad)} differ on the card's chain, "
-                            f"{ties} of them ties")
+                            f"{ties} of them ties (CODE_TIE {CODE_TIE:g} of |l_a| + |l_b|)")
     z_card = card_art.sample_prior(n, seed=seed, argmax=True).cpu()
     z_cpu = cpu_art.sample_prior(n, seed=seed, argmax=True)
     return {"codes": int(picks_card.numel()), "codes_differ": len(bad), "code_ties": ties,
-            "own_chain_z_rel_err": rel_err(z_card, z_cpu)}
+            "nearest_relative_gap": nearest, "own_chain_z_rel_err": rel_err(z_card, z_cpu)}
 
 
 def phase_prior(run_dir: Path, db: Path) -> dict:
@@ -2592,7 +3085,8 @@ def phase_prior(run_dir: Path, db: Path) -> dict:
           f"export --prior {export_s:.1f} s; generate --prior_seconds {PRIOR_SECONDS:g} "
           f"{generate_s:.2f} s, {wav.shape[0]} samples; sample_prior({n_frames}) "
           f"{sample_s:.2f} s; argmax codes card vs CPU on the card's chain: "
-          f"{codes['codes_differ']} of {codes['codes']} differ ({codes['code_ties']} ties), "
+          f"{codes['codes_differ']} of {codes['codes']} differ ({codes['code_ties']} ties; the "
+          f"CPU's nearest two best logits {codes['nearest_relative_gap']:.2e} apart), "
           f"own chains' latents {codes['own_chain_z_rel_err']:.2e}; prior_step.pt2 "
           f"and both served steps bit-equal over {PRIOR_PROGRAM_STEPS} steps; step p50 served "
           f"{p50['graph']:.3f} / .pt2 served {p50['program']:.3f} / eager {p50['eager']:.3f} / "
@@ -2620,10 +3114,15 @@ DISCRETE_LOOP_STEPS, DISCRETE_RESUME_STEPS, DISCRETE_VAL_EVERY = 6, 8, 3
 CODE_TIE = 1e-6
 
 
-def _family_step_b1(names, which: str, warmed: bool) -> dict:
-    """The first step of one program of `names` from the seed-0 state at B=1
-    x n_signal, on the card and on the CPU with the same draws (drawn on the
-    CPU): {device: metrics}."""
+B1_PROGRAMS = (("gen_prewarmup", "gen", False), ("gen_adversarial", "gen", True),
+               ("dis", "dis", True))
+
+
+def _family_steps_b1(names, programs=B1_PROGRAMS) -> dict:
+    """The first step of each of `programs` ((name, which, warmed)) of
+    `names` from the seed-0 state at B=1 x n_signal, on the card and on the
+    CPU with the same draws (drawn on the CPU): {name: {device: metrics}}.
+    Each device's state is built once and copied for each program."""
     import torch
 
     from rave_tpu_torch.config import compose
@@ -2633,15 +3132,18 @@ def _family_step_b1(names, which: str, warmed: bool) -> dict:
     cfg = compose(names)
     xb, _ = _b1_inputs(cfg)
     draws = draw_noise(cfg, xb, torch.Generator().manual_seed(9))
-    out = {}
+    steps = build_train_steps(cfg)  # no crop: the same on both devices
+    out = {name: {} for name, _, _ in programs}
     for device in ("cuda", "cpu"):
-        st = create_train_state(cfg, seed=0, device=device)
-        st.step = cfg.train.phase_1_duration if warmed else 0
-        steps = build_train_steps(cfg)  # no crop: the same on both devices
+        seed0 = create_train_state(cfg, seed=0, device=device)
         x, d = xb.to(device), draws.to(device)
-        m = (steps["gen"](st, x, warmed, draws=d) if which == "gen"
-             else steps["dis"](st, x, draws=d))
-        out[device] = {k: float(v) for k, v in m.items()}
+        for name, which, warmed in programs:
+            st = copy.deepcopy(seed0)
+            st.step = cfg.train.phase_1_duration if warmed else 0
+            m = (steps["gen"](st, x, warmed, draws=d) if which == "gen"
+                 else steps["dis"](st, x, draws=d))
+            out[name][device] = {k: float(v) for k, v in m.items()}
+        del seed0
     return out
 
 
@@ -2930,7 +3432,7 @@ def _other_family(names) -> dict:
     ms, launches = (time.perf_counter() - t0) * 1e3, dilated_unit.launches
     check(launches == 22 and all(math.isfinite(float(v)) for v in m.values()),
           f"{cfg.latent.family} step: {launches} launches, metrics {m}")
-    b1 = _family_step_b1(names, "gen", False)
+    b1 = _family_steps_b1(names, B1_PROGRAMS[:1])["gen_prewarmup"]
     loss_err = _loss_err(b1["cuda"], b1["cpu"])
     latent_size = user_latent_size(cfg, None, 0.0)
     gpu = state.model.eval()
@@ -2978,10 +3480,7 @@ def phase_discrete() -> dict:
     reset_graph_counts()
     offline = timed("offline", _discrete_offline, cfg)
     train = timed("steps", _discrete_steps, cfg)
-    b1 = timed("b1_card_vs_cpu", lambda: {
-        k: _family_step_b1(["discrete"], which, warmed)
-        for k, which, warmed in (("gen_prewarmup", "gen", False),
-                                 ("gen_adversarial", "gen", True), ("dis", "dis", True))})
+    b1 = timed("b1_card_vs_cpu", _family_steps_b1, ["discrete"])
     b1_err = {k: _loss_err(v["cuda"], v["cpu"]) for k, v in b1.items()}
     check(max(b1_err.values()) <= MODEL_TOL, f"discrete B=1 card vs CPU losses {b1_err}")
     loop = timed("loop", _discrete_loop, cfg, work, ROOT / "build" / "loop" / "db")
@@ -2992,7 +3491,9 @@ def phase_discrete() -> dict:
     shutil.rmtree(work, ignore_errors=True)
     launches = offline["launches"] + train["launches"] + loop["launches"] + \
         export["generate_launches"] + sum(o["launches"] for o in others.values())
+    graphed = timed("graphed", family_lockstep, cfg, (0, 0), "discrete", 22)
     out = {"kernel_rows": kernel_rows, "offline": offline, "train": train,
+           "graphed_steps": graphed,
            "b1_loss_rel_err": b1_err, "loop": {k: v for k, v in loop.items() if k != "run_dir"},
            "export": export, "others": others, "launches": launches, "part_seconds": seconds,
            "graphs": graphs_line("discrete", {"discrete": export["block_ms_p50"]},
@@ -3214,8 +3715,9 @@ def _critic_ms(cfg) -> dict:
 def _v3_steps(cfg) -> dict:
     """The receptive-field probe, then fp32 and `train.bf16` + `bf16_dis`
     steps of the three programs at B=8 x 131072 (`_train_run`, no unit
-    launch), the first step of each program at B=1 on the card against the
-    CPU, and the critic's fwd+bwd split."""
+    launch), the fp32 programs eager and through `TrainGraphs`
+    (`family_lockstep`, bit-equal), the first step of each program at B=1 on
+    the card against the CPU, and the critic's fwd+bwd split."""
     import torch
 
     from rave_tpu_torch.config import compose
@@ -3232,13 +3734,12 @@ def _v3_steps(cfg) -> dict:
     for kind, extra in (("fp32", []), ("bf16", ["train.bf16=true", "train.bf16_dis=true"])):
         runs[kind] = _train_run(compose(["v3"], extra), crop, x, bf16=kind == "bf16",
                                 per_step=0, prewarmup=V3_PREWARMUP, cycles=V3_CYCLES)
-    b1 = {k: _family_step_b1(["v3"], which, warmed)
-          for k, which, warmed in (("gen_prewarmup", "gen", False),
-                                   ("gen_adversarial", "gen", True), ("dis", "dis", True))}
+    graphed = family_lockstep(cfg, crop, "v3", 0)
+    b1 = _family_steps_b1(["v3"])
     b1_err = {k: _loss_err(v["cuda"], v["cpu"]) for k, v in b1.items()}
     check(max(b1_err.values()) <= MODEL_TOL, f"v3 B=1 card vs CPU losses {b1_err}")
     return {"rf": list(rf), "crop_frames": list(crop), "runs": runs, "b1_loss_rel_err": b1_err,
-            "critic_fwd_bwd_ms": _critic_ms(cfg)}
+            "critic_fwd_bwd_ms": _critic_ms(cfg), "graphed_steps": graphed}
 
 
 @contextlib.contextmanager
@@ -3557,9 +4058,7 @@ def _v3_discrete() -> dict:
         step_ms[name] = (time.perf_counter() - t0) * 1e3
         check(dilated_unit.launches == 0 and all(math.isfinite(float(v)) for v in m.values()),
               f"discrete_v3 {name} step: {dilated_unit.launches} launches, metrics {m}")
-    b1 = {k: _family_step_b1(["discrete_v3"], which, warmed)
-          for k, which, warmed in (("gen_prewarmup", "gen", False),
-                                   ("gen_adversarial", "gen", True), ("dis", "dis", True))}
+    b1 = _family_steps_b1(["discrete_v3"])
     b1_err = {k: _loss_err(v["cuda"], v["cpu"]) for k, v in b1.items()}
     check(max(b1_err.values()) <= MODEL_TOL, f"discrete_v3 card vs CPU: B=1 losses {b1_err}")
     return {"forward_ms": forward_s * 1e3,
@@ -3863,8 +4362,10 @@ def batch_stats(model) -> dict:
 def _variant_steps(preset: str, cfg, want: int = None) -> dict:
     """The receptive-field crop, one step of each program at B=8 x 131072
     after one warm step each (exact launches, `want` per step, times, peak
-    memory), and the first step of each program at B=1 on the card against
-    the CPU (losses, and BatchNorm's running statistics after the step)."""
+    memory), for the GRAPHED_FAMILIES the programs eager and through
+    `TrainGraphs` (`family_lockstep`: bit-equal, exact launches), and the
+    first step of each program at B=1 on the card against the CPU (losses,
+    and BatchNorm's running statistics after the step)."""
     import torch
 
     from rave_tpu_torch.train.analysis import crop_frames, receptive_field
@@ -3876,8 +4377,10 @@ def _variant_steps(preset: str, cfg, want: int = None) -> dict:
     t1 = cfg.train.phase_1_duration
     programs = {"gen_prewarmup": ("gen", False, 0), "gen_adversarial": ("gen", True, t1 + 1),
                 "dis": ("dis", True, t1)}
-    timed = _timed_steps(cfg, crop, False, programs,
-                         VARIANT_LAUNCHES[preset] if want is None else want)
+    want = VARIANT_LAUNCHES[preset] if want is None else want
+    timed = _timed_steps(cfg, crop, False, programs, want)
+    if preset in GRAPHED_FAMILIES:
+        timed["graphed_steps"] = family_lockstep(cfg, crop, preset, want)
 
     xb = torch.randn(1, 1, VARIANT_B1_SIGNAL, generator=torch.Generator().manual_seed(8)) * 0.1
     db = draw_noise(cfg, xb, torch.Generator().manual_seed(9))
@@ -3927,6 +4430,7 @@ def _variant_loop_export(preset: str, cfg, work: Path, db: Path) -> dict:
         events = probe.take()
     run_dir = Path(out.strip().splitlines()[-1].removeprefix("run dir: "))
     check("device-resident dataset" in out, f"{preset}: the run did not use the device dataset")
+    check(GRAPHED_STEPS in out, f"{preset}: the run did not graph its steps")
     _check_steps(events, "fp32", 0, VARIANT_LOOP_STEPS, probe=cfg.train.valid_signal_crop,
                  per_step=want)
     phases = [e["phase"] for e in events if e["kind"] == "step"]
@@ -4461,7 +4965,9 @@ def phase_spectral(crop) -> dict:
     b1 = {"fp32": _b1_losses(cfgs["fp32"], programs),
           **{k: _b1_losses(cfgs[k], adversarial) for k in DISTANCE_KINDS}}
     critic = {k: _spectral_critic_ms(cfgs["fp32"], k == "bf16") for k in ("fp32", "bf16")}
+    graphed = family_lockstep(cfgs["fp32"], crop, "spectral", 22)
     out.update({"launches": launches, "launches_bf16": launches_bf16, "b1_loss_rel_err": b1,
+                "graphed_steps": graphed,
                 "critic_fwd_bwd_ms": critic, "spectral_critic_tflop_fwd":
                 spectral_flop(cfgs["fp32"], 2 * TRAIN_BATCH, N_SIGNAL) / 1e12,
                 "seconds": time.perf_counter() - t_phase})
@@ -4667,12 +5173,16 @@ DP_TIMEOUT = 600
 DP_BWD_LAUNCHES = [bwd_per_step(p, 22) for p in ("gen_prewarmup", "gen_adversarial", "dis")]
 
 
-def free_port() -> int:
+def free_port(avoid: int = None) -> int:
+    """A free localhost port, other than `avoid` (one already handed out)."""
     import socket
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    while True:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        if port != avoid:
+            return port
 
 
 def _run(cmd, what: str) -> str:
@@ -4703,9 +5213,30 @@ def grads_rel_l2(got: dict, want: dict) -> float:
     return math.sqrt(num / den)
 
 
-def torchrun(ranks: int):
+def torchrun(ranks: int, port: int = None):
     return [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", ranks,
-            "--master_addr", "127.0.0.1", "--master_port", free_port(), "-m"]
+            "--master_addr", "127.0.0.1", "--master_port", port or free_port(), "-m"]
+
+
+def _in_threads(calls) -> list:
+    """Each of `calls` (no arguments) at once, one thread each: their results
+    in order; the first failure raises once every call has ended."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(len(calls)) as pool:
+        futures = [pool.submit(call) for call in calls]
+    return [f.result() for f in futures]
+
+
+def _run_together(*jobs) -> list:
+    """`_run` of each (cmd, what) at once, one thread each: [(standard output,
+    seconds)] in order. Each waits for its own process group; the first
+    failure raises once every job has ended."""
+    def timed_run(cmd, what):
+        t0 = time.perf_counter()
+        return _run(cmd, what), time.perf_counter() - t0
+
+    return _in_threads([functools.partial(timed_run, cmd, what) for cmd, what in jobs])
 
 
 def phase_native(loop: dict) -> dict:
@@ -4770,6 +5301,7 @@ def phase_native(loop: dict) -> dict:
                 events = probe.take()
                 check("using the native (C++) input pipeline" in out,
                       f"the {kind} run did not take the native loader")
+                check(GRAPHED_STEPS in out, f"the {kind} run did not graph its steps")
                 check(fed["batches"] - before >= NATIVE_STEPS,
                       f"the native loader made {fed['batches'] - before} batches")
                 _check_steps(events, kind, 0, NATIVE_STEPS, per_step=2 * UNITS_PER_HALF)
@@ -4811,6 +5343,8 @@ def phase_remote(crop) -> dict:
     from rave_tpu_torch.data.dataset import HTTPAudioDataset, get_dataset, split_dataset
     from rave_tpu_torch.data.loader import Loader
     from rave_tpu_torch.ops.kernels import dilated_unit
+    from rave_tpu_torch.train import graphs as train_graphs
+    from rave_tpu_torch.train.graphs import TrainGraphs
     from rave_tpu_torch.train.loop import fp32_exact
     from rave_tpu_torch.train.loop import train as train_loop
     from rave_tpu_torch.train.state import create_train_state
@@ -4846,8 +5380,10 @@ def phase_remote(crop) -> dict:
               "the remote Loader's batches are not the local Loader's")
         cfg = config_lib.compose(["v2"])
         state = create_train_state(cfg, device="cuda")
-        steps = build_train_steps(cfg, crop)
-        counts, counts_bwd, want_bwd, losses, ms = [], [], [], [], []
+        # a warm-up step, a capture (and its replay), a replay of it
+        graphs = TrainGraphs(build_train_steps(cfg, crop))
+        steps = {"gen": graphs.gen, "dis": graphs.dis}
+        counts, counts_bwd, want, want_bwd, replayed, losses, ms = [], [], [], [], [], [], []
         torch.cuda.synchronize()
         reset_counts()
         with fp32_exact():
@@ -4856,6 +5392,7 @@ def phase_remote(crop) -> dict:
                 which, warmed, quantize = pick_phase(cfg, state.step)
                 draws = draw_noise(cfg, x, step_generator(1, state.step, "cuda"))
                 torch.cuda.synchronize()
+                served = train_graphs.captures, train_graphs.replays
                 n0, b0, t0 = (dilated_unit.launches, dilated_unit.launches_backward,
                               time.perf_counter())
                 m = (steps["gen"](state, x, warmed, draws=draws, quantize=quantize)
@@ -4863,17 +5400,24 @@ def phase_remote(crop) -> dict:
                                                          quantize=quantize))
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
+                # a replay runs no Python: the wrappers count a warm-up's and a capture's
+                replayed.append((train_graphs.captures, train_graphs.replays)
+                                == (served[0], served[1] + 1))
                 counts.append(dilated_unit.launches - n0)
                 phase = "dis" if which == "dis" else (
                     "gen_adversarial" if warmed else "gen_prewarmup")
                 counts_bwd.append(dilated_unit.launches_backward - b0)
-                want_bwd.append(bwd_per_step(phase, 22))
+                want.append(0 if replayed[-1] else 2 * UNITS_PER_HALF)
+                want_bwd.append(0 if replayed[-1] else bwd_per_step(phase, 22))
                 losses.append(float(m["loss_gen" if which == "gen" else "loss_dis"]))
-        check(counts == [2 * UNITS_PER_HALF] * REMOTE_BATCHES and dilated_unit.launches_bf16 == 0,
-              f"remote steps' launches {counts}")
+        check(replayed == [False] * 2 + [True] * (REMOTE_BATCHES - 2),
+              f"remote steps: replays {replayed}, expected a warm-up, a capture, then replays")
+        check(counts == want and dilated_unit.launches_bf16 == 0,
+              f"remote steps' launches {counts}, expected {want}")
         check(counts_bwd == want_bwd and dilated_unit.launches_backward_bf16 == 0,
               f"remote steps' gradient kernel launches {counts_bwd}, expected {want_bwd}")
         check(all(math.isfinite(v) for v in losses), f"remote steps' losses {losses}")
+        check(len(graphs.graphs) == 1, f"remote steps: {len(graphs.graphs)} graphs captured")
         # C20: the JAX package's train cannot take a URL, nor can the port's
         check(refuses(lambda: train_loop(copy.deepcopy(cfg), url, out_path=str(work),
                                          device="cuda"), FileNotFoundError),
@@ -4889,7 +5433,9 @@ def phase_remote(crop) -> dict:
     print(f"remote: cli remote_dataset on :{port} ({len(remote)} records) -> get_dataset(url) "
           f"through Loader: {REMOTE_BATCHES} batches of B={TRAIN_BATCH} x {N_SIGNAL} bit-equal "
           f"to the local store's; {http_ms:.1f} ms per batch over HTTP, {local_ms:.1f} locally; "
-          f"v2 steps on them: launches {counts}, ms {', '.join(f'{v:.1f}' for v in ms)}, losses "
+          f"v2 steps on them (TrainGraphs: a warm-up step, a capture, a replay): wrapper "
+          f"launches {counts}, ms "
+          f"{', '.join(f'{v:.1f}' for v in ms)}, losses "
           f"{', '.join(f'{v:.4f}' for v in losses)}; train on the URL raises "
           f"FileNotFoundError (C20); {out['seconds']:.1f} s", flush=True)
     return out
@@ -4911,14 +5457,27 @@ def phase_parallel() -> dict:
             for d in dils]
     worker = ["rave_tpu_torch.parallel.mpworker", "--device", "cuda", "--deterministic",
               "--step0_grads", *DP_WORKER_ARGS]
-    t0 = time.perf_counter()
-    out_two = _run(torchrun(DP_RANKS) + worker + ["--batch", DP_BATCH, "--out_dir", work / "two"],
-                   "the 2-rank worker")
-    two_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    _run([sys.executable, "-m", *worker, "--batch", DP_RANKS * DP_BATCH, "--out_dir",
-          work / "one"], "the one-process worker")
-    one_s = time.perf_counter() - t0
+    # `cli train` in two ranks: native loader, lockstep validation, rank 0 saves
+    common = ["rave_tpu_torch.cli", "train", "--name", "dp", "--config", "v2", "--db_path", db,
+              "--out_path", work / "runs", "--batch", DP_LOOP_BATCH, "--n_signal", N_SIGNAL,
+              "--device", "cuda", "--device_data", "off", "--val_every", 2, "--save_every", 1000]
+    for o in LOOP_SCHEDULE:
+        common += ["--override", o]
+    # the workers beside the two `cli train` runs (independent process groups on the card): in
+    # turn they took ~90 s more (an H100 80GB HBM3 host: 178.7 s against 87.7), which the smoke's
+    # time limit cannot hold; the workers' step ms are printed, not held, and taken beside them
+    port = free_port()
+    (out_two, two_s), (out1, first_s) = _run_together(
+        (torchrun(DP_RANKS, port) + worker + ["--batch", DP_BATCH, "--out_dir", work / "two"],
+         "the 2-rank worker"),
+        (torchrun(DP_RANKS, free_port(avoid=port)) + common + ["--max_steps", DP_LOOP_STEPS],
+         "2-rank cli train"))
+    (_, one_s), (out2, resume_s) = _run_together(
+        ([sys.executable, "-m", *worker, "--batch", DP_RANKS * DP_BATCH, "--out_dir",
+          work / "one"], "the one-process worker"),
+        (torchrun(DP_RANKS) + common + ["--max_steps", DP_LOOP_RESUME],
+         "2-rank cli train (resume)"))
+    loop_s = first_s + resume_s
     ranks = [json.loads((work / "two" / f"rank{r}.json").read_text()) for r in range(DP_RANKS)]
     single = json.loads((work / "one" / "rank0.json").read_text())
     check("backend gloo" in out_two, f"the ranks' backend: {out_two[:300]}")
@@ -4944,19 +5503,10 @@ def phase_parallel() -> dict:
     check(grad_err <= DP_GRAD_TOL,
           f"2 ranks vs one process: step 0's gradient {grad_err:.3e} > {DP_GRAD_TOL}")
 
-    # the training driver in two ranks: native loader, lockstep validation, rank 0 saves
-    common = ["rave_tpu_torch.cli", "train", "--name", "dp", "--config", "v2", "--db_path", db,
-              "--out_path", work / "runs", "--batch", DP_LOOP_BATCH, "--n_signal", N_SIGNAL,
-              "--device", "cuda", "--device_data", "off", "--val_every", 2, "--save_every", 1000]
-    for o in LOOP_SCHEDULE:
-        common += ["--override", o]
-    t0 = time.perf_counter()
-    out1 = _run(torchrun(DP_RANKS) + common + ["--max_steps", DP_LOOP_STEPS], "2-rank cli train")
-    out2 = _run(torchrun(DP_RANKS) + common + ["--max_steps", DP_LOOP_RESUME],
-                "2-rank cli train (resume)")
-    loop_s = time.perf_counter() - t0
     check(out1.count("using the native (C++) input pipeline") == 1
           and "data parallel: 2 ranks, backend gloo" in out1, f"2-rank train: {out1[-1500:]}")
+    check(out1.count(EAGER_DP_STEPS) == 1 and GRAPHED_STEPS not in out1,
+          f"2-rank train did not run its steps eagerly: {out1[-1500:]}")
     check(out2.count(f"resumed at step {DP_LOOP_STEPS}") == 1, f"2-rank resume: {out2[-1500:]}")
     run_dir = Path(out1.strip().splitlines()[-1].removeprefix("run dir: "))
     vals = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
@@ -4989,7 +5539,8 @@ def phase_parallel() -> dict:
           f"rank 0 {by_step(ranks[0])}, one process {by_step(single)}; worker {two_s:.1f} s, one "
           f"process {one_s:.1f} s; 2-rank cli train (native loader, B={DP_LOOP_BATCH} per rank) "
           f"validated at {val_steps}, rank 0 saved {ckpts}, resumed at {DP_LOOP_STEPS}, "
-          f"{loop_s:.1f} s; unit at the 11 centered B={DP_BATCH} shapes: max rel err "
+          f"{loop_s:.1f} s, its steps eager by rule (gloo's collectives cannot be captured); "
+          f"unit at the 11 centered B={DP_BATCH} shapes: max rel err "
           f"{max(r['rel_err'] for r in rows):.1e}, kernel/plain ms: {shape_summary(rows)}; "
           f"{out['seconds']:.1f} s", flush=True)
     return out
@@ -5220,20 +5771,37 @@ def phase_host(build: HostBuild, artifacts: dict) -> dict:
                                    for kind, pattern in (("all", "*"), ("ts", "*.ts"),
                                                          ("state", "*.state"))}
                             for name, path in paths.items()}}
-    for name, path in paths.items():
-        check_info(host_info(host, path, name),
-                   json.loads((path / "manifest.json").read_text()), name)
+    infos = _in_threads([functools.partial(host_info, host, path, name)
+                         for name, path in paths.items()])
+    for (name, path), fields in zip(paths.items(), infos):
+        check_info(fields, json.loads((path / "manifest.json").read_text()), name)
 
-    # v2 and discrete: encode bit-equal, forward (and v2's decode) within the wav's rounding
+    # v2 and discrete: encode bit-equal, forward (and v2's decode) within the wav's rounding;
+    # the host's commands of both families run side by side (processes of their own; v2's
+    # decode reads its encode's latents), then each family's eager stream is compared
+    arts, xs = {}, {}
     for name in ("v2", "discrete"):
-        path = paths[name]
-        art = ExportedRAVE(str(path), device="cuda")
+        arts[name] = ExportedRAVE(str(paths[name]), device="cuda")
+        xs[name] = host_signal(work / f"{name}.wav", HOST_BLOCKS * arts[name].block_size - 100,
+                               seed=len(name))
+
+    def encode(name):
+        host.run(f"{name} encode", "--save-state", work / f"{name}_enc.state", paths[name],
+                 "encode", work / f"{name}.wav", work / f"{name}_z.f32", HOST_SEED)
+        if name == "v2":
+            host.run("v2 decode", "--save-state", work / "v2_dec.state", paths[name], "decode",
+                     work / "v2_z.f32", work / "v2_dec.wav", HOST_SEED + 2)
+
+    def forward(name):
+        host.run(f"{name} forward", "--save-state", work / f"{name}_fwd.state", paths[name],
+                 "forward", work / f"{name}.wav", work / f"{name}_fwd.wav", HOST_SEED + 1)
+
+    _in_threads([functools.partial(run, name) for name in arts for run in (encode, forward)])
+    for name in ("v2", "discrete"):
+        path, art, x = paths[name], arts.pop(name), xs[name]
         B, L = art.block_size, art.latent_size
-        x = host_signal(work / f"{name}.wav", HOST_BLOCKS * B - 100, seed=len(name))
         blocks = host_blocks(x, B)
         r = {"block": B}
-        host.run(f"{name} encode", "--save-state", work / f"{name}_enc.state", path, "encode",
-                 work / f"{name}.wav", work / f"{name}_z.f32", HOST_SEED)
         z = np.fromfile(work / f"{name}_z.f32", np.float32).reshape(-1, L)
         z_py, state = eager_stream(art, "encode", blocks, HOST_SEED)
         z_py = z_py[0].T.numpy()
@@ -5243,14 +5811,10 @@ def phase_host(build: HostBuild, artifacts: dict) -> dict:
         check(r["encode_bit_equal"], f"{name}: the host's encode latents {z.shape} are not "
                                      f"bit-equal to the Python eager stream's {z_py.shape} "
                                      f"(max abs err {r['encode_max_abs_err']})")
-        host.run(f"{name} forward", "--save-state", work / f"{name}_fwd.state", path,
-                 "forward", work / f"{name}.wav", work / f"{name}_fwd.wav", HOST_SEED + 1)
         y, state = eager_stream(art, "forward", blocks, HOST_SEED + 1)
         r["forward_wav_err"] = wav_err(work / f"{name}_fwd.wav", y[0, 0, :len(x)])
         r["forward_state_bit_equal"] = state_equal(work / f"{name}_fwd.state", state)
         if name == "v2":
-            host.run("v2 decode", "--save-state", work / "v2_dec.state", path, "decode",
-                     work / "v2_z.f32", work / "v2_dec.wav", HOST_SEED + 2)
             frames = B // art.cfg.decimation()
             zb = [torch.from_numpy(z[i * frames:(i + 1) * frames].T.copy())[None]
                   for i in range(len(blocks))]
@@ -5346,34 +5910,44 @@ def main() -> None:
     import torch
 
     card = phase_device()
+    seconds = {}
+
+    def timed(name: str, phase, *args):
+        t0 = time.perf_counter()
+        result = phase(*args)
+        seconds[name] = time.perf_counter() - t0
+        return result
+
     host_build = HostBuild()  # g++ on the CPU while the phases below work the card
-    build_info = phase_build()
-    rows = phase_kernel()
-    rows_bf16 = phase_kernel_bf16()
-    offline = phase_offline()
-    grad = phase_grad()
-    train = phase_train()
-    train_bf16 = phase_train_bf16(tuple(train["crop_frames"]))
-    remat = phase_remat(tuple(train["crop_frames"]))
-    loop = phase_loop(train["ms_per_step"], train_bf16["ms_per_step"])
-    export = phase_export(ROOT / loop["run_dir"])
-    prior = phase_prior(ROOT / loop["run_dir"], ROOT / "build" / "loop" / "db")
-    v1 = phase_v1(ROOT / loop["run_dir"], ROOT / "build" / "loop" / "db")
+    build_info = timed("build", phase_build)
+    rows = timed("kernel", phase_kernel)
+    rows_bf16 = timed("kernel_bf16", phase_kernel_bf16)
+    offline = timed("offline", phase_offline)
+    grad = timed("grad", phase_grad)
+    train = timed("train", phase_train)
+    train_bf16 = timed("train_bf16", phase_train_bf16, tuple(train["crop_frames"]))
+    remat = timed("remat", phase_remat, tuple(train["crop_frames"]))
+    train_graph = timed("train_graph", phase_train_graph, tuple(train["crop_frames"]))
+    loop = timed("loop", phase_loop, train["ms_per_step"], train_bf16["ms_per_step"])
+    export = timed("export", phase_export, ROOT / loop["run_dir"])
+    db = ROOT / "build" / "loop" / "db"
+    prior = timed("prior", phase_prior, ROOT / loop["run_dir"], db)
+    v1 = timed("v1", phase_v1, ROOT / loop["run_dir"], db)
     v2_artifact = keep_for_host("v2", ROOT / export["artifacts"]["streaming_ema"]["path"])
     shutil.rmtree(ROOT / "build" / "loop" / "runs", ignore_errors=True)  # ~0.7 GB per checkpoint
     shutil.rmtree(ROOT / "build" / "loop" / "export", ignore_errors=True)
-    spectral = phase_spectral(tuple(train["crop_frames"]))
-    imported = phase_import()
-    native = phase_native(loop)
-    remote = phase_remote(tuple(train["crop_frames"]))
-    parallel = phase_parallel()
-    discrete = phase_discrete()
-    stream = phase_stream()  # the phases whose served streams are new checks run last
-    variants = phase_variants()
-    v3 = phase_v3()
-    host = phase_host(host_build, {"v2": v2_artifact, "prior": prior["host_artifact"],
-                                   "discrete": discrete["export"]["path"],
-                                   "v3": v3["export"]["path"]})
+    spectral = timed("spectral", phase_spectral, tuple(train["crop_frames"]))
+    imported = timed("import", phase_import)
+    native = timed("native", phase_native, loop)
+    remote = timed("remote", phase_remote, tuple(train["crop_frames"]))
+    parallel = timed("parallel", phase_parallel)
+    discrete = timed("discrete", phase_discrete)
+    stream = timed("stream", phase_stream)  # phases whose served streams are new run last
+    variants = timed("variants", phase_variants)
+    v3 = timed("v3", phase_v3)
+    host = timed("host", phase_host, host_build, {
+        "v2": v2_artifact, "prior": prior["host_artifact"],
+        "discrete": discrete["export"]["path"], "v3": v3["export"]["path"]})
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "rave_tpu"))
     check(not foreign, f"the port loaded the JAX package or jax: {foreign[:5]}")
 
@@ -5420,6 +5994,9 @@ def main() -> None:
                  "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_BWD_REPLACES,
                  "launches": run["launches_backward"],
                  "launches_per_step": run["launches_backward_per_step"],
+                 "launches_train_graph": graph_launches(
+                     train_graph, ("fp32", "remat") if kind == "fp32" else ("bf16",),
+                     2 if kind == "fp32" else 3),
                  "launches_loop": loop["launches"][f"bwd_{kind}"],
                  "launches_native": native["launches"][f"bwd_{kind}"],
                  "max_abs_err": max(r["max_abs_err"] for r in grad[kind]),
@@ -5445,6 +6022,9 @@ def main() -> None:
         "name": "fused_dilated_unit", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": offline["launches"],
         "launches_train": train["launches"], "launches_remat_step": remat["remat_launches"],
+        # phase train_graph's traced replays, fp32 and remat: the card's trace counts them
+        # (a replay runs no Python; the wrappers count a warm-up's and a capture's launches)
+        "launches_train_graph": graph_launches(train_graph, ("fp32", "remat"), 0),
         "launches_loop": loop["launches"]["fp32"],
         "launches_export": export["generate_launches"],
         "launches_discrete": discrete["launches"],
@@ -5489,6 +6069,7 @@ def main() -> None:
     }, {
         "name": "fused_dilated_unit_bf16", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": train_bf16["launches"],
+        "launches_train_graph": graph_launches(train_graph, ("bf16",), 1),
         "launches_loop": loop["launches"]["bf16"],
         "launches_spectral": spectral["launches_bf16"],  # the bf16 steps of phase spectral
         **{f"{k}_variants_b8": v for k, v in per_variant("bf16_b8").items()},
@@ -5502,12 +6083,15 @@ def main() -> None:
         {"card": card, "build": build_info, "kernel_shapes": rows, "kernel_bf16_shapes": rows_bf16,
          "bounds": bounds,
          "offline": offline, "stream": stream, "grad_shapes": grad, "train": train,
-         "train_bf16": train_bf16, "remat": remat, "loop": loop, "export": export,
+         "train_bf16": train_bf16, "remat": remat, "train_graph": train_graph, "loop": loop,
+         "export": export,
          "prior": prior, "discrete": discrete, "v3": v3, "variants": variants, "v1": v1,
          "spectral": spectral, "import": imported, "native": native, "remote": remote,
-         "parallel": parallel, "host": host,
+         "parallel": parallel, "host": host, "phase_seconds": seconds,
          **kernels},
         indent=1))
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; {sum(seconds.values()):.1f} in all", flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,8 @@ state tensors, and from then on copies each call's inputs into the graph's
 input buffers and replays. The state tensors keep their addresses, so
 every write to them between calls must be in place. On the CPU the same
 step runs eagerly on the same state tensors, with the same in-place copy
-back. A capture or replay error raises: nothing falls back to eager.
+back. A capture or replay error raises: nothing falls back to eager. Python's
+garbage collector is held off during a capture (`collector_held`).
 
 A graph is keyed by the inputs' shapes and dtypes (the batch, the block,
 which injected draws are present), the Python constants, the state
@@ -27,6 +28,8 @@ new graph; the module's `captures` and `replays` count them over every
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Callable, List, Optional, Sequence, Union
 
 import torch
@@ -43,6 +46,21 @@ def backend_flags() -> tuple:
     cudnn = torch.backends.cudnn
     return (cudnn.enabled, cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
+
+
+@contextlib.contextmanager
+def collector_held():
+    """Python's cyclic garbage collector held off until exit: around a
+    capture, where it could free an earlier CUDA graph (an artifact or a
+    train state left in a reference cycle), whose destruction inside the
+    capture ends it (cudaErrorStreamCaptureInvalidated)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _is_seed(x) -> bool:
@@ -153,7 +171,8 @@ class StepGraphs:
                 self.fn(state, *static, **consts)
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+        with collector_held(), torch.cuda.graph(graph, pool=self.pool,
+                                                capture_error_mode="thread_local"):
             outputs, new = self.fn(state, *static, **consts)
             # the modules reassigned their buffers inside the step; the graph
             # writes the new values into the state tensors it was given

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from rave_tpu_torch.ops.dsp import mean_difference
-from rave_tpu_torch.ops.stft import MultiScaleSTFT, mel_filterbank, spectrogram
+from rave_tpu_torch.ops.stft import MultiScaleSTFT, mel_filterbank, on_device, spectrogram
 
 
 @dataclass(frozen=True)
@@ -121,8 +121,9 @@ class SpectralDistance:
         mag = spectrogram(x.reshape(-1, x.shape[-1]), self.n_fft, self.n_fft // 4, power=None,
                           center=False, normalized=self.normalized).abs()
         if self.mel is not None:
-            fb = torch.from_numpy(mel_filterbank(self.sampling_rate, self.n_fft, self.mel))
-            mag = mag @ fb.to(device=mag.device, dtype=mag.dtype).T
+            fb = on_device(mel_filterbank, (self.sampling_rate, self.n_fft, self.mel),
+                           mag.device, mag.dtype)
+            mag = mag @ fb.T
         return mag ** 2 if self.power == 2.0 else mag
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

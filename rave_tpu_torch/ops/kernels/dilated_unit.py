@@ -19,7 +19,9 @@ memory; output channels per pass; weight stages); `tma_length` pads a
 length whose rows TMA cannot address. `launches` counts the wrapper's
 calls that launched the kernel, of either variant, and `launches_bf16`
 those of the bf16 one, so a run can show that its main path went through
-them.
+them. Inside a CUDA graph capture a call records its launch into the graph
+and is counted there; a replay of the graph runs no Python and counts
+nothing (a device trace counts its kernels).
 
 The gradient mirrors the JAX package's `custom_vjp` (`_fwd` / `_bwd`):
 when autograd needs it, the forward runs inside `FusedDilatedUnit`, an
@@ -340,18 +342,39 @@ def kernel_backward_plan(B: int, C: int, T: int, K: int, dilation: int, pad_left
                          dilation, pad_left, bf16, smem_limit(device_index), sms)
 
 
+COUNTER_CAPACITY = 16384  # int32 tile counters: every C up to 1152 at K = 3 (v2: 768)
 _COUNTERS: dict = {}  # device index -> int32 zeros: the weight gradients' tile counters
+_RETIRED: list = []  # buffers outgrown: a captured CUDA graph may still hold their address
 
 
-def _counters(device: torch.device, n: int) -> torch.Tensor:
+def _counters(device: torch.device, n: int, shape: str = "") -> torch.Tensor:
     """The weight gradients' tile counters on `device`, at least `n`. Every
     launch that completes leaves them zero, so one buffer serves every call
-    on the device (its stream orders the calls)."""
+    on the device (its stream orders the calls) and every replay of a graph
+    that captured it. It is made at its full size, COUNTER_CAPACITY or `n`,
+    at the first call on the device. A later call that needs more replaces
+    it, keeping the old one alive for the graphs that hold its address; inside
+    a CUDA graph capture it raises instead, naming the unit's `shape` (the
+    buffer would come from the graph's pool, which other graphs overwrite)."""
     buf = _COUNTERS.get(device.index)
-    if buf is None or buf.numel() < n:
-        buf = _COUNTERS[device.index] = torch.zeros(max(n, 16384), dtype=torch.int32,
-                                                    device=device)
+    if buf is not None and buf.numel() >= n:
+        return buf
+    if torch.cuda.is_current_stream_capturing():
+        held = 0 if buf is None else buf.numel()
+        raise RuntimeError(
+            f"dilated_unit backward {shape}: needs {n} weight-gradient tile counters on "
+            f"{device}, which holds {held}; the buffer cannot be made or grown inside a CUDA "
+            f"graph capture: run the step eagerly first (a warm-up call)")
+    if buf is not None:
+        _RETIRED.append(buf)
+    buf = _COUNTERS[device.index] = torch.zeros(max(n, COUNTER_CAPACITY), dtype=torch.int32,
+                                                device=device)
     return buf
+
+
+def launch_counts() -> tuple:
+    """(launches, launches_bf16, launches_backward, launches_backward_bf16)."""
+    return launches, launches_bf16, launches_backward, launches_backward_bf16
 
 
 def _check(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -479,7 +502,8 @@ def _backward_kernel(x, w1, w2, gy, dilation, pad_left, pad_right, needs):
         d = p.data
         err = _lib().dilated_unit_backward(
             xp.data_ptr(), w1c.data_ptr(), w2c.data_ptr(), gyp.data_ptr(), ptr(dx), ptr(dw1),
-            ptr(dw2), work.data_ptr(), part.data_ptr(), _counters(x.device, p.counters).data_ptr(),
+            ptr(dw2), work.data_ptr(), part.data_ptr(),
+            _counters(x.device, p.counters, f"B={B} C={C} T={T} K={K} d={dilation}").data_ptr(),
             B, C, Tp, K, dilation, pad_left, int(bf16), d.np, d.w_stages, d.x_stages,
             int(d.flush), p.wg_np, p.wg_stages, p.wg_grid,
             torch.cuda.current_stream().cuda_stream,

@@ -14,6 +14,7 @@ mel input front-end (models/rave.py::MelAnalysis).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -25,6 +26,25 @@ import torch.nn.functional as F
 def hann_window(n: int) -> np.ndarray:
     """Periodic Hann window (`torch.hann_window` default)."""
     return (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n) / n)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def on_device(make, args: tuple, device: torch.device, dtype: Optional[torch.dtype] = None):
+    """`torch.from_numpy(make(*args))` on `device` (in `dtype`), made once per
+    (make, args, device, dtype): a step that made its constants anew would
+    copy them from the host at every call, which a CUDA graph cannot hold
+    (train/graphs.py). Never evicted: a captured graph reads the tensor by
+    its address, and a replay runs no Python that would keep an entry in a
+    bounded cache (the keys are few: windows, filterbanks and reflect
+    indices of the shapes a process runs). Made outside inference mode, so
+    that a first call under it (validation) gives a tensor that training can
+    use. Read-only."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(make(*args)).to(device=device, dtype=dtype)
+
+
+def _reflect_index(length: int, pad: int) -> np.ndarray:
+    return np.pad(np.arange(length), pad, mode="reflect")
 
 
 def frame_signal(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
@@ -45,11 +65,10 @@ def stft(x: torch.Tensor, n_fft: int, hop: int, *, center: bool = True,
     if x.dtype not in (torch.float32, torch.float64):
         x = x.float()
     if center and n_fft // 2 >= x.shape[-1]:  # numpy's repeated reflection, by index
-        idx = np.pad(np.arange(x.shape[-1]), n_fft // 2, mode="reflect")
-        x = x[..., torch.from_numpy(idx).to(x.device)]
+        x = x[..., on_device(_reflect_index, (x.shape[-1], n_fft // 2), x.device)]
     elif center:
         x = F.pad(x[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
-    win = torch.from_numpy(hann_window(n_fft)).to(device=x.device, dtype=x.dtype)
+    win = on_device(hann_window, (n_fft,), x.device, x.dtype)
     spec = torch.fft.rfft(frame_signal(x, n_fft, hop) * win, dim=-1)
     if normalized:
         spec = spec / torch.sqrt(torch.sum(win * win))
@@ -129,8 +148,8 @@ class MultiScaleSTFT:
         for scale in self.scales:
             s = stft(x, scale, scale // 4, normalized=self.normalized).transpose(-1, -2)
             if self.num_mels is not None:
-                mel = torch.from_numpy(mel_filterbank(self.sample_rate, scale, self.num_mels))
-                mel = mel.to(device=s.device, dtype=s.real.dtype)
+                mel = on_device(mel_filterbank, (self.sample_rate, scale, self.num_mels),
+                                s.device, s.real.dtype)
                 s = torch.complex(mel @ s.real, mel @ s.imag)
             outs.append(s.abs() if self.magnitude else torch.stack([s.real, s.imag], -1))
         return outs

@@ -27,8 +27,11 @@ seed 1234 for every batch, as the JAX loop's `key(1234)`, and never trains
 a codebook (the JAX `val_step` reparametrizes with `train=False`). With the
 discrete family quantizing, each validation also logs `codebook_health`.
 
-Only the steps that log (1, 2 and every 100th) read a tensor back to the
-host; the others queue their work and go on. `train` runs with TF32 off for
+On one card the steps run as CUDA graphs (train/graphs.py::TrainGraphs, one
+graph per program and key), as the JAX loop runs its jitted steps; under
+data parallelism and on the CPU they run eagerly (`step_method`). Only the
+steps that log (1, 2 and every 100th) read a tensor back to the host; the
+others queue their work and go on. `train` runs with TF32 off for
 cuDNN convolutions and matmuls (restored on return): fp32 means fp32 here.
 
 As in the JAX package, `train` cannot take a remote (`http`) store: it
@@ -56,6 +59,7 @@ from rave_tpu_torch.data.transforms import get_derivator_integrator
 from rave_tpu_torch.factory import build_audio_distance, resolve_device
 from rave_tpu_torch.parallel import mesh
 from rave_tpu_torch.train.analysis import pca, receptive_field, valid_crop
+from rave_tpu_torch.train.graphs import TrainGraphs
 from rave_tpu_torch.train.state import TrainState, create_train_state
 from rave_tpu_torch.train.steps import build_train_steps, draw_noise, pick_phase
 from rave_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -124,6 +128,29 @@ def input_pipeline(cfg: RaveConfig, db_path: str, device_data: str, processes: i
 def use_device_data(cfg: RaveConfig, db_path: str, device_data: str) -> bool:
     """Whether a single-process run takes the device pipeline (`input_pipeline`)."""
     return input_pipeline(cfg, db_path, device_data) == "device"
+
+
+def step_method(device: torch.device) -> Tuple[str, str]:
+    """How the loop runs its step programs, and the line that says why:
+    "graph" (`TrainGraphs`) on a card in a single process; "eager" under
+    data parallelism, whose gloo collectives a CUDA graph cannot hold, and
+    on the CPU."""
+    if device.type != "cuda":
+        return "eager", "the training steps run eagerly (on the CPU)"
+    if mesh.world_size() > 1:
+        return "eager", ("the training steps run eagerly (data parallel: gloo's collectives "
+                         "cannot be captured)")
+    return "graph", f"the training steps run as CUDA graphs (one per program and key) on {device}"
+
+
+def train_steps(cfg: RaveConfig, crop: Tuple[int, int], device: torch.device) -> dict:
+    """{'gen': ..., 'dis': ...}: `build_train_steps`'s steps, served by a
+    `TrainGraphs` where `step_method` says "graph"."""
+    steps = build_train_steps(cfg, crop)
+    if step_method(device)[0] == "eager":
+        return steps
+    graphs = TrainGraphs(steps)
+    return {"gen": graphs.gen, "dis": graphs.dis}
 
 
 def host_batches(batches: Iterator[np.ndarray], device: torch.device) -> Iterator[torch.Tensor]:
@@ -318,7 +345,9 @@ def train(
     mesh.replicate(state.discriminator)
     with torch.no_grad():
         state.model.receptive_field.copy_(torch.tensor(rf, dtype=torch.float32))
-    steps = build_train_steps(cfg, crop)
+    steps = train_steps(cfg, crop, device)
+    if progress:
+        print(step_method(device)[1])
     distance = build_audio_distance(cfg)
 
     max_steps = max_steps or cfg.train.max_steps

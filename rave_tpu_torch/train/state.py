@@ -7,6 +7,15 @@ from the *global* step counter (discriminator steps included); its critic
 transform is `optax.adam(dis_lr)`. `torch.optim.Adam` computes the same
 update, lr * m_hat / (sqrt(v_hat) + 1e-8), so the generator's Adam has its
 `lr` set before every step. Both start from zero moments.
+
+What a step reads of the schedules lives on the device, as the JAX step
+computes it inside its compiled program: `Schedule` holds the generator's
+learning rate and the regularization weight beta as 0-d tensors that the
+step's host work fills in place before each step, and the generator's Adam
+takes its `lr` from there. On a card both Adams are `capturable`: their
+step counts stay on the device and the update reads nothing back, so a
+CUDA graph can hold the whole step (train/graphs.py). On the CPU they are
+not (torch refuses `capturable` for CPU parameters).
 """
 from __future__ import annotations
 
@@ -21,6 +30,25 @@ from rave_tpu_torch.factory import build_discriminator, build_rave
 
 
 @dataclass
+class Schedule:
+    """The schedules' values at the global step a step runs at, as 0-d
+    float32 tensors on the state's device: the generator's learning rate and
+    the regularization's weight beta. Written in place (`fill`), so a
+    captured step reads each step's values from the same addresses."""
+
+    gen_lr: torch.Tensor
+    beta: torch.Tensor
+
+    @classmethod
+    def on(cls, device) -> "Schedule":
+        return cls(*(torch.zeros((), dtype=torch.float32, device=device) for _ in range(2)))
+
+    def fill(self, gen_lr: float, beta: float) -> None:
+        self.gen_lr.fill_(gen_lr)
+        self.beta.fill_(beta)
+
+
+@dataclass
 class TrainState:
     step: int
     model: nn.Module
@@ -28,14 +56,21 @@ class TrainState:
     gen_opt: torch.optim.Adam
     dis_opt: torch.optim.Adam
     ema: Optional[Dict[str, torch.Tensor]] = None  # generator params, by name
+    schedule: Optional[Schedule] = None  # create_train_state makes it on the model's device
 
 
 def make_optimizers(cfg: RaveConfig, model: nn.Module, discriminator: nn.Module):
-    """(generator Adam, critic Adam); the generator's lr is set per step."""
+    """(generator Adam, critic Adam); the generator's lr is set per step.
+    `capturable` on a card (the parameters' device), not on the CPU."""
     t = cfg.train
     betas = (t.adam_b1, t.adam_b2)
-    gen = torch.optim.Adam(model.parameters(), lr=t.gen_lr, betas=betas, eps=1e-8)
-    dis = torch.optim.Adam(discriminator.parameters(), lr=t.dis_lr, betas=betas, eps=1e-8)
+    capturable = next(model.parameters()).device.type == "cuda"
+    gen = torch.optim.Adam(model.parameters(), lr=t.gen_lr, betas=betas, eps=1e-8,
+                           capturable=capturable)
+    dis = torch.optim.Adam(discriminator.parameters(), lr=t.dis_lr, betas=betas, eps=1e-8,
+                           capturable=capturable)
+    for opt in (gen, dis):  # the eager steps on a card run them uncaptured by design
+        opt._warned_capturable_if_run_uncaptured = True
     return gen, dis
 
 
@@ -49,11 +84,13 @@ def update_ema(ema: Dict[str, torch.Tensor], model: nn.Module, decay: float) -> 
 def create_train_state(cfg: RaveConfig, n_channels: int = 1, seed: int = 0,
                        device: str | torch.device = "cuda") -> TrainState:
     """Seeded model (`seed`) and critic (`seed + 1`) on `device`, fresh
-    optimizers, step 0, and an EMA copy when `train.ema` is set."""
+    optimizers, step 0, an EMA copy when `train.ema` is set, and the
+    schedule's tensors."""
     model = build_rave(cfg, n_channels=n_channels, seed=seed, device=device)
     critic = build_discriminator(cfg, n_channels=n_channels, seed=seed + 1, device=device)
     gen_opt, dis_opt = make_optimizers(cfg, model, critic)
     ema = None
     if cfg.train.ema is not None:
         ema = {n: p.detach().clone() for n, p in model.named_parameters()}
-    return TrainState(0, model, critic, gen_opt, dis_opt, ema)
+    return TrainState(0, model, critic, gen_opt, dis_opt, ema,
+                      Schedule.on(next(model.parameters()).device))

@@ -8,6 +8,14 @@ PyTorch port of rave_tpu/train/steps.py (reference rave/model.py:288-424):
   * dis              : the critic's loss, the generator run without a graph.
 
 `pick_phase` chooses the program per global step, as in the JAX package.
+A step is its device program between host work, as the JAX step is one
+compiled program over donated state: the host fills the schedules' values
+at the global step (the generator's learning rate, the regularization's
+beta) into `state.schedule`'s 0-d tensors, the program reads them there
+and updates the model, the critic, both Adams and the EMA in place (the
+gradients zeroed in place, so they keep their addresses), and the host
+advances the global step. `train/graphs.py::TrainGraphs` serves the
+programs as CUDA graphs; the steps here run them eagerly.
 Layouts are the port's: waveforms [B, C, T], band frames [B, C*M, T/M].
 What the JAX package draws from its "noise" rng (the variational eps, the
 wasserstein reference sample, the augmentation noise, the codebooks'
@@ -168,13 +176,40 @@ def split_features(features: List[List[torch.Tensor]]):
     return real, fake
 
 
-def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
-    """{'gen': gen_step, 'dis': dis_step}; each updates a `TrainState` in
-    place, advances its global step and returns the step's metrics. Mel
-    input (`hybrid`, `v2_with_augs`) with `train.bf16` raises ValueError:
-    the JAX package's step takes the mel front-end's rfft of bfloat16 frames,
-    which its `jnp.fft.rfft` refuses (rave_tpu/models/rave.py:60-61), so
-    that step has no reference result (ROADMAP C14)."""
+class TrainSteps(dict):
+    """{'gen': gen_step, 'dis': dis_step}, the eager steps. A step is its
+    device program between host work, both in `run(which, state, x, warmed,
+    draws, generator, quantize, execute)`: the draws (`draw_noise` where none
+    are given), the schedules' values filled into `state.schedule` from the
+    global step, the program, the global step advanced. `programs[which]
+    (state, x, draws, warmed, quantize)` is the device program alone: it
+    reads its inputs, the schedule's tensors and the state, and writes the
+    state in place. `run` calls it directly, or through `execute(which,
+    program, state, x, draws, warmed, quantize)` where given: `TrainGraphs`
+    (train/graphs.py) serves it so as a CUDA graph."""
+
+    def __init__(self, cfg: RaveConfig, programs: dict, run):
+        super().__init__(gen=self.gen, dis=self.dis)
+        self.cfg, self.programs, self.run = cfg, programs, run
+
+    def gen(self, state: TrainState, x: torch.Tensor, warmed: bool,
+            draws: Optional[LatentDraws] = None, generator: Optional[torch.Generator] = None,
+            quantize: bool = True) -> dict:
+        return self.run("gen", state, x, warmed, draws, generator, quantize)
+
+    def dis(self, state: TrainState, x: torch.Tensor, draws: Optional[LatentDraws] = None,
+            generator: Optional[torch.Generator] = None, quantize: bool = True) -> dict:
+        return self.run("dis", state, x, True, draws, generator, quantize)
+
+
+def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)) -> TrainSteps:
+    """{'gen': gen_step, 'dis': dis_step} (a `TrainSteps`); each updates a
+    `TrainState` in place, advances its global step and returns the step's
+    metrics. Mel input (`hybrid`, `v2_with_augs`) with `train.bf16` raises
+    ValueError: the JAX package's step takes the mel front-end's rfft of
+    bfloat16 frames, which its `jnp.fft.rfft` refuses
+    (rave_tpu/models/rave.py:60-61), so that step has no reference result
+    (ROADMAP C14)."""
     if cfg.train.bf16 and cfg.input_mode == "mel":
         raise ValueError("train.bf16 with mel input (input_mode 'mel') is not a step of the "
                          "reference: rave_tpu's mel front-end takes jnp.fft.rfft of bfloat16 "
@@ -186,7 +221,14 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
     gen_lr = gen_lr_schedule(t.gen_lr, t.lr_end_factor, t.phase_1_duration)
     band_crop = crop_frames if t.valid_signal_crop else (0, 0)
 
-    def losses_and_metrics(out, critic, x, warmed: bool, step: int, gen_metrics: bool = True):
+    def set_schedule(state: TrainState) -> None:
+        """The schedules at `state.step` into `state.schedule` (host work)."""
+        state.schedule.fill(gen_lr(state.step),
+                            beta_factor(state.step, t.beta_initial, t.beta_target,
+                                        t.beta_warmup_len, t.beta_log_warmup))
+
+    def losses_and_metrics(out, critic, x, warmed: bool, beta: torch.Tensor,
+                           gen_metrics: bool = True):
         metrics: Dict[str, object] = {}
         loss_gen: Dict[str, torch.Tensor] = {}
         if gen_metrics:
@@ -195,10 +237,8 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
                 loss_gen[f"multiband_{k}"] = weights.get("multiband_audio_distance", 1.0) * v
             for k, v in distance(x, out["y_raw"]).items():
                 loss_gen[f"fullband_{k}"] = weights.get("audio_distance", 1.0) * v
-            beta = beta_factor(step, t.beta_initial, t.beta_target, t.beta_warmup_len,
-                               t.beta_log_warmup)
             loss_gen["regularization"] = out["reg"] * beta
-            metrics["beta_factor"] = beta
+            metrics["beta_factor"] = beta.clone()
             metrics["regularization_raw"] = out["reg"]
 
         loss_dis = x.new_zeros(())
@@ -239,66 +279,66 @@ def build_train_steps(cfg: RaveConfig, crop_frames: Tuple[int, int] = (0, 0)):
     def detached(metrics):
         return {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
 
-    def gen_step(state: TrainState, x: torch.Tensor, warmed: bool,
-                 draws: Optional[LatentDraws] = None,
-                 generator: Optional[torch.Generator] = None, quantize: bool = True) -> dict:
-        with mesh.sharded_batch():
-            return _gen_step(state, x, warmed, draws, generator, quantize)
-
-    def _gen_step(state, x, warmed, draws, generator, quantize):
+    def gen_program(state, x, draws, warmed, quantize):
         state.model.train()
         params = list(state.model.parameters())
-        state.gen_opt.zero_grad(set_to_none=True)
-        if draws is None:
-            draws = draw_noise(cfg, x, generator)
+        state.gen_opt.zero_grad(set_to_none=False)  # in place: the gradients keep their addresses
         if t.remat:  # the recompute folds no batch statistics in a second time
             out = checkpoint(autoencode, state.model, x, draws, warmed, t.bf16, quantize,
-                             use_reentrant=False,
+                             use_reentrant=False, preserve_rng_state=False,
                              context_fn=lambda: (contextlib.nullcontext(),
                                                  frozen_batch_stats(state.model)))
         else:
             out = autoencode(state.model, x, draws, warmed, t.bf16, quantize)
-        total, _, metrics = losses_and_metrics(out, state.discriminator, x, warmed, state.step)
+        total, _, metrics = losses_and_metrics(out, state.discriminator, x, warmed,
+                                               state.schedule.beta)
         total.backward(inputs=params)  # the generator's gradients only, not the critic's
         for p in params:
             if p.grad is None:  # the frozen encoder: a zero gradient, as JAX's is
                 p.grad = torch.zeros_like(p)
         mesh.average_gradients(params)
-        lr = gen_lr(state.step)
         for group in state.gen_opt.param_groups:
-            group["lr"] = lr
+            group["lr"] = state.schedule.gen_lr
         state.gen_opt.step()
         if out["updates"] is not None:  # the codebooks, once, after the backward
             state.model.encoder.commit(out["updates"])
-        metrics["gen_lr"] = lr
+        metrics["gen_lr"] = state.schedule.gen_lr.clone()
         if state.ema is not None:
             update_ema(state.ema, state.model, t.ema)
-        state.step += 1
         return mesh.mean_over_ranks(detached(metrics))
 
-    def dis_step(state: TrainState, x: torch.Tensor, draws: Optional[LatentDraws] = None,
-                 generator: Optional[torch.Generator] = None, quantize: bool = True) -> dict:
-        with mesh.sharded_batch():
-            return _dis_step(state, x, draws, generator, quantize)
-
-    def _dis_step(state, x, draws, generator, quantize):
+    def dis_program(state, x, draws, warmed, quantize):
         state.model.train()
-        if draws is None:
-            draws = draw_noise(cfg, x, generator)
         with torch.no_grad():  # the codebooks still train, as in the JAX critic step
             out = autoencode(state.model, x, draws, True, t.bf16, quantize)
-        state.dis_opt.zero_grad(set_to_none=True)
-        _, loss_dis, metrics = losses_and_metrics(out, state.discriminator, x, True, state.step,
+        state.dis_opt.zero_grad(set_to_none=False)
+        _, loss_dis, metrics = losses_and_metrics(out, state.discriminator, x, True,
+                                                  state.schedule.beta,
                                                   gen_metrics=t.dis_full_metrics)
         loss_dis.backward()
         mesh.average_gradients(state.discriminator.parameters())
         state.dis_opt.step()
         if out["updates"] is not None:
             state.model.encoder.commit(out["updates"])
-        state.step += 1
         return mesh.mean_over_ranks(detached(metrics))
 
-    return {"gen": gen_step, "dis": dis_step}
+    programs = {"gen": gen_program, "dis": dis_program}
+
+    def run(which: str, state: TrainState, x: torch.Tensor, warmed: bool,
+            draws: Optional[LatentDraws] = None, generator: Optional[torch.Generator] = None,
+            quantize: bool = True, execute=None) -> dict:
+        with mesh.sharded_batch():
+            if draws is None:
+                draws = draw_noise(cfg, x, generator)
+            set_schedule(state)
+            if execute is None:
+                metrics = programs[which](state, x, draws, warmed, quantize)
+            else:
+                metrics = execute(which, programs[which], state, x, draws, warmed, quantize)
+        state.step += 1
+        return metrics
+
+    return TrainSteps(cfg, programs, run)
 
 
 def pick_phase(cfg: RaveConfig, step: int) -> Tuple[str, bool, bool]:

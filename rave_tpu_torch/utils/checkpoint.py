@@ -92,6 +92,17 @@ def latest_checkpoint(run_dir: str, step: Optional[int] = None) -> Optional[Path
     return ckpts[-1] if ckpts else None
 
 
+def load_optimizer(opt: torch.optim.Optimizer, saved: dict) -> None:
+    """`saved` (an optimizer's `state_dict`) into `opt`, which keeps its own
+    `capturable`: torch takes the flag from the saved groups and places the
+    step counts by it, so a checkpoint written on the CPU, or by a port whose
+    Adams were not capturable, would otherwise leave a card's Adam reading
+    its counts back to the host, and refuse a CUDA graph."""
+    groups = [{**g, "capturable": mine.get("capturable", False)}
+              for g, mine in zip(saved["param_groups"], opt.param_groups)]
+    opt.load_state_dict({**saved, "param_groups": groups})
+
+
 def restore_checkpoint(run_dir: str, state: TrainState,
                        step: Optional[int] = None) -> Optional[Path]:
     """Load the newest checkpoint (or the one at `step`) into `state` in
@@ -102,13 +113,12 @@ def restore_checkpoint(run_dir: str, state: TrainState,
         return None
     device = next(state.model.parameters()).device
     # loaded on the CPU: the Adams move their moments to the parameters'
-    # device and keep their step counts on the CPU, as fresh Adams do (a
-    # count on the card would make every update read it back to the host)
+    # device, and their step counts too where they are capturable (on a card)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(ckpt["model"])
     state.discriminator.load_state_dict(ckpt["discriminator"])
-    state.gen_opt.load_state_dict(ckpt["gen_opt"])
-    state.dis_opt.load_state_dict(ckpt["dis_opt"])
+    load_optimizer(state.gen_opt, ckpt["gen_opt"])
+    load_optimizer(state.dis_opt, ckpt["dis_opt"])
     state.step = int(ckpt["step"])
     ema = ckpt["ema"]
     state.ema = None if ema is None else {k: v.to(device) for k, v in ema.items()}
