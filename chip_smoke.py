@@ -167,7 +167,7 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                `ExportedRAVE.forward` on the same input and seed; the
                artifact on the card against the same artifact on the CPU
                (plain unit) on a 3 s clip, offline and 8 streaming blocks,
-               <= 1e-3; in lockstep over 32 blocks with a `reset_stream`
+               <= 1e-3; in lockstep over 16 blocks with a `reset_stream`
                halfway (`run_lockstep`), the artifact's served streaming
                forward (a CUDA graph replay), its eager twin (the step
                program called directly), `forward_step.pt2`
@@ -230,7 +230,7 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                the running statistics included), `cli export --streaming`,
                `cli generate` of a 30 s
                file, the artifact on the card against the CPU (1e-3),
-               `forward_step.pt2` bit-equal to the served steps over 32
+               `forward_step.pt2` bit-equal to the served steps over 16
                blocks, the served forward (and (b)'s causal model through
                `graphed_stream`) bit-equal to the eager steps across a
                reset, the served streaming p50s (forward, .pt2) under the
@@ -238,8 +238,11 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                --verify` of a 2-step `--config
                onnx` run (0 launches) and of phase 11's v2 run (its live
                forward's 22 launches exactly, the kernel held against its
-               plain version at each shape they gave it, 1e-4), each
-               verify within 1e-4. Work in build/v1, deleted at the end;
+               plain version at each shape they gave it, 1e-4), each verify
+               within 1e-4, both `--skip_stablehlo`; (f) `cli export_onnx`
+               of the v2 run at B=1 and at B=16 x 131072 (the portable
+               programs, kept for phase 22b). Work in build/v1, deleted at
+               the end;
  15. spectral : compose(["v2", "spectral_discriminator"]) at full width (the
                multiscale critic beside EncodecConvNets on the complex STFTs at
                4096..256, capacity 32), TF32 off: at B=8 x 131072 a warm and
@@ -266,7 +269,7 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                artifact's forward against the source weights' (the same
                weights saved as a port run and exported alike) within 1e-5
                (the weight norm re-decomposed in float32); the artifact's
-               served forward bit-equal to its eager twin over 32 blocks
+               served forward bit-equal to its eager twin over 16 blocks
                across a reset, its served streaming p50s per 2048-sample
                block (forward, `.pt2`) under its 46.44 ms, the eager ones
                printed; the unit against its plain version at each shape the
@@ -339,13 +342,15 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                and `cli generate` of a 30 s file (22 launches), the artifact
                on the card against the CPU (latents 1e-3 and `check_codes`, the
                decode of one index tensor 1e-3), `forward_step.pt2` bit-equal to
-               the served steps over 32 blocks, the served forward bit-equal
+               the served steps over 16 blocks, the served forward bit-equal
                to its eager twin across a reset, the served p50s (forward,
                .pt2) under the 1024-sample block's 23.22 ms; then v2 + wasserstein and
                v2 + spherical: one generator step each at B=8 x 131072 (22
                launches), the first step at B=1 and the artifact's codec
                halves (`EncodeSide`, `DecodeSide`) of the stepped model on
-               the card against the CPU (1e-3); the phase aims at ~60 s;
+               the card against the CPU (1e-3); the `cli train` run's
+               portable program at B=1 x 131072 (kept for phase 22b); the
+               phase aims at ~60 s;
  21. variants : v2_small (capacity 48, ratios 4.2.2.2, the noise synth with
                32 bands), v2_nopqmf (capacity 64, raw-waveform output,
                decoder ratios 8.8.8.4) and hybrid (mel input, hop 256,
@@ -358,7 +363,7 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                uniforms); (b) blocks of block_size() streamed through
                step_encode and step_decode against the offline encode and
                decode past the delays (1e-3; the noise synth's offline
-               draws shifted by its lag), and 32 streaming forward blocks
+               draws shifted by its lag), and 16 streaming forward blocks
                through `graphed_stream` beside the model's steps
                (`model_lockstep`): bit-equal, the served p50 under the
                block's budget (`v2_small`'s 512 samples: 11.61 ms); (c) the
@@ -373,7 +378,7 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                --streaming`, `cli generate` of a 30 s file (a forward's
                launches), the artifact on the card against the CPU (3 s clip
                offline, 8 streaming blocks; 1e-3) and `forward_step.pt2`
-               against the served steps over 32 blocks (1e-5), the served
+               against the served steps over 16 blocks (1e-5), the served
                forward bit-equal to its eager twin across a reset, the served
                p50s (forward, .pt2) under the block's budget, the eager ones
                printed. hybrid trains without the valid-signal
@@ -411,7 +416,7 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                the transfer's start: no block read sees the learning
                segments), later half against earlier half; the transfer
                moving the output, `forward_step.pt2` bit-equal to the served
-               steps over 32 blocks while the target learns (AdaIN's state
+               steps over 16 blocks while the target learns (AdaIN's state
                included), the served forward bit-equal to its eager twin
                over those blocks (a reset halfway) and 4 more with the
                target's learning off and reset, the cuDNN-off stream served
@@ -420,7 +425,27 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                (forward, .pt2) under the 46.44 ms budget; (e) discrete_v3: the
                B=16 forward, the k-means step apart, one step of each program
                at B=8, B=1 losses card vs CPU (1e-3) and `check_codes`;
-               work in build/v3, deleted at the end;
+               (f) the `cli train` run's portable program at B=1 x 131072
+               (no unit node; kept for phase 22b); work in build/v3,
+               deleted at the end;
+ 22b. portable : the portable full graph (export/portable.py) of the runs
+               phases 14 (the loop's v2 run, at B=1 and at B=16 x 131072),
+               20 and 22 train (at B=1 x 131072), each written by `cli
+               export_onnx`
+               on the card with the live forward's output on a seeded
+               input and seed (`portable_case`, TF32 off); the registered
+               op `rave_tpu_torch::dilated_unit` (csrc/unit_op.cc, built by
+               g++ in a thread after phase 2) at every v2 unit shape of B=16
+               and B=1 x 131072, bit-equal to `fused_dilated_unit` and within
+               1e-4 of the plain version; then every program in one process
+               that imports torch and never the port
+               (tools/torch_portable_run.py, its `sys.modules` checked): the
+               `.ts` within 1e-5 of the live forward, the `.pt2` within 1e-5
+               of the `.ts`, the op library's launches one per unit node per
+               call, and one profiled call's device kernels: a
+               `prepare_weights_f32` per unit (22 for v2 and discrete, 0 for
+               v3) and a `unit_kernel` per fused plan, two per split one; ms
+               per forward and the realtime factor printed beside phase 5's;
  23. host   : the port's Python-free artifact host (csrc/rtpu_host.cc,
                built by g++ against the installed torch in a thread started
                after phase 1, beside the phases that work the card; the
@@ -443,7 +468,7 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                the state carried by `--save-state` / `--load-state`)
                against one eager stream with the same fills, wavs within
                1/32767; `prior` (dithered) on phase 13's artifact bit-equal
-               to `sample_prior` on the card; `bench 256` of each streaming
+               to `sample_prior` on the card; `bench 128` of each streaming
                artifact, its p50 per block (upload, step, fetch,
                synchronize) under the block's budget (v2 and v3 46.44 ms,
                discrete 23.22 ms), beside the Python artifact's served and
@@ -524,7 +549,7 @@ EVAL_METRICS = ("spectral_distance", "waveform_l1", "frechet_mel_distance")
 LOOP_VAL_BATCH = 2  # the validation split of LOOP_RECORDS records, in one batch
 # the export phase: generate's file, the card-vs-CPU clip and block counts
 EXPORT_SECONDS, CLIP_SECONDS, GENERATE_SEED = 30.0, 3.0, 5
-CPU_STREAM_BLOCKS, PROGRAM_BLOCKS, PROGRAM_TOL = 8, 32, 1e-5
+CPU_STREAM_BLOCKS, PROGRAM_BLOCKS, PROGRAM_TOL = 8, 16, 1e-5
 
 
 def rel_err(a, b, floor: float = 1e-12) -> float:
@@ -2706,7 +2731,7 @@ def phase_export(run_dir: Path) -> dict:
 # the prior phase: the stock prior (prior_v1.gin) at latent_size 16 over the 128 latent
 # frames of the 262144 samples train_prior takes at v2's decimation (2048)
 PRIOR_LATENT, PRIOR_FRAMES, PRIOR_STREAM_STEPS = 16, 128, 64
-PRIOR_PROGRAM_STEPS, PRIOR_TIMED_STEPS, PRIOR_SECONDS = 32, 64, 5.0
+PRIOR_PROGRAM_STEPS, PRIOR_TIMED_STEPS, PRIOR_SECONDS = 32, 32, 5.0
 PRIOR_STREAM_TOL = 1e-4  # 64 chained steps against the offline logits
 PRIOR_FRAME_MS = 2048 / SAMPLE_RATE * 1e3  # one latent frame of v2: a live prior's budget
 # train_prior's clips: the loop's 16-step run keeps most of its 128 dimensions at fidelity
@@ -2779,12 +2804,14 @@ class UnitShapes:
 
     def __enter__(self):
         from rave_tpu_torch.models.blocks import FusedDilatedResidual
+        from rave_tpu_torch.ops.kernels.dilated_unit import traced
 
         self.cls, self.saved, self.seen = FusedDilatedResidual, FusedDilatedResidual.forward, []
         saved, seen = self.saved, self.seen
 
         def forward(mod, x):
-            if x.is_cuda and mod.inner.activation == "leaky_relu":
+            # a trace's calls (the portable export's) go to the registered op, not the wrapper
+            if x.is_cuda and mod.inner.activation == "leaky_relu" and not traced():
                 left, right = mod.inner.net.layers[1].pad
                 seen.append((x.shape[0], x.shape[1], x.shape[2], mod.inner.dilation,
                              "centered" if left == right else "causal"))
@@ -2841,12 +2868,72 @@ class PriorProbe:
         return call
 
 
+def prior_logits(prior, inputs):
+    """(logits, their float32 rounding scale), both [B, D, R, T], of `prior`
+    on `inputs` [B, D*R, T]. A logit's rounding scales with what float32
+    sums to make it through the whole chain (`prior_error_magnitude`), not
+    with its value, which may be near 0 where the terms are not (as
+    `check_codes` scales squared distances by the sum of the squares)."""
+    import torch
+
+    from rave_tpu_torch.prior.model import split_classes
+
+    D = prior.latent_size
+    with torch.no_grad():
+        return (split_classes(prior(inputs), D),
+                split_classes(prior_error_magnitude(prior, inputs), D))
+
+
+def prior_error_magnitude(prior, inputs):
+    """[B, D*R, T]: the scale of float32 rounding in `prior`'s logits on
+    `inputs`, in float64, first order, as independent roundings add: each
+    sum of a convolution adds the root of its terms' squares (and its bias's
+    square) to its inputs' error carried through the weights (squares through
+    squares); leaky ReLU carries it by its slope at the value, the gate
+    sigmoid(a) tanh(b) by sigmoid'(a) tanh(b) and sigmoid(a) tanh'(b) plus the
+    product's own |g|, an addition by its operands' and its sum's."""
+    import torch
+    import torch.nn.functional as F
+
+    def conv(c, v, e2):
+        w, b = c.weight().double(), None if c.b is None else c.b.double()
+        args = (c.stride, 0, c.dilation, c.groups)
+        vp, ep = F.pad(v, c.pad), F.pad(e2, c.pad)
+        own = F.conv1d(vp * vp, w * w, None if b is None else b * b, *args)
+        return F.conv1d(vp, w, b, *args), F.conv1d(ep, w * w, None, *args) + own
+
+    def leaky(v, e2):
+        return F.leaky_relu(v, 0.2), torch.where(v > 0, e2, 0.04 * e2)
+
+    def add(a, ea2, b, eb2):
+        return a + b, ea2 + eb2 + (a + b) ** 2
+
+    v = inputs.double()
+    e2 = torch.zeros_like(v)
+    v, e2 = leaky(*conv(prior.pre_net.layers[0], v, e2))
+    skp = torch.zeros(v.shape[0], prior.skp_size, v.shape[2], dtype=v.dtype)
+    e2_skp = torch.zeros_like(skp)
+    for layer in prior.residuals:
+        x, ex2 = conv(layer.dconv, v, e2)
+        (a, b), (ea2, eb2) = x.chunk(2, dim=1), ex2.chunk(2, dim=1)
+        sa, tb = torch.sigmoid(a), torch.tanh(b)
+        g = sa * tb
+        eg2 = (sa * (1 - sa) * tb) ** 2 * ea2 + (sa * (1 - tb * tb)) ** 2 * eb2 + g * g
+        v, e2 = add(v, e2, *conv(layer.rconv, g, eg2))
+        skp, e2_skp = add(skp, e2_skp, *conv(layer.sconv, g, eg2))
+    first, _, last = prior.post_net.layers
+    v, e2 = leaky(*conv(first, skp, e2_skp))
+    return conv(last, v, e2)[1].sqrt()
+
+
 def check_prior_codes(card_art, cpu_art, n: int, seed: int) -> dict:
     """`sample_prior(argmax=True)` on the card against the CPU: the card's
     chain of frames, fed to the CPU's prior (teacher-forced: causal, so its
     offline logits are the chained steps'), gives the card's pick at every
-    step and dimension unless the two picks' CPU logits tie (CODE_TIE). The
-    latents that each device samples on its own are compared (reported)."""
+    step and dimension unless the two picks' CPU logits tie: they differ by
+    no more than CODE_TIE of the sum of their float32 magnitudes
+    (`prior_logits`). The latents that each device samples on its own are
+    compared (reported)."""
     import torch
 
     from rave_tpu_torch.prior.model import split_classes
@@ -2861,16 +2948,22 @@ def check_prior_codes(card_art, cpu_art, n: int, seed: int) -> dict:
             frames.append(x)
         card = torch.cat(frames, -1).cpu()
         inputs = torch.cat([torch.zeros(1, D * R, 1), card[..., :-1]], -1)
-        logits = split_classes(cpu_art.prior_step.prior(inputs), D)  # [1, D, R, n + D - 1]
+        # [1, D, R, n + D - 1] each
+        logits, magnitude = prior_logits(cpu_art.prior_step.prior, inputs)
     picks_card, picks_cpu = split_classes(card, D).argmax(2), logits.argmax(2)
     bad = (picks_card != picks_cpu).nonzero()
-    l_card = logits[0, bad[:, 1], picks_card[0, bad[:, 1], bad[:, 2]], bad[:, 2]].double()
-    l_cpu = logits[0, bad[:, 1], picks_cpu[0, bad[:, 1], bad[:, 2]], bad[:, 2]].double()
-    ties = int(((l_cpu - l_card).abs() <= CODE_TIE * (l_cpu.abs() + l_card.abs())).sum())
-    # how near the CPU's two best logits came anywhere on the chain (relative gap)
-    top = logits.double().topk(2, dim=2).values
-    gaps = (top[:, :, 0] - top[:, :, 1]) / (top[:, :, 0].abs() + top[:, :, 1].abs())
-    nearest = float(gaps.nan_to_num(nan=math.inf).min())
+    at_card = (0, bad[:, 1], picks_card[0, bad[:, 1], bad[:, 2]], bad[:, 2])
+    at_cpu = (0, bad[:, 1], picks_cpu[0, bad[:, 1], bad[:, 2]], bad[:, 2])
+    l_card, l_cpu = logits[at_card].double(), logits[at_cpu].double()
+    window = CODE_TIE * (magnitude[at_card] + magnitude[at_cpu])
+    ties = int(((l_cpu - l_card).abs() <= window).sum())
+    # how near the CPU's two best logits came anywhere on the chain, in windows: the codes
+    # that rounding alone could part lie under 1
+    top, at = logits.double().topk(2, dim=2)
+    gaps = (top[:, :, 0] - top[:, :, 1]) / (
+        CODE_TIE * magnitude.gather(2, at).sum(2)).clamp_min(1e-300)
+    nearest = float(gaps.min())
+    in_window = int((gaps <= 1).sum())
     if len(bad) != ties:  # each pick that parts: both devices' logits and a float64 referee's
         with torch.no_grad():
             on_card = split_classes(prior(inputs.cuda()), D).cpu()
@@ -2880,17 +2973,20 @@ def check_prior_codes(card_art, cpu_art, n: int, seed: int) -> dict:
         for (_, d, t), a, b in zip(bad.tolist(), l_cpu.tolist(), l_card.tolist()):
             pa, pb = int(picks_cpu[0, d, t]), int(picks_card[0, d, t])
             parts.append(f"dim {d} step {t}: CPU picks {pa}, card {pb}; CPU logits {a:.9g} / "
-                         f"{b:.9g} (relative gap {(a - b) / (abs(a) + abs(b)):.3e}), card "
+                         f"{b:.9g} (gap {a - b:.3e}, magnitudes {float(magnitude[0, d, pa, t]):.4g}"
+                         f" / {float(magnitude[0, d, pb, t]):.4g}), card "
                          f"{float(on_card[0, d, pa, t]):.9g} / {float(on_card[0, d, pb, t]):.9g}, "
                          f"float64 {float(f64[0, d, pa, t]):.9g} / {float(f64[0, d, pb, t]):.9g} "
                          f"(float64 picks {int(f64[0, d, :, t].argmax())})")
         print("prior argmax codes that part:\n  " + "\n  ".join(parts), flush=True)
     check(len(bad) == ties, f"prior argmax codes: {len(bad)} differ on the card's chain, "
-                            f"{ties} of them ties (CODE_TIE {CODE_TIE:g} of |l_a| + |l_b|)")
+                            f"{ties} of them ties (CODE_TIE {CODE_TIE:g} of the two logits' "
+                            f"float32 magnitudes)")
     z_card = card_art.sample_prior(n, seed=seed, argmax=True).cpu()
     z_cpu = cpu_art.sample_prior(n, seed=seed, argmax=True)
     return {"codes": int(picks_card.numel()), "codes_differ": len(bad), "code_ties": ties,
-            "nearest_relative_gap": nearest, "own_chain_z_rel_err": rel_err(z_card, z_cpu)}
+            "nearest_gap_windows": nearest, "codes_in_window": in_window,
+            "own_chain_z_rel_err": rel_err(z_card, z_cpu)}
 
 
 def phase_prior(run_dir: Path, db: Path) -> dict:
@@ -3085,8 +3181,9 @@ def phase_prior(run_dir: Path, db: Path) -> dict:
           f"export --prior {export_s:.1f} s; generate --prior_seconds {PRIOR_SECONDS:g} "
           f"{generate_s:.2f} s, {wav.shape[0]} samples; sample_prior({n_frames}) "
           f"{sample_s:.2f} s; argmax codes card vs CPU on the card's chain: "
-          f"{codes['codes_differ']} of {codes['codes']} differ ({codes['code_ties']} ties; the "
-          f"CPU's nearest two best logits {codes['nearest_relative_gap']:.2e} apart), "
+          f"{codes['codes_differ']} of {codes['codes']} differ ({codes['code_ties']} ties; "
+          f"{codes['codes_in_window']} codes' CPU top two within the tie window, the nearest "
+          f"{codes['nearest_gap_windows']:.3g} windows apart), "
           f"own chains' latents {codes['own_chain_z_rel_err']:.2e}; prior_step.pt2 "
           f"and both served steps bit-equal over {PRIOR_PROGRAM_STEPS} steps; step p50 served "
           f"{p50['graph']:.3f} / .pt2 served {p50['program']:.3f} / eager {p50['eager']:.3f} / "
@@ -3105,7 +3202,7 @@ def phase_prior(run_dir: Path, db: Path) -> dict:
 
 
 DISCRETE_UNITS = [(768, 256, (1, 3))]
-DISCRETE_PREWARMUP_STEPS, DISCRETE_WARMED_STEPS = 3, 8  # after the k-means step; 2 critic
+DISCRETE_PREWARMUP_STEPS, DISCRETE_WARMED_STEPS = 2, 4  # after the k-means step; 2 critic
 DISCRETE_LOOP = ["train.phase_1_duration=3", "train.update_discriminator_every=2",
                  "train.ema=0.999"]
 DISCRETE_LOOP_STEPS, DISCRETE_RESUME_STEPS, DISCRETE_VAL_EVERY = 6, 8, 3
@@ -3487,6 +3584,7 @@ def phase_discrete() -> dict:
     export = timed("export", _discrete_export, cfg, loop["run_dir"], work)
     others = {names[-1]: timed(names[-1], _other_family, names)
               for names in (["v2", "wasserstein"], ["v2", "spherical"])}
+    portable = timed("portable", export_portable_case, loop["run_dir"], "discrete")
     export["path"] = keep_for_host("discrete", export["path"])  # streamed by phase `host`
     shutil.rmtree(work, ignore_errors=True)
     launches = offline["launches"] + train["launches"] + loop["launches"] + \
@@ -3496,6 +3594,7 @@ def phase_discrete() -> dict:
            "graphed_steps": graphed,
            "b1_loss_rel_err": b1_err, "loop": {k: v for k, v in loop.items() if k != "run_dir"},
            "export": export, "others": others, "launches": launches, "part_seconds": seconds,
+           "portable": portable,
            "graphs": graphs_line("discrete", {"discrete": export["block_ms_p50"]},
                                  {"discrete": export["block_budget_ms"]}),
            "seconds": time.perf_counter() - t_phase}
@@ -3535,12 +3634,12 @@ def phase_discrete() -> dict:
 
 
 # the v3 phase: Snake units bypass the kernel (launches 0 everywhere on this path)
-V3_PREWARMUP, V3_CYCLES = 3, 3  # steps of each precision: 3 pre-warmup, then 3 x 4 warmed
+V3_PREWARMUP, V3_CYCLES = 2, 2  # steps of each precision: 2 pre-warmup, then 2 x 4 warmed
 V3_LOOP = ["train.phase_1_duration=2", "train.update_discriminator_every=2", "train.ema=0.999"]
 V3_LOOP_STEPS, V3_RESUME_STEPS, V3_VAL_EVERY = 4, 6, 2
 V3_ADAIN_BLOCKS = 4  # streaming blocks that learn each statistic
 V3_ATTRIBUTES = ["learn_target", "reset_target", "learn_source", "reset_source"]
-V3_CRITIC_ITERS = 5
+V3_CRITIC_ITERS = 3
 # a free-running AdaIN stream: the card's outputs with cuDNN off no further from a float64
 # run of its own fixed kernels than this many times the CPU's from its own (0.14-1.34x
 # read on an NVIDIA H100), or than FREE_FLOOR where both are at float32's rounding; the
@@ -4095,6 +4194,7 @@ def phase_v3() -> dict:
     loop = timed("loop", _v3_loop, work, ROOT / "build" / "loop" / "db")
     export = timed("export", _v3_export, loop["run_dir"], work)
     discrete = timed("discrete_v3", _v3_discrete)
+    portable = timed("portable", export_portable_case, loop["run_dir"], "v3")
     export["path"] = keep_for_host("v3", export["path"])  # streamed by phase `host`
     shutil.rmtree(work, ignore_errors=True)
     launches = (sum(o["launches"] for o in (offline["train"], offline["eval"]))
@@ -4104,6 +4204,7 @@ def phase_v3() -> dict:
     out = {"offline": offline, "train": train,
            "loop": {k: v for k, v in loop.items() if k != "run_dir"}, "export": export,
            "discrete_v3": discrete, "launches": launches, "part_seconds": seconds,
+           "portable": portable,
            "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
            "graphs": graphs_line("v3", {"v3": export["block_ms_p50"]},
                                  {"v3": export["block_budget_ms"]}),
@@ -4159,6 +4260,177 @@ def phase_v3() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase `portable`: the portable full graph (export/portable.py) of the runs
+# phases `v1` (the loop's v2 run), `discrete` and `v3` export, run by a
+# consumer that imports torch alone (tools/torch_portable_run.py)
+# ---------------------------------------------------------------------------
+
+PORTABLE_DIR = ROOT / "build" / "portable"  # one folder per case, deleted by phase `portable`
+PORTABLE_TOL, PORTABLE_SEED, PORTABLE_ITERS = 1e-5, 97, 5
+PORTABLE_CONSUMER = ROOT / "tools" / "torch_portable_run.py"
+UNIT_OP = "rave_tpu_torch::dilated_unit"
+
+
+def portable_plans(path: Path) -> list:
+    """The plan of each unit node of `path`'s forward.ts, in graph order."""
+    import torch
+
+    plans = []
+    for node in torch.jit.load(str(path / "forward.ts"), map_location="cpu").inlined_graph.nodes():
+        if node.kind() == UNIT_OP:
+            plan = node.inputsAt(6)
+            if plan.node().kind() == "prim::ListConstruct":
+                plans.append([v.toIValue() for v in plan.node().inputs()])
+            else:
+                plans.append(list(plan.toIValue()))
+    return plans
+
+
+def export_portable_case(run_dir: Path, case: str, batch: int = 1,
+                         n_signal: int = N_SIGNAL) -> dict:
+    """`cli export_onnx --batch --n_signal` of `run_dir` on the card (the
+    .onnx where the run has one, and the portable program, moved to
+    build/portable/<case>), then the live model's forward (`PortableForward`,
+    the ctypes kernel) on the card on a seeded input and seed, TF32 off,
+    saved beside the program as check.pt for phase `portable`; the export's
+    seconds."""
+    import torch
+
+    from rave_tpu_torch.export.portable import PortableForward
+    from rave_tpu_torch.train.loop import fp32_exact
+    from rave_tpu_torch.utils.checkpoint import load_run
+
+    out = PORTABLE_DIR / f"{case}.out"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = _cli(["export_onnx", "--run", run_dir, "--output", out, "--batch", batch,
+                 "--n_signal", n_signal, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    path = PORTABLE_DIR / case
+    shutil.rmtree(path, ignore_errors=True)
+    shutil.move(text.strip().splitlines()[-1].removeprefix("exported: "), path)
+    shutil.rmtree(out, ignore_errors=True)
+    manifest = json.loads((path / "manifest.json").read_text())
+    check(manifest["input"][0] == batch and manifest["input"][-1] == n_signal,
+          f"{case}: the portable program takes {manifest['input']}")
+    cfg, model, n_channels, _ = load_run(str(run_dir), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(PORTABLE_SEED)
+    x = 0.3 * torch.randn(batch, n_channels, n_signal, device="cuda", generator=gen)
+    seed = torch.tensor(PORTABLE_SEED, dtype=torch.int64, device="cuda")
+    with torch.no_grad(), fp32_exact():
+        y = PortableForward(model, cfg)(x, seed)
+    torch.save({"x": x.cpu(), "seed": seed.cpu(), "y": y.cpu()}, path / "check.pt")
+    del model
+    torch.cuda.empty_cache()
+    return {"path": str(path.relative_to(ROOT)), "batch": batch, "n_signal": n_signal,
+            "units": manifest["units"], "plans": portable_plans(path), "export_s": seconds,
+            "mib": sum(f.stat().st_size for f in path.iterdir()) / 2**20}
+
+
+def op_row(gen, B: int, C: int, T: int, d: int, mode: str) -> dict:
+    """The op's CUDA implementation on one seeded shape: bit-equal to the
+    ctypes wrapper (`fused_dilated_unit`, the same kernel and plan), within
+    KERNEL_TOL of the plain version, and its device ms."""
+    import torch
+
+    from rave_tpu_torch.nn.conv import get_padding
+    from rave_tpu_torch.ops.kernels.dilated_unit import (
+        fused_dilated_unit, fused_dilated_unit_reference,
+    )
+    from rave_tpu_torch.ops.kernels.unit_op import unit_op
+
+    x = torch.randn(B, C, T, device="cuda", generator=gen)
+    w1, w2 = unit_weights(C, gen, torch.float32)
+    left, right = get_padding(3, 1, d, mode)
+    args = (x, w1, w2, d, left, right)
+    with torch.inference_mode():
+        y_op = unit_op(*args)
+        y_k = fused_dilated_unit(*args)
+        y_p = fused_dilated_unit_reference(*args)
+        torch.cuda.synchronize()
+        err = rel_err(y_op, y_p)
+        check(torch.equal(y_op, y_k), f"the op vs fused_dilated_unit at B={B} C={C} T={T} d={d} "
+                                      f"{mode}: not bit-equal")
+        check(err <= KERNEL_TOL, f"the op vs plain at B={B} C={C} T={T} d={d} {mode}: rel err "
+                                 f"{err:.3e} > {KERNEL_TOL}")
+        ms = cuda_ms(lambda: unit_op(*args), 10) if B == BATCH else None
+    return {"B": B, "C": C, "T": T, "d": d, "mode": mode, "rel_err": err,
+            "max_abs_err": float((y_op - y_p).abs().max()), "ms": ms}
+
+
+def phase_portable(cases: dict, offline: dict) -> dict:
+    """The op's CUDA implementation at every v2 unit shape of B=16 and B=1 x
+    N_SIGNAL (`op_row`); then each case's portable program in one process
+    that imports torch and never the port (tools/torch_portable_run.py,
+    checked through its `sys.modules`): the .ts on the card, TF32 off,
+    within PORTABLE_TOL of the live forward on the same input and seed, the
+    .pt2 within PORTABLE_TOL of the .ts, one call's op launches equal to its
+    unit nodes and the timed calls' likewise, and a profiled call's device
+    kernels: one `prepare_weights_f32` per unit and one `unit_kernel` per
+    fused plan, two per split one; ms per forward and the realtime factor
+    printed beside phase `offline`'s live forward."""
+    import torch
+
+    from rave_tpu_torch.ops.kernels import unit_op
+
+    t0 = time.perf_counter()
+    unit_op.load_unit_op()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    shapes = sorted(set(v2_unit_shapes(BATCH, N_SIGNAL) + v2_unit_shapes(1, N_SIGNAL)))
+    rows = [op_row(gen, *shape) for shape in shapes]
+    op_seconds = time.perf_counter() - t0
+    paths = [str(ROOT / c["path"]) for c in cases.values()]
+    result = PORTABLE_DIR / "consumer.json"
+    _run([sys.executable, PORTABLE_CONSUMER, *paths, "--profile", "--iters", PORTABLE_ITERS,
+          "--out", result], "the portable programs' consumer")
+    runs = json.loads(result.read_text())
+    check(not runs["foreign_modules"], f"the consumer imported {runs['foreign_modules'][:5]}")
+    programs = {}
+    for (case, c), r in zip(cases.items(), runs["programs"]):
+        units, want_kernels = c["units"], sum(1 if p[0] else 2 for p in c["plans"])
+        prof = r["profile"]
+        check(r["finite"] and r["shape"][0] == c["batch"], f"portable {case}: output {r['shape']}"
+                                                           f" (finite {r['finite']})")
+        check(r["max_abs_err_live"] <= PORTABLE_TOL,
+              f"portable {case}: .ts vs the live forward {r['max_abs_err_live']:.3e}")
+        check(r["max_abs_err_pt2"] <= PORTABLE_TOL,
+              f"portable {case}: .pt2 vs .ts {r['max_abs_err_pt2']:.3e}")
+        check(len(c["plans"]) == units and r["launches_first_call"] == units
+              and r["launches_timed"] == units * (PORTABLE_ITERS + 1),
+              f"portable {case}: {r['launches_first_call']} op launches in a call, "
+              f"{r['launches_timed']} in {PORTABLE_ITERS + 1}, expected {units} per call")
+        check(prof["prepare_weights_f32"] == units and prof["unit_kernel"] == want_kernels
+              and prof["prepare_weights_bf16"] == 0,
+              f"portable {case}: the profiled call ran {prof}, expected {units} weight "
+              f"preparations and {want_kernels} unit kernels")
+        programs[case] = {**c, **{k: r[k] for k in (
+            "max_abs_err_live", "bit_equal_live", "max_abs_err_pt2", "bit_equal_pt2", "ms",
+            "realtime_factor", "launches_first_call", "profile")}}
+    shutil.rmtree(PORTABLE_DIR, ignore_errors=True)
+    out = {"op_rows": rows, "programs": programs,
+           "launches": sum(p["launches_first_call"] for p in programs.values()),
+           "op_max_abs_err": max(r["max_abs_err"] for r in rows),
+           "op_ms_b16": sum(r["ms"] for r in rows if r["ms"] is not None) * 2,
+           "op_seconds": op_seconds, "seconds": time.perf_counter() - t0}
+    b16 = next(p for p in programs.values() if p["batch"] == BATCH)
+    print(f"portable: the op at {len(rows)} v2 unit shapes bit-equal to fused_dilated_unit, max "
+          f"rel err vs plain {max(r['rel_err'] for r in rows):.2e} <= {KERNEL_TOL}, B={BATCH} "
+          f"units {out['op_ms_b16']:.3f} ms; programs (a process without the port): " + "; ".join(
+              f"{k} B={p['batch']} x {p['n_signal']} {p['units']} units, export "
+              f"{p['export_s']:.1f} s, {p['mib']:.1f} MiB, vs live {p['max_abs_err_live']:.1e}"
+              f"{' (bit-equal)' if p['bit_equal_live'] else ''}, .pt2 vs .ts "
+              f"{p['max_abs_err_pt2']:.1e}, kernels {p['profile']['prepare_weights_f32']} / "
+              f"{p['profile']['unit_kernel']} of {p['profile']['kernels']}, {p['ms']:.2f} ms"
+              for k, p in programs.items())
+          + f"; .ts at B={BATCH}: {b16['ms']:.2f} ms per forward = {b16['realtime_factor']:.1f}x "
+          f"realtime (live, phase offline: {offline['forward_ms']:.2f} ms = "
+          f"{offline['realtime_factor']:.1f}x); {out['launches']} op launches; phase "
+          f"{out['seconds']:.1f} s (op rows {op_seconds:.1f})", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase `variants`: v2_small (the noise synth), v2_nopqmf (raw-waveform
 # output) and hybrid (mel input, a 2-layer GRU) at full width
 # ---------------------------------------------------------------------------
@@ -4189,7 +4461,7 @@ VARIANT_OVERRIDES = {"hybrid": ["train.valid_signal_crop=false"]}
 VARIANT_LOOP = ["train.phase_1_duration=1", "train.update_discriminator_every=2",
                 "data.augmentations=[]"]
 VARIANT_LOOP_STEPS, VARIANT_B1_SIGNAL = 3, 65536
-VARIANT_STREAM_BLOCKS = 32  # timed streaming forward blocks
+VARIANT_STREAM_BLOCKS = 16  # timed streaming forward blocks
 
 
 def variant_unit_cases(batch: int) -> list:
@@ -4685,8 +4957,9 @@ def _v1_loop_export(work: Path, db: Path) -> dict:
 
 
 def _export_onnx(run_dir: Path, out: Path) -> dict:
-    """`cli export_onnx --verify` of `run_dir` on the card: its seconds, the
-    file's size, the verify's error, and the unit launches it made (its live
+    """`cli export_onnx --verify --skip_stablehlo` of `run_dir` on the card
+    (the portable program is phase `portable`'s): its seconds, the file's
+    size, the verify's error, and the unit launches it made (its live
     forward's)."""
     import torch
 
@@ -4696,7 +4969,7 @@ def _export_onnx(run_dir: Path, out: Path) -> dict:
     before = (dilated_unit.launches, dilated_unit.launches_bf16)
     t0 = time.perf_counter()
     text = _cli(["export_onnx", "--run", run_dir, "--output", out, "--verify", "--device",
-                 "cuda"])
+                 "cuda", "--skip_stablehlo"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     lines = text.strip().splitlines()
@@ -4777,6 +5050,10 @@ def phase_v1(v2_run: Path, db: Path) -> dict:
     t0 = time.perf_counter()
     out["onnx"] = _v1_onnx(work, db, v2_run)
     seconds["onnx"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["portable"] = {"v2_b1": export_portable_case(v2_run, "v2_b1"),
+                       "v2_b16": export_portable_case(v2_run, "v2_b16", BATCH)}
+    seconds["portable"] = time.perf_counter() - t0
     shutil.rmtree(work, ignore_errors=True)
     out.update({"launches": launches, "launches_onnx_verify": out["onnx"]["v2"]["launches"],
                 "part_seconds": seconds, "seconds": time.perf_counter() - t_phase})
@@ -4820,7 +5097,7 @@ SPECTRAL_BF16 = ["train.bf16=true", "train.bf16_dis=true"]
 DISTANCE_KINDS = {"encodec": ['distance.kind="encodec"'],
                   "instantaneous": ['distance.kind="instantaneous"'],
                   "mel64": ["distance.num_mels=64"]}
-SPECTRAL_CRITIC_ITERS = 5
+SPECTRAL_CRITIC_ITERS = 3
 
 
 def _timed_steps(cfg, crop, bf16: bool, programs: dict, want: int = 22) -> dict:
@@ -5550,8 +5827,8 @@ def phase_parallel() -> dict:
 
 HOST_ARTIFACTS = ROOT / "build" / "host" / "artifacts"
 HOST_BLOCKS = 32  # streamed blocks per command
-HOST_BENCH_BLOCKS = 256  # timed blocks of `bench` per artifact
-HOST_PY_BLOCKS = 64  # timed blocks of the Python paths beside it
+HOST_BENCH_BLOCKS = 128  # timed blocks of `bench` per artifact
+HOST_PY_BLOCKS = 32  # timed blocks of the Python paths beside it
 HOST_PRIOR_FRAMES = 64
 HOST_SEED = 4242
 WAV_TOL = 1 / 32767 + 1e-7  # a wav's int16 rounding (truncation toward zero), as `generate`'s
@@ -5559,12 +5836,15 @@ WAV_TOL = 1 / 32767 + 1e-7  # a wav's int16 rounding (truncation toward zero), a
 
 class HostBuild:
     """The artifact host's g++ build (rave_tpu_torch/export/native_host.py),
-    started when the smoke starts, on the host's CPU beside the phases that
-    work the card; `result()` waits for it and raises what it raised."""
+    or another g++ build `build` (the op library's,
+    ops/kernels/unit_op.py::ensure_library), started in a thread on the
+    host's CPU beside the phases that work the card; `result()` waits for it
+    and raises what it raised."""
 
-    def __init__(self):
+    def __init__(self, build=None):
         import threading
 
+        self.build = build
         self.path, self.error, self.seconds = None, None, None
         self.thread = threading.Thread(target=self._build, daemon=True)
         self.thread.start()
@@ -5574,7 +5854,7 @@ class HostBuild:
 
         t0 = time.perf_counter()
         try:
-            self.path = ensure_host()
+            self.path = (self.build or ensure_host)()
         except BaseException as e:  # re-raised in the main thread by result()
             self.error = e
         self.seconds = time.perf_counter() - t0
@@ -5920,6 +6200,9 @@ def main() -> None:
 
     host_build = HostBuild()  # g++ on the CPU while the phases below work the card
     build_info = timed("build", phase_build)
+    from rave_tpu_torch.ops.kernels.unit_op import ensure_library
+
+    op_build = HostBuild(ensure_library)  # the op library links the kernel library just built
     rows = timed("kernel", phase_kernel)
     rows_bf16 = timed("kernel_bf16", phase_kernel_bf16)
     offline = timed("offline", phase_offline)
@@ -5932,6 +6215,9 @@ def main() -> None:
     export = timed("export", phase_export, ROOT / loop["run_dir"])
     db = ROOT / "build" / "loop" / "db"
     prior = timed("prior", phase_prior, ROOT / loop["run_dir"], db)
+    op_library, op_build_s = op_build.result()
+    print(f"op library: {Path(op_library).relative_to(ROOT)} built by g++ in {op_build_s:.1f} s"
+          f" beside the phases above", flush=True)
     v1 = timed("v1", phase_v1, ROOT / loop["run_dir"], db)
     v2_artifact = keep_for_host("v2", ROOT / export["artifacts"]["streaming_ema"]["path"])
     shutil.rmtree(ROOT / "build" / "loop" / "runs", ignore_errors=True)  # ~0.7 GB per checkpoint
@@ -5945,6 +6231,8 @@ def main() -> None:
     stream = timed("stream", phase_stream)  # phases whose served streams are new run last
     variants = timed("variants", phase_variants)
     v3 = timed("v3", phase_v3)
+    portable = timed("portable", phase_portable, {
+        **v1["portable"], "discrete": discrete["portable"], "v3": v3["portable"]}, offline)
     host = timed("host", phase_host, host_build, {
         "v2": v2_artifact, "prior": prior["host_artifact"],
         "discrete": discrete["export"]["path"], "v3": v3["export"]["path"]})
@@ -6033,6 +6321,11 @@ def main() -> None:
         "launches_v1": v1["launches"],  # v1 has no DilatedUnit, as in rave_tpu
         "launches_host": host["launches"],  # the artifact host streams no unit
         "launches_onnx_verify": v1["launches_onnx_verify"],  # the v2 run's live forward
+        # the registered op's launches in one call of each portable program (v2 at B=16 and
+        # B=1, discrete, v3), counted by the op library in a process without the port
+        "launches_portable": portable["launches"],
+        "max_abs_err_portable_op": portable["op_max_abs_err"],
+        "ms_portable_op_b16": portable["op_ms_b16"],
         # v2 + spectral_discriminator and the other distances: 22 per step
         "launches_spectral": spectral["launches"] - spectral["launches_bf16"],
         # import_torch 0, export's smoke decode 11, generate's forward 22
@@ -6080,14 +6373,15 @@ def main() -> None:
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build": build_info, "kernel_shapes": rows, "kernel_bf16_shapes": rows_bf16,
+        {"card": card, "build": build_info, "op_build_s": op_build_s,
+         "kernel_shapes": rows, "kernel_bf16_shapes": rows_bf16,
          "bounds": bounds,
          "offline": offline, "stream": stream, "grad_shapes": grad, "train": train,
          "train_bf16": train_bf16, "remat": remat, "train_graph": train_graph, "loop": loop,
          "export": export,
          "prior": prior, "discrete": discrete, "v3": v3, "variants": variants, "v1": v1,
          "spectral": spectral, "import": imported, "native": native, "remote": remote,
-         "parallel": parallel, "host": host, "phase_seconds": seconds,
+         "parallel": parallel, "portable": portable, "host": host, "phase_seconds": seconds,
          **kernels},
         indent=1))
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())

@@ -249,8 +249,14 @@ def cmd_generate(argv):
 
 
 def cmd_export_onnx(argv):
+    """The `.onnx` where the configuration has one (v1 and v2 without the
+    noise synth, mono, variational), and the portable full graph of every
+    family (export/portable.py), as rave_tpu/cli.py::cmd_export_onnx."""
     p = argparse.ArgumentParser("rave_tpu_torch export_onnx")
     p.add_argument("--run", required=True)
+    p.add_argument("--n_signal", type=int, default=131072,
+                   help="samples per channel of the portable program's input")
+    p.add_argument("--batch", type=int, default=1, help="the portable program's batch")
     p.add_argument("--output", default=None)
     p.add_argument("--deterministic", action="store_true",
                    help="use the posterior mean instead of RandomNormalLike sampling")
@@ -258,7 +264,8 @@ def cmd_export_onnx(argv):
                    help="evaluate the .onnx with the port's interpreter and compare it with "
                    "the live model on --device")
     p.add_argument("--skip_stablehlo", action="store_true",
-                   help="accepted for the JAX command's sake: the port writes only the .onnx")
+                   help="emit only the .onnx: skip the portable TorchScript program (the JAX "
+                   "command's name for its portable StableHLO export)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     a = p.parse_args(argv)
     from pathlib import Path
@@ -267,24 +274,31 @@ def cmd_export_onnx(argv):
     from rave_tpu_torch.utils.checkpoint import load_run
 
     cfg, model, n_channels, run_dir = load_run(a.run, device=a.device)
+    code = 0
     try:
         if n_channels != 1:
             raise NotImplementedError(f"ONNX export is mono; got n_channels={n_channels}")
         data = export_onnx_model(cfg, model, deterministic=a.deterministic)
     except NotImplementedError as e:
         print(f"no .onnx for this configuration ({e})")
-        return 0
-    path = Path(a.output or run_dir) / f"{cfg.name}.onnx"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(data)
-    print(f"exported: {path}")
-    if a.verify:
-        err, n = verify_onnx(cfg, model)
-        print(f"verify: max |onnx - live| = {err:.2e} over {n} samples")
-        if not err < 1e-4:
-            print("ONNX verification failed", file=sys.stderr)
-            return 1
-    return 0
+    else:
+        path = Path(a.output or run_dir) / f"{cfg.name}.onnx"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(data)
+        print(f"exported: {path}")
+        if a.verify:
+            err, n = verify_onnx(cfg, model)
+            print(f"verify: max |onnx - live| = {err:.2e} over {n} samples")
+            if not err < 1e-4:
+                print("ONNX verification failed", file=sys.stderr)
+                code = 1
+    if not a.skip_stablehlo:
+        from rave_tpu_torch.export.portable import write_portable
+
+        path = write_portable(cfg, model, n_channels, Path(a.output or run_dir), a.n_signal,
+                              a.batch)
+        print(f"exported: {path}")
+    return code
 
 
 def verify_onnx(cfg, model):

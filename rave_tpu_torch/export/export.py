@@ -199,14 +199,15 @@ def _specs(tensors) -> list:
             for t in tensors]
 
 
-def trace_program(module, args, path: Path) -> None:
-    """`module` traced on `args` into the TorchScript file `path`; a
-    `TracerWarning` (a value the trace would bake in) raises."""
+def trace_program(module, args, path: Path) -> torch.jit.ScriptModule:
+    """`module` traced on `args` into the TorchScript file `path`, and the
+    traced module; a `TracerWarning` (a value the trace would bake in) raises."""
     with warnings.catch_warnings():
         warnings.simplefilter("error", torch.jit.TracerWarning)
         warnings.filterwarnings("ignore", message=r".*torch\.jit\.trace.* is deprecated")
         traced = torch.jit.trace(module, args, strict=False, check_trace=True)
     traced.save(str(path))
+    return traced
 
 
 def export_programs(art: ExportedRAVE, out_dir: Path) -> dict:

@@ -45,7 +45,8 @@ from rave_tpu_torch.parallel import mesh
 from rave_tpu_torch.ops.dsp import (
     amp_to_impulse_response, at_least_float32, fft_convolve, mod_sigmoid,
 )
-from rave_tpu_torch.ops.kernels.dilated_unit import fused_dilated_unit
+from rave_tpu_torch.ops.kernels.dilated_unit import fused_dilated_unit, traced
+from rave_tpu_torch.ops.kernels.unit_op import unit_op
 
 # --------------------------------------------------------------------------
 # pure delay algebra (rave_tpu/models/blocks.py:44-135)
@@ -350,7 +351,11 @@ class FusedDilatedResidual(Residual):
     GPU, the plain `F.conv1d` version for one on the CPU. A unit of another
     activation (Snake) runs the plain Residual, as the JAX package gates its
     Pallas kernel (rave_tpu/models/blocks.py:366-371). Parameters and the
-    streaming path (plain convolutions) are those of the plain Residual."""
+    streaming path (plain convolutions) are those of the plain Residual.
+    Under `torch.jit.trace` or `torch.export` the unit is the registered op
+    `rave_tpu_torch::dilated_unit` (ops/kernels/unit_op.py), which a saved
+    program records and runs: the same kernel on the card, the plain
+    version on the CPU."""
 
     def forward(self, x):
         if self.inner.activation != "leaky_relu":
@@ -359,7 +364,8 @@ class FusedDilatedResidual(Residual):
         w1 = conv1.weight().to(x.dtype)
         w2 = conv2.weight()[:, :, 0].to(x.dtype)
         left, right = conv1.pad
-        return fused_dilated_unit(x.contiguous(), w1, w2, conv1.dilation, left, right)
+        unit = unit_op if traced() else fused_dilated_unit
+        return unit(x.contiguous(), w1, w2, conv1.dilation, left, right)
 
 
 def residual_unit(dim: int, kernel_size: int, dilation: int, mode: str, weight_norm: bool,

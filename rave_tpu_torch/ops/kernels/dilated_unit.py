@@ -407,15 +407,27 @@ def _check(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                          f"{TILE}-frame tile plus the halo must fit one {MAX_BOX}-frame TMA box")
 
 
+def traced() -> bool:
+    """Whether a `torch.jit.trace` or a `torch.export` is recording."""
+    return torch.jit.is_tracing() or torch.compiler.is_exporting()
+
+
 def _forward(
     x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     dilation: int, pad_left: int, pad_right: int,
 ) -> torch.Tensor:
-    """The forward alone: plain on the CPU, the kernel on a CUDA tensor."""
+    """The forward alone: plain on the CPU, the kernel on a CUDA tensor. A
+    trace of the launch would record an empty buffer and not the kernel that
+    fills it: on a CUDA tensor under a trace it raises (the traced unit is
+    ops/kernels/unit_op.py's registered op)."""
     if x.device.type == "cpu":
         return fused_dilated_unit_reference(x, w1, w2, dilation, pad_left, pad_right)
     if x.device.type != "cuda":
         raise ValueError(f"fused_dilated_unit runs on cpu or cuda, not {x.device}")
+    if traced():
+        raise RuntimeError("fused_dilated_unit's ctypes launch cannot be traced or exported (the "
+                           "program would return the unfilled buffer): trace through "
+                           "ops/kernels/unit_op.py::unit_op, the registered op")
     _check(x, w1, w2, dilation, pad_left, pad_right)
     B, C, T = x.shape
     K = w1.shape[2]

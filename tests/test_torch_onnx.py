@@ -220,6 +220,6 @@ def test_cli_export_onnx_verify(tmp_path, case):
     (noisy / "config.json").write_text(config.snapshot(ncfg))
     save_checkpoint(str(noisy), create_train_state(ncfg, device="cpu"))
     code, out = _cli(["export_onnx", "--run", noisy, "--output", tmp_path / "none",
-                      "--device", "cpu"])
+                      "--skip_stablehlo", "--device", "cpu"])
     assert code == 0 and "no .onnx for this configuration" in out
     assert not (tmp_path / "none").exists()

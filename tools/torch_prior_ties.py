@@ -16,10 +16,16 @@ trained by `--loop_priors` (chip_smoke.py's phases `device`, `build` and
 the card from a zero frame, the card's own step logits kept; then the
 CPU's prior, in float32 and in float64, teacher-forced on the card's
 chain. It reports every pick where the card and the CPU's float32 part:
-the two logits on each device and in float64, the CPU's relative gap
-(what `CODE_TIE` bounds) and which device picked the float64 argmax; and
-over all logits, the card's and the CPU's float32 distance from float64,
-absolute and relative to |logit|, as maxima and quantiles.
+the two logits on each device and in float64, their float32 rounding
+scales (`chip_smoke.prior_logits`, the chain's, which the check's window
+takes; the output layer's sums alone are reported beside), the CPU's gap
+in tie windows (CODE_TIE of the
+two magnitudes' sum: a pick may part only within one) and which device
+picked the float64 argmax; over all codes, how many have their CPU top two
+within one window (the codes rounding alone could part) and the nearest
+gap; and over all logits, the card's and the CPU's float32 distance from
+float64, absolute, relative to |logit| and to the magnitude, as maxima and
+quantiles.
 """
 import argparse
 import json
@@ -58,37 +64,72 @@ def quantiles(a) -> dict:
             "p9999": float(q[2])}
 
 
+def output_layer_magnitude(prior, inputs):
+    """[B, D*R, T]: what float32 sums in the output layer alone, sum_i |w_i h_i|
+    + |b| over its inputs h, in float64: a narrower scale than the chain's,
+    reported beside it."""
+    import torch.nn.functional as F
+
+    out, seen = prior.post_net.layers[-1], []
+    hook = out.register_forward_hook(lambda mod, args, res: seen.append(args[0]))
+    try:
+        prior(inputs)
+    finally:
+        hook.remove()
+    b = None if out.b is None else out.b.double().abs()
+    return F.conv1d(F.pad(seen[0].double().abs(), out.pad), out.weight().double().abs(), b,
+                    out.stride, 0, out.dilation, out.groups)
+
+
 def analyse(card_prior, cpu_prior, n: int, code_tie: float) -> dict:
     import copy
 
     import torch
 
+    import chip_smoke
     from rave_tpu_torch.prior.model import split_classes
 
     D = card_prior.latent_size
     with torch.no_grad():
         frames, l_card = chain(card_prior, n + D - 1)
         inputs = torch.cat([torch.zeros(1, frames.shape[1], 1), frames[..., :-1]], -1)
-        l32 = cpu_prior(inputs)
+        # [D, R, T] each: the CPU's logits, their rounding scale, the output layer's sums
+        c32, mag = (t[0] for t in chip_smoke.prior_logits(cpu_prior, inputs))
+        mag_out = split_classes(output_layer_magnitude(cpu_prior, inputs), D)[0]
         l64 = copy.deepcopy(cpu_prior).double()(inputs.double())
-    c_card, c32, c64 = (split_classes(t, D)[0] for t in (l_card, l32, l64))  # [D, R, T]
+    l32 = c32.reshape(l64.shape)
+    c_card, c64 = (split_classes(t, D)[0] for t in (l_card, l64))  # [D, R, T]
     pick_card, pick32, pick64 = c_card.argmax(1), c32.argmax(1), c64.argmax(1)
     parts = []
     for d, t in (pick_card != pick32).nonzero().tolist():
         a, b = int(pick32[d, t]), int(pick_card[d, t])  # the CPU's pick, the card's
         la, lb = float(c32[d, a, t]), float(c32[d, b, t])
+        window = code_tie * float(mag[d, a, t] + mag[d, b, t])
         parts.append({
             "dim": d, "step": t, "cpu_pick": a, "card_pick": b, "f64_pick": int(pick64[d, t]),
             "cpu_f32": [la, lb], "card_f32": [float(c_card[d, a, t]), float(c_card[d, b, t])],
             "f64": [float(c64[d, a, t]), float(c64[d, b, t])],
-            "cpu_rel_gap": (la - lb) / (abs(la) + abs(lb)),
-            "tie": abs(la - lb) <= code_tie * (abs(la) + abs(lb)),
+            "magnitudes": [float(mag[d, a, t]), float(mag[d, b, t])],
+            "cpu_rel_gap": (la - lb) / (abs(la) + abs(lb)), "gap_windows": (la - lb) / window,
+            "tie": abs(la - lb) <= window,
             "row_max_abs_f64": float(c64[d, :, t].abs().max())})
+    # every code's CPU top two, their gap in tie windows (CODE_TIE of their magnitudes' sum)
+    top, at = c32.double().topk(2, dim=1)
+    gaps = (top[:, 0] - top[:, 1]) / (code_tie * mag.gather(1, at).sum(1)).clamp_min(1e-300)
     err_card, err32 = (l_card.double() - l64).abs(), (l32.double() - l64).abs()
     scale = l64.abs()
     nonzero = scale > 0  # a zero frame's first logits are the biases' exact zeros
     return {"codes": int(pick_card.numel()), "differ": len(parts),
-            "ties": sum(p["tie"] for p in parts), "card_is_f64": int((pick_card == pick64).sum()),
+            "ties": sum(p["tie"] for p in parts),
+            "outside_window": sum(not p["tie"] for p in parts),
+            "codes_in_window": int((gaps <= 1).sum()), "nearest_gap_windows": float(gaps.min()),
+            # each logit's distance from float64 over each scale a tie could be taken in
+            **{f"{who}_vs_f64_over_{name}": quantiles(
+                (got.double() - l64).abs().reshape(mag.shape) / scale.clamp_min(1e-300))
+               for who, got in (("card", l_card), ("cpu", l32))
+               for name, scale in (("value", l64.abs().reshape(mag.shape)),
+                                   ("output_layer", mag_out), ("chain", mag))},
+            "card_is_f64": int((pick_card == pick64).sum()),
             "cpu_is_f64": int((pick32 == pick64).sum()), "parts": parts,
             "card_vs_f64_abs": quantiles(err_card), "cpu_vs_f64_abs": quantiles(err32),
             "card_vs_f64_rel": quantiles(err_card[nonzero] / scale[nonzero]),
@@ -154,7 +195,12 @@ def main() -> None:
         results[str(run_dir)] = analyse(*pair, a.steps, chip_smoke.CODE_TIE)
     for name, r in results.items():
         print(f"{name}: {r['codes']} codes, {r['differ']} differ card vs CPU f32 ({r['ties']} "
-              f"ties); f64 argmax kept by card {r['card_is_f64']}, CPU {r['cpu_is_f64']}; "
+              f"ties, {r['outside_window']} outside the window); {r['codes_in_window']} codes' "
+              f"CPU top two within the tie window (nearest {r['nearest_gap_windows']:.3g} "
+              f"windows); |card - f64| over |f64|, the output layer's magnitude, the "
+              f"chain's: max " + " / ".join(f"{r[f'card_vs_f64_over_{k}']['max']:.2e}" for k in (
+                  "value", "output_layer", "chain")) + "; "
+              f"f64 argmax kept by card {r['card_is_f64']}, CPU {r['cpu_is_f64']}; "
               f"|logit - f64| rel card max {r['card_vs_f64_rel']['max']:.2e} p9999 "
               f"{r['card_vs_f64_rel']['p9999']:.2e}, CPU max {r['cpu_vs_f64_rel']['max']:.2e} "
               f"p9999 {r['cpu_vs_f64_rel']['p9999']:.2e}; abs card max "
