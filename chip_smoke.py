@@ -451,7 +451,10 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                after phase 1, beside the phases that work the card; the
                build's seconds printed) on the artifacts phases 12, 13, 20 and
                22 wrote (kept in build/host/artifacts when their phases
-               delete their work): `info` of each (side by side) against
+               delete their work), every streaming command of it served by
+               one captured CUDA graph per step program (each command's
+               `steps:` line: one capture, a replay per block, the capture's
+               seconds): `info` of each (side by side) against
                its manifest, on cuda:0 and the card's name, with the
                served path's backend flags and the TorchScript executor's
                profiling and
@@ -469,10 +472,13 @@ jax. Phases, each printing one line (any failure raises and exits non-zero):
                against one eager stream with the same fills, wavs within
                1/32767; `prior` (dithered) on phase 13's artifact bit-equal
                to `sample_prior` on the card; `bench 128` of each streaming
-               artifact, its p50 per block (upload, step, fetch,
+               artifact: the graph's p50 per block (upload, step, fetch,
                synchronize) under the block's budget (v2 and v3 46.44 ms,
-               discrete 23.22 ms), beside the Python artifact's served and
-               eager p50s of the same callback; every saved state's bit
+               discrete 23.22 ms), the interpreter's eager p50 on the same
+               blocks beside it, the graph's outputs and final state
+               bit-equal to the eager ones, and the Python artifact's served
+               and eager p50s as phases 12, 20 and 22 timed them (blocks on
+               the card, nothing fetched); every saved state's bit
                equality with the eager stream's recorded; 0 unit launches;
  24. the kernels' JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -5827,8 +5833,7 @@ def phase_parallel() -> dict:
 
 HOST_ARTIFACTS = ROOT / "build" / "host" / "artifacts"
 HOST_BLOCKS = 32  # streamed blocks per command
-HOST_BENCH_BLOCKS = 128  # timed blocks of `bench` per artifact
-HOST_PY_BLOCKS = 32  # timed blocks of the Python paths beside it
+HOST_BENCH_BLOCKS = 128  # timed blocks of `bench` per artifact, each path (8 warm ones before)
 HOST_PRIOR_FRAMES = 64
 HOST_SEED = 4242
 WAV_TOL = 1 / 32767 + 1e-7  # a wav's int16 rounding (truncation toward zero), as `generate`'s
@@ -5868,16 +5873,37 @@ class HostBuild:
 
 class Host:
     """The built host binary; `run` runs one command of it (`_run`: a
-    non-zero exit fails the phase) and keeps its seconds in `seconds`."""
+    non-zero exit fails the phase) and keeps its seconds in `seconds`;
+    `stream` runs a streaming command and checks that one captured CUDA graph
+    served its `steps` steps, keeping its warm-up and capture seconds in
+    `capture_s`."""
 
     def __init__(self, path: str):
-        self.path, self.seconds = path, {}
+        self.path, self.seconds, self.capture_s = path, {}, {}
 
     def run(self, what: str, *args) -> str:
         t0 = time.perf_counter()
         out = _run([self.path, *args], f"rtpu_host {what}")
         self.seconds[what] = time.perf_counter() - t0
         return out
+
+    def stream(self, what: str, steps: int, *args) -> str:
+        out = self.run(what, *args)
+        self.capture_s[what] = graph_steps(out, what, steps)
+        return out
+
+
+def graph_steps(out: str, what: str, steps: int) -> float:
+    """The host's `steps:` line in `out`: one CUDA graph captured, `steps`
+    replays; the capture's seconds (its two warm-ups included)."""
+    import re
+
+    m = re.search(r"^steps: cuda graph, (\d+) captures?, (\d+) replays "
+                  r"\(warm-up and capture ([0-9.]+) s\)$", out, re.M)
+    check(m is not None and (int(m.group(1)), int(m.group(2))) == (1, steps),
+          f"rtpu_host {what}: {m.group(0) if m else 'no steps line'}; expected one CUDA graph "
+          f"captured and {steps} replays")
+    return float(m.group(3))
 
 
 def keep_for_host(name: str, path) -> str:
@@ -5910,7 +5936,7 @@ def check_info(fields: dict, man: dict, what: str) -> None:
             "latent_family": [man["latent_family"]],
             "frames_per_block": [str(man["block_size"] // ratio)],
             "total_latency_samples": [str(man["latency"]["total_samples"])],
-            "device": [f"cuda:0 ({torch.cuda.get_device_name(0)})"],
+            "device": [f"cuda:0 ({torch.cuda.get_device_name(0)})"], "steps": ["cuda graph"],
             "cudnn": ["enabled 1 deterministic 0 benchmark 0 allow_tf32 0"],
             "matmul": ["allow_tf32 0"],
             "torchscript": ["profiling_executor 0 profiling_mode 0 optimize 0"],
@@ -5986,51 +6012,35 @@ def state_equal(path: Path, state) -> bool:
 
 def host_bench(host: Host, path: Path, what: str) -> dict:
     """`rtpu_host bench` of the forward: p50 and p95 ms per block (upload,
-    step, fetch, synchronize) and the budget it prints."""
+    step, fetch, synchronize) of the graph replays the commands serve and of
+    the eager interpreter on the same blocks, the budget it prints; the
+    graph's outputs and final state bit-equal to the eager ones."""
     import re
 
-    out = host.run(f"{what} bench", path, "bench", HOST_BENCH_BLOCKS, "forward")
-    m = re.search(r"per-block forward: p50 ([0-9.]+) ms\s+p95 ([0-9.]+) ms", out)
+    out = host.stream(f"{what} bench", HOST_BENCH_BLOCKS + 8, path, "bench", HOST_BENCH_BLOCKS,
+                      "forward")
+    times = {k: re.search(rf"per-block forward{tag}: p50 ([0-9.]+) ms\s+p95 ([0-9.]+) ms", out)
+             for k, tag in (("graph", ""), ("eager", " eager"))}
     b = re.search(r"budget ([0-9.]+) ms/block", out)
-    check(m is not None and b is not None and "device: cuda:0 (" in out,
-          f"rtpu_host bench {what}: {out[-800:]}")
-    return {"p50_ms": float(m.group(1)), "p95_ms": float(m.group(2)),
-            "budget_ms": float(b.group(1))}
+    equal = re.search(r"graph vs eager over (\d+) blocks: outputs bit-equal (\d), state "
+                      r"bit-equal (\d)", out)
+    check(all(times.values()) and b is not None and "device: cuda:0 (" in out
+          and equal is not None, f"rtpu_host bench {what}: {out[-800:]}")
+    check(equal.groups() == (str(HOST_BENCH_BLOCKS + 8), "1", "1"),
+          f"rtpu_host bench {what}: {equal.group(0)}")
+    return {"p50_ms": float(times["graph"].group(1)), "p95_ms": float(times["graph"].group(2)),
+            "eager_p50_ms": float(times["eager"].group(1)),
+            "eager_p95_ms": float(times["eager"].group(2)), "budget_ms": float(b.group(1)),
+            "graph_bit_equal": True}
 
 
-def python_p50(art, x) -> dict:
-    """The Python artifact's forward per block as an audio callback pays it
-    (a host block uploaded, the step, the output fetched, a synchronize):
-    served (the public streaming call, a CUDA graph) and eager (the step
-    called directly), HOST_PY_BLOCKS blocks each after 4 warm ones."""
-    import torch
-
-    from rave_tpu_torch.train.loop import fp32_exact
-
-    blocks = host_blocks(x, art.block_size)
-    ms = {"served": [], "eager": []}
-    state = [t.clone() for t in art.stream_state]
-    with torch.no_grad(), fp32_exact():
-        for i in range(HOST_PY_BLOCKS + 4):
-            xb = blocks[i % len(blocks)]
-            _, t = timed_call(lambda: art.forward(xb.cuda(), streaming=True, seed=i).cpu())
-            seed = torch.tensor(i, dtype=torch.int64, device="cuda")
-
-            def eager():
-                nonlocal state
-                y, state = art.stream_steps["forward"](state, xb.cuda(), seed)
-                return y.cpu()
-
-            _, t_e = timed_call(eager)
-            if i >= 4:
-                ms["served"].append(t)
-                ms["eager"].append(t_e)
-    return {k: statistics.median(v) for k, v in ms.items()}
-
-
-def phase_host(build: HostBuild, artifacts: dict) -> dict:
-    """The artifact host on the card, on the artifacts of phases `export`
-    (v2), `prior`, `discrete` and `v3`; see the module docstring."""
+def phase_host(build: HostBuild, artifacts: dict, python_p50: dict, card: str) -> dict:
+    """The artifact host on the card (`card`: its name and power limit), on
+    the artifacts of phases `export` (v2), `prior`, `discrete` and `v3`, each
+    streaming command served by one captured CUDA graph; `python_p50` is the
+    served (`graph`) and `eager` p50 of each family's artifact as its phase
+    timed it (`Lockstep`: blocks already on the card, nothing fetched),
+    printed beside the host's; see the module docstring."""
     import numpy as np
     import torch
 
@@ -6066,15 +6076,18 @@ def phase_host(build: HostBuild, artifacts: dict) -> dict:
                                seed=len(name))
 
     def encode(name):
-        host.run(f"{name} encode", "--save-state", work / f"{name}_enc.state", paths[name],
-                 "encode", work / f"{name}.wav", work / f"{name}_z.f32", HOST_SEED)
+        host.stream(f"{name} encode", HOST_BLOCKS, "--save-state", work / f"{name}_enc.state",
+                    paths[name], "encode", work / f"{name}.wav", work / f"{name}_z.f32",
+                    HOST_SEED)
         if name == "v2":
-            host.run("v2 decode", "--save-state", work / "v2_dec.state", paths[name], "decode",
-                     work / "v2_z.f32", work / "v2_dec.wav", HOST_SEED + 2)
+            host.stream("v2 decode", HOST_BLOCKS, "--save-state", work / "v2_dec.state",
+                        paths[name], "decode", work / "v2_z.f32", work / "v2_dec.wav",
+                        HOST_SEED + 2)
 
     def forward(name):
-        host.run(f"{name} forward", "--save-state", work / f"{name}_fwd.state", paths[name],
-                 "forward", work / f"{name}.wav", work / f"{name}_fwd.wav", HOST_SEED + 1)
+        host.stream(f"{name} forward", HOST_BLOCKS, "--save-state", work / f"{name}_fwd.state",
+                    paths[name], "forward", work / f"{name}.wav", work / f"{name}_fwd.wav",
+                    HOST_SEED + 1)
 
     _in_threads([functools.partial(run, name) for name in arts for run in (encode, forward)])
     for name in ("v2", "discrete"):
@@ -6104,16 +6117,15 @@ def phase_host(build: HostBuild, artifacts: dict) -> dict:
         errs = {k: v for k, v in r.items() if k.endswith("wav_err")}
         check(max(errs.values()) <= WAV_TOL, f"{name}: host wavs {errs} > 1/32767")
         r["bench"] = host_bench(host, path, name)
-        r["python_p50_ms"] = python_p50(art, x)
         out["families"][name] = r
         del art
 
     # v3: learn the target, learn the source, transfer, each a process of its own
     path = paths["v3"]
     art = ExportedRAVE(str(path), device="cuda")
-    B = art.block_size
-    target = host_signal(work / "target.wav", 8 * B, seed=31, scale=0.5)
-    source = host_signal(work / "source.wav", 8 * B, seed=32, scale=0.1)
+    B, n_blocks = art.block_size, 8
+    target = host_signal(work / "target.wav", n_blocks * B, seed=31, scale=0.5)
+    source = host_signal(work / "source.wav", n_blocks * B, seed=32, scale=0.1)
     plan = [(["--attr", "learn_target=1"], "target", [("learn_y", 1.0)]),
             (["--attr", "learn_target=0", "--attr", "learn_source=1"], "source",
              [("learn_y", 0.0), ("learn_x", 1.0)]),
@@ -6121,9 +6133,9 @@ def phase_host(build: HostBuild, artifacts: dict) -> dict:
     state, r = None, {"block": B, "wav_err": [], "state_bit_equal": []}
     for k, (flags, which, fills) in enumerate(plan):
         load = ["--load-state", work / f"v3_{k - 1}.state"] if k else []
-        host.run(f"v3 forward {k}", *flags, *load, "--save-state", work / f"v3_{k}.state",
-                 path, "forward", work / f"{which}.wav", work / f"v3_{k}.wav",
-                 HOST_SEED + 10 * k)
+        host.stream(f"v3 forward {k}", n_blocks, *flags, *load, "--save-state",
+                    work / f"v3_{k}.state", path, "forward", work / f"{which}.wav",
+                    work / f"v3_{k}.wav", HOST_SEED + 10 * k)
         x = target if which == "target" else source
         y, state = eager_stream(art, "forward", host_blocks(x, B), HOST_SEED + 10 * k, state,
                                 fills)
@@ -6135,14 +6147,14 @@ def phase_host(build: HostBuild, artifacts: dict) -> dict:
           f"v3 AdaIN across processes: wavs {r['wav_err']} > 1/32767, or a statistic not "
           f"learned ({min(learned)} updates)")
     r["bench"] = host_bench(host, path, "v3")
-    r["python_p50_ms"] = python_p50(art, source)
     out["families"]["v3"] = r
     del art
 
     # the prior: dithered, against sample_prior on the card
     path = paths["prior"]
     art = ExportedRAVE(str(path), device="cuda")
-    host.run("prior", path, "prior", HOST_PRIOR_FRAMES, work / "prior_z.f32", HOST_SEED)
+    host.stream("prior", HOST_PRIOR_FRAMES - 1 + art.prior_step.prior.latent_size, path, "prior",
+                HOST_PRIOR_FRAMES, work / "prior_z.f32", HOST_SEED)
     z = np.fromfile(work / "prior_z.f32", np.float32).reshape(HOST_PRIOR_FRAMES, -1)
     z_py = art.sample_prior(HOST_PRIOR_FRAMES, seed=HOST_SEED)[0].T.cpu().numpy()
     bit_equal = z.shape == z_py.shape and bool(np.array_equal(z, z_py))
@@ -6158,8 +6170,10 @@ def phase_host(build: HostBuild, artifacts: dict) -> dict:
               f"{r['bench']['budget_ms']:.2f} ms budget")
     shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(HOST_ARTIFACTS, ignore_errors=True)
+    for name, r in out["families"].items():
+        r["python_p50_ms"] = python_p50[name]
     out["launches"] = dilated_unit.launches
-    out["command_s"] = host.seconds
+    out["command_s"], out["capture_s"] = host.seconds, host.capture_s
     out["seconds"] = time.perf_counter() - t_phase
     fam = out["families"]
     print(f"host: rtpu_host built in {build_s:.1f} s (g++ against torch {torch.__version__}); "
@@ -6171,15 +6185,21 @@ def phase_host(build: HostBuild, artifacts: dict) -> dict:
           f"discrete forward {fam['discrete']['forward_wav_err']:.2e} <= 1/32767; v3 AdaIN in "
           f"3 processes {', '.join(f'{e:.2e}' for e in fam['v3']['wav_err'])} (states bit-equal "
           f"{fam['v3']['state_bit_equal']}); prior {HOST_PRIOR_FRAMES} frames bit-equal to "
-          f"sample_prior; 0 unit launches; artifacts "
+          f"sample_prior; every command's steps one captured CUDA graph, replayed per block "
+          f"(warm-up and capture {min(host.capture_s.values()):.2f}-"
+          f"{max(host.capture_s.values()):.2f} s per process); 0 unit launches; artifacts "
           + ", ".join(f"{k} {v['all']:.1f} MiB (.ts {v['ts']:.1f}, .state {v['state']:.2f})"
                       for k, v in out["artifact_mib"].items())
           + f"; phase {out['seconds']:.1f} s, of which host commands "
           f"{sum(host.seconds.values()):.1f} s ({len(host.seconds)} processes)", flush=True)
-    print("host bench (ms per block, upload + step + fetch + synchronize): " + "; ".join(
-          f"{k} host p50 {r['bench']['p50_ms']:.3f} p95 {r['bench']['p95_ms']:.3f}, Python served "
-          f"{r['python_p50_ms']['served']:.3f} eager {r['python_p50_ms']['eager']:.3f} (budget "
-          f"{r['bench']['budget_ms']:.2f})" for k, r in fam.items()), flush=True)
+    print(f"host bench on {card} (ms per block, upload + step + fetch + synchronize, "
+          f"{HOST_BENCH_BLOCKS} blocks): " + "; ".join(
+              f"{k} host graph p50 {r['bench']['p50_ms']:.3f} p95 {r['bench']['p95_ms']:.3f}, "
+              f"eager p50 {r['bench']['eager_p50_ms']:.3f} p95 {r['bench']['eager_p95_ms']:.3f}, "
+              f"graph bit-equal to eager; Python served {r['python_p50_ms']['graph']:.3f} eager "
+              f"{r['python_p50_ms']['eager']:.3f} (its phase's blocks on the card, nothing "
+              f"fetched) (budget {r['bench']['budget_ms']:.2f})" for k, r in fam.items()),
+          flush=True)
     return out
 
 
@@ -6235,7 +6255,9 @@ def main() -> None:
         **v1["portable"], "discrete": discrete["portable"], "v3": v3["portable"]}, offline)
     host = timed("host", phase_host, host_build, {
         "v2": v2_artifact, "prior": prior["host_artifact"],
-        "discrete": discrete["export"]["path"], "v3": v3["export"]["path"]})
+        "discrete": discrete["export"]["path"], "v3": v3["export"]["path"]}, {
+        "v2": export["served"]["v2"]["p50_ms"], "discrete": discrete["export"]["served"]["p50_ms"],
+        "v3": v3["export"]["served"]["p50_ms"]}, card)
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "rave_tpu"))
     check(not foreign, f"the port loaded the JAX package or jax: {foreign[:5]}")
 

@@ -47,6 +47,23 @@
 // rewrites the traced graph and each step runs the ATen kernels of the
 // Python eager step. info and bench print these settings.
 //
+// Steps as CUDA graphs (the JAX host's one compiled executable per block;
+// rave_tpu_torch/nn/graphs.py::StepGraphs in Python): on the card a step
+// program's first call copies the block and the seed into static buffers,
+// runs the program twice on a side stream from the pool (the warm-ups: the
+// interpreter's first-run set-up, cuDNN's choice, cuBLAS and cuFFT plans;
+// the step is pure, so the state stays as it was), captures one call that
+// also copies the new state into the state tensors in place, and replays
+// it; every later block is a copy in, a fill of the seed and a replay. The
+// state tensors keep their addresses for the life of the process. The graph
+// records the kernels chosen under the backend flags, which are set before
+// any capture. A capture or replay error exits non-zero naming it: there is
+// no eager path on the card (bench times one beside the graph and holds the
+// two bit-equal). A build without -DRTPU_HOST_CUDA_GRAPHS (a CPU wheel's)
+// refuses a card artifact. On the CPU the steps run eagerly through the
+// interpreter, the new state written into the same state tensors in place.
+// info and every streaming command print which ran.
+//
 // Layouts: wavs are interleaved [T, C] and the programs take [1, C, block];
 // latent files are raw little-endian float32 [n_frames, latent_size]
 // row-major (the programs' latents are [1, latent_size, frames]). There is
@@ -59,6 +76,17 @@
 #include <torch/cuda.h>
 #include <torch/script.h>
 #include <torch/csrc/jit/runtime/graph_executor.h>
+
+#ifdef RTPU_HOST_CUDA_GRAPHS
+// cuda.h first: CUDAGraph's members depend on CUDA_VERSION, which must be
+// the value libtorch_cuda was compiled with
+#include <cuda.h>
+#include <ATen/cuda/CUDAGraph.h>
+#include <c10/core/StreamGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#include <memory>
+#include <optional>
+#endif
 
 #include <algorithm>
 #include <chrono>
@@ -81,6 +109,13 @@ constexpr int64_t kPriorDitherSalt = 5, kPriorPadSalt = 6;
 [[noreturn]] void Die(const std::string& msg) {
   fprintf(stderr, "%s\n", msg.c_str());
   exit(1);
+}
+
+// An exception's message: c10's without its C++ backtrace, the TorchScript
+// interpreter's (a std::runtime_error) with the program's traceback.
+std::string ErrorText(const std::exception& e) {
+  const auto* c10_error = dynamic_cast<const c10::Error*>(&e);
+  return c10_error ? c10_error->what_without_backtrace() : e.what();
 }
 
 // ---------------------------------------------------------------------------
@@ -501,14 +536,37 @@ struct AttrOp {
   float value = 1.f;
 };
 
+constexpr int kWarmupCalls = 2;  // eager calls on a side stream before a capture
+
 // A loaded step program: the TorchScript module, its flat I/O specs and its
-// state, resident on the device between calls.
+// state, resident on the device between calls. The state tensors keep their
+// addresses: every write to them is in place. On the card the program is
+// served from static buffers (the block `x`, the int64 `seed`) by `graph`,
+// whose output `y` each replay overwrites.
 struct Method {
   torch::jit::Module module;
   std::vector<TensorSpec> inputs, outputs;
   int64_t n_state = 0;
   std::vector<at::Tensor> state;
+  at::Tensor x, seed, y;
+#ifdef RTPU_HOST_CUDA_GRAPHS
+  std::unique_ptr<at::cuda::CUDAGraph> graph;
+#endif
 };
+
+// The step's outputs: the block's output and the next state.
+struct StepOut {
+  at::Tensor y;
+  std::vector<at::Tensor> state;
+};
+
+// The next state into the state tensors, in place. A program returns either
+// the tensor it was given (a leaf it did not touch) or a new one, which
+// shares no memory with another state tensor.
+void CopyBack(std::vector<at::Tensor>& state, const std::vector<at::Tensor>& next) {
+  for (size_t i = 0; i < state.size(); i++)
+    if (!next[i].is_same(state[i])) state[i].copy_(next[i]);
+}
 
 class RtpuHost {
  public:
@@ -525,6 +583,10 @@ class RtpuHost {
       if (!torch::cuda::is_available())
         Die("the artifact's programs run on " + where +
             ", and this machine has no CUDA device");
+#ifndef RTPU_HOST_CUDA_GRAPHS
+      Die("the artifact's programs run on " + where + ", and this host was built without "
+          "CUDA graphs (RTPU_HOST_CUDA_GRAPHS): build it against a CUDA wheel");
+#endif
       if (!device_.has_index()) device_ = c10::Device(torch::kCUDA, 0);
       device_name_ = CudaDeviceName(device_.index());
     } else if (!device_.is_cpu()) {
@@ -560,13 +622,22 @@ class RtpuHost {
     if (aot.at("kept_inputs").arr.size() != aot.at("inputs").arr.size())
       Die(name + ": the program dropped unused inputs");
     Method m;
-    m.module = torch::jit::load(dir_ + "/" + aot.at("ts_file").str, device_);
+    // Where the trace saved each tensor: the weights on the artifact's
+    // device, the trace's shape arithmetic (sizes divided by constant 0-d
+    // tensors, read back with int()) on the host. Mapping those constants to
+    // the card too would make every int() a device read: a synchronize per
+    // read eagerly, and an error inside a CUDA graph capture.
+    m.module = torch::jit::load(dir_ + "/" + aot.at("ts_file").str);
+    for (const auto& t : m.module.parameters())
+      if (t.device() != device_) Die(name + ": a weight lies on " + t.device().str());
+    for (const auto& t : m.module.buffers())
+      if (t.device() != device_) Die(name + ": a buffer lies on " + t.device().str());
     m.module.eval();
     m.inputs = ParseSpecs(aot.at("inputs"));
     m.outputs = ParseSpecs(aot.at("outputs"));
     m.n_state = aot.at("n_state").i64();
     m.state = ReadState(dir_ + "/" + aot.at("state_file").str, m);
-    if (!load_state_.empty()) m.state = ReadState(load_state_, m);
+    if (!load_state_.empty()) CopyBack(m.state, ReadState(load_state_, m));
     ApplyAttributes(name, m, aot);
     return methods_.emplace(name, std::move(m)).first->second;
   }
@@ -653,21 +724,63 @@ class RtpuHost {
     }
   }
 
-  // One streaming step: (state..., x, seed) -> y on the device; the new
-  // state stays on the device for the next call.
-  at::Tensor Step(Method& m, const at::Tensor& x, uint32_t seed) {
-    c10::List<at::Tensor> state;
-    for (const auto& t : m.state) state.push_back(t);
-    at::Tensor s = torch::full({}, static_cast<int64_t>(seed),
-                               torch::dtype(torch::kInt64).device(device_));
-    auto out = m.module.forward({state, x.to(device_), s}).toTuple();
+  // The program through the interpreter: (state..., x, seed) -> (y, next).
+  StepOut Run(Method& m, const std::vector<at::Tensor>& state, const at::Tensor& x,
+              const at::Tensor& seed) {
+    c10::List<at::Tensor> in;
+    for (const auto& t : state) in.push_back(t);
+    auto out = m.module.forward({in, x, seed}).toTuple();
     const auto& el = out->elements();
     c10::List<at::Tensor> next = el.at(1).toTensorList();
     if (static_cast<int64_t>(next.size()) != m.n_state)
       Die("the program returned " + std::to_string(next.size()) + " state tensors for " +
           std::to_string(m.n_state));
-    for (int64_t i = 0; i < m.n_state; i++) m.state[i] = next.get(i);
-    return el.at(0).toTensor();
+    return {el.at(0).toTensor(), std::vector<at::Tensor>(next.begin(), next.end())};
+  }
+
+  at::Tensor SeedTensor(uint32_t seed) const {
+    return torch::full({}, static_cast<int64_t>(seed),
+                       torch::dtype(torch::kInt64).device(device_));
+  }
+
+  // One streaming step of the path the commands serve: (state..., x, seed)
+  // -> y, the next state written into m.state in place. On the card y is the
+  // graph's static output: read it before the next step of `m`.
+  at::Tensor Step(Method& m, const at::Tensor& x, uint32_t seed) {
+    calls_++;
+#ifdef RTPU_HOST_CUDA_GRAPHS
+    if (device_.is_cuda()) {  // a build without graphs refused a card artifact at load
+      if (!m.graph) return Capture(m, x, seed);
+      try {
+        m.x.copy_(x);
+        m.seed.fill_(static_cast<int64_t>(seed));
+        m.graph->replay();
+      } catch (const std::exception& e) {
+        Die(std::string("CUDA graph replay failed: ") + ErrorText(e));
+      }
+      return m.y;
+    }
+#endif
+    StepOut out = Run(m, m.state, x.to(device_), SeedTensor(seed));
+    CopyBack(m.state, out.state);
+    return out.y;
+  }
+
+  // One step through the interpreter on `state`, replaced by the next (the
+  // eager path that bench times beside the graph).
+  at::Tensor StepEager(Method& m, std::vector<at::Tensor>& state, const at::Tensor& x,
+                       uint32_t seed) {
+    StepOut out = Run(m, state, x.to(device_), SeedTensor(seed));
+    state = std::move(out.state);
+    return out.y;
+  }
+
+  // How the steps ran, for the last lines of a command.
+  std::string StepsLine() const {
+    if (!device_.is_cuda()) return "steps: eager on the cpu, " + std::to_string(calls_) + " calls";
+    return "steps: cuda graph, " + std::to_string(captures_) +
+           (captures_ == 1 ? " capture, " : " captures, ") + std::to_string(calls_) +
+           " replays (warm-up and capture " + std::to_string(capture_s_) + " s)";
   }
 
   void Synchronize() const {
@@ -682,6 +795,47 @@ class RtpuHost {
   std::map<std::string, Method> methods_;
   std::vector<AttrOp> attrs_;
   std::string load_state_, save_state_;
+  int64_t calls_ = 0, captures_ = 0;  // steps served (replays on the card), graphs captured
+  double capture_s_ = 0;
+
+#ifdef RTPU_HOST_CUDA_GRAPHS
+  // the memory pool of this process's graphs (never replayed at once)
+  std::optional<decltype(at::cuda::graph_pool_handle())> pool_;
+
+  // The first call of `m` on the card: static buffers, two warm-ups and a
+  // capture on a side stream, then the replay that serves this block.
+  at::Tensor Capture(Method& m, const at::Tensor& x, uint32_t seed) {
+    auto t0 = std::chrono::steady_clock::now();
+    try {
+      const TensorSpec& in = m.inputs[m.n_state];
+      m.x = torch::empty(in.shape, torch::dtype(DtypeOf(in.dtype)).device(device_));
+      m.x.copy_(x);
+      m.seed = SeedTensor(seed);
+      if (!pool_) pool_ = at::cuda::graph_pool_handle();
+      Synchronize();
+      c10::cuda::CUDAStream side = c10::cuda::getStreamFromPool(false, device_.index());
+      {
+        c10::StreamGuard guard(side.unwrap());
+        for (int i = 0; i < kWarmupCalls; i++) Run(m, m.state, m.x, m.seed);
+        Synchronize();
+        m.graph = std::make_unique<at::cuda::CUDAGraph>();
+        m.graph->capture_begin(*pool_, cudaStreamCaptureModeThreadLocal);
+        StepOut out = Run(m, m.state, m.x, m.seed);
+        CopyBack(m.state, out.state);
+        m.y = out.y;
+        m.graph->capture_end();
+      }
+      Synchronize();
+      m.graph->replay();
+      Synchronize();
+    } catch (const std::exception& e) {
+      Die(std::string("CUDA graph capture failed: ") + ErrorText(e));
+    }
+    captures_++;
+    capture_s_ += std::chrono::duration<double>(std::chrono::steady_clock::now() - t0).count();
+    return m.y;
+  }
+#endif
 };
 
 // [1, C, n] on any device -> interleaved [n, C] floats on the host
@@ -771,6 +925,7 @@ int main(int argc, char** argv) {
     printf("total_latency_samples: %lld\n",
            static_cast<long long>(man.at("latency").at("total_samples").i64()));
     printf("device: %s\n", host.DeviceLine().c_str());
+    printf("steps: %s\n", device.is_cuda() ? "cuda graph" : "eager on the cpu");
     PrintBackendFlags();
     for (const auto& kv : man.at("aot").obj)
       printf("aot_method: %s%s\n", kv.first.c_str(),
@@ -782,39 +937,77 @@ int main(int argc, char** argv) {
   if (cmd == "bench") {
     // What an audio callback pays per block: the upload, the step, the
     // fetch of the output to the host and a synchronize, the state kept on
-    // the device. Realtime budget = block_size / sampling_rate.
+    // the device. Realtime budget = block_size / sampling_rate. The same
+    // blocks and seeds run twice from the same initial state: eagerly
+    // through the interpreter (on a copy of the state), then, on the card,
+    // as the graph replays that the commands serve, whose outputs and final
+    // state must be bit-equal to the eager ones.
     int64_t n_blocks = pos.size() > 2 ? atoll(pos[2].c_str()) : 256;
     std::string which = pos.size() > 3 ? pos[3] : "forward";
     if (which != "forward" && which != "encode" && which != "decode")
       Die("bench: unknown method " + which);
     if (n_blocks < 1) Die("bench: n_blocks must be positive");
+    constexpr int64_t kWarmBlocks = 8;
     Method& m = host.Load(which + "_step");
     const TensorSpec& in = m.inputs[m.n_state];
-    std::vector<float> xblock(c10::multiply_integers(in.shape));
+    int64_t numel = c10::multiply_integers(in.shape);
+    std::vector<float> xs(static_cast<size_t>((n_blocks + kWarmBlocks) * numel));
     std::mt19937 rng(17);
     std::normal_distribution<float> nrm(0.f, which == "decode" ? 1.f : 0.1f);
-    std::vector<double> ms;
-    for (int64_t bi = -8; bi < n_blocks; bi++) {  // 8 warmup blocks
-      for (auto& v : xblock) v = nrm(rng);
-      host.Synchronize();
-      auto t0 = std::chrono::steady_clock::now();
-      at::Tensor x = torch::from_blob(xblock.data(), in.shape, torch::kFloat32).to(device);
-      at::Tensor y = host.Step(m, x, ChainSeed(0, bi + 8)).to(torch::kCPU);
-      host.Synchronize();
-      auto t1 = std::chrono::steady_clock::now();
-      if (bi >= 0) ms.push_back(std::chrono::duration<double, std::milli>(t1 - t0).count());
-    }
-    std::sort(ms.begin(), ms.end());
-    double sum = 0;
-    for (double v : ms) sum += v;
-    double p50 = ms[ms.size() / 2], p95 = ms[ms.size() * 95 / 100];
+    for (auto& v : xs) v = nrm(rng);
+    // the blocks' outputs on the host, the p50, p95 and mean ms of the timed ones
+    auto timed = [&](auto&& step, std::vector<at::Tensor>* ys) {
+      std::vector<double> ms;
+      for (int64_t bi = -kWarmBlocks; bi < n_blocks; bi++) {
+        host.Synchronize();
+        auto t0 = std::chrono::steady_clock::now();
+        at::Tensor x = torch::from_blob(xs.data() + (bi + kWarmBlocks) * numel, in.shape,
+                                        torch::kFloat32);
+        at::Tensor y = step(x, ChainSeed(0, bi + kWarmBlocks)).to(torch::kCPU);
+        host.Synchronize();
+        auto t1 = std::chrono::steady_clock::now();
+        ys->push_back(y);
+        if (bi >= 0) ms.push_back(std::chrono::duration<double, std::milli>(t1 - t0).count());
+      }
+      std::sort(ms.begin(), ms.end());
+      double sum = 0;
+      for (double v : ms) sum += v;
+      return std::vector<double>{ms[ms.size() / 2], ms[ms.size() * 95 / 100], sum / ms.size()};
+    };
+    std::vector<at::Tensor> eager_state, eager_ys, graph_ys;
+    for (const auto& t : m.state) eager_state.push_back(t.clone());
+    std::vector<double> eager = timed(
+        [&](const at::Tensor& x, uint32_t seed) {
+          return host.StepEager(m, eager_state, x, seed);
+        }, &eager_ys);
     double budget_ms = 1000.0 * block / sr;
     printf("device: %s\n", host.DeviceLine().c_str());
     PrintBackendFlags();
     printf("blocks: %lld x %lld samples (budget %.2f ms/block)\n",
            static_cast<long long>(n_blocks), static_cast<long long>(block), budget_ms);
-    printf("per-block %s: p50 %.4f ms  p95 %.4f ms  mean %.4f ms\n", which.c_str(), p50, p95,
-           sum / ms.size());
+    double p50 = eager[0], p95 = eager[1];
+    if (device.is_cuda()) {
+      std::vector<double> graph = timed(
+          [&](const at::Tensor& x, uint32_t seed) { return host.Step(m, x, seed); }, &graph_ys);
+      bool ys_equal = true, state_equal = true;
+      for (size_t i = 0; i < graph_ys.size(); i++)
+        ys_equal = ys_equal && torch::equal(graph_ys[i], eager_ys[i]);
+      for (int64_t i = 0; i < m.n_state; i++)
+        state_equal = state_equal && torch::equal(m.state[i].cpu(), eager_state[i].cpu());
+      printf("per-block %s: p50 %.4f ms  p95 %.4f ms  mean %.4f ms\n", which.c_str(), graph[0],
+             graph[1], graph[2]);
+      printf("per-block %s eager: p50 %.4f ms  p95 %.4f ms  mean %.4f ms\n", which.c_str(),
+             eager[0], eager[1], eager[2]);
+      printf("graph vs eager over %lld blocks: outputs bit-equal %d, state bit-equal %d\n",
+             static_cast<long long>(graph_ys.size()), ys_equal, state_equal);
+      printf("%s\n", host.StepsLine().c_str());
+      if (!ys_equal || !state_equal) Die("bench: the graph is not bit-equal to the eager steps");
+      p50 = graph[0];
+      p95 = graph[1];
+    } else {
+      printf("per-block %s eager: p50 %.4f ms  p95 %.4f ms  mean %.4f ms\n", which.c_str(),
+             eager[0], eager[1], eager[2]);
+    }
     printf("realtime headroom: %.1fx (p50), %.1fx (p95)\n", budget_ms / p50, budget_ms / p95);
     return 0;
   }
@@ -849,6 +1042,7 @@ int main(int argc, char** argv) {
       out.insert(out.end(), y.begin(), y.end());
     }
     if (!host.save_state_path().empty()) host.SaveState(m, host.save_state_path());
+    printf("%s\n", host.StepsLine().c_str());
     if (cmd == "forward") {
       Wav w;
       w.sample_rate = static_cast<int>(sr);
@@ -884,6 +1078,7 @@ int main(int argc, char** argv) {
       out.insert(out.end(), y.begin(), y.end());
     }
     if (!host.save_state_path().empty()) host.SaveState(m, host.save_state_path());
+    printf("%s\n", host.StepsLine().c_str());
     Wav w;
     w.sample_rate = static_cast<int>(sr);
     w.channels = static_cast<int>(n_channels);
@@ -910,10 +1105,11 @@ int main(int argc, char** argv) {
     at::Tensor x = torch::zeros({1, D * R, 1}, torch::dtype(torch::kFloat32).device(device));
     std::vector<at::Tensor> ys;
     for (int64_t i = 0; i < n; i++) {
-      x = host.Step(m, x, ChainSeed(seed_base, i));
-      ys.push_back(x);
+      x = host.Step(m, x, ChainSeed(seed_base, i));  // the next step copies it in
+      ys.push_back(x.clone());
     }
     if (!host.save_state_path().empty()) host.SaveState(m, host.save_state_path());
+    printf("%s\n", host.StepsLine().c_str());
     at::Tensor y = torch::cat(ys, -1);
     // QuantizedNormal(R).decode: the bins' lower edges plus the dither
     at::Tensor q = y.reshape({1, -1, R, n}).argmax(2).to(torch::kFloat32) / R;

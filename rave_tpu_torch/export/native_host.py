@@ -7,7 +7,14 @@ nn_tilde C++ consumers): a Python-free program over libtorch that loads a
 by export.py beside the `.pt2`) and streams audio block by block on the
 device the artifact was exported on, its state resident there between
 blocks. Nothing is compiled at load: a TorchScript program runs the ATen
-kernels its trace recorded.
+kernels its trace recorded. On the card each step program is served as one
+CUDA graph, the counterpart of the JAX host's one compiled executable per
+block: its first call warms the program up twice on a side stream and
+captures it over static buffers (the state tensors, the block, the seed),
+and every block after it is a copy in and a replay. On the CPU the steps
+run eagerly through the TorchScript interpreter, writing the new state into
+the same state tensors in place. `info` and every streaming command say
+which ran (`steps: cuda graph, 1 capture, 32 replays`).
 
 The program is compiled with g++ against the installed torch wheel at
 first use (`ensure_host`) into `build/host/rtpu_host-<hash>` at the root of
@@ -16,11 +23,15 @@ command line and the torch version, so an edited source or another wheel
 is rebuilt and a stale binary never runs. The build takes torch's include
 and library paths from `torch.utils.cpp_extension`, the C++ standard that
 module compiles extensions with, and `-D_GLIBCXX_USE_CXX11_ABI` as the
-wheel was built. On a CUDA wheel it links `libtorch_cuda` and `libc10_cuda`
-with `--no-as-needed`: nothing in the host names a symbol of theirs, and a
-linker that drops them leaves the CUDA backend unregistered (the first
-CUDA tensor raises "Could not run ... with the CUDA backend"). A failed
-build raises with g++'s output; there is no prebuilt binary.
+wheel was built. On a CUDA wheel it compiles the graph path
+(`-DRTPU_HOST_CUDA_GRAPHS`) against the CUDA toolkit's headers
+(`$CUDA_HOME/include`: `ATen/cuda/CUDAGraph.h` includes the runtime's), and
+raises naming `CUDA_HOME` where they are not found, so a CUDA wheel never
+gets a host without graphs; it links `libtorch_cuda` and `libc10_cuda`
+with `--no-as-needed`: a linker that drops a library the host names no
+symbol of leaves the CUDA backend unregistered (the first CUDA tensor
+raises "Could not run ... with the CUDA backend"). A failed build raises
+with g++'s output; there is no prebuilt binary.
 
 `write_state` / `read_state` read and write the host's state files
 (rtpu_host's `RTPUST01` layout: the magic, the leaf count, then each
@@ -70,6 +81,12 @@ def build_command(out: Path) -> List[str]:
            f"-D_GLIBCXX_USE_CXX11_ABI={int(torch.compiled_with_cxx11_abi())}"]
     for inc in cpp_extension.include_paths():
         cmd += ["-isystem", inc]
+    if torch.version.cuda is not None:
+        cuda_include = Path(cpp_extension.CUDA_HOME or "") / "include"
+        if cpp_extension.CUDA_HOME is None or not (cuda_include / "cuda_runtime_api.h").is_file():
+            raise RuntimeError("the CUDA toolkit's headers are not found (CUDA_HOME): "
+                               f"{SOURCE.name} cannot be built with its CUDA graphs")
+        cmd += ["-DRTPU_HOST_CUDA_GRAPHS", "-isystem", str(cuda_include)]
     cmd += ["-o", str(out), str(SOURCE), "-L", lib]
     if torch.version.cuda is not None:
         cmd += ["-Wl,--no-as-needed", "-ltorch_cuda", "-lc10_cuda", "-Wl,--as-needed"]

@@ -9,11 +9,16 @@ train states of `compose(["v2"])` (with a fidelity curve that keeps all 128
 latent dimensions), `compose(["discrete"])` and `compose(["v3"])` as runs
 in build/host/probe, bundles a seeded stock prior (latent 16) with the v2
 run, exports the four streaming artifacts on the card (`export_model`, the
-TorchScript step programs included) and runs `chip_smoke.phase_host` on
-them: `info`, `encode` / `decode` / `forward` against the Python eager
-stream, v3's AdaIN across three processes, `prior` against `sample_prior`,
-and `bench` beside the Python artifact's p50s. A few minutes of command
-time, against the smoke's thirteen: a quicker check of the host on the card.
+TorchScript step programs included), times each streaming artifact's Python
+forward served (a CUDA graph replay) and eager over `chip_smoke.PROGRAM_BLOCKS`
+blocks (`chip_smoke.run_lockstep`, as the smoke's phases time them: blocks on
+the card, nothing fetched), and runs `chip_smoke.phase_host` on them: `info`,
+`encode` / `decode` / `forward` against the Python eager stream, v3's AdaIN
+across three processes, `prior` against `sample_prior`, each command served
+by one captured CUDA graph, and `bench`: the host's graph replays and its
+eager interpreter on the same blocks, bit-equal, beside the Python p50s. A
+few minutes of command time, against the smoke's thirteen: a quicker check
+of the host on the card.
 """
 import argparse
 import json
@@ -34,12 +39,13 @@ def main() -> None:
 
     import chip_smoke
     from rave_tpu_torch import config
+    from rave_tpu_torch.export.artifact import ExportedRAVE
     from rave_tpu_torch.export.export import export_model
     from rave_tpu_torch.prior.model import build_prior
     from rave_tpu_torch.train.state import create_train_state
     from rave_tpu_torch.utils.checkpoint import save_checkpoint, save_prior_checkpoint
 
-    chip_smoke.phase_device()
+    card = chip_smoke.phase_device()
     build = chip_smoke.HostBuild()
     work = ROOT / "build" / "host" / "probe"
     shutil.rmtree(work, ignore_errors=True)
@@ -69,7 +75,15 @@ def main() -> None:
                                       output=str(work / "prior_art"), device="cuda")
     kept = {k: chip_smoke.keep_for_host(k, v) for k, v in artifacts.items()}
     shutil.rmtree(work, ignore_errors=True)
-    out = chip_smoke.phase_host(build, kept)
+    python_p50 = {}
+    for name in ("v2", "discrete", "v3"):
+        art = ExportedRAVE(str(ROOT / kept[name]), device="cuda")
+        n = chip_smoke.PROGRAM_BLOCKS * art.block_size
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn(1, 1, n, device="cuda", generator=gen) * 0.1
+        python_p50[name] = chip_smoke.run_lockstep(art, x, 0).p50()
+        del art
+    out = chip_smoke.phase_host(build, kept, python_p50, card)
     if a.out:
         Path(a.out).parent.mkdir(parents=True, exist_ok=True)
         Path(a.out).write_text(json.dumps(out, indent=1, default=str))
